@@ -8,8 +8,8 @@ exits non-zero, printing no result, when no CUDA device is present or when
 the package is missing. Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``) and the device count;
-2. build both CUDA kernels from ``microscopiq_tpu_torch/ops/cuda/csrc``;
-3. each kernel against its plain PyTorch version at every main-path shape of
+2. build the three CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``;
+3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
    plain version's time and ``torch.matmul`` on the dense bf16 weight;
@@ -22,10 +22,29 @@ the package is missing. Phases, each of which raises on failure:
    plain versions;
 5. a ``BatchEngine`` (dense slots, buckets 32/64/128) answering six requests
    of mixed lengths, one admitted mid-flight, compared token by token with
-   single-sequence decode.
+   single-sequence decode;
+6. ``quant_attention_vs_plain``: the quantized-KV flash-decode kernel against
+   its plain version at the Llama-3-8B geometry (B = 4 at 3136 live tokens,
+   B = 8 at 1024, timed beside the byte bound, the plain version and
+   ``scaled_dot_product_attention`` on the dequantized bf16 K/V), and
+   untimed at 2 and 8 bits, grouped V scales, GEAR-L rank 2 and ragged
+   per-slot lengths. Its times are device times (torch.profiler): the
+   wrapper's host time per call exceeds the kernel's, and CUDA events
+   around back-to-back calls would time the host; that wrapper time is
+   printed beside them;
+7. ``quant_kv_main_path``: the 32-layer model of phase 4 through a 4-bit
+   KIVI cache (``QuantKVConfig(bits=4, gap=64, v_group=128)``), a
+   ``last_only`` prefill of 4 x 3072 tokens and 64 greedy decode steps, with
+   exact launch counts, interleaved with a dense bf16 KV arm at the same
+   context;
+8. ``quant_two_layer_logits``: a 2-layer full-width model over a quantized
+   cache, 120-token prompt and 8 decode steps (one fold), through the
+   kernels against the plain versions;
+9. ``quant_engine``: ``BatchEngine(cache_kind="quant")`` answering six
+   requests, each compared token by token with a 1-slot quant engine.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the card's name and power limit, the one before
+it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,9 +72,14 @@ GEMM_REL_TOL = 2e-3
 # rounding (2^-8 relative) propagates through RMSNorm, attention and the MLP
 # of two layers, so logits are held to 4% of max |logit|.
 LOGIT_REL_TOL = 4e-2
+# quantized-KV attention kernel vs plain version, relative to max |plain|:
+# float32 sums in other orders, split over blocks and merged -> the 2e-2
+# bound of tests/test_quant_attention.py:47.
+QATTN_REL_TOL = 2e-2
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 SHAPES = [("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
           ("down", 14336, 4096), ("lm_head", 4096, 128256)]
@@ -66,6 +90,22 @@ L2_BYTES = 50 * 2 ** 20
 
 def log(**rec):
     print(json.dumps(rec), flush=True)
+
+
+def reset_counts() -> None:
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
+
+    dm.reset_launch_counts()
+    qa.reset_launch_counts()
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count."""
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
+
+    return {**dm.launch_counts, **qa.launch_counts}
 
 
 def card_info():
@@ -97,6 +137,27 @@ def cuda_ms(fn, n_args: int, target_ms: float = 40.0) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n_args: int, calls: int = 16) -> float:
+    """Device time per call of fn(i), i cycling over n_args operand copies:
+    the CUDA kernels' time in a torch.profiler window over ``calls`` calls,
+    over their number. For a call whose host time exceeds its device time,
+    where back-to-back CUDA events would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % n_args)
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages())
+    if total_us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total_us / 1e3 / calls
 
 
 def copies_for(nbytes: int) -> int:
@@ -166,51 +227,68 @@ def kernel_phase(card: str):
 
 
 def prefill_decode(model, ids, steps: int, max_len: int,
-                   decode_ctx=contextlib.nullcontext):
-    """bench.py's main path: last_only prefill, then greedy decode steps.
+                   decode_ctx=contextlib.nullcontext, quant_cfg=None,
+                   feed=None):
+    """bench.py's main path: last_only prefill, then greedy decode steps,
+    over a dense bf16 KV cache or, with ``quant_cfg``, a quantized one.
+    ``feed`` (B, steps) replaces the greedy tokens fed to the decode steps.
 
     Returns (decoded tokens, ttft_s, decode_s, last logits, kernel launches
-    of the prefill, kernel launches of the decode steps)."""
+    of the prefill, kernel launches of the decode steps, final cache state,
+    logits of every step)."""
     import torch
 
     from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
-                                                init_dense_cache)
-    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+                                                QuantizedDecodeCache,
+                                                init_dense_cache,
+                                                init_quant_cache)
 
     cfg = model.cfg
     B, S0 = ids.shape
-    state = init_dense_cache(cfg.num_hidden_layers, B, max_len,
-                             cfg.num_key_value_heads, cfg.head_dim,
-                             device="cuda")
+    dims = (cfg.num_hidden_layers, B, max_len, cfg.num_key_value_heads,
+            cfg.head_dim)
+    if quant_cfg is None:
+        state = init_dense_cache(*dims, device="cuda")
+        wrap = DenseDecodeCache
+    else:
+        state = init_quant_cache(*dims, quant_cfg, device="cuda")
+        wrap = lambda st: QuantizedDecodeCache(st, quant_cfg)
     pos = torch.arange(S0, device="cuda")[None, :].expand(B, S0)
     torch.cuda.synchronize()
+    all_logits = []
     with torch.inference_mode():
         t0 = time.perf_counter()
-        cache = DenseDecodeCache(state)
+        cache = wrap(state)
         logits = model(ids, positions=pos, cache=cache, last_only=True)
         tok = torch.argmax(logits[:, -1], dim=-1)
         state = cache.finalize()
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
-        at_prefill = dict(dm.launch_counts)
+        at_prefill = launches()
+        all_logits.append(logits)
         toks = []
         with decode_ctx():
             t0 = time.perf_counter()
-            for _ in range(steps):
-                cache = DenseDecodeCache(state)
+            for i in range(steps):
+                if feed is not None:
+                    tok = feed[:, i]
+                cache = wrap(state)
                 p = torch.full((B, 1), state.length, device="cuda")
                 logits = model(tok[:, None], positions=p, cache=cache)
                 tok = torch.argmax(logits[:, -1], dim=-1)
                 state = cache.finalize()
                 toks.append(tok)
+                if feed is not None:
+                    all_logits.append(logits)
             torch.cuda.synchronize()
             dec = time.perf_counter() - t0
-    in_decode = {k: v - at_prefill[k] for k, v in dm.launch_counts.items()}
-    return torch.stack(toks, 1), ttft, dec, logits, at_prefill, in_decode
+    in_decode = {k: v - at_prefill[k] for k, v in launches().items()}
+    return (torch.stack(toks, 1), ttft, dec, logits, at_prefill, in_decode,
+            state, all_logits)
 
 
 def decode_device_profile(model, ids, max_len: int, step_ms: float,
-                          steps: int = 8):
+                          steps: int = 8, quant_cfg=None):
     """Device time of decode steps: the union of the CUDA kernels'
     intervals in a torch.profiler window over ``steps`` decode steps, its
     share of the window's wall time (which the profiler inflates) and of
@@ -228,7 +306,8 @@ def decode_device_profile(model, ids, max_len: int, step_ms: float,
             yield
         box["prof"] = prof
 
-    dec = prefill_decode(model, ids, steps, max_len, decode_ctx=window)[2]
+    dec = prefill_decode(model, ids, steps, max_len, decode_ctx=window,
+                         quant_cfg=quant_cfg)[2]
     prof = box["prof"]
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -254,37 +333,39 @@ def decode_device_profile(model, ids, max_len: int, step_ms: float,
                     (k[:60], t / 1e3 / steps) for k, t in per_kernel[:8]])
 
 
-def model_phase(card: str):
-    """Phase 4: the 32-layer main path, the dense arm and the 2-layer
-    kernels-vs-plain logits."""
+def build(packed, layers=32, seed=0, use_kernels=True, tree=None):
+    """Llama-3-8B at full width and ``layers`` deep, seeded random weights,
+    fused projections; packed MX-FP6 emi8 (block 32, lm_head included) or
+    dense bf16. Returns (model, weight tree)."""
     import torch
 
     from microscopiq_tpu_torch.models.llama import (LlamaConfig,
                                                     LlamaForCausalLM,
                                                     build_params)
     from microscopiq_tpu_torch.nn import fuse_projections
-    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
     from microscopiq_tpu_torch.specs import finalize_mx_specs
 
     specs = finalize_mx_specs({"w_elem_format": "fp6_e3m2",
                                "scale_bits": 8, "block_size": 32})
+    c = LlamaConfig.llama3_8b(num_hidden_layers=layers, dtype=torch.bfloat16,
+                              fused_projections=True)
+    if tree is None:
+        tree = fuse_projections(build_params(
+            c, seed=seed, packed_specs=specs if packed else None,
+            device="cuda")["params"])
+    return LlamaForCausalLM(c, use_kernels=use_kernels,
+                            device="cuda").load_params(tree), tree
+
+
+def model_phase(card: str):
+    """Phase 4: the 32-layer main path, the dense arm and the 2-layer
+    kernels-vs-plain logits."""
+    import torch
+
     L, B, S0, STEPS = 32, 8, 128, 32
     max_len = S0 + STEPS + 8
-    cfg = LlamaConfig.llama3_8b(num_hidden_layers=L, dtype=torch.bfloat16,
-                                fused_projections=True)
     ids = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S0)), device="cuda")
-
-    def build(packed, layers=L, seed=0, use_kernels=True, tree=None):
-        c = LlamaConfig.llama3_8b(num_hidden_layers=layers,
-                                  dtype=torch.bfloat16,
-                                  fused_projections=True)
-        if tree is None:
-            tree = fuse_projections(build_params(
-                c, seed=seed, packed_specs=specs if packed else None,
-                device="cuda")["params"])
-        return LlamaForCausalLM(c, use_kernels=use_kernels,
-                                device="cuda").load_params(tree), tree
+        0, 128256, (B, S0)), device="cuda")
 
     t0 = time.perf_counter()
     packed, _ = build(True)
@@ -297,20 +378,22 @@ def model_phase(card: str):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path's run: counts zeroed just before, read just after
-    dm.reset_launch_counts()
-    toks, ttft, dec, last, pre_counts, dec_counts = prefill_decode(
+    reset_counts()
+    toks, ttft, dec, last, pre_counts, dec_counts, *_ = prefill_decode(
         packed, ids, STEPS, max_len)
     peak = torch.cuda.max_memory_allocated()
-    want_pre = {"dequant_matmul_emi8": 4 * L, "dequant_gemv_emi8": 1}
+    want_pre = {"dequant_matmul_emi8": 4 * L, "dequant_gemv_emi8": 1,
+                "quant_attention": 0}
     want_dec = {"dequant_matmul_emi8": 0,
-                "dequant_gemv_emi8": STEPS * (4 * L + 1)}
+                "dequant_gemv_emi8": STEPS * (4 * L + 1),
+                "quant_attention": 0}
     if pre_counts != want_pre or dec_counts != want_dec:
         raise AssertionError(f"launch counts prefill {pre_counts} (want "
                              f"{want_pre}), decode {dec_counts} (want "
                              f"{want_dec})")
     if not torch.isfinite(last.float()).all():
         raise AssertionError("non-finite logits on the main path")
-    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+    if not ((toks >= 0) & (toks < packed.cfg.vocab_size)).all():
         raise AssertionError("token ids out of range")
 
     # dense bf16 arm at the same depth, interleaved with the packed arm
@@ -366,22 +449,20 @@ def model_phase(card: str):
     return packed, {"prefill": pre_counts, "decode": dec_counts}, path
 
 
-def engine_phase(model, card: str):
-    """Phase 5: continuous batching with both kernels serving prefills."""
+ENGINE_LENS, ENGINE_NEWS = (20, 50, 100, 40, 120, 10), (8, 12, 6, 10, 8, 12)
+
+
+def serve_six(eng, vocab: int):
+    """Six requests of mixed lengths through ``eng``, the last admitted
+    while the others decode; each must be answered in full. Returns
+    (requests, max_new_tokens of each, wall seconds)."""
     import torch
 
-    from microscopiq_tpu_torch.eval.generate import generate
-    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
-    from microscopiq_tpu_torch.serve.engine import BatchEngine, Request
+    from microscopiq_tpu_torch.serve.engine import Request
 
     rng = np.random.default_rng(7)
-    V = model.cfg.vocab_size
-    lens, news = (20, 50, 100, 40, 120, 10), (8, 12, 6, 10, 8, 12)
-    reqs = [Request(rng.integers(0, V, (n,)).astype(np.int64), t)
-            for n, t in zip(lens, news)]
-    eng = BatchEngine(model, n_slots=4, max_len=256,
-                      prompt_buckets=(32, 64, 128), device="cuda")
-    dm.reset_launch_counts()
+    reqs = [Request(rng.integers(0, vocab, (n,)).astype(np.int64), t)
+            for n, t in zip(ENGINE_LENS, ENGINE_NEWS)]
     t0 = time.perf_counter()
     for r in reqs[:-1]:
         eng.submit(r)
@@ -391,12 +472,27 @@ def engine_phase(model, card: str):
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(dm.launch_counts)
-    for r, t in zip(reqs, news):
+    for r, t in zip(reqs, ENGINE_NEWS):
         if r.error is not None or len(r.out_tokens) != t:
             raise AssertionError(f"request of {len(r.prompt_ids)} tokens: "
                                  f"{len(r.out_tokens)}/{t} tokens, "
                                  f"error {r.error}")
+    return reqs, ENGINE_NEWS, wall
+
+
+def engine_phase(model, card: str):
+    """Phase 5: continuous batching with both kernels serving prefills."""
+    import torch
+
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.serve.engine import BatchEngine
+
+    eng = BatchEngine(model, n_slots=4, max_len=256,
+                      prompt_buckets=(32, 64, 128), device="cuda")
+    dm.reset_launch_counts()
+    reqs, news, wall = serve_six(eng, model.cfg.vocab_size)
+    counts = dict(dm.launch_counts)
     if min(counts.values()) == 0:
         raise AssertionError(f"engine did not use both kernels: {counts}")
     agree = total = 0
@@ -412,9 +508,357 @@ def engine_phase(model, card: str):
         first_token_agreement=first / len(reqs), card=card)
 
 
-def kernels_line(rows, counts):
+# quantized-KV flash-decode kernel configurations: Llama-3-8B geometry
+# (H = 32, KVH = 8, hd = 128, gap = 64), timed at the main path's B = 4 x
+# 3136 live tokens and at B = 8 x 1024; the rest check correctness only
+QATTN_TIMED = {
+    "b4_3136": dict(B=4, C=51, bits=4, v_group=128, rank=0,
+                    lengths=[3136] * 4),
+    "b8_1024": dict(B=8, C=17, bits=4, v_group=128, rank=0,
+                    lengths=[1024] * 8),
+}
+QATTN_CHECKED = {
+    "bits2": dict(B=2, C=6, bits=2, v_group=128, rank=0, lengths=[320, 384]),
+    "bits8": dict(B=2, C=6, bits=8, v_group=128, rank=0, lengths=[320, 200]),
+    "v_group32": dict(B=2, C=6, bits=4, v_group=32, rank=0,
+                      lengths=[384, 130]),
+    "gearl_rank2": dict(B=2, C=6, bits=4, v_group=128, rank=2,
+                        lengths=[260, 384]),
+    # 0, gap - 1 (residual only), exact multiples of gap (residual empty)
+    "ragged": dict(B=6, C=8, bits=4, v_group=128, rank=0,
+                   lengths=[0, 63, 192, 337, 1, 448]),
+}
+QKV_GAP, QKV_KVH, QKV_H, QKV_HD = 64, 8, 32, 128
+
+
+def qattn_state(B, C, bits, v_group, rank, lengths, seed):
+    """One layer of a quantized cache on the card, as the decode path holds
+    it: random K/V quantized by the port's chunk codec (``_compress_chunks``)
+    into C chunks, a bf16 residual window, and per-slot live lengths.
+    Returns (state_full tuple with a leading layer axis of 1, lengths)."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import (QuantKVConfig,
+                                                _compress_chunks,
+                                                _FUSED_FIELDS,
+                                                _LOWRANK_FIELDS)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    cfg = QuantKVConfig(bits=bits, gap=QKV_GAP, v_group=v_group, rank=rank)
+    shape = (B, QKV_KVH, C, QKV_GAP, QKV_HD)
+    # channel-wise magnitudes, as real keys have (KIVI's premise)
+    kc = rn(*shape) * torch.exp(rn(B, QKV_KVH, 1, 1, QKV_HD))
+    pieces = _compress_chunks(kc, rn(*shape), cfg)
+    del kc
+    res = lambda: rn(B, QKV_GAP, QKV_KVH, QKV_HD).to(torch.bfloat16)
+    pieces.update(res_k=res(), res_v=res())
+    names = _FUSED_FIELDS + (_LOWRANK_FIELDS if rank else ())
+    full = tuple(pieces[n][None].contiguous() for n in names)
+    return full, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def qattn_bound(B, C, bits, v_group, lengths, **_):
+    """(bound ms, bound_by) of one chunk_attention call: the bytes of the
+    folded chunks this call's lengths need (codes and scales read once, q
+    read and (o, m, l) written once) over HBM, against its float32
+    operations (dequantize K and V, q.k and p.v per query row) over the
+    card's float32 rate."""
+    rep = QKV_H // QKV_KVH
+    chunks = sum(n // QKV_GAP for n in lengths)
+    per_chunk = (2 * QKV_GAP * QKV_HD * bits // 8            # kq + vq
+                 + 2 * QKV_HD * 4                            # k_mn, k_sc
+                 + 2 * QKV_GAP * (QKV_HD // min(v_group, QKV_HD)) * 4)
+    nbytes = (chunks * QKV_KVH * per_chunk + B * QKV_H * QKV_HD * 2
+              + B * QKV_H * (QKV_HD + 2) * 4)
+    tokens = chunks * QKV_GAP * QKV_KVH
+    ops = tokens * (4 * QKV_HD + rep * (4 * QKV_HD + 4))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def qattn_errors(got, want, live):
+    """(max abs err of o / l, max over o / l, m and l of |kernel - plain|
+    relative to max |plain|), on slots with a folded chunk."""
+    (o, m, l), (o2, m2, l2) = got, want
+    out = lambda o_, l_: o_ / l_.clamp(min=1e-30)
+    abs_err, rel = 0.0, 0.0
+    for i, (a, b) in enumerate(((out(o, l), out(o2, l2)), (m, m2),
+                                (l, l2))):
+        a, b = a[live].double(), b[live].double()
+        d = (a - b).abs().max().item()
+        abs_err = d if i == 0 else abs_err
+        rel = max(rel, d / b.abs().max().item())
+    return abs_err, rel
+
+
+def quant_attention_phase(card: str):
+    """Phase 6: the quantized-KV flash-decode kernel against its plain
+    version; timed at the Llama-3-8B decode shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from microscopiq_tpu_torch.kv.cache import _dequant_k, _dequant_v
+    from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
+
+    rows = []
+    rep, scale = QKV_H // QKV_KVH, QKV_HD ** -0.5
+    cases = {**QATTN_TIMED, **QATTN_CHECKED}
+    for i, (name, c) in enumerate(cases.items()):
+        full, lengths = qattn_state(**c, seed=100 + i)
+        kq, kmn, ksc, vq, vmn, vsc = (t[0] for t in full[:6])
+        lowrank = tuple(t[0] for t in full[8:]) or None
+        B = c["B"]
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        q = torch.randn((B, QKV_H, QKV_HD), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        qg = q.reshape(B, QKV_KVH, rep, QKV_HD).contiguous()
+        nfull = (lengths // QKV_GAP).to(torch.int32)
+        args = (kq, kmn, ksc, vq, vmn, vsc, nfull, scale, QKV_GAP, c["bits"])
+        got = qa.chunk_attention(qg, *args, lowrank=lowrank)
+        want = qa.chunk_attention_reference(qg, *args, lowrank=lowrank)
+        torch.cuda.synchronize()
+        live = nfull > 0
+        abs_err, rel = qattn_errors(got, want, live)
+        o, m, l = got
+        if not (np.isfinite(rel) and rel < QATTN_REL_TOL):
+            raise AssertionError(f"quant_attention {name}: rel err {rel}")
+        if (not torch.isfinite(o).all() or o[~live].any() or l[~live].any()
+                or not (m[~live] == qa.NEG_INF).all()):
+            raise AssertionError(f"quant_attention {name}: empty slots are "
+                                 "not finite zeros")
+        # the whole decode attention (chunks + residual window + combine)
+        dec = qa.quant_attention_decode(q, full, 0, lengths, c["v_group"],
+                                        scale).float()
+        ref = qa.quant_attention_decode_reference(
+            q.float(), full, 0, lengths, c["v_group"], scale)
+        on = lengths > 0
+        dec_rel = ((dec[on] - ref[on]).abs().max()
+                   / ref[on].abs().max()).item()
+        if not (np.isfinite(dec_rel) and dec_rel < QATTN_REL_TOL):
+            raise AssertionError(f"quant_attention_decode {name}: rel err "
+                                 f"{dec_rel}")
+        row = dict(kernel="quant_attention", config=name, B=B,
+                   live_tokens=c["lengths"], chunks=c["C"], bits=c["bits"],
+                   v_group=c["v_group"], rank=c["rank"],
+                   max_abs_err=abs_err, rel_err=rel, decode_rel_err=dec_rel,
+                   tol=QATTN_REL_TOL, card=card)
+        if name in QATTN_TIMED:
+            per_call = sum(t.numel() * t.element_size() for t in full[:6])
+            nc = copies_for(per_call)
+            ops = [(kq, kmn, ksc, vq, vmn, vsc)] + [
+                tuple(t.clone() for t in (kq, kmn, ksc, vq, vmn, vsc))
+                for _ in range(nc - 1)]
+            kernel = lambda j: qa.chunk_attention(
+                qg, *ops[j], nfull, scale, QKV_GAP, c["bits"])
+            row["ms"] = device_ms(kernel, nc)
+            row["wrapper_ms"] = cuda_ms(kernel, nc)
+            row["plain_ms"] = device_ms(
+                lambda j: qa.chunk_attention_reference(qg, *args), 1,
+                calls=4)
+            # yardstick: SDPA over the dequantized bf16 K/V of the same
+            # live tokens (every slot of a timed config has the same length)
+            T = int(nfull[0]) * QKV_GAP
+            deq = lambda x: x[:, :, :T // QKV_GAP].reshape(
+                B, QKV_KVH, T, QKV_HD).to(torch.bfloat16).contiguous()
+            kd = deq(_dequant_k(kq, kmn, ksc, torch.float32, c["bits"]))
+            vd = deq(_dequant_v(vq, vmn, vsc, c["v_group"], torch.float32,
+                                c["bits"]))
+            nd = copies_for(2 * kd.numel() * 2)
+            kvs = [(kd, vd)] + [(kd.clone(), vd.clone())
+                                for _ in range(nd - 1)]
+            q4 = q[:, :, None]
+            row["library_ms"] = device_ms(
+                lambda j: F.scaled_dot_product_attention(
+                    q4, *kvs[j], scale=scale, enable_gqa=True), nd)
+            row["bound_ms"], row["bound_by"] = qattn_bound(**c)
+            del ops, kvs, kd, vd
+        rows.append(row)
+        log(phase="quant_attention_vs_plain", **row)
+        del full, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+QKV_CFG = dict(bits=4, gap=64, v_group=128)
+
+
+def kv_bytes(state) -> int:
+    """Device bytes of a KV-cache state's buffers (length and offset left
+    out)."""
+    total = 0
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if f.name not in ("length", "offset") and t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def quant_kv_main_path(packed, card: str):
+    """Phase 7: the 32-layer model through a 4-bit KIVI cache at 3k context,
+    interleaved with a dense bf16 KV arm at the same context."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import (QuantizedDecodeCache,
+                                                QuantKVConfig)
+
+    L, B, S0, STEPS = 32, 4, 3072, 64
+    qcfg = QuantKVConfig(**QKV_CFG)
+    # as scripts/bench_quant_kv.py: 3264 slots, 51 chunks
+    max_len = ((S0 + STEPS) // qcfg.gap + 2) * qcfg.gap
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, packed.cfg.vocab_size, (B, S0)), device="cuda")
+    for arm in (qcfg, None):                                    # warm-up
+        prefill_decode(packed, ids, 2, max_len, quant_cfg=arm)
+
+    # the main path's run: counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    toks, ttft, dec, last, pre_counts, dec_counts, state, _ = prefill_decode(
+        packed, ids, STEPS, max_len, quant_cfg=qcfg)
+    peak = {"quant": torch.cuda.max_memory_allocated()}
+    want_pre = {"dequant_matmul_emi8": 4 * L, "dequant_gemv_emi8": 1,
+                "quant_attention": 0}
+    want_dec = {"dequant_matmul_emi8": 0,
+                "dequant_gemv_emi8": STEPS * (4 * L + 1),
+                "quant_attention": STEPS * L}
+    if pre_counts != want_pre or dec_counts != want_dec:
+        raise AssertionError(f"quant KV launch counts prefill {pre_counts} "
+                             f"(want {want_pre}), decode {dec_counts} (want "
+                             f"{want_dec})")
+    if not torch.isfinite(last.float()).all():
+        raise AssertionError("non-finite logits on the quant KV path")
+    if not ((toks >= 0) & (toks < packed.cfg.vocab_size)).all():
+        raise AssertionError("token ids out of range on the quant KV path")
+    if state.length != S0 + STEPS:
+        raise AssertionError(f"cache length {state.length}")
+    ratio = QuantizedDecodeCache(state, qcfg).compression_ratio
+    quant_bytes = kv_bytes(state)
+    del state
+
+    best = {"quant": (ttft, dec), "dense": (9e9, 9e9)}
+    dense_bytes = 0
+    for arm in ("dense", "quant", "dense", "quant", "dense"):
+        torch.cuda.reset_peak_memory_stats()
+        out = prefill_decode(packed, ids, STEPS, max_len,
+                             quant_cfg=qcfg if arm == "quant" else None)
+        peak[arm] = max(peak.get(arm, 0), torch.cuda.max_memory_allocated())
+        best[arm] = (min(best[arm][0], out[1]), min(best[arm][1], out[2]))
+        if arm == "dense":
+            dense_bytes = kv_bytes(out[6])
+        del out
+    tps = {a: B * STEPS / best[a][1] for a in best}
+    path = dict(layers=L, batch=B, prompt=S0, steps=STEPS, max_len=max_len,
+                quant_cfg=QKV_CFG,
+                decode_tokens_per_s=tps["quant"],
+                decode_ms_per_step=best["quant"][1] / STEPS * 1e3,
+                ttft_ms=best["quant"][0] * 1e3,
+                dense_decode_tokens_per_s=tps["dense"],
+                dense_decode_ms_per_step=best["dense"][1] / STEPS * 1e3,
+                dense_ttft_ms=best["dense"][0] * 1e3,
+                quant_vs_dense_decode=tps["quant"] / tps["dense"],
+                quant_kv_bytes=quant_bytes, dense_kv_bytes=dense_bytes,
+                dense_over_quant_kv_bytes=dense_bytes / quant_bytes,
+                compression_ratio=ratio,
+                peak_mem_gb_quant=peak["quant"] / 1e9,
+                peak_mem_gb_dense=peak["dense"] / 1e9,
+                launches_prefill=pre_counts, launches_decode=dec_counts,
+                card=card)
+    log(phase="quant_kv_main_path", **path)
+    prof = decode_device_profile(packed, ids, max_len,
+                                 path["decode_ms_per_step"], quant_cfg=qcfg)
+    log(phase="quant_decode_profile",
+        profile=prof if prof else "not measured", card=card)
+    torch.cuda.empty_cache()
+    return {"prefill": pre_counts, "decode": dec_counts}, path
+
+
+def quant_two_layer_phase(card: str):
+    """Phase 8: a 2-layer full-width model over a quantized cache, through
+    the kernels against the plain versions (cache.update), on the same
+    token stream: a 120-token prompt and 8 decode steps, one of which
+    folds a chunk."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+
+    B, S0, STEPS, max_len = 4, 120, 8, 192
+    qcfg = QuantKVConfig(**QKV_CFG)
+    two_k, tree = build(True, layers=2, seed=2)
+    two_p, _ = build(True, layers=2, use_kernels=False, tree=tree)
+    ids = torch.as_tensor(np.random.default_rng(4).integers(
+        0, two_k.cfg.vocab_size, (B, S0)), device="cuda")
+    toks, *_, first = prefill_decode(two_k, ids, STEPS, max_len,
+                                     quant_cfg=qcfg)
+    feed = torch.cat([torch.argmax(first[0][:, -1], -1)[:, None],
+                      toks[:, :-1]], 1)
+    reset_counts()
+    got = prefill_decode(two_k, ids, STEPS, max_len, quant_cfg=qcfg,
+                         feed=feed)[7]
+    counts = launches()
+    want = prefill_decode(two_p, ids, STEPS, max_len, quant_cfg=qcfg,
+                          feed=feed)[7]
+    if counts["quant_attention"] != 2 * STEPS:
+        raise AssertionError(f"2-layer quant decode launches {counts}")
+    errs = []
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        errs.append(((a - b).abs().max() / b.abs().max()).item())
+    log(phase="quant_two_layer_logits", rel_err_per_call=errs,
+        max_rel_err=max(errs), tol=LOGIT_REL_TOL, launches=counts, card=card)
+    if not all(np.isfinite(e) and e < LOGIT_REL_TOL for e in errs):
+        raise AssertionError(f"2-layer quant logits: rel err {errs}")
+    del two_k, two_p, tree
+    torch.cuda.empty_cache()
+
+
+def quant_engine_phase(model, card: str):
+    """Phase 9: continuous batching over the quantized slot cache; each
+    request against the same request alone in a 1-slot quant engine."""
+    import torch
+
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.serve.engine import BatchEngine
+
+    qcfg = QuantKVConfig(**QKV_CFG)
+    mk = lambda n: BatchEngine(model, n_slots=n, max_len=256,
+                               prompt_buckets=(32, 64, 128),
+                               cache_kind="quant", quant_cfg=qcfg,
+                               device="cuda")
+    eng = mk(4)
+    reset_counts()
+    reqs, news, wall = serve_six(eng, model.cfg.vocab_size)
+    counts = launches()
+    if min(counts.values()) == 0:
+        raise AssertionError(f"quant engine did not use every kernel: "
+                             f"{counts}")
+    del eng
+    one = mk(1)
+    agree = total = 0
+    for r, t in zip(reqs, news):
+        alone = one.generate([r.prompt_ids], max_new_tokens=t)[0]
+        if alone != r.out_tokens:
+            raise AssertionError(f"request of {len(r.prompt_ids)} tokens: "
+                                 f"4-slot {r.out_tokens} vs 1-slot {alone}")
+        ref = generate(model, [r.prompt_ids.tolist()], t, cache_kind="quant",
+                       quant_cfg=qcfg)[0].tolist()
+        agree += sum(a == b for a, b in zip(r.out_tokens, ref))
+        total += t
+    log(phase="quant_engine", requests=len(reqs), tokens=total, wall_s=wall,
+        tokens_per_s=total / wall, launches=counts,
+        identical_to_one_slot_engine=len(reqs),
+        token_agreement_with_single_sequence_generate=agree / total,
+        card=card)
+    del one
+    torch.cuda.empty_cache()
+
+
+def kernels_line(rows, counts, qrows, qcounts):
     """One record per kernel, at its heaviest main-path call (gate_up:
-    M = 8 for the GEMV, M = 1024 for the GEMM), with every shape kept."""
+    M = 8 for the GEMV, M = 1024 for the GEMM; B = 4 x 3136 live tokens for
+    the quantized-KV attention), with every shape kept."""
     meta = {
         "dequant_gemv_emi8": (
             "dequant_gemv.cu",
@@ -441,6 +885,24 @@ def kernels_line(rows, counts):
                                           "bound_ms", "plain_ms",
                                           "library_ms", "max_abs_err",
                                           "rel_err")} for r in mine]})
+    timed = [r for r in qrows if "ms" in r]
+    at = next(r for r in timed if r["config"] == "b4_3136")
+    out.append({
+        "name": "quant_attention", "route": "cuda",
+        "source": "microscopiq_tpu_torch/ops/cuda/csrc/quant_attention.cu",
+        "replaces": "microscopiq_tpu/ops/pallas/quant_attention.py:49",
+        "launches": (qcounts["prefill"]["quant_attention"]
+                     + qcounts["decode"]["quant_attention"]),
+        "max_abs_err": max(r["max_abs_err"] for r in qrows),
+        "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"],
+        "at": "B=4, 3136 live tokens, H=32, KVH=8, hd=128, gap=64, 4 bits",
+        "shapes": [{k: r[k] for k in ("config", "B", "live_tokens", "ms",
+                                      "wrapper_ms", "bound_ms", "plain_ms",
+                                      "library_ms", "max_abs_err",
+                                      "rel_err")}
+                   for r in timed]})
     return {"kernels": out}
 
 
@@ -467,8 +929,12 @@ def main() -> int:
     rows = kernel_phase(card)
     packed, counts, _ = model_phase(card)
     engine_phase(packed, card)
+    qrows = quant_attention_phase(card)
+    qcounts, _ = quant_kv_main_path(packed, card)
+    quant_two_layer_phase(card)
+    quant_engine_phase(packed, card)
 
-    print(json.dumps(kernels_line(rows, counts)), flush=True)
+    print(json.dumps(kernels_line(rows, counts, qrows, qcounts)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

@@ -1,4 +1,4 @@
-"""Weights from the JAX package's parameter tree, so that both packages
+"""Weights and KV-cache states from the JAX package, so that both packages
 compute from the same numbers.
 
 The caller hands over the flax tree with every leaf as numpy (this module
@@ -7,14 +7,20 @@ fields: ``codes``, ``scale_exp``, ``elem_format``, ``block_size``,
 ``scale_bits``, ``orig_dim``, ``axis``, ``transport``, ``transport_mw`` and
 ``transport_fold``. Names are kept (``model/layers_{i}/self_attn/qkv_proj/
 kernel``, ``input_layernorm/scale``, ...).
+
+A quantized KV-cache state arrives as a mapping of ``QuantKVState`` field
+names to numpy arrays (``None`` for a GEAR field that is off).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .kv.cache import QuantKVState
 from .ops.packing import PackedMX
 
 _PACKED_FIELDS = ("codes", "scale_exp", "elem_format", "block_size",
@@ -70,3 +76,22 @@ def params_from_jax(tree, device="cuda"):
         return tensor_from_numpy(node, dev)
 
     return visit(tree, "")
+
+
+def quant_state_from_jax(state_np, device="cuda") -> QuantKVState:
+    """The port's QuantKVState from a numpy'd JAX ``QuantKVState``.
+
+    A scalar ``length`` (the shared cache) becomes an int; a per-slot vector
+    stays a (B,) int32 tensor.
+    """
+    dev = resolve_device(device)
+    fields = {}
+    for f in dataclasses.fields(QuantKVState):
+        val = state_np.get(f.name)
+        if f.name == "length":
+            arr = np.asarray(val)
+            fields[f.name] = (int(arr) if arr.ndim == 0 else
+                              tensor_from_numpy(arr.astype(np.int32), dev))
+        elif val is not None:
+            fields[f.name] = tensor_from_numpy(val, dev)
+    return QuantKVState(**fields)

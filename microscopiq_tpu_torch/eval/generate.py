@@ -1,11 +1,12 @@
-"""Greedy decode of a (left-padded) batch over the dense KV cache.
+"""Greedy decode of a (left-padded) batch over the dense or quantized KV
+cache.
 
-Counterpart of ``microscopiq_tpu/eval/generate.py::generate`` with
-``cache_kind="dense"`` and greedy sampling: one prefill on the last position
-only, then one decode step per token. Rows are right-aligned (left-padded,
-as HF ``padding_side="left"``); pad slots never attend, real positions are
-``slot - offset[b]``, and rows that hit EOS emit ``pad_token_id`` after it.
-Temperature sampling and the quantized cache are ROADMAP queue 1 item 7.
+Counterpart of ``microscopiq_tpu/eval/generate.py::generate`` with greedy
+sampling: one prefill on the last position only, then one decode step per
+token. Rows are right-aligned (left-padded, as HF ``padding_side="left"``);
+pad slots never attend, real positions are ``slot - offset[b]``, and rows
+that hit EOS emit ``pad_token_id`` after it. Temperature sampling is ROADMAP
+queue 1 item 7.
 
 This is the single-sequence reference the serving engine is checked
 against, and the prefill + decode loop ``chip_smoke.py`` times.
@@ -18,9 +19,23 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..kv.cache import DenseDecodeCache, init_dense_cache
+from ..kv.cache import (DenseDecodeCache, QuantizedDecodeCache,
+                        QuantKVConfig, init_dense_cache, init_quant_cache)
 
-_CACHE_ROUND = 64        # cache slots round up to this, as the JAX default
+
+def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
+    """(initial state, cache wrapper) for ``kind`` "dense" or "quant"."""
+    args = (cfg_model.num_hidden_layers, batch, max_len,
+            cfg_model.num_key_value_heads, cfg_model.head_dim)
+    if kind == "dense":
+        return (init_dense_cache(*args, offset=offset, device=device),
+                DenseDecodeCache)
+    if kind == "quant":
+        quant_cfg = quant_cfg or QuantKVConfig()
+        state = init_quant_cache(*args, quant_cfg, offset=offset,
+                                 device=device)
+        return state, lambda st: QuantizedDecodeCache(st, quant_cfg)
+    raise ValueError(f"unknown cache_kind {kind!r}")
 
 
 def pad_prompts(prompts: Sequence[Sequence[int]], pad_token_id: int = 0):
@@ -36,6 +51,8 @@ def pad_prompts(prompts: Sequence[Sequence[int]], pad_token_id: int = 0):
 
 @torch.inference_mode()
 def generate(model, prompt_ids, max_new_tokens: int,
+             cache_kind: str = "dense",
+             quant_cfg: Optional[QuantKVConfig] = None,
              eos_token_id: Union[int, Sequence[int], None] = None,
              max_len: Optional[int] = None,
              prompt_lens: Optional[np.ndarray] = None,
@@ -56,19 +73,18 @@ def generate(model, prompt_ids, max_new_tokens: int,
     else:
         eos_ids = tuple(int(e) for e in eos_token_id)
     if max_len is None:
-        need = S + max_new_tokens
-        max_len = -(-need // _CACHE_ROUND) * _CACHE_ROUND + _CACHE_ROUND
-    cfg = model.cfg
-    state = init_dense_cache(cfg.num_hidden_layers, B, max_len,
-                             cfg.num_key_value_heads, cfg.head_dim,
-                             offset=offset, device=dev)
+        # cache slots round up to the quantization gap, as the JAX default
+        gap = (quant_cfg or QuantKVConfig()).gap
+        max_len = -(-(S + max_new_tokens) // gap) * gap + gap
+    state, wrap = _make_cache(cache_kind, model.cfg, B, max_len, quant_cfg,
+                              offset, dev)
 
     ids = torch.as_tensor(prompt_ids, device=dev)
     # real position of prompt column j in row b is j - offset[b]; pads
     # clip to 0 (their K/V are masked out of every attention row)
     positions = torch.clamp(torch.arange(S, device=dev)[None, :]
                             - offset[:, None], min=0)
-    cache = DenseDecodeCache(state)
+    cache = wrap(state)
     logits = model(ids, positions=positions, cache=cache, last_only=True)
     state = cache.finalize()
     tok = torch.argmax(logits[:, -1], dim=-1)
@@ -88,7 +104,7 @@ def generate(model, prompt_ids, max_new_tokens: int,
     for _ in range(max_new_tokens - 1):
         if finished.all():
             break
-        cache = DenseDecodeCache(state)
+        cache = wrap(state)
         pos = (state.length - offset)[:, None]
         logits = model(tok[:, None], positions=pos, cache=cache)
         state = cache.finalize()

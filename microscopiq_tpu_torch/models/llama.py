@@ -2,10 +2,13 @@
 
 Counterpart of ``microscopiq_tpu/models/llama.py`` for the serving path:
 RoPE, RMSNorm, GQA attention by grouped einsum (K/V are never repeated),
-SwiGLU MLP, optional fused ``qkv_proj``/``gate_up_proj``, a dense KV cache,
-and ``last_only``/``logit_index`` logits. Linears hold a dense (K, N) kernel
-or a :class:`PackedMX`; packed ones run through the CUDA kernels
+SwiGLU MLP, optional fused ``qkv_proj``/``gate_up_proj``, a dense or quantized
+KV cache, and ``last_only``/``logit_index`` logits. Linears hold a dense
+(K, N) kernel or a :class:`PackedMX`; packed ones run through the CUDA kernels
 (``use_kernels=True``, the counterpart of ``use_pallas``) or their plain twin.
+A decode step over a quantized cache goes through the fused flash-decode
+kernel (``ops/cuda/quant_attention.py``) where its layout allows, else through
+``cache.update``.
 
 Weights are a flax-named nested dict (``model/layers_{i}/self_attn/
 qkv_proj/kernel``, ``model/norm/scale``, ``lm_head/kernel``, ...), made by
@@ -14,8 +17,7 @@ and installed with :meth:`LlamaForCausalLM.load_params`.
 
 Branches of the JAX module outside this slice raise ``NotImplementedError``
 naming their ROADMAP item: ALiBi/MPT, sliding window, MoE (queue 1 item 10),
-fake-quant ``mx_specs`` (item 9), quantized/H2O caches (items 4 and 7) and
-the outlier weight formats (item 5).
+fake-quant ``mx_specs`` (item 9) and the outlier weight formats (item 5).
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from ..kv.cache import QuantizedDecodeCache, SlotQuantizedDecodeCache
 from ..nn.norms import RMSNorm
 from ..ops.cuda.dequant_matmul import (dequant_matmul,
                                        dequant_matmul_reference)
+from ..ops.cuda.quant_attention import quant_attention_decode
 from ..ops.packing import PackedMX, pack_mx, to_serving_layout
 
 
@@ -134,8 +138,7 @@ class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
         super().__init__()
         self.cfg = cfg
-        H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                      cfg.head_dim)
+        self.use_kernels = use_kernels
         mk = lambda: QLinear(cfg.dtype, use_kernels)
         if cfg.fused_projections:
             self.qkv_proj = mk()
@@ -163,6 +166,19 @@ class Attention(nn.Module):
 
         scale = hd ** -0.5
         if cache is not None:
+            if (S == 1 and self.use_kernels and cfg.pos_emb == "rope"
+                    and isinstance(cache, (QuantizedDecodeCache,
+                                           SlotQuantizedDecodeCache))
+                    and cache.cfg.n_k_groups == 1
+                    and cache.cfg.residual_len == 0
+                    and cache.cfg.out_k == 0):
+                # fused flash decode over the packed KV cache: the dense K/V
+                # of the chunks never exist in device memory
+                full, new_len = cache.ingest_for_fused(layer_idx, k, v)
+                out = quant_attention_decode(q[:, 0], full, layer_idx,
+                                             new_len, cache.cfg.v_group,
+                                             scale)
+                return self.o_proj(out.reshape(B, 1, H * hd))
             k, v, mask = cache.update(layer_idx, k, v, positions, mask)
         # a bf16 cache under a float32 model promotes as jnp.einsum does
         dt = torch.promote_types(q.dtype, k.dtype)

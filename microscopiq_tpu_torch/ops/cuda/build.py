@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("dequant_gemv", "dequant_matmul")
+SOURCES = ("dequant_gemv", "dequant_matmul", "quant_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

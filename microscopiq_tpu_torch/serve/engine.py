@@ -2,7 +2,8 @@
 
 Counterpart of ``microscopiq_tpu/serve/engine.py`` (``SlotKVState``,
 ``SlotDecodeCache``, ``SlotPrefillCache``, ``Request``, ``_bucket``,
-``BatchEngine``) with ``cache_kind="dense"``:
+``BatchEngine``) with ``cache_kind="dense"`` or ``"quant"`` (the quantized
+slot caches of ``kv/cache.py``):
 
 - a slot KV cache with a per-slot length vector; the attention mask derives
   from per-token positions, so slots at different depths share one batched
@@ -14,8 +15,8 @@ Counterpart of ``microscopiq_tpu/serve/engine.py`` (``SlotKVState``,
   without stopping decode for the others.
 
 The model holds its weights (the JAX engine takes them as ``params``). K/V
-are written into the slot buffers in place. The quantized and H2O slot
-caches are ROADMAP queue 1 items 4 and 7.
+are written into the slot buffers in place. The H2O slot cache is ROADMAP
+queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kv.cache import (QuantKVConfig, SlotQuantizedDecodeCache,
+                        SlotQuantPrefillCache, init_slot_quant_cache)
 from ..utils.observability import metrics
 
 
@@ -43,12 +46,13 @@ class SlotKVState:
 
 
 def init_slot_cache(n_layers, n_slots, max_len, kv_heads, head_dim,
-                    dtype=torch.bfloat16, device="cpu") -> SlotKVState:
+                    dtype=torch.bfloat16, device="cuda") -> SlotKVState:
+    dev = resolve_device(device)
     shape = (n_layers, n_slots, max_len, kv_heads, head_dim)
-    return SlotKVState(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device),
+    return SlotKVState(torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev),
                        torch.zeros((n_slots,), dtype=torch.int64,
-                                   device=device))
+                                   device=dev))
 
 
 class SlotDecodeCache:
@@ -122,6 +126,12 @@ class Request:
     error: Optional[str] = None
 
 
+def _lengths(state) -> torch.Tensor:
+    """Per-slot depths of a dense (``lengths``) or quantized (``length``)
+    slot state."""
+    return state.lengths if isinstance(state, SlotKVState) else state.length
+
+
 def _bucket(n: int, buckets) -> int:
     for b in buckets:
         if n <= b:
@@ -134,19 +144,20 @@ class BatchEngine:
     """Continuous-batching decode engine over a fixed slot pool.
 
     Per-request temperature: 0 = greedy, > 0 = categorical sampling from a
-    ``torch.Generator`` seeded with ``seed``. ``device`` defaults to "cuda"
-    and must be the model's device.
+    ``torch.Generator`` seeded with ``seed``. ``cache_kind`` "dense" keeps
+    bf16 K/V slots; "quant" keeps the quantized slot cache of ``quant_cfg``
+    (default ``QuantKVConfig()``), whose gap must divide ``max_len``.
+    ``device`` defaults to "cuda" and must be the model's device.
     """
 
     def __init__(self, model, n_slots: int = 8, max_len: int = 512,
                  prompt_buckets=(32, 64, 128, 256),
                  cache_dtype=torch.bfloat16, seed: int = 0,
-                 cache_kind: str = "dense", device="cuda"):
-        if cache_kind in ("quant", "h2o"):
+                 cache_kind: str = "dense", quant_cfg=None, device="cuda"):
+        if cache_kind == "h2o":
             raise NotImplementedError(
-                f"cache_kind={cache_kind!r} is not ported yet (ROADMAP "
-                f"queue 1 item {4 if cache_kind == 'quant' else 7})")
-        if cache_kind != "dense":
+                "cache_kind='h2o' is not ported yet (ROADMAP queue 1 item 7)")
+        if cache_kind not in ("dense", "quant"):
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         dev = resolve_device(device)
         if model.device.type != dev.type:
@@ -160,9 +171,22 @@ class BatchEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.cache_kind = cache_kind
-        self.state = init_slot_cache(
-            cfg.num_hidden_layers, n_slots, max_len,
-            cfg.num_key_value_heads, cfg.head_dim, cache_dtype, device=dev)
+        dims = (cfg.num_hidden_layers, n_slots, max_len,
+                cfg.num_key_value_heads, cfg.head_dim)
+        if cache_kind == "quant":
+            qcfg = quant_cfg or QuantKVConfig()
+            if max_len % qcfg.gap:
+                raise ValueError(f"max_len {max_len} is not a multiple of "
+                                 f"the quantization gap {qcfg.gap}")
+            self.state = init_slot_quant_cache(*dims, qcfg, device=dev)
+            self._mk_prefill = lambda st, slot, tl: SlotQuantPrefillCache(
+                st, qcfg, slot, tl)
+            self._mk_decode = lambda st, act: SlotQuantizedDecodeCache(
+                st, qcfg, act)
+        else:
+            self.state = init_slot_cache(*dims, cache_dtype, device=dev)
+            self._mk_prefill = lambda st, slot, tl: SlotPrefillCache(st, slot)
+            self._mk_decode = SlotDecodeCache
         # host-side per-slot bookkeeping
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.tokens = np.zeros((n_slots,), np.int64)
@@ -188,7 +212,7 @@ class BatchEngine:
     @torch.inference_mode()
     def _prefill(self, ids: np.ndarray, slot: int, true_len: int,
                  temp: float) -> int:
-        cache = SlotPrefillCache(self.state, slot)
+        cache = self._mk_prefill(self.state, slot, true_len)
         S = ids.shape[1]
         ids_t = torch.as_tensor(ids, device=self.device)
         pos = torch.arange(S, device=self.device)[None, :]
@@ -204,8 +228,8 @@ class BatchEngine:
     def _decode(self, active: np.ndarray) -> np.ndarray:
         act = torch.as_tensor(active, device=self.device)
         toks = torch.as_tensor(self.tokens, device=self.device)
-        cache = SlotDecodeCache(self.state, act)
-        pos = self.state.lengths[:, None]                # (B, 1)
+        cache = self._mk_decode(self.state, act)
+        pos = _lengths(self.state)[:, None]              # (B, 1)
         logits = self.model(toks[:, None], positions=pos, cache=cache)
         nxt = self._sample(logits[:, -1], self.temps)
         self.state = cache.finalize()

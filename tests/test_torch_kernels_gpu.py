@@ -9,7 +9,9 @@ CUDA toolkit:
 
 Tolerances (relative to max |twin|): GEMV 1e-5 (exact float32 products,
 only the summation order differs), GEMM 2e-3 (bf16 MMA with float32
-accumulation), the bounds of tests/test_pallas_kernels.py.
+accumulation), the bounds of tests/test_pallas_kernels.py; quantized-KV
+attention 2e-2, the bound of tests/test_quant_attention.py:47 (float32 sums
+in another order, split across blocks and merged).
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import torch
 
 from microscopiq_tpu_torch.ops import packing as tpk
 from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
 pytestmark = pytest.mark.gpu
 
@@ -128,3 +131,146 @@ def test_wrappers_check_operands(cuda):
         torch.randn(256, 128, device=cuda), 8, "int8", 32, axis=0))
     with pytest.raises(NotImplementedError, match="queue 2"):
         dm.dequant_matmul(_x(4, 256, 0, cuda), native)
+
+
+# ---------------------------------------------------------------------------
+# quantized-KV flash-decode attention
+# ---------------------------------------------------------------------------
+def qattn_operands(B, KVH, rep, hd, C, gap, bits, Gh, rank, seed, device,
+                   lr_dtype=torch.bfloat16):
+    """Random operands of chunk_attention in the cache's layouts."""
+    g = torch.Generator().manual_seed(seed)
+    rows = gap // (8 // bits)
+    rn = lambda *s: torch.randn(s, generator=g)
+    ru = lambda *s: torch.rand(s, generator=g)
+    codes = lambda: torch.randint(0, 256, (B, KVH, C, rows, hd), generator=g,
+                                  dtype=torch.uint8)
+    ops = [rn(B, KVH, rep, hd).to(torch.bfloat16), codes(),
+           rn(B, KVH, C, hd), 0.05 + 0.2 * ru(B, KVH, C, hd) / 2 ** bits,
+           codes(), rn(B, KVH, C, gap, Gh),
+           0.05 + 0.2 * ru(B, KVH, C, gap, Gh) / 2 ** bits]
+    lowrank = None
+    if rank:
+        lowrank = tuple((0.1 * t).to(lr_dtype).to(device) for t in (
+            rn(B, KVH, C, rank, hd), rn(B, C, rank, gap),
+            rn(B, KVH, C, rank, hd), rn(B, C, rank, gap)))
+    return [t.to(device) for t in ops], lowrank
+
+
+def qattn_rel_err(got, want, live):
+    """Max over o / l, m and l of |kernel - twin| relative to max |twin|,
+    on slots with a folded chunk."""
+    (o, m, l), (o2, m2, l2) = got, want
+    out = lambda o_, l_: o_ / l_.clamp(min=1e-30)
+    err = 0.0
+    for a, b in ((out(o, l), out(o2, l2)), (m, m2), (l, l2)):
+        a, b = a[live].double(), b[live].double()
+        err = max(err, ((a - b).abs().max() / b.abs().max()).item())
+    return err
+
+
+QATTN_CASES = {
+    "llama3_b4": dict(B=4, KVH=8, rep=4, hd=128, C=51, gap=64, bits=4,
+                      Gh=1, rank=0, nfull=[49] * 4),
+    "bits2": dict(B=2, KVH=2, rep=4, hd=128, C=6, gap=64, bits=2, Gh=1,
+                  rank=0, nfull=[5, 6]),
+    "bits8": dict(B=2, KVH=2, rep=4, hd=128, C=6, gap=64, bits=8, Gh=1,
+                  rank=0, nfull=[5, 3]),
+    "grouped_v": dict(B=2, KVH=2, rep=4, hd=128, C=6, gap=64, bits=4, Gh=4,
+                      rank=0, nfull=[6, 2]),
+    "gearl_rank2": dict(B=2, KVH=2, rep=4, hd=128, C=6, gap=64, bits=4,
+                        Gh=1, rank=2, nfull=[4, 6]),
+    "ragged": dict(B=4, KVH=2, rep=2, hd=64, C=9, gap=16, bits=4, Gh=2,
+                   rank=0, nfull=[0, 1, 8, 0]),
+    "head_dim_256": dict(B=1, KVH=1, rep=8, hd=256, C=3, gap=8, bits=2,
+                         Gh=2, rank=0, nfull=[3]),
+    "rep3_head_dim_96": dict(B=2, KVH=3, rep=3, hd=96, C=5, gap=32, bits=4,
+                             Gh=3, rank=1, nfull=[5, 2]),
+    "rep16_gap128": dict(B=1, KVH=2, rep=16, hd=64, C=3, gap=128, bits=8,
+                         Gh=1, rank=8, nfull=[3]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QATTN_CASES))
+def test_quant_attention_matches_twin(cuda, case):
+    c = dict(QATTN_CASES[case])
+    nfull = torch.tensor(c.pop("nfull"), dtype=torch.int32, device=cuda)
+    ops, lowrank = qattn_operands(**c, seed=len(case), device=cuda)
+    args = (*ops, nfull, c["hd"] ** -0.5, c["gap"], c["bits"])
+    qa.reset_launch_counts()
+    got = qa.chunk_attention(*args, lowrank=lowrank)
+    want = qa.chunk_attention_reference(*args, lowrank=lowrank)
+    torch.cuda.synchronize()
+    assert qa.launch_counts["quant_attention"] == 1
+    live = nfull > 0
+    assert qattn_rel_err(got, want, live) < 2e-2
+    o, m, l = got
+    assert torch.isfinite(o).all() and torch.isfinite(l).all()
+    assert not o[~live].any() and not l[~live].any()
+    assert (m[~live] == qa.NEG_INF).all()
+
+
+def test_quant_attention_f32_bases(cuda):
+    ops, lowrank = qattn_operands(2, 2, 4, 64, 5, 32, 4, 1, 3, 9, cuda,
+                                  lr_dtype=torch.float32)
+    nfull = torch.tensor([5, 2], dtype=torch.int32, device=cuda)
+    args = (*ops, nfull, 0.125, 32, 4)
+    got = qa.chunk_attention(*args, lowrank=lowrank)
+    want = qa.chunk_attention_reference(*args, lowrank=lowrank)
+    assert qattn_rel_err(got, want, nfull > 0) < 2e-2
+
+
+def test_quant_attention_rows_do_not_depend_on_batch(cuda):
+    ops, _ = qattn_operands(6, 8, 4, 128, 17, 64, 4, 1, 0, 3, cuda)
+    nfull = torch.tensor([16, 0, 3, 17, 9, 1], dtype=torch.int32,
+                         device=cuda)
+    full = qa.chunk_attention(*ops, nfull, 128 ** -0.5, 64, 4)
+    for lo, hi in ((0, 1), (2, 5), (3, 4)):
+        part = qa.chunk_attention(*[t[lo:hi] for t in ops], nfull[lo:hi],
+                                  128 ** -0.5, 64, 4)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[lo:hi])
+
+
+def test_quant_attention_empty_slots_are_finite_zeros(cuda):
+    ops, lowrank = qattn_operands(3, 2, 4, 128, 4, 64, 4, 1, 2, 5, cuda)
+    nfull = torch.zeros(3, dtype=torch.int32, device=cuda)
+    o, m, l = qa.chunk_attention(*ops, nfull, 0.1, 64, 4, lowrank=lowrank)
+    assert not o.any() and not l.any() and (m == qa.NEG_INF).all()
+
+
+def test_quant_attention_wrapper_checks_operands(cuda):
+    ops, _ = qattn_operands(2, 2, 4, 128, 4, 64, 4, 1, 0, 1, cuda)
+    nfull = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    call = lambda o, n=nfull, **kw: qa.chunk_attention(
+        *o, n, 0.1, 64, 4, **kw)
+    with pytest.raises(ValueError, match="q must be bf16"):
+        call([ops[0].float()] + ops[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        call(ops[:2] + [ops[2].cpu()] + ops[3:])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(ops[:4] + [ops[4].transpose(-1, -2).contiguous()
+                        .transpose(-1, -2)] + ops[5:])
+    with pytest.raises(ValueError, match="nfull"):
+        call(ops, nfull.long())
+    with pytest.raises(ValueError, match="kq must be uint8"):
+        qa.chunk_attention(*ops, nfull, 0.1, 64, 2)      # wrong bits
+    with pytest.raises(ValueError, match="head_dim"):
+        bad, _ = qattn_operands(2, 2, 4, 48, 4, 64, 4, 1, 0, 1, cuda)
+        call(bad)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        bad, _ = qattn_operands(1, 1, 17, 64, 2, 64, 4, 1, 0, 1, cuda)
+        call(bad, nfull[:1])
+    with pytest.raises(ValueError, match="shared memory"):
+        bad, _ = qattn_operands(1, 1, 1, 256, 1, 256, 8, 1, 0, 1, cuda)
+        qa.chunk_attention(*bad, nfull[:1], 0.1, 256, 8)
+    with pytest.raises(ValueError, match="exceed 8 at head_dim 256"):
+        bad, _ = qattn_operands(1, 1, 9, 256, 2, 64, 4, 1, 0, 1, cuda)
+        call(bad, nfull[:1])
+    with pytest.raises(ValueError, match="aligned"):
+        kq = torch.empty(ops[1].numel() + 1, dtype=torch.uint8,
+                         device=cuda)[1:].view(ops[1].shape)
+        call(ops[:1] + [kq] + ops[2:])
+    with pytest.raises(ValueError, match="one K group"):
+        call(ops[:2] + [ops[2][:, :, :, None].expand(-1, -1, -1, 2, -1)
+                        .contiguous()] + ops[3:])

@@ -45,10 +45,15 @@ def _need_no_cuda():
 
 def test_cuda_entry_points_raise_without_a_card():
     _need_no_cuda()
-    from microscopiq_tpu_torch.convert import params_from_jax
+    from microscopiq_tpu_torch.convert import (params_from_jax,
+                                               quant_state_from_jax)
+    from microscopiq_tpu_torch.kv.cache import (init_dense_cache,
+                                                init_quant_cache,
+                                                init_slot_quant_cache)
     from microscopiq_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                               build_params)
-    from microscopiq_tpu_torch.serve.engine import BatchEngine
+    from microscopiq_tpu_torch.serve.engine import (BatchEngine,
+                                                    init_slot_cache)
 
     cfg = LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -57,9 +62,18 @@ def test_cuda_entry_points_raise_without_a_card():
         build_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quant_state_from_jax({})
+    for init in (init_dense_cache, init_slot_cache, init_quant_cache,
+                 init_slot_quant_cache):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(1, 1, 64, 1, 32)
+        init(1, 1, 64, 1, 32, device="cpu")           # the CPU when asked
     cpu_model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchEngine(cpu_model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchEngine(cpu_model, cache_kind="quant")
 
 
 def test_kernel_wrappers_reject_cpu_weights_for_cuda_inputs():
