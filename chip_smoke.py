@@ -8,7 +8,8 @@ exits non-zero, printing no result, when no CUDA device is present or when
 the package is missing. Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``) and the device count;
-2. build the three CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``;
+2. build the five CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
+   (seven kernels);
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -41,7 +42,25 @@ the package is missing. Phases, each of which raises on failure:
    cache, 120-token prompt and 8 decode steps (one fold), through the
    kernels against the plain versions;
 9. ``quant_engine``: ``BatchEngine(cache_kind="quant")`` answering six
-   requests, each compared token by token with a 1-slot quant engine.
+   requests, each compared token by token with a 1-slot quant engine;
+10. ``outlier_kernels_vs_plain``: the MicroScopiQ outlier formats (int2
+    inliers, fp4 outliers, block 16, 2-sigma rule) on N(0, 0.02) weights
+    with 3% of the elements scaled by 10, at every Llama-3-8B shape: the
+    compact NB (budget 2) and side-band (budget 4) GEMVs at M = 1, 8, 64,
+    200 and their GEMMs at M = 256, 1024, and the merged emi8m stream
+    through the GEMV (M = 1, 8, 64) and the GEMM (M = 128, 1024), each
+    against its plain version, timed beside the bound, the plain version
+    and ``torch.matmul`` on the dequantized bf16 weight;
+11. ``outlier_main_path``: the 32-layer full-width model in each transport
+    that ``nn.pack_params`` makes (compact NB from RTN decisions, fused;
+    side-band, unfused; emi8m, fused), one after the other, with the main
+    path's prefill and decode and exact launch counts, each timed
+    interleaved with the MX-FP6 model; ``outlier_engine``: a dense-slot
+    ``BatchEngine`` over the NB model, each request token-identical to
+    single-sequence decode; ``outlier_decode_profile`` of the NB arm;
+12. ``outlier_two_layer_logits``: per transport, a 2-layer full-width
+    model, 4 x 120-token prompt (a GEMM prefill) and 8 decode steps,
+    through the kernels against the plain versions.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -94,18 +113,29 @@ def log(**rec):
 
 def reset_counts() -> None:
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
     dm.reset_launch_counts()
     qa.reset_launch_counts()
+    om.reset_launch_counts()
 
 
 def launches() -> dict:
     """Every kernel wrapper's launch count."""
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
-    return {**dm.launch_counts, **qa.launch_counts}
+    return {**dm.launch_counts, **qa.launch_counts, **om.launch_counts}
+
+
+def want_counts(**nonzero) -> dict:
+    """A launch-count dict over every kernel wrapper: ``nonzero``, else 0."""
+    names = ("dequant_gemv_emi8", "dequant_matmul_emi8", "quant_attention",
+             "dequant_gemv_nb", "dequant_gemm_nb", "dequant_gemv_outlier",
+             "dequant_gemm_outlier")
+    return {n: nonzero.get(n, 0) for n in names}
 
 
 def card_info():
@@ -382,11 +412,8 @@ def model_phase(card: str):
     toks, ttft, dec, last, pre_counts, dec_counts, *_ = prefill_decode(
         packed, ids, STEPS, max_len)
     peak = torch.cuda.max_memory_allocated()
-    want_pre = {"dequant_matmul_emi8": 4 * L, "dequant_gemv_emi8": 1,
-                "quant_attention": 0}
-    want_dec = {"dequant_matmul_emi8": 0,
-                "dequant_gemv_emi8": STEPS * (4 * L + 1),
-                "quant_attention": 0}
+    want_pre = want_counts(dequant_matmul_emi8=4 * L, dequant_gemv_emi8=1)
+    want_dec = want_counts(dequant_gemv_emi8=STEPS * (4 * L + 1))
     if pre_counts != want_pre or dec_counts != want_dec:
         raise AssertionError(f"launch counts prefill {pre_counts} (want "
                              f"{want_pre}), decode {dec_counts} (want "
@@ -718,11 +745,9 @@ def quant_kv_main_path(packed, card: str):
     toks, ttft, dec, last, pre_counts, dec_counts, state, _ = prefill_decode(
         packed, ids, STEPS, max_len, quant_cfg=qcfg)
     peak = {"quant": torch.cuda.max_memory_allocated()}
-    want_pre = {"dequant_matmul_emi8": 4 * L, "dequant_gemv_emi8": 1,
-                "quant_attention": 0}
-    want_dec = {"dequant_matmul_emi8": 0,
-                "dequant_gemv_emi8": STEPS * (4 * L + 1),
-                "quant_attention": STEPS * L}
+    want_pre = want_counts(dequant_matmul_emi8=4 * L, dequant_gemv_emi8=1)
+    want_dec = want_counts(dequant_gemv_emi8=STEPS * (4 * L + 1),
+                           quant_attention=STEPS * L)
     if pre_counts != want_pre or dec_counts != want_dec:
         raise AssertionError(f"quant KV launch counts prefill {pre_counts} "
                              f"(want {want_pre}), decode {dec_counts} (want "
@@ -830,7 +855,9 @@ def quant_engine_phase(model, card: str):
     eng = mk(4)
     reset_counts()
     reqs, news, wall = serve_six(eng, model.cfg.vocab_size)
-    counts = launches()
+    counts = {k: v for k, v in launches().items()
+              if k in ("dequant_gemv_emi8", "dequant_matmul_emi8",
+                       "quant_attention")}
     if min(counts.values()) == 0:
         raise AssertionError(f"quant engine did not use every kernel: "
                              f"{counts}")
@@ -855,44 +882,465 @@ def quant_engine_phase(model, card: str):
     torch.cuda.empty_cache()
 
 
-def kernels_line(rows, counts, qrows, qcounts):
+# ---------------------------------------------------------------------------
+# Slice 3: the MicroScopiQ outlier weight formats
+# ---------------------------------------------------------------------------
+# int2 inliers, fp4 outliers, block 16, 8-bit scales at both levels,
+# outliers at 2 sigma; every linear quantized, the lm_head included
+OUTLIER_SPECS = {"w_elem_format": "int2", "w_outlier_elem_format": "fp4_e2m1",
+                 "scale_bits": 8, "block_size": 16, "outlier_std_dev": 2.0}
+NB_BUDGET, SIDEBAND_BUDGET = 2, 4
+# the three transports pack_params can produce: (keywords, fused projections)
+OUTLIER_ARMS = {
+    "nb": (dict(outlier_transport="compact", outlier_budget=NB_BUDGET), True),
+    "sideband": (dict(outlier_transport="sideband",
+                      outlier_budget=SIDEBAND_BUDGET), False),
+    "emi8m": (dict(outlier_budget=SIDEBAND_BUDGET), True)}
+OUTLIER_M = (1, 8, 64, 200)
+OUTLIER_GEMM_M = (256, 1024)
+# outlier GEMVs vs plain: exact weights and products, f32 sums in another
+# order -> the GEMV's 1e-5 (no tensor cores); the outlier GEMMs feed the
+# same bf16 weights to the tensor cores -> the GEMM's 2e-3
+OUTLIER_REL_TOL = 1e-5
+
+
+def outlier_weight(shape, gen):
+    """N(0, 0.02) bf16 weights with 3% of the elements scaled by 10, as
+    scripts/bench_outlier_gemv.py:77-78 makes its outlier mass."""
+    import torch
+
+    w = torch.randn(shape, generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * 0.02
+    hit = torch.rand(shape, generator=gen, device="cuda") < 0.03
+    return torch.where(hit, w * 10, w)
+
+
+def nb_decisions(w):
+    """RTN decisions of a (K, N) kernel for the compact transport, as
+    scripts/nb_capacity.py:94-99 makes them: on the (N, K) transpose with
+    axes=[0], block 16, at most NB_BUDGET outliers per block. Blocks run
+    along N, so chunks of whole blocks along N give the same decisions and
+    bound the quantizer's float32 temporaries."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.outlier import (
+        quantize_mx_outlier_hessian_decisions)
+
+    wt = w.T
+    N, K = wt.shape
+    step = max(16, (1 << 25) // K // 16 * 16)
+    parts = []
+    for i in range(0, N, step):
+        _, _, d = quantize_mx_outlier_hessian_decisions(
+            wt[i:i + step].to(torch.float32), 8, 8, "int2", "fp4_e2m1",
+            "max", 2.0, [0], 16, max_outliers_per_block=NB_BUDGET)
+        d["mask"] = d["mask"] != 0
+        parts.append(d)
+    dec = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    dec["block_size"] = 16
+    return dec
+
+
+def outlier_tree(arm, layers, seed):
+    """Llama-3-8B weights at full width and ``layers`` deep, seeded on the
+    card, every linear packed by the port's ``nn.pack_params`` in ``arm``'s
+    transport (layer by layer, so that only one layer's bf16 weights and
+    decisions exist at a time), then ``nn.fuse_projections`` where the arm
+    fuses. Returns (config, tree)."""
+    import torch
+
+    from microscopiq_tpu_torch.models.llama import LlamaConfig
+    from microscopiq_tpu_torch.nn import (find_linear_params,
+                                          fuse_projections, pack_params)
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    kw, fused = OUTLIER_ARMS[arm]
+    specs = finalize_mx_specs(OUTLIER_SPECS)
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers,
+                                dtype=torch.bfloat16,
+                                fused_projections=fused)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+
+    def pack(sub):
+        dec = None
+        if arm == "nb":
+            dec = {path: nb_decisions(w) for path, w in
+                   find_linear_params(sub, skip=()).items()}
+        return pack_params(sub, specs, skip=(), decisions=dec, **kw)
+
+    k = lambda shape: {"kernel": outlier_weight(shape, gen)}
+    ones = lambda: torch.ones(D, dtype=cfg.dtype, device="cuda")
+    model = {"embed_tokens": (torch.randn((V, D), generator=gen,
+                                          device="cuda",
+                                          dtype=torch.bfloat16) * 0.02)}
+    for i in range(layers):
+        model[f"layers_{i}"] = {
+            **pack({"self_attn": {"q_proj": k((D, H * hd)),
+                                  "k_proj": k((D, KVH * hd)),
+                                  "v_proj": k((D, KVH * hd)),
+                                  "o_proj": k((H * hd, D))},
+                    "mlp": {"gate_proj": k((D, I)), "up_proj": k((D, I)),
+                            "down_proj": k((I, D))}}),
+            "input_layernorm": {"scale": ones()},
+            "post_attention_layernorm": {"scale": ones()}}
+    model["norm"] = {"scale": ones()}
+    tree = {"model": model, "lm_head": pack({"lm_head": k((D, V))})["lm_head"]}
+    return cfg, (fuse_projections(tree) if fused else tree)
+
+
+def outlier_model(arm, layers, seed, use_kernels=True, tree=None):
+    """(model, tree, transport of its kernels) for one arm."""
+    from microscopiq_tpu_torch.models.llama import LlamaForCausalLM
+    from microscopiq_tpu_torch.ops import packing as pk
+
+    cfg, built = outlier_tree(arm, layers, seed) if tree is None else tree
+    model = LlamaForCausalLM(cfg, use_kernels=use_kernels,
+                             device="cuda").load_params(built)
+    kinds = set()
+    for m in model.modules():
+        w = getattr(m, "kernel", None)
+        if isinstance(w, pk.PackedMX):
+            kinds.add(w.transport)
+        elif w is not None:
+            kinds.add(type(w).__name__)
+    want = {"nb": {"PackedOutlierNB"}, "sideband": {"PackedMXOutlier"},
+            "emi8m": {"emi8m"}}[arm]
+    if kinds != want:
+        raise AssertionError(f"{arm} arm packed to {kinds}, want {want}")
+    return model, (cfg, built)
+
+
+def weight_stats(model):
+    """(packed bytes of the linears, their bits per weight element)."""
+    total = elems = 0
+    for m in model.modules():
+        w = getattr(m, "kernel", None)
+        if w is None or not hasattr(w, "nbytes"):
+            continue
+        total += w.nbytes()
+        if hasattr(w, "orig_n"):
+            elems += w.orig_n * w.orig_k
+        else:
+            inl = getattr(w, "inlier", w)
+            elems += inl.orig_dim * inl.codes.shape[-1]
+    return total, total * 8 / elems
+
+
+def outlier_kernel_phase(card: str):
+    """The NB and side-band GEMVs against their plain twins at every
+    Llama-3-8B shape and M = 1, 8, 64, 200, their GEMMs at M = 256, 1024;
+    the emi8m stream at block 16 through the GEMV (M = 1, 8, 64) and the
+    GEMM (M = 128, 1024)."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    for lin, K, N in SHAPES:
+        W = outlier_weight((K, N), gen)
+        nb = pk.pack_outlier_nb(nb_decisions(W), budget=NB_BUDGET)
+        sb = pk.pack_mx_outlier(W, 8, 8, "int2", "fp4_e2m1", std_dev=2.0,
+                                block_size=16, outlier_budget=SIDEBAND_BUDGET,
+                                axis=0)
+        em = pk.to_serving_layout(pk.merge_outlier_emi8(sb))
+        del W
+        nb_dense = lambda: pk.dequantize_outlier_nb(nb, torch.bfloat16).T
+        sb_dense = lambda: pk.dequantize_mx_outlier(sb, torch.bfloat16)
+        arms = (
+            ("dequant_gemv_nb", "nb", nb, OUTLIER_M, om.dequant_gemv_nb,
+             om.dequant_matmul_nb_reference, OUTLIER_REL_TOL, nb_dense),
+            ("dequant_gemm_nb", "nb", nb, OUTLIER_GEMM_M, om.dequant_gemm_nb,
+             om.dequant_matmul_nb_reference, GEMM_REL_TOL, nb_dense),
+            ("dequant_gemv_outlier", "sideband", sb, OUTLIER_M,
+             om.dequant_gemv_outlier, om.dequant_matmul_outlier_reference,
+             OUTLIER_REL_TOL, sb_dense),
+            ("dequant_gemm_outlier", "sideband", sb, OUTLIER_GEMM_M,
+             om.dequant_gemm_outlier, om.dequant_matmul_outlier_reference,
+             GEMM_REL_TOL, sb_dense),
+            ("dequant_gemv_emi8", "emi8m", em, GEMV_M, dm.dequant_gemv,
+             dm.dequant_matmul_reference, GEMV_REL_TOL,
+             lambda: pk.dequantize_mx(em, torch.bfloat16)),
+            ("dequant_matmul_emi8", "emi8m", em, GEMM_M, dm.dequant_gemm,
+             dm.dequant_matmul_reference, GEMM_REL_TOL,
+             lambda: pk.dequantize_mx(em, torch.bfloat16)))
+        for kname, transport, p, Ms, fn, ref_fn, tol, dense_fn in arms:
+            nc = copies_for(p.nbytes())
+            ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+            dense = dense_fn().contiguous()
+            nd = copies_for(dense.numel() * 2)
+            ds = [dense] + [dense.clone() for _ in range(nd - 1)]
+            for M in Ms:
+                x = torch.randn((M, K), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                got = fn(x, p, torch.float32)
+                ref = ref_fn(x, p, torch.float32)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                if not (np.isfinite(rel) and rel < tol):
+                    raise AssertionError(
+                        f"{kname} {transport} {lin} M={M}: rel err {rel} "
+                        f">= {tol}")
+                ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
+                plain_ms = cuda_ms(lambda i: ref_fn(x, p, torch.float32), 1,
+                                   target_ms=100.0)
+                lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
+                t_bytes = ((p.nbytes() + x.numel() * 2 + M * N * 4)
+                           / HBM_BYTES_PER_S * 1e3)
+                t_ops = 2 * M * N * K / BF16_FLOPS * 1e3
+                row = dict(kernel=kname, transport=transport, linear=lin,
+                           M=M, K=K, N=N, weight_bytes=p.nbytes(),
+                           max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations",
+                           plain_ms=plain_ms, library_ms=lib_ms, card=card)
+                rows.append(row)
+                log(phase="outlier_kernels_vs_plain", **row)
+                del x, got, ref
+            del ps, ds, dense
+        del nb, sb, em, arms, nb_dense, sb_dense
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _clone_packed(p):
+    """A copy of a packed weight with its own device buffers."""
+    import torch
+
+    if isinstance(p, torch.Tensor):
+        return p.clone()
+    return dataclasses.replace(p, **{
+        f.name: _clone_packed(getattr(p, f.name))
+        for f in dataclasses.fields(p)
+        if isinstance(getattr(p, f.name), torch.Tensor)
+        or dataclasses.is_dataclass(getattr(p, f.name))})
+
+
+def outlier_main_path(card: str):
+    """The three transports at 32 layers and full width, one after the
+    other, each freed before the next: a last_only prefill of 8 x 128
+    tokens and 32 greedy decode steps, launch counts held exactly. Host
+    time sets the decode step and drifts between calls, so after its main
+    run each arm is timed interleaved with the slice-1 MX-FP6 model (built
+    for the window, then freed). The NB model also serves the engine phase
+    and a profile of its decode steps. Returns {arm: counts}."""
+    import torch
+
+    L, B, S0, STEPS = 32, 8, 128, 32
+    max_len = S0 + STEPS + 8
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 128256, (B, S0)), device="cuda")
+    per_layer = {"nb": 4, "sideband": 7, "emi8m": 4}
+    out = {}
+    for arm in OUTLIER_ARMS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = outlier_model(arm, L, seed=10)[0]
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weight_bytes, bpe = weight_stats(model)
+        prefill_decode(model, ids, 2, max_len)                # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        # the main path's run: counts zeroed just before, read just after
+        reset_counts()
+        toks, ttft, dec, last, pre, dcounts, *_ = prefill_decode(
+            model, ids, STEPS, max_len)
+        peak = torch.cuda.max_memory_allocated()
+        n = per_layer[arm] * L + 1
+        if arm == "nb":
+            want_pre = want_counts(dequant_gemm_nb=4 * L, dequant_gemv_nb=1)
+            want_dec = want_counts(dequant_gemv_nb=STEPS * n)
+        elif arm == "sideband":
+            want_pre = want_counts(dequant_gemm_outlier=7 * L,
+                                   dequant_gemv_outlier=1)
+            want_dec = want_counts(dequant_gemv_outlier=STEPS * n)
+        else:
+            want_pre = want_counts(dequant_matmul_emi8=4 * L,
+                                   dequant_gemv_emi8=1)
+            want_dec = want_counts(dequant_gemv_emi8=STEPS * n)
+        if pre != want_pre or dcounts != want_dec:
+            raise AssertionError(f"{arm} launch counts prefill {pre} (want "
+                                 f"{want_pre}), decode {dcounts} (want "
+                                 f"{want_dec})")
+        if not torch.isfinite(last.float()).all():
+            raise AssertionError(f"non-finite logits on the {arm} arm")
+        if not ((toks >= 0) & (toks < model.cfg.vocab_size)).all():
+            raise AssertionError(f"token ids out of range on the {arm} arm")
+        del toks, last
+        mxfp6 = build(True)[0]
+        prefill_decode(mxfp6, ids, 2, max_len)
+        best = {arm: (ttft, dec), "mxfp6": (9e9, 9e9)}
+        for _ in range(3):
+            for tag in ("mxfp6", arm):
+                m = mxfp6 if tag == "mxfp6" else model
+                _, t, d, *_ = prefill_decode(m, ids, STEPS, max_len)
+                best[tag] = (min(best[tag][0], t), min(best[tag][1], d))
+        del mxfp6, m             # m holds a model: free both before the next
+        torch.cuda.empty_cache()
+        ms = {k: v[1] / STEPS * 1e3 for k, v in best.items()}
+        log(phase="outlier_main_path", arm=arm, layers=L, batch=B,
+            prompt=S0, steps=STEPS,
+            decode_tokens_per_s=B * STEPS / best[arm][1],
+            decode_ms_per_step=ms[arm], ttft_ms=best[arm][0] * 1e3,
+            mxfp6_decode_ms_per_step=ms["mxfp6"],
+            mxfp6_ttft_ms=best["mxfp6"][0] * 1e3,
+            vs_mxfp6_decode=ms["mxfp6"] / ms[arm],
+            weight_bytes=weight_bytes, bits_per_element=bpe,
+            peak_mem_gb=peak / 1e9, build_s=build_s,
+            launches_prefill=pre, launches_decode=dcounts, card=card)
+        out[arm] = {"prefill": pre, "decode": dcounts}
+        if arm == "nb":
+            outlier_engine_phase(model, card)
+            prof = decode_device_profile(model, ids, max_len, ms[arm])
+            log(phase="outlier_decode_profile", arm=arm,
+                profile=prof if prof else "not measured", card=card)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def outlier_engine_phase(model, card: str):
+    """A dense-slot BatchEngine over the 32-layer NB model answers the six
+    requests; each is held token for token to single-sequence generate."""
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.serve.engine import BatchEngine
+
+    eng = BatchEngine(model, n_slots=4, max_len=256,
+                      prompt_buckets=(32, 64, 128), device="cuda")
+    reset_counts()
+    reqs, news, wall = serve_six(eng, model.cfg.vocab_size)
+    counts = launches()
+    if counts != want_counts(dequant_gemv_nb=counts["dequant_gemv_nb"]) \
+            or counts["dequant_gemv_nb"] == 0:
+        raise AssertionError(f"NB engine launches {counts}")
+    total = 0
+    for r, t in zip(reqs, news):
+        ref = generate(model, [r.prompt_ids.tolist()], t)[0].tolist()
+        if r.out_tokens != ref:
+            raise AssertionError(f"NB engine, request of {len(r.prompt_ids)} "
+                                 f"tokens: {r.out_tokens} vs single-sequence "
+                                 f"{ref}")
+        total += t
+    log(phase="outlier_engine", requests=len(reqs), tokens=total,
+        wall_s=wall, tokens_per_s=total / wall, launches=counts,
+        identical_to_single_sequence=len(reqs), card=card)
+    del eng
+
+
+def outlier_two_layer_phase(card: str):
+    """For each transport, a 2-layer full-width model through the kernels
+    against the same model through the plain twins, on the same token
+    stream: B = 4 x 120-token prompt (480 tokens: a prefill through the
+    GEMMs) and 8 decode steps through the GEMVs."""
+    import torch
+
+    B, S0, STEPS, max_len = 4, 120, 8, 192
+    ids = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 128256, (B, S0)), device="cuda")
+    for arm in OUTLIER_ARMS:
+        two_k, tree = outlier_model(arm, 2, seed=20)
+        two_p, _ = outlier_model(arm, 2, seed=20, use_kernels=False,
+                                 tree=tree)
+        toks, *_, first = prefill_decode(two_k, ids, STEPS, max_len)
+        feed = torch.cat([torch.argmax(first[0][:, -1], -1)[:, None],
+                          toks[:, :-1]], 1)
+        reset_counts()
+        got = prefill_decode(two_k, ids, STEPS, max_len, feed=feed)[7]
+        counts = launches()
+        want = prefill_decode(two_p, ids, STEPS, max_len, feed=feed)[7]
+        per_layer = {"nb": 4, "sideband": 7, "emi8m": 4}[arm]
+        gemv, gemm = {"nb": ("dequant_gemv_nb", "dequant_gemm_nb"),
+                      "sideband": ("dequant_gemv_outlier",
+                                   "dequant_gemm_outlier"),
+                      "emi8m": ("dequant_gemv_emi8",
+                                "dequant_matmul_emi8")}[arm]
+        wc = want_counts(**{gemm: 2 * per_layer,
+                            gemv: 1 + (2 * per_layer + 1) * STEPS})
+        if counts != wc:
+            raise AssertionError(f"2-layer {arm} launches {counts}, want "
+                                 f"{wc}")
+        errs = []
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            errs.append(((a - b).abs().max() / b.abs().max()).item())
+        log(phase="outlier_two_layer_logits", arm=arm, rel_err_per_call=errs,
+            max_rel_err=max(errs), tol=LOGIT_REL_TOL, launches=counts,
+            card=card)
+        if not all(np.isfinite(e) and e < LOGIT_REL_TOL for e in errs):
+            raise AssertionError(f"2-layer {arm} logits: rel err {errs}")
+        del two_k, two_p, tree, got, want
+        torch.cuda.empty_cache()
+
+
+def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
+                              "plain_ms", "library_ms", "max_abs_err",
+                              "rel_err")):
+    return [{k: r[k] for k in keys} for r in rows]
+
+
+def kernels_line(rows, counts, qrows, qcounts, orows, ocounts):
     """One record per kernel, at its heaviest main-path call (gate_up:
-    M = 8 for the GEMV, M = 1024 for the GEMM; B = 4 x 3136 live tokens for
-    the quantized-KV attention), with every shape kept."""
-    meta = {
-        "dequant_gemv_emi8": (
-            "dequant_gemv.cu",
-            "microscopiq_tpu/ops/pallas/dequant_matmul.py:162", 8),
-        "dequant_matmul_emi8": (
-            "dequant_matmul.cu",
-            "microscopiq_tpu/ops/pallas/dequant_matmul.py:71", 1024)}
+    M = 8 for the GEMVs, M = 1024 for the GEMMs; B = 4 x 3136 live tokens
+    for the quantized-KV attention), with every shape kept. ``launches`` is
+    the kernel's count over the main paths that run it, split by path in
+    ``launches_by_path``. The emi8 GEMV and GEMM run on three paths: their
+    timed numbers and ``shapes`` are MX-FP6 emi8 at block 32,
+    ``shapes_emi8m_block16`` the emi8m stream."""
+    paths = {"mxfp6": counts, "quant_kv": qcounts, **ocounts}
+
+    def by_path(name):
+        got = {p: c["prefill"][name] + c["decode"][name]
+               for p, c in paths.items()}
+        return {p: n for p, n in got.items() if n}
+
+    meta = (
+        ("dequant_gemv_emi8", "dequant_gemv.cu", 162, 8),
+        ("dequant_matmul_emi8", "dequant_matmul.cu", 71, 1024),
+        ("dequant_gemv_nb", "nb_matmul.cu", 821, 8),
+        ("dequant_gemm_nb", "nb_matmul.cu", 821, 1024),
+        ("dequant_gemv_outlier", "outlier_matmul.cu", 111, 8),
+        ("dequant_gemm_outlier", "outlier_matmul.cu", 111, 1024))
     out = []
-    for name, (src, replaces, m_at) in meta.items():
-        mine = [r for r in rows if r["kernel"] == name]
+    for name, src, line, m_at in meta:
+        emi8 = name.endswith("_emi8")
+        mine = [r for r in (rows if emi8 else orows) if r["kernel"] == name]
         at = next(r for r in mine if r["linear"] == "gate_up"
                   and r["M"] == m_at)
-        out.append({
+        launches = by_path(name)
+        rec = {
             "name": name, "route": "cuda",
             "source": f"microscopiq_tpu_torch/ops/cuda/csrc/{src}",
-            "replaces": replaces,
-            "launches": counts["prefill"][name] + counts["decode"][name],
+            "replaces": f"microscopiq_tpu/ops/pallas/dequant_matmul.py:{line}",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
-            "at": f"gate_up (4096, 28672) M={m_at}",
-            "shapes": [{k: r[k] for k in ("linear", "M", "K", "N", "ms",
-                                          "bound_ms", "plain_ms",
-                                          "library_ms", "max_abs_err",
-                                          "rel_err")} for r in mine]})
+            "at": f"gate_up (4096, 28672) M={m_at}"
+                  + (", MX-FP6 emi8 block 32" if emi8 else ""),
+            "shapes": _shape_rows(mine)}
+        if emi8:
+            em = [r for r in orows if r["kernel"] == name]
+            rec["max_abs_err_emi8m_block16"] = max(r["max_abs_err"]
+                                                   for r in em)
+            rec["shapes_emi8m_block16"] = _shape_rows(em)
+        out.append(rec)
     timed = [r for r in qrows if "ms" in r]
     at = next(r for r in timed if r["config"] == "b4_3136")
+    launches = by_path("quant_attention")
     out.append({
         "name": "quant_attention", "route": "cuda",
         "source": "microscopiq_tpu_torch/ops/cuda/csrc/quant_attention.cu",
         "replaces": "microscopiq_tpu/ops/pallas/quant_attention.py:49",
-        "launches": (qcounts["prefill"]["quant_attention"]
-                     + qcounts["decode"]["quant_attention"]),
+        "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in qrows),
         "ms": at["ms"], "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
@@ -933,8 +1381,15 @@ def main() -> int:
     qcounts, _ = quant_kv_main_path(packed, card)
     quant_two_layer_phase(card)
     quant_engine_phase(packed, card)
+    del packed
+    torch.cuda.empty_cache()
 
-    print(json.dumps(kernels_line(rows, counts, qrows, qcounts)), flush=True)
+    orows = outlier_kernel_phase(card)
+    ocounts = outlier_main_path(card)
+    outlier_two_layer_phase(card)
+
+    print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
+                                  ocounts)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

@@ -2,11 +2,19 @@
 compute from the same numbers.
 
 The caller hands over the flax tree with every leaf as numpy (this module
-never imports JAX). A packed leaf arrives as a dict with the ``PackedMX``
-fields: ``codes``, ``scale_exp``, ``elem_format``, ``block_size``,
-``scale_bits``, ``orig_dim``, ``axis``, ``transport``, ``transport_mw`` and
-``transport_fold``. Names are kept (``model/layers_{i}/self_attn/qkv_proj/
-kernel``, ``input_layernorm/scale``, ...).
+never imports JAX). A packed leaf arrives as a dict of its dataclass fields:
+- ``PackedMX``: ``codes``, ``scale_exp``, ``elem_format``, ``block_size``,
+  ``scale_bits``, ``orig_dim``, ``axis``, ``transport``, ``transport_mw`` and
+  ``transport_fold``;
+- ``PackedMXOutlier``: an ``inlier`` sub-dict of ``PackedMX`` fields plus
+  ``out_codes``, ``out_pos``, ``out_scale_exp``, ``outlier_format`` and
+  ``outlier_scale_bits``;
+- ``PackedOutlierNB``: ``codes``, ``scale_exp``, ``out_byte``,
+  ``out_scale_exp``, ``elem_format``, ``outlier_format``, ``block_size``,
+  ``orig_n`` and ``orig_k``.
+float8 and bfloat16 codes travel bit-exact. Names are kept
+(``model/layers_{i}/self_attn/qkv_proj/kernel``, ``input_layernorm/scale``,
+...).
 
 A quantized KV-cache state arrives as a mapping of ``QuantKVState`` field
 names to numpy arrays (``None`` for a GEAR field that is off).
@@ -21,11 +29,17 @@ import torch
 
 from . import resolve_device
 from .kv.cache import QuantKVState
-from .ops.packing import PackedMX
+from .ops.packing import PackedMX, PackedMXOutlier, PackedOutlierNB
 
 _PACKED_FIELDS = ("codes", "scale_exp", "elem_format", "block_size",
                   "scale_bits", "orig_dim", "axis", "transport",
                   "transport_mw", "transport_fold")
+_OUTLIER_FIELDS = ("inlier", "out_codes", "out_pos", "out_scale_exp",
+                   "outlier_format", "outlier_scale_bits")
+_NB_FIELDS = ("codes", "scale_exp", "out_byte", "out_scale_exp",
+              "elem_format", "outlier_format", "block_size", "orig_n",
+              "orig_k")
+_STR_FIELDS = ("elem_format", "transport", "outlier_format")
 
 # numpy dtypes without a torch counterpart travel as same-width integers
 _BIT_VIEWS = {"bfloat16": (np.uint16, torch.int16, torch.bfloat16),
@@ -44,34 +58,43 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def _is_packed(node: dict) -> bool:
-    return "codes" in node and "scale_exp" in node
+def _packed_kind(node: dict):
+    """(class, fields) of a packed leaf's dict, or None for a subtree."""
+    if "inlier" in node:
+        return PackedMXOutlier, _OUTLIER_FIELDS
+    if "out_byte" in node:
+        return PackedOutlierNB, _NB_FIELDS
+    if "codes" in node and "scale_exp" in node:
+        return PackedMX, _PACKED_FIELDS
+    return None
 
 
 def params_from_jax(tree, device="cuda"):
     """The port's weight tree from a numpy'd JAX parameter tree."""
     dev = resolve_device(device)
 
+    def packed(node, path):
+        cls, fields = _packed_kind(node)
+        missing = [f for f in fields if f not in node]
+        if missing:
+            raise KeyError(f"{path}: packed leaf lacks {missing}")
+        kw = {}
+        for f in fields:
+            v = node[f]
+            if f == "inlier":
+                kw[f] = packed(v, f"{path}/inlier")
+            elif f in _STR_FIELDS:
+                kw[f] = str(v)
+            elif isinstance(v, (int, np.integer)):
+                kw[f] = int(v)
+            else:
+                kw[f] = tensor_from_numpy(v, dev)
+        return cls(**kw)
+
     def visit(node, path):
         if isinstance(node, dict):
-            if any(k in node for k in ("inlier", "out_codes", "out_byte")):
-                raise NotImplementedError(
-                    f"{path}: outlier weight formats are not ported yet "
-                    "(ROADMAP queue 1 item 5)")
-            if _is_packed(node):
-                missing = [f for f in _PACKED_FIELDS if f not in node]
-                if missing:
-                    raise KeyError(f"{path}: packed leaf lacks {missing}")
-                return PackedMX(
-                    codes=tensor_from_numpy(node["codes"], dev),
-                    scale_exp=tensor_from_numpy(node["scale_exp"], dev),
-                    elem_format=str(node["elem_format"]),
-                    block_size=int(node["block_size"]),
-                    scale_bits=int(node["scale_bits"]),
-                    orig_dim=int(node["orig_dim"]), axis=int(node["axis"]),
-                    transport=str(node["transport"]),
-                    transport_mw=int(node["transport_mw"]),
-                    transport_fold=int(node["transport_fold"]))
+            if _packed_kind(node) is not None:
+                return packed(node, path)
             return {k: visit(v, f"{path}/{k}") for k, v in node.items()}
         return tensor_from_numpy(node, dev)
 

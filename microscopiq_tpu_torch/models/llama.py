@@ -4,7 +4,8 @@ Counterpart of ``microscopiq_tpu/models/llama.py`` for the serving path:
 RoPE, RMSNorm, GQA attention by grouped einsum (K/V are never repeated),
 SwiGLU MLP, optional fused ``qkv_proj``/``gate_up_proj``, a dense or quantized
 KV cache, and ``last_only``/``logit_index`` logits. Linears hold a dense
-(K, N) kernel or a :class:`PackedMX`; packed ones run through the CUDA kernels
+(K, N) kernel, a :class:`PackedMX`, a side-band :class:`PackedMXOutlier` or a
+compact :class:`PackedOutlierNB`; packed ones run through the CUDA kernels
 (``use_kernels=True``, the counterpart of ``use_pallas``) or their plain twin.
 A decode step over a quantized cache goes through the fused flash-decode
 kernel (``ops/cuda/quant_attention.py``) where its layout allows, else through
@@ -16,8 +17,8 @@ qkv_proj/kernel``, ``model/norm/scale``, ``lm_head/kernel``, ...), made by
 and installed with :meth:`LlamaForCausalLM.load_params`.
 
 Branches of the JAX module outside this slice raise ``NotImplementedError``
-naming their ROADMAP item: ALiBi/MPT, sliding window, MoE (queue 1 item 10),
-fake-quant ``mx_specs`` (item 9) and the outlier weight formats (item 5).
+naming their ROADMAP item: ALiBi/MPT, sliding window, MoE (queue 1 item 10)
+and fake-quant ``mx_specs`` (item 9).
 """
 
 from __future__ import annotations
@@ -34,8 +35,15 @@ from ..kv.cache import QuantizedDecodeCache, SlotQuantizedDecodeCache
 from ..nn.norms import RMSNorm
 from ..ops.cuda.dequant_matmul import (dequant_matmul,
                                        dequant_matmul_reference)
+from ..ops.cuda.outlier_matmul import (dequant_matmul_nb,
+                                       dequant_matmul_nb_reference,
+                                       dequant_matmul_outlier,
+                                       dequant_matmul_outlier_reference)
 from ..ops.cuda.quant_attention import quant_attention_decode
-from ..ops.packing import PackedMX, pack_mx, to_serving_layout
+from ..ops.packing import (PackedMX, PackedMXOutlier, PackedOutlierNB,
+                           pack_mx, to_serving_layout)
+
+_PACKED = (PackedMX, PackedMXOutlier, PackedOutlierNB)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +121,14 @@ def rope(q, k, positions, head_dim, theta):
 
 
 class QLinear(nn.Module):
-    """Linear whose kernel is a dense (K, N) tensor or a PackedMX."""
+    """Linear whose kernel is a dense (K, N) tensor or a packed weight.
+
+    With ``use_kernels`` every packed weight goes to its kernel wrapper,
+    which picks the GEMV or the GEMM by token count: ``dequant_matmul``
+    for a PackedMX, ``dequant_matmul_nb`` and ``dequant_matmul_outlier``
+    for the outlier formats (their GEMMs take the 256 tokens and more that
+    the JAX ``QLinear`` leaves to XLA). Without it, the plain twins.
+    """
 
     def __init__(self, dtype, use_kernels: bool = True):
         super().__init__()
@@ -126,12 +141,19 @@ class QLinear(nn.Module):
         if isinstance(w, PackedMX):
             f = dequant_matmul if self.use_kernels else dequant_matmul_reference
             return f(x, w, out_dtype=self.dtype)
+        if isinstance(w, PackedOutlierNB):
+            f = (dequant_matmul_nb if self.use_kernels
+                 else dequant_matmul_nb_reference)
+            return f(x, w, out_dtype=self.dtype)
+        if isinstance(w, PackedMXOutlier):
+            f = (dequant_matmul_outlier if self.use_kernels
+                 else dequant_matmul_outlier_reference)
+            return f(x, w, out_dtype=self.dtype)
         if isinstance(w, torch.Tensor):
             dt = torch.promote_types(x.dtype, w.dtype)
             return torch.matmul(x.to(dt), w.to(dt))
-        raise NotImplementedError(
-            f"kernel of type {type(w).__name__} is not a dense tensor or "
-            "PackedMX (the outlier formats are ROADMAP queue 1 item 5)")
+        raise TypeError(f"kernel of type {type(w).__name__} is neither a "
+                        "dense tensor nor a packed weight")
 
 
 class Attention(nn.Module):
@@ -333,9 +355,9 @@ def _load_tree(module: nn.Module, tree: dict, path: str,
             continue
         if key not in ("kernel", "scale", "embed_tokens"):
             raise KeyError(f"unexpected weight {where}")
-        if not isinstance(val, (torch.Tensor, PackedMX)):
+        if not isinstance(val, (torch.Tensor,) + _PACKED):
             raise TypeError(f"{where}: {type(val).__name__} is not a tensor "
-                            "or PackedMX")
+                            "or a packed weight")
         if val.device.type != device.type or (
                 device.index is not None and val.device.index != device.index):
             raise ValueError(f"{where} is on {val.device}, model on {device}")

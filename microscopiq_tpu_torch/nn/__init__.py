@@ -1,4 +1,5 @@
-from .mapping import fuse_projections
+from .mapping import find_linear_params, fuse_projections, pack_params
 from .norms import RMSNorm
 
-__all__ = ["fuse_projections", "RMSNorm"]
+__all__ = ["find_linear_params", "fuse_projections", "pack_params",
+           "RMSNorm"]

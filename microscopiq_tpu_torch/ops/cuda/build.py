@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles, on first use,
-into ``_build/lib<name>-<hash>.so`` (the hash is of the source and the
-flags, so an edited source never loads a stale library):
+into ``_build/lib<name>-<hash>.so`` (the hash is of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source never loads a
+stale library):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("dequant_gemv", "dequant_matmul", "quant_attention")
+SOURCES = ("dequant_gemv", "dequant_matmul", "quant_attention", "nb_matmul",
+           "outlier_matmul")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -43,6 +45,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
@@ -101,3 +104,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def entry(source: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``, which returns a
+    ``cudaError_t`` as int; typed with ``argtypes`` on first use."""
+    fn = getattr(load(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launch returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

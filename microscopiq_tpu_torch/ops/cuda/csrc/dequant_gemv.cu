@@ -27,21 +27,16 @@
 // - the ragged N edge (lm_head, N = 128256) is masked per column.
 // - mw and fold are run-time arguments, so the emi8m merged-outlier stream
 //   can reuse the kernel with its own field split.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using mxq::exp2_i32;
 
 constexpr int kThreads = 128;
 constexpr int kCols = 4;                      // columns per thread
 constexpr int kTileN = kThreads * kCols;      // columns per block
 constexpr int kChunkBlocks = 8;               // K-blocks of x staged at once
-
-__device__ __forceinline__ float exp2_i32(int e) {
-  e = max(-126, min(127, e));
-  return __int_as_float((e + 127) << 23);
-}
 
 // emi8 byte -> integer value m̂ · 2^e' (exact in f32).
 __device__ __forceinline__ float decode_emi8(int c, int mw) {
@@ -149,20 +144,6 @@ gemv_partial(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// out[i] = sum over splits s = 0, 1, ... of ws[s][i], in that order.
-__global__ void gemv_reduce(const float* __restrict__ ws, void* out,
-                            int total, int ksplit, int out_bf16) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < ksplit; ++sp)
-    s += ws[static_cast<size_t>(sp) * total + i];
-  if (out_bf16)
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(s);
-  else
-    static_cast<float*>(out)[i] = s;
-}
-
 template <int MT>
 void launch_partial(dim3 grid, size_t smem, cudaStream_t st,
                     const __nv_bfloat16* x, const int8_t* codes,
@@ -200,8 +181,5 @@ extern "C" int dequant_gemv_emi8(const void* x, const void* codes,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = M * N;
-  gemv_reduce<<<(total + 255) / 256, 256, 0, st>>>(wp, out, total, ksplit,
-                                                   out_bf16);
-  return static_cast<int>(cudaGetLastError());
+  return mxq::launch_split_reduce(wp, out, M, N, N, ksplit, out_bf16, st);
 }

@@ -12,9 +12,9 @@
 //
 // Design (simple and right first; wgmma/TMA and a cp.async pipeline are later
 // work):
-// - 128 x 128 output tile per block of 8 warps; each warp owns 64 x 32 of it
-//   as 4 x 2 wmma 16x16x16 bf16 fragments with f32 accumulators.
-// - per 32-deep K step the block stages x (bf16, straight copy) and the
+// - the bf16 wmma tile loop of common.cuh (128 x 128 output tile per block
+//   of 8 warps, 32-deep K steps);
+// - per K step the block stages x (bf16, straight copy) and the
 //   codes in shared memory; codes and their exponents are decoded on the way
 //   in as m̂·2^e' · 2^(se - fold) and stored as bf16. The product has at
 //   most 3 significant bits times a power of two, so it is exact in bf16 and
@@ -25,23 +25,12 @@
 //   zeros, code columns n >= N decode to zero, and the epilogue stores only
 //   in-range elements. 16-byte vector loads are used when N % 16 == 0 and
 //   K % 8 == 0, element loads otherwise.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int kThreads = 256;
-constexpr int kPadA = 8, kPadB = 8;           // keeps wmma ldm a multiple of 8
-
-__device__ __forceinline__ float exp2_i32(int e) {
-  e = max(-126, min(127, e));
-  return __int_as_float((e + 127) << 23);
-}
+using mxq::BTile;
+using mxq::exp2_i32;
 
 __device__ __forceinline__ float decode_emi8(int c, int mw) {
   const int sh = 8 - mw;
@@ -50,128 +39,47 @@ __device__ __forceinline__ float decode_emi8(int c, int mw) {
   return static_cast<float>(mhat * (1 << ep));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mxq::kGemmThreads)
 gemm_emi8(const __nv_bfloat16* __restrict__ x,
           const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
           void* out, int M, int K, int N, int Kp, int B, int mw, int fold,
           int out_bf16) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM][BK + kPadA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK][BN + kPadB];
-  __shared__ __align__(128) float Cs[kThreads / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;    // 2 x 4 warps
-  const int m_blk = blockIdx.y * BM, n_blk = blockIdx.x * BN;
-  const bool kvec = (K % 8) == 0;
   const bool nvec = (N % 16) == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  // B tile: thread -> row tid/8, 16 columns
+  const int b_r = threadIdx.x >> 3, b_c = (threadIdx.x & 7) * 16;
+  const int n_blk = blockIdx.x * mxq::kGemmBN;
+  auto decode = [&](BTile Bs, int k0) {
+    const int gk = k0 + b_r;
+    const int gn = n_blk + b_c;
+    float w[16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 16; ++j) w[j] = 0.f;
+    if (gk < Kp) {
+      const int8_t* crow = codes + static_cast<size_t>(gk) * N;
+      const int8_t* srow = se + static_cast<size_t>(gk / B) * N;
+      if (nvec) {
+        if (gn < N) {
+          const int4 cv = __ldg(reinterpret_cast<const int4*>(crow + gn));
+          const int4 sv = __ldg(reinterpret_cast<const int4*>(srow + gn));
+          const int8_t* cb = reinterpret_cast<const int8_t*>(&cv);
+          const int8_t* sb = reinterpret_cast<const int8_t*>(&sv);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // A tile: thread -> row tid/2, 16 columns; B tile: row tid/8, 16 columns
-  const int a_r = tid >> 1, a_c = (tid & 1) * 16;
-  const int b_r = tid >> 3, b_c = (tid & 7) * 16;
-
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    {
-      const int gm = m_blk + a_r;
-      const int gk = k0 + a_c;
-      if (kvec) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (gm < M && gk + h * 8 < K)
-            v = __ldg(reinterpret_cast<const uint4*>(
-                x + static_cast<size_t>(gm) * K + gk + h * 8));
-          *reinterpret_cast<uint4*>(&As[a_r][a_c + h * 8]) = v;
+          for (int j = 0; j < 16; ++j)
+            w[j] = decode_emi8(cb[j], mw) *
+                   exp2_i32(static_cast<int>(sb[j]) - fold);
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          __nv_bfloat16 v = __float2bfloat16(0.f);
-          if (gm < M && gk + j < K) v = x[static_cast<size_t>(gm) * K + gk + j];
-          As[a_r][a_c + j] = v;
-        }
+        for (int j = 0; j < 16; ++j)
+          if (gn + j < N)
+            w[j] = decode_emi8(crow[gn + j], mw) *
+                   exp2_i32(static_cast<int>(srow[gn + j]) - fold);
       }
     }
-    {
-      const int gk = k0 + b_r;
-      const int gn = n_blk + b_c;
-      float w[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] = 0.f;
-      if (gk < Kp) {
-        const int8_t* crow = codes + static_cast<size_t>(gk) * N;
-        const int8_t* srow = se + static_cast<size_t>(gk / B) * N;
-        if (nvec) {
-          if (gn < N) {
-            const int4 cv = __ldg(reinterpret_cast<const int4*>(crow + gn));
-            const int4 sv = __ldg(reinterpret_cast<const int4*>(srow + gn));
-            const int8_t* cb = reinterpret_cast<const int8_t*>(&cv);
-            const int8_t* sb = reinterpret_cast<const int8_t*>(&sv);
-#pragma unroll
-            for (int j = 0; j < 16; ++j)
-              w[j] = decode_emi8(cb[j], mw) *
-                     exp2_i32(static_cast<int>(sb[j]) - fold);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 16; ++j)
-            if (gn + j < N)
-              w[j] = decode_emi8(crow[gn + j], mw) *
-                     exp2_i32(static_cast<int>(srow[gn + j]) - fold);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) Bs[b_r][b_c + j] = __float2bfloat16(w[j]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 64 + i * 16][kk], BK + kPadA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk][wn * 32 + j * 16], BN + kPadB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = m_blk + wm * 64 + i * 16;
-      const int c0 = n_blk + wn * 32 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = r0 + (e >> 4), gn = c0 + (e & 15);
-        if (gm < M && gn < N) {
-          const size_t o = static_cast<size_t>(gm) * N + gn;
-          if (out_bf16)
-            static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(cs[e]);
-          else
-            static_cast<float*>(out)[o] = cs[e];
-        }
-      }
-      __syncwarp();
-    }
-  }
+    for (int j = 0; j < 16; ++j) Bs[b_r][b_c + j] = __float2bfloat16(w[j]);
+  };
+  mxq::gemm_tile(x, out, M, K, N, Kp, out_bf16, decode);
 }
 
 }  // namespace
@@ -183,8 +91,8 @@ extern "C" int dequant_matmul_emi8(const void* x, const void* codes,
                                    const void* se, void* out, int M, int K,
                                    int N, int Kp, int B, int mw, int fold,
                                    int out_bf16, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_emi8<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gemm_emi8<<<mxq::gemm_grid(M, N), mxq::kGemmThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(codes),
       static_cast<const int8_t*>(se), out, M, K, N, Kp, B, mw, fold, out_bf16);
   return static_cast<int>(cudaGetLastError());

@@ -8,8 +8,9 @@ with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 the kernel (``csrc/dequant_matmul.cu``).
 
 Tensors on the CPU go to the plain version. Tensors on a CUDA device go to a
-kernel or raise: there is no silent fallback. Only the ``emi8`` transport has
-kernels so far; the others raise on CUDA (ROADMAP queue 2 items 1-2).
+kernel or raise: there is no silent fallback. The ``emi8`` and ``emi8m``
+transports have kernels; the others raise on CUDA (ROADMAP queue 2 items
+1-2).
 """
 
 from __future__ import annotations
@@ -40,18 +41,16 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-# C signatures: pointers (and the stream) as c_void_p, ints as c_int
-_ARGTYPES = {"dequant_gemv": [_ptr] * 5 + [_int] * 9 + [_ptr],
-             "dequant_matmul": [_ptr] * 4 + [_int] * 8 + [_ptr]}
+# C entry points: (source in csrc/, argument types), pointers (and the
+# stream) as c_void_p, ints as c_int
+_ENTRIES = {"dequant_gemv_emi8": ("dequant_gemv", [_ptr] * 5 + [_int] * 9
+                                  + [_ptr]),
+            "dequant_matmul_emi8": ("dequant_matmul", [_ptr] * 4 + [_int] * 8
+                                    + [_ptr])}
 
 
 def _kernel(name: str):
-    """The C entry point ``<name>_emi8`` of ``csrc/<name>.cu``."""
-    fn = getattr(build.load(name), f"{name}_emi8")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.entry(_ENTRIES[name][0], name, _ENTRIES[name][1])
 
 
 def dequant_matmul_reference(x: torch.Tensor, w: pk.PackedMX,
@@ -66,10 +65,14 @@ def dequant_matmul_reference(x: torch.Tensor, w: pk.PackedMX,
 
 
 def emi8_decode_params(w: pk.PackedMX) -> Tuple[int, int]:
-    """(mw, fold) of the in-kernel emi8 decode; other transports raise."""
+    """(mw, fold) of the in-kernel emi8 decode: the format's for emi8, the
+    tensor's own field split for the merged-outlier emi8m stream (as the
+    TPU wrapper's ``_sad_fold``); other transports raise."""
     if w.transport == "emi8":
         mw, _, _ = pk.emi8_params(w.elem_format)
         return mw, pk.emi8_fold(w.elem_format)
+    if w.transport == "emi8m":
+        return w.transport_mw, w.transport_fold
     raise NotImplementedError(
         f"transport {w.transport!r} has no CUDA kernel yet "
         "(ROADMAP queue 2 items 1-2)")
@@ -113,11 +116,6 @@ def _operands(x: torch.Tensor, w: pk.PackedMX, out_dtype):
     return x2, ww, mw, fold
 
 
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-
-
 def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
                  out_dtype=torch.float32) -> torch.Tensor:
     """Scale-after-dot GEMV (M <= 64); x is rounded to bf16 first, as the
@@ -132,12 +130,12 @@ def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
     ksplit, _ = gemv_ksplit(N, NB)
     ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    err = _kernel("dequant_gemv")(
+    err = _kernel("dequant_gemv_emi8")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
         ws.data_ptr(), out.data_ptr(), M, K, N, NB, B, mw, fold, ksplit,
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _check(err, "dequant_gemv_emi8")
+    build.check(err, "dequant_gemv_emi8")
     launch_counts["dequant_gemv_emi8"] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
@@ -154,12 +152,12 @@ def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    err = _kernel("dequant_matmul")(
+    err = _kernel("dequant_matmul_emi8")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
         out.data_ptr(), M, K, N, NB * B, B, mw, fold,
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _check(err, "dequant_matmul_emi8")
+    build.check(err, "dequant_matmul_emi8")
     launch_counts["dequant_matmul_emi8"] += 1
     return out.reshape(x.shape[:-1] + (N,))
 

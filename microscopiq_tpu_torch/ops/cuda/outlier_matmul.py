@@ -1,0 +1,341 @@
+"""y = x @ dequant(w) for the MicroScopiQ outlier weight formats: the CUDA
+kernels, their wrappers and their plain PyTorch twins.
+
+Counterpart of the outlier parts of
+``microscopiq_tpu/ops/pallas/dequant_matmul.py``:
+
+* :func:`dequant_matmul_nb` (``csrc/nb_matmul.cu``, replaces ``_nb_kernel``):
+  the compact N-blocked int2 + fp4 transport, :class:`PackedOutlierNB`,
+  stored (N, K);
+* :func:`dequant_matmul_outlier` (``csrc/outlier_matmul.cu``, replaces
+  ``_dq_matmul_outlier_kernel``): the side-band :class:`PackedMXOutlier`,
+  stored (K, N).
+
+Each format has two kernels: a K-split GEMV for fewer than ``GEMM_FROM_M``
+rows and a tensor-core GEMM that decodes the weight tile in shared memory
+from ``GEMM_FROM_M`` rows on, the token count at which the JAX ``QLinear``
+leaves these formats to XLA. Tensors on the CPU go to the twin. Tensors on a
+CUDA device go to a kernel or raise; a weight on another device than x
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ...formats import get_format_params
+from .. import packing as pk
+from ..packing import PackedMXOutlier, PackedOutlierNB
+from . import build
+from .dequant_matmul import gemv_ksplit
+
+GEMM_FROM_M = 256                 # rows from which the GEMMs take over
+NB_THREADS = 128                  # kThreads in nb_matmul.cu
+MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
+_TARGET_BLOCKS = 8 * 132          # ~8 blocks per SM of an H100
+
+# launches per kernel wrapper, for showing that a run went through the
+# kernels; chip_smoke.py zeroes them before the main path and reads them after
+launch_counts = {"dequant_gemv_nb": 0, "dequant_gemm_nb": 0,
+                 "dequant_gemv_outlier": 0, "dequant_gemm_outlier": 0}
+
+_OUT_DTYPES = (torch.bfloat16, torch.float32)
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+# C entry points: (source in csrc/, argument types)
+_ENTRIES = {
+    "dequant_gemv_nb": ("nb_matmul", [_ptr] * 7 + [_int] * 9 + [_ptr]),
+    "dequant_gemm_nb": ("nb_matmul", [_ptr] * 6 + [_int] * 7 + [_ptr]),
+    "dequant_gemv_outlier": ("outlier_matmul",
+                             [_ptr] * 8 + [_int] * 11 + [_ptr]),
+    "dequant_gemm_outlier": ("outlier_matmul",
+                             [_ptr] * 7 + [_int] * 10 + [_ptr])}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _kernel(name: str):
+    return build.entry(_ENTRIES[name][0], name, _ENTRIES[name][1])
+
+
+def _rows(x: torch.Tensor) -> int:
+    M = 1
+    for d in x.shape[:-1]:
+        M *= d
+    return M
+
+
+def _scale_fold(fmt: str) -> int:
+    """Exponent shift folded into the scale of int codes
+    (code = value · 2^(mbits-2))."""
+    if fmt in ("int8", "int4", "int2"):
+        return get_format_params(fmt).mbits - 2
+    return 0
+
+
+def _on_cpu(x: torch.Tensor, tensors) -> bool:
+    """True when x and the weight lie on the CPU (the twin's case); raises
+    when they lie on different devices."""
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x and the packed weight must be on one device")
+    return x.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Plain twins
+# ---------------------------------------------------------------------------
+def dequant_matmul_nb_reference(x: torch.Tensor, w: PackedOutlierNB,
+                                out_dtype=torch.float32) -> torch.Tensor:
+    """Plain twin of the NB kernel: dequantize the (N, K) weight to bf16,
+    then a dot of the bf16 values with f32 sums (exact products; on CUDA
+    this assumes TF32 matmul is off, the default)."""
+    dense = pk.dequantize_outlier_nb(w, dtype=torch.bfloat16)     # (N, K)
+    y = torch.matmul(x.to(torch.bfloat16).to(torch.float32),
+                     dense.to(torch.float32).T)
+    return y.to(out_dtype)
+
+
+def dequant_matmul_outlier_reference(x: torch.Tensor, w: PackedMXOutlier,
+                                     out_dtype=torch.float32) -> torch.Tensor:
+    """Plain twin of the side-band kernel: dequantize the (K, N) weight to
+    bf16, then a bf16 dot with f32 sums."""
+    dense = pk.dequantize_mx_outlier(w, dtype=torch.bfloat16)     # (K, N)
+    y = torch.matmul(x.to(torch.bfloat16).to(torch.float32),
+                     dense.to(torch.float32))
+    return y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# NB kernels
+# ---------------------------------------------------------------------------
+def nb_ksplit(NB: int, K: int) -> Tuple[int, int]:
+    """(ksplit, column groups of 4 per split) of the NB kernel's grid.
+
+    Depends only on the weight's shape, never on M, so that a row's result
+    is the same in a batch of any size.
+    """
+    groups = -(-K // 4)
+    want = max(1, -(-_TARGET_BLOCKS // NB))
+    per = max(NB_THREADS, -(-groups // want))
+    per = -(-per // NB_THREADS) * NB_THREADS
+    return -(-groups // per), per
+
+
+def _nb_operands(x: torch.Tensor, w: PackedOutlierNB, out_dtype):
+    if not x.is_cuda:
+        raise ValueError("the NB kernel takes CUDA tensors")
+    if w.block_size != 16:
+        raise ValueError("the compact transport is specified for block 16")
+    if w.elem_format != "int2" or w.outlier_format not in ("fp4",
+                                                           "fp4_e2m1"):
+        raise ValueError(f"the NB kernel decodes int2 + fp4, got "
+                         f"{w.elem_format} + {w.outlier_format}")
+    tensors = (w.codes, w.scale_exp, w.out_byte, w.out_scale_exp)
+    if any(t.dtype != torch.int8 for t in tensors):
+        raise ValueError("NB codes, exponents and slot bytes must be int8")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("packed weight must be contiguous")
+    Np4, K = w.codes.shape
+    NB = Np4 // 4
+    if (w.scale_exp.shape != (NB, K) or w.out_scale_exp.shape != (NB, K)
+            or w.out_byte.shape[1:] != (NB, K) or 4 * Np4 < w.orig_n
+            or K != w.orig_k):
+        raise ValueError(f"NB operands disagree: codes {tuple(w.codes.shape)}"
+                         f", scale_exp {tuple(w.scale_exp.shape)}, out_byte "
+                         f"{tuple(w.out_byte.shape)}, orig ({w.orig_n}, "
+                         f"{w.orig_k})")
+    if x.shape[-1] != K:
+        raise ValueError(f"x has K={x.shape[-1]}, weight has K={K}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
+    return x.reshape(-1, K).to(torch.bfloat16).contiguous()
+
+
+def _nb_tensors(w: PackedOutlierNB):
+    return (w.codes, w.scale_exp, w.out_byte, w.out_scale_exp)
+
+
+def dequant_gemv_nb(x: torch.Tensor, w: PackedOutlierNB,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """The NB GEMV kernel (any M; the dispatch sends it M < GEMM_FROM_M).
+    x is rounded to bf16 first, as the TPU kernel does."""
+    if _on_cpu(x, _nb_tensors(w)):
+        return dequant_matmul_nb_reference(x, w, out_dtype)
+    x2 = _nb_operands(x, w, out_dtype)
+    M, K = x2.shape
+    N, Np = w.orig_n, 4 * w.codes.shape[0]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(x.shape[:-1] + (N,))
+    ksplit, per = nb_ksplit(Np // 16, K)
+    ws = torch.empty((ksplit, M, Np), dtype=torch.float32, device=x.device)
+    err = _kernel("dequant_gemv_nb")(
+        x2.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
+        w.out_scale_exp.data_ptr(), w.out_byte.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), M, K, Np, N, w.budget, _scale_fold(w.elem_format),
+        ksplit, per, int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dequant_gemv_nb")
+    launch_counts["dequant_gemv_nb"] += 1
+    return out.reshape(x.shape[:-1] + (N,))
+
+
+def dequant_gemm_nb(x: torch.Tensor, w: PackedOutlierNB,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """The NB tensor-core GEMM (any M; the dispatch sends it
+    M >= GEMM_FROM_M). x is rounded to bf16 first."""
+    if _on_cpu(x, _nb_tensors(w)):
+        return dequant_matmul_nb_reference(x, w, out_dtype)
+    x2 = _nb_operands(x, w, out_dtype)
+    M, K = x2.shape
+    N, Np = w.orig_n, 4 * w.codes.shape[0]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(x.shape[:-1] + (N,))
+    err = _kernel("dequant_gemm_nb")(
+        x2.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
+        w.out_scale_exp.data_ptr(), w.out_byte.data_ptr(), out.data_ptr(),
+        M, K, Np, N, w.budget, _scale_fold(w.elem_format),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dequant_gemm_nb")
+    launch_counts["dequant_gemm_nb"] += 1
+    return out.reshape(x.shape[:-1] + (N,))
+
+
+def dequant_matmul_nb(x: torch.Tensor, w: PackedOutlierNB,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """y = x @ W^T for the compact transport (W stored (N, K)): the GEMV
+    below GEMM_FROM_M rows, else the GEMM; the twin on the CPU."""
+    if _rows(x) < GEMM_FROM_M:
+        return dequant_gemv_nb(x, w, out_dtype)
+    return dequant_gemm_nb(x, w, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Side-band kernels
+# ---------------------------------------------------------------------------
+def _container_flag(t: torch.Tensor, what: str) -> int:
+    """1 for float8_e4m3fn codes, 0 for int8; other containers raise."""
+    if t.dtype == torch.int8:
+        return 0
+    if t.dtype == torch.float8_e4m3fn:
+        return 1
+    raise ValueError(f"{what} in {t.dtype}: the kernel takes int8 or "
+                     "float8_e4m3fn containers")
+
+
+def _outlier_operands(x: torch.Tensor, w: PackedMXOutlier, out_dtype):
+    inl = w.inlier
+    if not x.is_cuda:
+        raise ValueError("the side-band kernel takes CUDA tensors")
+    if inl.axis != 0 or inl.codes.ndim != 2:
+        raise ValueError("the kernel takes 2-D (K, N) weights blocked on "
+                         "axis 0")
+    tensors = (inl.codes, inl.scale_exp, w.out_codes, w.out_pos,
+               w.out_scale_exp)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("packed weight must be contiguous")
+    if inl.scale_exp.dtype != torch.int8 or w.out_scale_exp.dtype != \
+            torch.int8 or w.out_pos.dtype != torch.int32:
+        raise ValueError("exponents must be int8 and positions int32")
+    Kp, N = inl.codes.shape
+    B = inl.block_size
+    NB = Kp // B
+    budget = w.budget
+    if (NB * B != Kp or inl.scale_exp.shape != (NB, N)
+            or w.out_scale_exp.shape != (NB, N)
+            or w.out_codes.shape != (NB, N, budget)
+            or w.out_pos.shape != (NB, N, budget)):
+        raise ValueError(f"side-band operands disagree: codes "
+                         f"{tuple(inl.codes.shape)}, out_codes "
+                         f"{tuple(w.out_codes.shape)}, out_pos "
+                         f"{tuple(w.out_pos.shape)}")
+    if not 0 <= budget <= MAX_OUTLIER_BUDGET:
+        raise ValueError(f"budget {budget} > {MAX_OUTLIER_BUDGET}")
+    K = x.shape[-1]
+    if K != inl.orig_dim or K > Kp:
+        raise ValueError(f"x has K={K}, weight has K={inl.orig_dim}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
+    flags = (_container_flag(inl.codes, "codes"),
+             _container_flag(w.out_codes, "out_codes"))
+    return x.reshape(-1, K).to(torch.bfloat16).contiguous(), flags
+
+
+def _sideband_tensors(w: PackedMXOutlier):
+    inl = w.inlier
+    return (inl.codes, inl.scale_exp, w.out_codes, w.out_pos,
+            w.out_scale_exp)
+
+
+def _view8(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int8) if t.dtype != torch.int8 else t
+
+
+def dequant_gemv_outlier(x: torch.Tensor, w: PackedMXOutlier,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """The side-band GEMV kernel (any M; the dispatch sends it
+    M < GEMM_FROM_M). x is rounded to bf16 first, as the TPU kernel does."""
+    if _on_cpu(x, _sideband_tensors(w)):
+        return dequant_matmul_outlier_reference(x, w, out_dtype)
+    inl = w.inlier
+    x2, (codes_fp8, oc_fp8) = _outlier_operands(x, w, out_dtype)
+    M, K = x2.shape
+    Kp, N = inl.codes.shape
+    B = inl.block_size
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(x.shape[:-1] + (N,))
+    ksplit, _ = gemv_ksplit(N, Kp // B)
+    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+    err = _kernel("dequant_gemv_outlier")(
+        x2.data_ptr(), _view8(inl.codes).data_ptr(),
+        inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),
+        _view8(w.out_codes).data_ptr(), w.out_pos.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), M, K, N, Kp // B, B, w.budget,
+        _scale_fold(inl.elem_format), codes_fp8, oc_fp8, ksplit,
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dequant_gemv_outlier")
+    launch_counts["dequant_gemv_outlier"] += 1
+    return out.reshape(x.shape[:-1] + (N,))
+
+
+def dequant_gemm_outlier(x: torch.Tensor, w: PackedMXOutlier,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """The side-band tensor-core GEMM (any M; the dispatch sends it
+    M >= GEMM_FROM_M). x is rounded to bf16 first."""
+    if _on_cpu(x, _sideband_tensors(w)):
+        return dequant_matmul_outlier_reference(x, w, out_dtype)
+    inl = w.inlier
+    x2, (codes_fp8, oc_fp8) = _outlier_operands(x, w, out_dtype)
+    M, K = x2.shape
+    Kp, N = inl.codes.shape
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(x.shape[:-1] + (N,))
+    err = _kernel("dequant_gemm_outlier")(
+        x2.data_ptr(), _view8(inl.codes).data_ptr(),
+        inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),
+        _view8(w.out_codes).data_ptr(), w.out_pos.data_ptr(), out.data_ptr(),
+        M, K, N, Kp, inl.block_size, w.budget, _scale_fold(inl.elem_format),
+        codes_fp8, oc_fp8, int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "dequant_gemm_outlier")
+    launch_counts["dequant_gemm_outlier"] += 1
+    return out.reshape(x.shape[:-1] + (N,))
+
+
+def dequant_matmul_outlier(x: torch.Tensor, w: PackedMXOutlier,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """y = x @ dequant(w) for the side-band format: the GEMV below
+    GEMM_FROM_M rows, else the GEMM; the twin on the CPU."""
+    if _rows(x) < GEMM_FROM_M:
+        return dequant_gemv_outlier(x, w, out_dtype)
+    return dequant_gemm_outlier(x, w, out_dtype)

@@ -49,14 +49,6 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def _kernel():
-    fn = build.load("quant_attention").quant_attention_chunks
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.lru_cache(maxsize=None)
 def _smem_bytes(rep: int, hd: int, gap: int, Gh: int, rank: int) -> int:
     """Shared memory of one kernel block, as the kernel lays it out."""
@@ -200,15 +192,15 @@ def chunk_attention(q, kq, kmn, ksc, vq, vmn, vsc, nfull, scale,
                      dtype=torch.float32, device=dev)
     kp, kqb, vp, vqb = lowrank if lowrank is not None else (None,) * 4
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _kernel()(
+    err = build.entry("quant_attention", "quant_attention_chunks",
+                      _ARGTYPES)(
         q.data_ptr(), kq.data_ptr(), kmn.data_ptr(), ksc.data_ptr(),
         vq.data_ptr(), vmn.data_ptr(), vsc.data_ptr(), ptr(kp), ptr(kqb),
         ptr(vp), ptr(vqb), nfull.data_ptr(), ws.data_ptr(), o.data_ptr(),
         m.data_ptr(), l.data_ptr(), B, KVH, C, rep, hd, gap, bits,
         vsc.shape[-1], rank, lr_f32, nsplit, cps, float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"quant_attention launch failed: cudaError_t {err}")
+    build.check(err, "quant_attention")
     launch_counts["quant_attention"] += 1
     return o, m, l
 

@@ -1,15 +1,30 @@
 """MX quantization specs: the part that the packers and the serving path read.
 
 Counterpart of ``microscopiq_tpu/specs.py`` (``MxSpecs``,
-``finalize_mx_specs``). The CLI registration and assert helpers of the
-reference belong to the calibration/training path (ROADMAP queue 1 items 6
-and 9) and are not carried here.
+``finalize_mx_specs``, ``mx_assert_finite``). The CLI registration and the
+other assert helpers of the reference belong to the calibration/training
+path (ROADMAP queue 1 items 6 and 9) and are not carried here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
+
+import torch
+
+# MX_ASSERT=True turns on the NaN guards of the outlier quantizer
+_ASSERT_MODE = os.environ.get("MX_ASSERT", "False")
+
+
+def mx_assert_finite(x: torch.Tensor, name: str) -> torch.Tensor:
+    """NaN guard at the reference's check points (``utils/quant.py:103-128``),
+    which catch the deliberate NaN-poisoning of overflowed shared scales.
+    A no-op unless ``MX_ASSERT=True``; raises FloatingPointError otherwise."""
+    if _ASSERT_MODE == "True" and bool(torch.isnan(x).any()):
+        raise FloatingPointError(f"MX assert: {name} contains NaN values")
+    return x
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,10 @@ Tolerances (relative to max |twin|): GEMV 1e-5 (exact float32 products,
 only the summation order differs), GEMM 2e-3 (bf16 MMA with float32
 accumulation), the bounds of tests/test_pallas_kernels.py; quantized-KV
 attention 2e-2, the bound of tests/test_quant_attention.py:47 (float32 sums
-in another order, split across blocks and merged).
+in another order, split across blocks and merged); the outlier GEMVs (NB
+and side-band) 1e-5: their weights and products are exact in float32 and
+only the order of the sums differs; the outlier GEMMs 2e-3, as the emi8
+GEMM (the same bf16 weights through bf16 MMA with float32 accumulation).
 """
 
 import dataclasses
@@ -21,7 +24,9 @@ import pytest
 import torch
 
 from microscopiq_tpu_torch.ops import packing as tpk
+from microscopiq_tpu_torch.ops import outlier as tol
 from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
 from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
 pytestmark = pytest.mark.gpu
@@ -274,3 +279,174 @@ def test_quant_attention_wrapper_checks_operands(cuda):
     with pytest.raises(ValueError, match="one K group"):
         call(ops[:2] + [ops[2][:, :, :, None].expand(-1, -1, -1, 2, -1)
                         .contiguous()] + ops[3:])
+
+
+# ---------------------------------------------------------------------------
+# outlier formats: compact NB, side-band, emi8m through the GEMV and GEMM
+# ---------------------------------------------------------------------------
+def _outlier_weight(K, N, seed, device):
+    """N(0, 0.02) weights with 3% of the elements scaled by 10."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    W = torch.randn((K, N), generator=g, device=device) * 0.02
+    hit = torch.rand((K, N), generator=g, device=device) < 0.03
+    return torch.where(hit, W * 10, W)
+
+
+def _nb(K, N, budget, seed, device):
+    """The compact transport from the port's own RTN decisions on the
+    (N, K) transpose, outliers capped at ``budget`` per block."""
+    W = _outlier_weight(K, N, seed, device)
+    _, _, dec = tol.quantize_mx_outlier_hessian_decisions(
+        W.T.contiguous(), 8, 8, "int2", "fp4_e2m1", "max", 2.0, [0], 16,
+        max_outliers_per_block=budget)
+    dec["block_size"] = 16
+    return tpk.pack_outlier_nb(dec, budget=budget)
+
+
+def _sideband(K, N, budget, seed, device, ifmt="int2", ofmt="fp4_e2m1"):
+    return tpk.pack_mx_outlier(_outlier_weight(K, N, seed, device), 8, 8,
+                               ifmt, ofmt, std_dev=2.0, block_size=16,
+                               outlier_budget=budget, axis=0)
+
+
+def _outlier_kernel(M, fmt):
+    """(launch-count name, tolerance) of the kernel that M rows reach."""
+    if M < om.GEMM_FROM_M:
+        return f"dequant_gemv_{fmt}", 1e-5
+    return f"dequant_gemm_{fmt}", 2e-3
+
+
+@pytest.mark.parametrize("K,N,M,budget", [
+    (256, 384, 1, 2), (256, 384, 3, 2), (256, 384, 8, 1), (256, 384, 64, 2),
+    (200, 40, 3, 2), (202, 48, 5, 2), (256, 384, 200, 2),
+    (4096, 1024, 8, 2), (256, 384, 256, 2), (200, 40, 300, 2),
+    (202, 48, 513, 1), (4096, 1024, 300, 2)])
+def test_nb_kernel_matches_twin(cuda, K, N, M, budget):
+    w = _nb(K, N, budget, M, cuda)
+    x = _x(M, K, M, cuda)
+    om.reset_launch_counts()
+    got = om.dequant_matmul_nb(x, w)
+    want = om.dequant_matmul_nb_reference(x, w)
+    torch.cuda.synchronize()
+    name, tol = _outlier_kernel(M, "nb")
+    assert om.launch_counts[name] == 1
+    assert sum(om.launch_counts.values()) == 1
+    assert got.shape == (M, N)
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("K,N,M,budget,ifmt,ofmt", [
+    (256, 384, 1, 4, "int2", "fp4_e2m1"), (256, 384, 3, 2, "int2", "fp4_e2m1"),
+    (256, 384, 64, 1, "int2", "fp4_e2m1"),
+    (256, 130, 200, 4, "int2", "fp4_e2m1"),
+    (200, 384, 8, 4, "fp6_e3m2", "fp8_e4m3"),
+    (4096, 1024, 8, 4, "int2", "fp4_e2m1"),
+    (256, 130, 300, 4, "int2", "fp4_e2m1"),
+    (200, 384, 256, 4, "fp6_e3m2", "fp8_e4m3"),
+    (4096, 1024, 513, 2, "int2", "fp4_e2m1")])
+def test_sideband_kernel_matches_twin(cuda, K, N, M, budget, ifmt, ofmt):
+    w = _sideband(K, N, budget, M, cuda, ifmt, ofmt)
+    x = _x(M, K, M, cuda)
+    om.reset_launch_counts()
+    got = om.dequant_matmul_outlier(x, w)
+    want = om.dequant_matmul_outlier_reference(x, w)
+    torch.cuda.synchronize()
+    name, tol = _outlier_kernel(M, "outlier")
+    assert om.launch_counts[name] == 1
+    assert sum(om.launch_counts.values()) == 1
+    assert got.shape == (M, N)
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("M", [8, 300])
+def test_outlier_kernels_bf16_output(cuda, M):
+    x = _x(M, 512, 8, cuda).to(torch.bfloat16)
+    for fn, ref, w in ((om.dequant_matmul_nb, om.dequant_matmul_nb_reference,
+                        _nb(512, 256, 2, 1, cuda)),
+                       (om.dequant_matmul_outlier,
+                        om.dequant_matmul_outlier_reference,
+                        _sideband(512, 256, 4, 1, cuda))):
+        got = fn(x, w, out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        assert _rel(got.float(), ref(x, w)) < 2 ** -8
+
+
+def test_outlier_kernels_rows_do_not_depend_on_batch(cuda):
+    x = _x(400, 4096, 5, cuda)
+    for gemv, gemm, w in ((om.dequant_gemv_nb, om.dequant_gemm_nb,
+                           _nb(4096, 1024, 2, 2, cuda)),
+                          (om.dequant_gemv_outlier, om.dequant_gemm_outlier,
+                           _sideband(4096, 1024, 4, 2, cuda))):
+        full = gemv(x[:130], w)
+        for lo, hi in ((0, 1), (3, 8), (8, 72), (1, 130)):
+            assert torch.equal(gemv(x[lo:hi], w), full[lo:hi])
+        full = gemm(x, w)
+        for lo, hi in ((0, 1), (3, 130), (128, 400)):
+            assert torch.equal(gemm(x[lo:hi], w), full[lo:hi])
+
+
+def _no_fold_dense(w):
+    """The dense (K, N) weight of the TPU side-band kernel: the outlier
+    code scaled by 2^(seo - se) with no fold, rounded to bf16 (see
+    tests/test_torch_outlier_matmul.py::
+    test_int_outlier_format_kernel_does_not_fold_the_code)."""
+    inl = w.inlier
+    B = inl.block_size
+    fold = om._scale_fold(inl.elem_format)
+    se = inl.scale_exp.float().repeat_interleave(B, 0)
+    seo = w.out_scale_exp.float().repeat_interleave(B, 0)
+    dense = inl.codes.float() * torch.exp2(se - fold)
+    rows = torch.arange(dense.shape[0], device=dense.device)[:, None] % B
+    for s in range(w.budget):
+        hit = rows == w.out_pos[..., s].repeat_interleave(B, 0)
+        oc = w.out_codes[..., s].float().repeat_interleave(B, 0)
+        dense = dense + torch.where(hit, oc, 0.0) * torch.exp2(seo - se)
+    return dense.to(torch.bfloat16)
+
+
+def test_int_outlier_format_follows_the_tpu_kernel(cuda):
+    """int8 outliers: the kernel follows the TPU kernel (no fold on the
+    outlier code, ROADMAP queue 3), so it matches the no-fold weight and
+    not the twin."""
+    w = _sideband(256, 128, 4, 21, cuda, "int2", "int8")
+    for M in (4, 300):
+        x = _x(M, 256, 22, cuda)
+        got = om.dequant_matmul_outlier(x, w)
+        want = x.to(torch.bfloat16).float() @ _no_fold_dense(w).float()
+        assert _rel(got, want) < _outlier_kernel(M, "outlier")[1]
+        assert _rel(got, om.dequant_matmul_outlier_reference(x, w)) > 0.5
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 128, 300])
+def test_emi8m_block16_through_gemv_and_gemm(cuda, M):
+    """The merged-outlier stream at block 16 with its own (mw, fold)."""
+    m = tpk.to_serving_layout(tpk.merge_outlier_emi8(
+        _sideband(512, 384, 4, M, cuda)))
+    assert m.transport == "emi8m" and m.block_size == 16
+    x = _x(M, 512, M, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul(x, m)
+    want = dm.dequant_matmul_reference(x, m)
+    torch.cuda.synchronize()
+    name = "dequant_gemv_emi8" if M <= 64 else "dequant_matmul_emi8"
+    assert dm.launch_counts[name] == 1
+    assert _rel(got, want) < (1e-5 if M <= 64 else 2e-3)
+
+
+def test_outlier_wrappers_check_operands(cuda):
+    w = _nb(256, 128, 2, 0, cuda)
+    with pytest.raises(ValueError, match="K="):
+        om.dequant_matmul_nb(_x(2, 128, 0, cuda), w)
+    cpu_w = dataclasses.replace(w, codes=w.codes.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        om.dequant_matmul_nb(_x(2, 256, 0, cuda), cpu_w)
+    s = _sideband(256, 128, 4, 0, cuda)
+    cpu_s = dataclasses.replace(s, out_pos=s.out_pos.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        om.dequant_matmul_outlier(_x(2, 256, 0, cuda), cpu_s)
+    big = _sideband(64, 32, 9, 0, cuda)
+    for M in (2, 300):
+        with pytest.raises(ValueError, match="budget 9"):
+            om.dequant_matmul_outlier(_x(M, 64, 0, cuda), big)
+        with pytest.raises(ValueError, match="one device"):
+            om.dequant_matmul_nb(_x(M, 256, 0, cuda), cpu_w)

@@ -90,6 +90,46 @@ def test_kernel_wrappers_reject_cpu_weights_for_cuda_inputs():
     assert sum(dm.launch_counts.values()) == 0
 
 
+def test_outlier_wrappers_take_the_twin_on_cpu_and_check_devices():
+    """The NB and side-band wrappers run their plain twin on CPU tensors,
+    count no launch, and raise when x and the weight lie on different
+    devices (never a silent move or fallback)."""
+    import dataclasses
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+    from microscopiq_tpu_torch.ops.outlier import (
+        quantize_mx_outlier_hessian_decisions)
+
+    g = torch.Generator().manual_seed(0)
+    W = torch.randn(64, 48, generator=g) * 0.02
+    W[::7, ::5] *= 10
+    _, _, dec = quantize_mx_outlier_hessian_decisions(
+        W.T.contiguous(), 8, 8, "int2", "fp4_e2m1", "max", 2.0, [0], 16,
+        max_outliers_per_block=2)
+    nb = pk.pack_outlier_nb({**dec, "block_size": 16}, budget=2)
+    sb = pk.pack_mx_outlier(W, 8, 8, "int2", "fp4_e2m1", block_size=16,
+                            outlier_budget=4, axis=0)
+    om.reset_launch_counts()
+    for M in (3, om.GEMM_FROM_M + 44):
+        x = torch.randn(M, 64, generator=g)
+        for fns, ref, w in (
+                ((om.dequant_matmul_nb, om.dequant_gemv_nb,
+                  om.dequant_gemm_nb), om.dequant_matmul_nb_reference, nb),
+                ((om.dequant_matmul_outlier, om.dequant_gemv_outlier,
+                  om.dequant_gemm_outlier),
+                 om.dequant_matmul_outlier_reference, sb)):
+            for fn in fns:
+                assert torch.equal(fn(x, w), ref(x, w))
+    assert sum(om.launch_counts.values()) == 0
+    x = torch.randn(3, 64, generator=g)
+    with pytest.raises(ValueError, match="one device"):
+        om.dequant_matmul_nb(x, dataclasses.replace(
+            nb, out_byte=nb.out_byte.to("meta")))
+    with pytest.raises(ValueError, match="one device"):
+        om.dequant_matmul_outlier(x.to("meta"), sb)
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     _need_no_cuda()
     env = {**os.environ, "PYTHONPATH": str(REPO)}
