@@ -8,8 +8,10 @@ exits non-zero, printing no result, when no CUDA device is present or when
 the package is missing. Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``) and the device count;
-2. build the five CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
-   (seven kernels);
+2. build the seven CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
+   (the GEMV and GEMM with a decode per transport, the W8A8 GEMV, the block
+   quantizer, the quantized-KV attention, the NB and side-band GEMV and
+   GEMM), one ``nvcc`` each, all at once;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -60,7 +62,30 @@ the package is missing. Phases, each of which raises on failure:
     single-sequence decode; ``outlier_decode_profile`` of the NB arm;
 12. ``outlier_two_layer_logits``: per transport, a 2-layer full-width
     model, 4 x 120-token prompt (a GEMM prefill) and 8 decode steps,
-    through the kernels against the plain versions.
+    through the kernels against the plain versions;
+13. ``int_kernels_vs_plain``: the GEMV (M = 1, 8, 64) and GEMM (M = 128,
+    1024) in every other transport of the TPU kernels at the Llama-3-8B
+    shapes (int4/sb4, int8 and int2 in the int8 container, int2/sb2 at
+    block 16, fp6/pf6, fp4/pf4; the bf16 and fp16 containers and 2-D
+    ``native2d`` int8 codes at some shapes), each against
+    ``dequant_matmul_reference``, timed beside the bound, the plain
+    version and ``torch.matmul`` on the dequantized bf16 weight;
+14. ``int_main_path``: the 32-layer full-width model with every linear
+    packed by ``nn.pack_params`` as int4 (sb4) and as int8 (the int8
+    container), one after the other, with the main path's prefill and
+    decode, exact launch counts, weight bytes, bits per weight and peak
+    memory, each timed interleaved with the MX-FP6 model; ``int_engine``: a
+    dense-slot ``BatchEngine`` over the int4 model, each request
+    token-identical to single-sequence decode;
+15. ``int_two_layer_logits``: per case of phase 13, a 2-layer full-width
+    model, 4 x 120-token prompt and 8 decode steps, through the kernels
+    against the plain versions;
+16. ``sad_s8_vs_plain``: the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
+    shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``,
+    beside the bf16-activation GEMV, ``torch.matmul`` and ``torch._int_mm``;
+17. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
+    weight shape (block 32) and a ragged one (block 16), bit-equal to
+    ``pack_mx(exact_scale=True)``, timed beside the byte bound.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -111,31 +136,34 @@ def log(**rec):
     print(json.dumps(rec), flush=True)
 
 
-def reset_counts() -> None:
+def _wrappers():
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
     from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
-    dm.reset_launch_counts()
-    qa.reset_launch_counts()
-    om.reset_launch_counts()
+    return dm, qa, om, mq
+
+
+def reset_counts() -> None:
+    for mod in _wrappers():
+        mod.reset_launch_counts()
 
 
 def launches() -> dict:
-    """Every kernel wrapper's launch count."""
-    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
-    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
-    from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
-
-    return {**dm.launch_counts, **qa.launch_counts, **om.launch_counts}
+    """Every kernel wrapper's launch count, by kernel and decode."""
+    out = {}
+    for mod in _wrappers():
+        out.update(mod.launch_counts)
+    return out
 
 
 def want_counts(**nonzero) -> dict:
     """A launch-count dict over every kernel wrapper: ``nonzero``, else 0."""
-    names = ("dequant_gemv_emi8", "dequant_matmul_emi8", "quant_attention",
-             "dequant_gemv_nb", "dequant_gemm_nb", "dequant_gemv_outlier",
-             "dequant_gemm_outlier")
-    return {n: nonzero.get(n, 0) for n in names}
+    unknown = set(nonzero) - set(launches())
+    if unknown:
+        raise KeyError(f"no kernel wrapper counts {sorted(unknown)}")
+    return {n: nonzero.get(n, 0) for n in launches()}
 
 
 def card_info():
@@ -188,6 +216,36 @@ def device_ms(fn, n_args: int, calls: int = 16) -> float:
     if total_us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
     return total_us / 1e3 / calls
+
+
+def graph_ms(fn, n_args: int, calls: int = 16, replays: int = 3) -> float:
+    """Device time per call of fn(i), i cycling over n_args operand copies:
+    ``calls`` calls captured in one CUDA graph, so that no host time lies
+    between their kernels, replayed between CUDA events. For a call whose
+    host time exceeds its device time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)                               # warm-up before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i % n_args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
 
 
 def copies_for(nbytes: int) -> int:
@@ -519,8 +577,8 @@ def engine_phase(model, card: str):
                       prompt_buckets=(32, 64, 128), device="cuda")
     dm.reset_launch_counts()
     reqs, news, wall = serve_six(eng, model.cfg.vocab_size)
-    counts = dict(dm.launch_counts)
-    if min(counts.values()) == 0:
+    counts = {k: v for k, v in dm.launch_counts.items() if v}
+    if set(counts) != {"dequant_gemv_emi8", "dequant_matmul_emi8"}:
         raise AssertionError(f"engine did not use both kernels: {counts}")
     agree = total = 0
     first = 0
@@ -1279,25 +1337,552 @@ def outlier_two_layer_phase(card: str):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: MX integer weights and the other transports of the GEMV and GEMM,
+# the W8A8 GEMV, the block quantizer
+# ---------------------------------------------------------------------------
+# kernel-phase cases: (format, transport, block, 2-D codes, linears); every
+# decode of _sad_kernel, the int8 container also as 2-D native2d codes
+INT_CASES = {
+    "int4_sb4": ("int4", "sb4", 32, False, None),
+    "int8_native": ("int8", "native", 32, False, None),
+    "int2_native": ("int2", "native", 32, False, None),
+    "int2_sb2": ("int2", "sb2", 16, False, None),
+    "fp6_pf6": ("fp6_e3m2", "pf6", 32, False, None),
+    "fp4_pf4": ("fp4_e2m1", "pf4", 32, False, None),
+    "bf16_container": ("bfloat16", "native", 32, False, ("qkv", "gate_up")),
+    "fp16_container": ("fp16", "native", 32, False, ("qkv",)),
+    "int8_native2d": ("int8", "native", 32, True, ("qkv", "gate_up")),
+}
+# the 32-layer arms and their cases (the transports pack_params gives them)
+INT_ARMS = {"int4": "int4_sb4", "int8": "int8_native"}
+INT_ARM_BITS = {"int4": 4.25, "int8": 8.25}   # codes + one exponent a block
+# the bfloat16 MX format's shared exponent is floor(log2 amax) - 127: it
+# clamps at -127 for amax < 2, where the kernels' scale floor (2^-126, as the
+# TPU kernels) departs from the twin. Its weights are scaled by BF16_GAIN
+# (amax > 2 in every block) and its models' RMSNorm scales by 1 / BF16_GAIN,
+# so that q, k, v, gate, up and the logits keep their usual size.
+BF16_GAIN = 256.0
+S8_CASES = {"int8_native": ("int8", "native", 32),
+            "int4_sb4": ("int4", "sb4", 16),
+            "int2_sb2": ("int2", "sb2", 16)}
+QUANT_FORMATS = ("fp6_e3m2", "fp4_e2m1", "int8", "int4", "int2")
+QUANT_RAGGED = (4000, 4100)          # the block-16 ragged shape
+
+
+def int_weight(fmt, shape, gen):
+    """N(0, 0.02) bf16 weights as bench.py makes them, times BF16_GAIN for
+    the bfloat16 MX format."""
+    import torch
+
+    std = 0.02 * (BF16_GAIN if fmt == "bfloat16" else 1.0)
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16) * std
+
+
+def int_packed(case, W):
+    """W packed as a kernel-phase case: serving layout, or 2-D codes."""
+    from microscopiq_tpu_torch.ops import packing as pk
+
+    fmt, transport, bs, flat, _ = INT_CASES[case]
+    p = pk.pack_mx(W.float(), 8, fmt, bs, axis=0, transport=transport)
+    return p if flat else pk.to_serving_layout(p)
+
+
+def row_bound(nbytes, M, N, K):
+    """(bound ms, bound_by): bytes over HBM against 2MNK over bf16 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * N * K / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int_kernel_phase(card: str):
+    """The GEMV (M = 1, 8, 64) and GEMM (M = 128, 1024) in every other
+    transport at the Llama-3-8B shapes, each against dequant_matmul_reference,
+    timed beside the bound, the plain version and torch.matmul on the
+    dequantized bf16 weight."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    gen = torch.Generator(device="cuda").manual_seed(4004)
+    rows = []
+    for case, (fmt, transport, bs, flat, lins) in INT_CASES.items():
+        for lin, K, N in SHAPES:
+            if lins is not None and lin not in lins:
+                continue
+            p = int_packed(case, int_weight(fmt, (K, N), gen))
+            decode = dm.sad_decode_params(p)[0]
+            if flat != (p.codes.ndim == 2):
+                raise AssertionError(f"{case}: codes {tuple(p.codes.shape)}")
+            dense = pk.dequantize_mx(p, dtype=torch.bfloat16)
+            nc = copies_for(p.nbytes())
+            ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+            nd = copies_for(dense.numel() * 2)
+            ds = [dense] + [dense.clone() for _ in range(nd - 1)]
+            for kind, Ms, fn, tol in (
+                    ("gemv", GEMV_M, dm.dequant_gemv, GEMV_REL_TOL),
+                    ("matmul", GEMM_M, dm.dequant_gemm, GEMM_REL_TOL)):
+                kname = f"dequant_{kind}_{decode}"
+                for M in Ms:
+                    x = torch.randn((M, K), generator=gen, device="cuda",
+                                    dtype=torch.bfloat16)
+                    dm.reset_launch_counts()
+                    got = fn(x, p, torch.float32)
+                    ref = dm.dequant_matmul_reference(x, p, torch.float32)
+                    torch.cuda.synchronize()
+                    if dm.launch_counts[kname] != 1:
+                        raise AssertionError(f"{case} {lin} M={M} did not "
+                                             f"launch {kname}")
+                    err = (got - ref).abs().max().item()
+                    rel = err / ref.abs().max().item()
+                    if not (np.isfinite(rel) and rel < tol):
+                        raise AssertionError(f"{kname} {case} {lin} M={M}: "
+                                             f"rel err {rel} >= {tol}")
+                    ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
+                    plain_ms = cuda_ms(
+                        lambda i: dm.dequant_matmul_reference(
+                            x, p, torch.float32), 1, target_ms=20.0)
+                    lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
+                    bound, by = row_bound(
+                        p.nbytes() + x.numel() * 2 + M * N * 4, M, N, K)
+                    row = dict(kernel=kname, case=case, format=fmt,
+                               transport=transport, block=bs,
+                               codes_2d=flat, linear=lin, M=M, K=K, N=N,
+                               weight_bytes=p.nbytes(), max_abs_err=err,
+                               rel_err=rel, tol=tol, ms=ms, bound_ms=bound,
+                               bound_by=by, plain_ms=plain_ms,
+                               library_ms=lib_ms, card=card)
+                    rows.append(row)
+                    log(phase="int_kernels_vs_plain", **row)
+                    del x, got, ref
+            del ps, ds, p, dense
+            torch.cuda.empty_cache()
+    return rows
+
+
+def int_tree(case, layers, seed):
+    """Llama-3-8B weights at full width and ``layers`` deep, seeded on the
+    card, every linear (the lm_head included) packed by the port's
+    ``nn.pack_params`` (scale_bits 8, the case's block size, its transport
+    as ``gemm_transport`` where it is not the default) layer by layer, so
+    that one layer's bf16 weights exist at a time; fused projections.
+    2-D cases keep each leaf's codes 2-D; the bfloat16 case scales its
+    RMSNorms (see BF16_GAIN). Returns (config, tree)."""
+    import torch
+
+    from microscopiq_tpu_torch.models.llama import LlamaConfig
+    from microscopiq_tpu_torch.nn import fuse_projections, pack_params
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    fmt, transport, bs, flat, _ = INT_CASES[case]
+    specs = finalize_mx_specs({"w_elem_format": fmt, "scale_bits": 8,
+                               "block_size": bs})
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers,
+                                dtype=torch.bfloat16, fused_projections=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    default = {"int4": "sb4"}.get(fmt, "native")
+    override = None if transport == default else transport
+
+    def pack(sub):
+        out = pack_params(sub, specs, skip=(), gemm_transport=override)
+        if flat:
+            out = _map_packed(out, pk.from_serving_layout)
+        return out
+
+    k = lambda shape: {"kernel": int_weight(fmt, shape, gen)}
+    gain = 1.0 / BF16_GAIN if fmt == "bfloat16" else 1.0
+    ones = lambda: torch.full((D,), gain, dtype=cfg.dtype, device="cuda")
+    model = {"embed_tokens": (torch.randn((V, D), generator=gen,
+                                          device="cuda",
+                                          dtype=torch.bfloat16) * 0.02)}
+    for i in range(layers):
+        model[f"layers_{i}"] = {
+            **pack({"self_attn": {"q_proj": k((D, H * hd)),
+                                  "k_proj": k((D, KVH * hd)),
+                                  "v_proj": k((D, KVH * hd)),
+                                  "o_proj": k((H * hd, D))},
+                    "mlp": {"gate_proj": k((D, I)), "up_proj": k((D, I)),
+                            "down_proj": k((I, D))}}),
+            "input_layernorm": {"scale": ones()},
+            "post_attention_layernorm": {"scale": ones()}}
+    model["norm"] = {"scale": ones()}
+    tree = {"model": model, "lm_head": pack({"lm_head": k((D, V))})["lm_head"]}
+    return cfg, fuse_projections(tree)
+
+
+def _map_packed(tree, fn):
+    from microscopiq_tpu_torch.ops import packing as pk
+
+    if isinstance(tree, dict):
+        return {k: _map_packed(v, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, pk.PackedMX) else tree
+
+
+def int_model(case, layers, seed, use_kernels=True, tree=None):
+    """(model, (config, tree)) of one case; checks what it packed to."""
+    from microscopiq_tpu_torch.models.llama import LlamaForCausalLM
+    from microscopiq_tpu_torch.ops import packing as pk
+
+    cfg, built = int_tree(case, layers, seed) if tree is None else tree
+    model = LlamaForCausalLM(cfg, use_kernels=use_kernels,
+                             device="cuda").load_params(built)
+    fmt, transport, bs, flat, _ = INT_CASES[case]
+    kinds = {(type(m.kernel).__name__, getattr(m.kernel, "transport", None),
+              getattr(m.kernel, "block_size", None),
+              m.kernel.codes.ndim if hasattr(m.kernel, "codes") else None)
+             for m in model.modules() if getattr(m, "kernel", None)
+             is not None}
+    want = {("PackedMX", transport, bs, 2 if flat else 3)}
+    if kinds != want:
+        raise AssertionError(f"{case} packed to {kinds}, want {want}")
+    return model, (cfg, built)
+
+
+def int_main_path(card: str):
+    """The int4 (sb4) and int8 (int8 container) arms at 32 layers and full
+    width, one after the other: the main path's prefill and decode with
+    exact launch counts, weight bytes and bits per weight, peak memory (the
+    arm's model alone on the card); then each arm timed interleaved with the
+    slice-1 MX-FP6 model, built for each window and freed after it. The int4
+    model then serves the engine phase. Returns {arm: counts}."""
+    import torch
+
+    L, B, S0, STEPS = 32, 8, 128, 32
+    max_len = S0 + STEPS + 8
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 128256, (B, S0)), device="cuda")
+    out = {}
+    for arm, case in INT_ARMS.items():
+        fmt, transport = INT_CASES[case][:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = int_model(case, L, seed=40)[0]
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weight_bytes, bpe = weight_stats(model)
+        prefill_decode(model, ids, 2, max_len)                # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        # the main path's run: counts zeroed just before, read just after
+        reset_counts()
+        toks, ttft, dec, last, pre, dcounts, *_ = prefill_decode(
+            model, ids, STEPS, max_len)
+        peak = torch.cuda.max_memory_allocated()
+        want_pre = want_counts(**{f"dequant_matmul_{transport}": 4 * L,
+                                  f"dequant_gemv_{transport}": 1})
+        want_dec = want_counts(**{f"dequant_gemv_{transport}":
+                                  STEPS * (4 * L + 1)})
+        if pre != want_pre or dcounts != want_dec:
+            raise AssertionError(f"{arm} launch counts prefill {pre} (want "
+                                 f"{want_pre}), decode {dcounts} (want "
+                                 f"{want_dec})")
+        if not torch.isfinite(last.float()).all():
+            raise AssertionError(f"non-finite logits on the {arm} arm")
+        if not ((toks >= 0) & (toks < model.cfg.vocab_size)).all():
+            raise AssertionError(f"token ids out of range on the {arm} arm")
+        del toks, last
+        mxfp6 = build(True)[0]
+        prefill_decode(mxfp6, ids, 2, max_len)
+        best = {arm: (ttft, dec), "mxfp6": (9e9, 9e9)}
+        for _ in range(3):
+            for tag in ("mxfp6", arm):
+                m = mxfp6 if tag == "mxfp6" else model
+                _, t, d, *_ = prefill_decode(m, ids, STEPS, max_len)
+                best[tag] = (min(best[tag][0], t), min(best[tag][1], d))
+        del mxfp6, m             # m holds a model: free both before the next
+        torch.cuda.empty_cache()
+        ms = {k: v[1] / STEPS * 1e3 for k, v in best.items()}
+        log(phase="int_main_path", arm=arm, format=fmt, transport=transport,
+            layers=L, batch=B, prompt=S0, steps=STEPS,
+            decode_tokens_per_s=B * STEPS / best[arm][1],
+            decode_ms_per_step=ms[arm], ttft_ms=best[arm][0] * 1e3,
+            mxfp6_decode_ms_per_step=ms["mxfp6"],
+            mxfp6_ttft_ms=best["mxfp6"][0] * 1e3,
+            vs_mxfp6_decode=ms["mxfp6"] / ms[arm],
+            weight_bytes=weight_bytes, weight_gb=weight_bytes / 1e9,
+            bits_per_element=bpe, peak_mem_gb=peak / 1e9, build_s=build_s,
+            launches_prefill=pre, launches_decode=dcounts, card=card)
+        out[arm] = {"prefill": pre, "decode": dcounts}
+        if abs(bpe - INT_ARM_BITS[arm]) > 1e-9:
+            raise AssertionError(f"{arm} arm at {bpe} bits per weight, want "
+                                 f"{INT_ARM_BITS[arm]}")
+        if arm == "int4":
+            int_engine_phase(model, card)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def int_engine_phase(model, card: str):
+    """A dense-slot BatchEngine over the 32-layer int4 model answers the six
+    requests (the 100- and 120-token prompts pad to the 128 bucket: the
+    GEMM); each is held token for token to single-sequence generate."""
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.serve.engine import BatchEngine
+
+    eng = BatchEngine(model, n_slots=4, max_len=256,
+                      prompt_buckets=(32, 64, 128), device="cuda")
+    reset_counts()
+    reqs, news, wall = serve_six(eng, model.cfg.vocab_size)
+    counts = launches()
+    used = {k for k, v in counts.items() if v}
+    if used != {"dequant_gemv_sb4", "dequant_matmul_sb4"}:
+        raise AssertionError(f"int4 engine launches {counts}")
+    total = 0
+    for r, t in zip(reqs, news):
+        ref = generate(model, [r.prompt_ids.tolist()], t)[0].tolist()
+        if r.out_tokens != ref:
+            raise AssertionError(f"int4 engine, request of "
+                                 f"{len(r.prompt_ids)} tokens: "
+                                 f"{r.out_tokens} vs single-sequence {ref}")
+        total += t
+    log(phase="int_engine", requests=len(reqs), tokens=total, wall_s=wall,
+        tokens_per_s=total / wall,
+        launches={k: counts[k] for k in sorted(used)},
+        identical_to_single_sequence=len(reqs), card=card)
+    del eng
+
+
+def int_two_layer_phase(card: str):
+    """For each case, a 2-layer full-width model through the kernels
+    against the same model through the plain twin, on the same token
+    stream: B = 4 x 120-token prompt (480 tokens: the GEMM) and 8 decode
+    steps (the GEMV). The kernel run is also these decodes' model path:
+    its launch counts are returned by case."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    B, S0, STEPS, max_len = 4, 120, 8, 192
+    ids = torch.as_tensor(np.random.default_rng(6).integers(
+        0, 128256, (B, S0)), device="cuda")
+    out = {}
+    for case in INT_CASES:
+        two_k, tree = int_model(case, 2, seed=41)
+        two_p, _ = int_model(case, 2, seed=41, use_kernels=False, tree=tree)
+        toks, *_, first = prefill_decode(two_k, ids, STEPS, max_len)
+        feed = torch.cat([torch.argmax(first[0][:, -1], -1)[:, None],
+                          toks[:, :-1]], 1)
+        reset_counts()
+        got = prefill_decode(two_k, ids, STEPS, max_len, feed=feed)[7]
+        counts = launches()
+        want = prefill_decode(two_p, ids, STEPS, max_len, feed=feed)[7]
+        d = dm.sad_decode_params(two_k.lm_head.kernel)[0]
+        wc = want_counts(**{f"dequant_matmul_{d}": 2 * 4,
+                            f"dequant_gemv_{d}": 1 + (2 * 4 + 1) * STEPS})
+        if counts != wc:
+            raise AssertionError(f"2-layer {case} launches {counts}, want "
+                                 f"{wc}")
+        errs = []
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            errs.append(((a - b).abs().max() / b.abs().max()).item())
+        log(phase="int_two_layer_logits", case=case, rel_err_per_call=errs,
+            max_rel_err=max(errs), tol=LOGIT_REL_TOL,
+            launches={k: v for k, v in counts.items() if v}, card=card)
+        if not all(np.isfinite(e) and e < LOGIT_REL_TOL for e in errs):
+            raise AssertionError(f"2-layer {case} logits: rel err {errs}")
+        out[case] = {k: v for k, v in counts.items() if v}
+        del two_k, two_p, tree, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def s8_phase(card: str):
+    """The W8A8 GEMV against dequant_matmul_sad_s8_reference at every
+    Llama-3-8B shape and M = 1, 8, 64, beside the bf16-activation GEMV on
+    the same weight, torch.matmul on the dequantized bf16 weight and, where
+    it takes the shape (M > 16), torch._int_mm on int8 operands of the same
+    shape. The W8A8 and bf16 GEMV times are device times (``graph_ms``:
+    activation quantization, kernel and reduce); ``wrapper_ms`` is the W8A8
+    call's CUDA-event time. Then the entry point's own run: one call per
+    shape at M = 8, a decode step's linears and the lm_head. Returns (rows,
+    launches)."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    gen = torch.Generator(device="cuda").manual_seed(4008)
+    rows, weights = [], {}
+    for case, (fmt, transport, bs) in S8_CASES.items():
+        kname = f"dequant_gemv_s8_{transport}"
+        for lin, K, N in SHAPES:
+            W = int_weight(fmt, (K, N), gen)
+            p = pk.to_serving_layout(pk.pack_mx(W.float(), 8, fmt, bs,
+                                                axis=0, transport=transport))
+            del W
+            dense = pk.dequantize_mx(p, dtype=torch.bfloat16)
+            nc = copies_for(p.nbytes())
+            ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+            nd = copies_for(dense.numel() * 2)
+            ds = [dense] + [dense.clone() for _ in range(nd - 1)]
+            wi8 = [torch.randint(-127, 128, (K, N), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+                   for _ in range(copies_for(K * N))]
+            for M in GEMV_M:
+                x = torch.randn((M, K), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                dm.reset_launch_counts()
+                got = dm.dequant_matmul_sad_s8(x, p)
+                ref = dm.dequant_matmul_sad_s8_reference(x, p)
+                torch.cuda.synchronize()
+                if dm.launch_counts[kname] != 1:
+                    raise AssertionError(f"{case} {lin} M={M}: no {kname}")
+                err = (got - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+                    raise AssertionError(f"{kname} {lin} M={M}: rel err "
+                                         f"{rel}")
+                # device times: the wrapper's seven PyTorch launches that
+                # quantize x take more host time than the kernel runs
+                s8 = lambda i: dm.dequant_matmul_sad_s8(x, ps[i])
+                ms = graph_ms(s8, nc)
+                wrapper_ms = cuda_ms(s8, nc)
+                bf16_ms = graph_ms(lambda i: dm.dequant_gemv(x, ps[i]), nc)
+                plain_ms = cuda_ms(
+                    lambda i: dm.dequant_matmul_sad_s8_reference(x, p), 1,
+                    target_ms=20.0)
+                lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
+                xi = torch.randint(-127, 128, (M, K), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                int_mm_ms = (cuda_ms(lambda i: torch._int_mm(
+                    xi, wi8[i % len(wi8)]), len(wi8))
+                    if M > 16 and K % 8 == 0 and N % 8 == 0 else None)
+                bound, by = row_bound(p.nbytes() + M * K + M * 4 + M * N * 4,
+                                      M, N, K)
+                row = dict(kernel=kname, case=case, format=fmt,
+                           transport=transport, block=bs, linear=lin, M=M,
+                           K=K, N=N, max_abs_err=err, rel_err=rel,
+                           tol=GEMV_REL_TOL, ms=ms, wrapper_ms=wrapper_ms,
+                           bf16_gemv_ms=bf16_ms,
+                           bound_ms=bound, bound_by=by, plain_ms=plain_ms,
+                           library_ms=lib_ms, int_mm_ms=int_mm_ms, card=card)
+                rows.append(row)
+                log(phase="sad_s8_vs_plain", **row)
+                del x, xi, got, ref
+            weights[(case, lin)] = p
+            del ps, ds, dense, wi8
+            torch.cuda.empty_cache()
+    # the entry point's run: counts zeroed just before, read just after
+    x8 = {K: torch.randn((8, K), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _, K, _ in SHAPES}
+    reset_counts()
+    for (case, lin), p in weights.items():
+        dm.dequant_matmul_sad_s8(x8[p.orig_dim], p, torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    want = {f"dequant_gemv_s8_{t}": len(SHAPES) for _, t, _ in
+            S8_CASES.values()}
+    if counts != want:
+        raise AssertionError(f"W8A8 entry point launches {counts}")
+    del weights
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def quant_phase(card: str):
+    """The MX block quantizer against its plain version (pack_mx with the
+    exact scale) on every Llama-3-8B weight shape at block 32 and one
+    ragged shape at block 16, in each format: codes and exponents must be
+    bit-equal. Timed beside the byte bound (f32 in, codes and exponents
+    out) and the plain version; no single PyTorch call computes it. Then
+    the entry point's own run: each weight of a layer and the lm_head
+    quantized once in MX-FP6. Returns (rows, launches)."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
+
+    gen = torch.Generator(device="cuda").manual_seed(4016)
+    shapes = [(lin, K, N, 32) for lin, K, N in SHAPES] + [
+        ("ragged",) + QUANT_RAGGED + (16,)]
+    raw = lambda t: t.view(torch.uint8)
+    rows = []
+    for lin, K, N, bs in shapes:
+        W = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        W[::97] *= 30.0                   # spread the block exponents
+        nc = copies_for(W.numel() * 4)
+        Ws = [W] + [W.clone() for _ in range(nc - 1)]
+        for fmt in QUANT_FORMATS:
+            mq.reset_launch_counts()
+            got = mq.quantize_mx_block(W, 8, fmt, bs)
+            want = mq.quantize_mx_reference(W, 8, fmt, bs)
+            torch.cuda.synchronize()
+            if mq.launch_counts["quantize_mx"] != 1:
+                raise AssertionError(f"quantize_mx {lin} {fmt}: no launch")
+            same_codes = bool(torch.equal(raw(got.codes), raw(want.codes)))
+            same_se = bool(torch.equal(got.scale_exp, want.scale_exp))
+            mism = int((raw(got.codes) != raw(want.codes)).sum().item())
+            del want
+            if not (same_codes and same_se):
+                raise AssertionError(f"quantize_mx {lin} {fmt} block {bs}: "
+                                     f"{mism} codes differ, exponents "
+                                     f"equal: {same_se}")
+            ms = cuda_ms(lambda i: mq.quantize_mx_block(Ws[i], 8, fmt, bs),
+                         nc)
+            plain_ms = cuda_ms(lambda i: mq.quantize_mx_reference(
+                W, 8, fmt, bs), 1, target_ms=20.0)
+            nbytes = (W.numel() * 4 + got.codes.numel()
+                      + got.scale_exp.numel())
+            row = dict(kernel="quantize_mx", format=fmt, block=bs,
+                       linear=lin, K=K, N=N, max_abs_err=0.0,
+                       bit_exact=True, ms=ms,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", plain_ms=plain_ms,
+                       library_ms=None, card=card)
+            rows.append(row)
+            log(phase="mx_quant_vs_plain", **row)
+            del got
+        del Ws, W
+        torch.cuda.empty_cache()
+    # the entry point's run: counts zeroed just before, read just after
+    layer = [torch.randn((K, N), generator=gen, device="cuda") * 0.02
+             for _, K, N in SHAPES]
+    reset_counts()
+    for W in layer:
+        mq.quantize_mx_block(W, 8, "fp6_e3m2", 32)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    if counts != {"quantize_mx": len(SHAPES)}:
+        raise AssertionError(f"quantizer entry point launches {counts}")
+    del layer
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
 def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
                               "plain_ms", "library_ms", "max_abs_err",
                               "rel_err")):
     return [{k: r[k] for k in keys} for r in rows]
 
 
-def kernels_line(rows, counts, qrows, qcounts, orows, ocounts):
-    """One record per kernel, at its heaviest main-path call (gate_up:
-    M = 8 for the GEMVs, M = 1024 for the GEMMs; B = 4 x 3136 live tokens
-    for the quantized-KV attention), with every shape kept. ``launches`` is
-    the kernel's count over the main paths that run it, split by path in
-    ``launches_by_path``. The emi8 GEMV and GEMM run on three paths: their
-    timed numbers and ``shapes`` are MX-FP6 emi8 at block 32,
-    ``shapes_emi8m_block16`` the emi8m stream."""
-    paths = {"mxfp6": counts, "quant_kv": qcounts, **ocounts}
+def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
+                 icounts, tcounts, srows, scounts, mrows, mcounts):
+    """One record per kernel (and per decode of the GEMV and GEMM), at its
+    heaviest main-path call (gate_up: M = 8 for the GEMVs, M = 1024 for the
+    GEMMs; B = 4 x 3136 live tokens for the quantized-KV attention), with
+    every shape kept. ``launches`` is the kernel's count over the paths
+    that run it, split by path in ``launches_by_path``: the 32-layer main
+    paths; for the decodes that no 32-layer arm packs (sb2, pf4, pf6, the
+    16-bit containers, int2 in the int8 container), the 2-layer
+    full-width model runs (``two_layer_<case>``); for the W8A8 GEMV and the
+    quantizer, which no model path calls, their entry point's own run. The
+    emi8 GEMV and GEMM run on three paths: their timed numbers and
+    ``shapes`` are MX-FP6 emi8 at block 32, ``shapes_emi8m_block16`` the
+    emi8m stream."""
+    paths = {"mxfp6": counts, "quant_kv": qcounts, **ocounts, **icounts}
+    flat = {**{f"two_layer_{c}": n for c, n in tcounts.items()},
+            "w8a8_entry_point": scounts, "quantizer_entry_point": mcounts}
 
     def by_path(name):
         got = {p: c["prefill"][name] + c["decode"][name]
                for p, c in paths.items()}
+        got.update({p: c.get(name, 0) for p, c in flat.items()})
         return {p: n for p, n in got.items() if n}
 
     meta = (
@@ -1351,6 +1936,81 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts):
                                       "library_ms", "max_abs_err",
                                       "rel_err")}
                    for r in timed]})
+
+    short = ("case", "linear", "M", "ms", "bound_ms", "plain_ms",
+             "library_ms", "rel_err")
+    # (decode, the case timed in the record, the linear it is timed at)
+    timed_case = {"sb4": ("int4_sb4", "gate_up"),
+                  "native": ("int8_native", "gate_up"),
+                  "sb2": ("int2_sb2", "gate_up"), "pf4": ("fp4_pf4", "gate_up"),
+                  "pf6": ("fp6_pf6", "gate_up"),
+                  "bf16": ("bf16_container", "gate_up"),
+                  "fp16": ("fp16_container", "qkv")}
+    for kind, src, line, m_at in (("gemv", "dequant_gemv.cu", 162, 8),
+                                  ("matmul", "dequant_matmul.cu", 71, 1024)):
+        for decode, (case, lin) in timed_case.items():
+            name = f"dequant_{kind}_{decode}"
+            mine = [r for r in irows if r["kernel"] == name]
+            at = next(r for r in mine if r["case"] == case
+                      and r["linear"] == lin and r["M"] == m_at)
+            launches = by_path(name)
+            fmt = INT_CASES[case]
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"microscopiq_tpu_torch/ops/cuda/csrc/{src}",
+                "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:"
+                            + str(80 if case.endswith("2d") else line),
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": at["ms"], "plain_ms": at["plain_ms"],
+                "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+                "library_ms": at["library_ms"],
+                "at": f"{lin} (K={at['K']}, N={at['N']}) M={m_at}, "
+                      f"{fmt[0]} {fmt[1]} block {fmt[2]}",
+                "shapes": [[r[k] for k in short] for r in mine],
+                "shape_keys": list(short)})
+    for transport in ("native", "sb4", "sb2"):
+        name = f"dequant_gemv_s8_{transport}"
+        mine = [r for r in srows if r["kernel"] == name]
+        at = next(r for r in mine if r["linear"] == "gate_up" and r["M"] == 8)
+        launches = by_path(name)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "microscopiq_tpu_torch/ops/cuda/csrc/dequant_gemv_s8.cu",
+            "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:267",
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": f"gate_up (4096, 28672) M=8, {at['format']} {transport} "
+                  f"block {at['block']}; ms: device time of the call "
+                  "(activation quantization, kernel, reduce); library: "
+                  "torch.matmul on bf16",
+            "shapes": [[r[k] for k in short[1:] + ("wrapper_ms",
+                                                   "bf16_gemv_ms",
+                                                   "int_mm_ms")]
+                       for r in mine],
+            "shape_keys": list(short[1:] + ("wrapper_ms", "bf16_gemv_ms",
+                                            "int_mm_ms"))})
+    at = next(r for r in mrows if r["linear"] == "gate_up"
+              and r["format"] == "fp6_e3m2")
+    launches = by_path("quantize_mx")
+    qkeys = ("format", "block", "linear", "K", "N", "ms", "bound_ms",
+             "plain_ms")
+    out.append({
+        "name": "quantize_mx", "route": "cuda",
+        "source": "microscopiq_tpu_torch/ops/cuda/csrc/mx_quant.cu",
+        "replaces": "microscopiq_tpu/ops/pallas/mx_quant.py:51",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": 0.0, "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": None,
+        "at": "gate_up (4096, 28672) f32, fp6_e3m2 block 32; bit-exact in "
+              "every format and shape; no single PyTorch call computes it",
+        "shapes": [[r[k] for k in qkeys] for r in mrows],
+        "shape_keys": list(qkeys)})
     return {"kernels": out}
 
 
@@ -1388,8 +2048,15 @@ def main() -> int:
     ocounts = outlier_main_path(card)
     outlier_two_layer_phase(card)
 
+    irows = int_kernel_phase(card)
+    icounts = int_main_path(card)
+    tcounts = int_two_layer_phase(card)
+    srows, scounts = s8_phase(card)
+    mrows, mcounts = quant_phase(card)
+
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
-                                  ocounts)), flush=True)
+                                  ocounts, irows, icounts, tcounts, srows,
+                                  scounts, mrows, mcounts)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

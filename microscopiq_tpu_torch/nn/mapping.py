@@ -51,7 +51,7 @@ def find_linear_params(params, skip: Sequence[str] = ("lm_head",)
 
 def pack_params(params, mx_specs, skip: Sequence[str] = ("lm_head",),
                 outlier_budget: int = 0, outlier_transport: str = "emi8m",
-                decisions: dict = None):
+                decisions: dict = None, gemm_transport: str = None):
     """Pack every linear kernel, (in, out) = (K, N) blocked on axis 0, into
     the form its kernel serves; returns a new tree.
 
@@ -63,10 +63,10 @@ def pack_params(params, mx_specs, skip: Sequence[str] = ("lm_head",),
       values fit it; else the side-band :class:`PackedMXOutlier`, merged into
       one emi8m stream where that is exact (transports "emi8m", "compact"),
       kept as it is otherwise or for ``outlier_transport="sideband"``;
-    - else ``pack_mx`` in the GEMM transport (emi8 for fp4/fp6, sb4 for
-      int4, native otherwise), pre-blocked. The JAX ``gemm_transport``
-      override is not ported: only emi8 and emi8m have CUDA kernels yet
-      (ROADMAP queue 2 item 1).
+    - else ``pack_mx`` in ``gemm_transport`` where given (e.g. "sb2" for
+      int2, "pf4"/"pf6" for fp4/fp6), else the default GEMM transport
+      (emi8 for fp4/fp6, sb4 for int4, the native container otherwise),
+      pre-blocked.
     """
     targets = set(find_linear_params(params, skip).keys())
     decisions = decisions or {}
@@ -103,9 +103,9 @@ def pack_params(params, mx_specs, skip: Sequence[str] = ("lm_head",),
                 except ValueError:
                     return p
             return p
-        transport = ("emi8" if fmt in ("fp4", "fp4_e2m1", "fp6_e3m2",
-                                       "fp6_e2m3")
-                     else "sb4" if fmt == "int4" else "native")
+        transport = gemm_transport or (
+            "emi8" if fmt in ("fp4", "fp4_e2m1", "fp6_e3m2", "fp6_e2m3")
+            else "sb4" if fmt == "int4" else "native")
         return packing.to_serving_layout(pack_mx(leaf, sb, fmt, bs, axis=0,
                                                  transport=transport))
 

@@ -1,16 +1,22 @@
-"""y = x @ dequant(w) for packed MX weights: the two CUDA kernels of the
-serving path, their wrappers and their plain PyTorch twin.
+"""y = x @ dequant(w) for packed MX weights: the CUDA kernels of the serving
+path, their wrappers and their plain PyTorch twins.
 
 Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
-(``dequant_matmul_sad``, ``dequant_matmul``, ``dequant_matmul_reference``),
+(``dequant_matmul_sad``, ``dequant_matmul``, ``dequant_matmul_reference``,
+``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
-the kernel (``csrc/dequant_matmul.cu``).
+the kernel (``csrc/dequant_matmul.cu``). Both take every transport that the
+TPU kernels decode: emi8 and emi8m, the int8 container (pre-blocked or 2-D,
+which reaches the serving layout by a view), sb4, sb2, pf4, pf6 and the
+bf16/fp16 containers. Where the JAX package sends sb4/sb2/pf4/pf6/bf16/fp16
+at M > 64 to XLA's dequantize-then-dot, the port's GEMM decodes them too.
+The W8A8 GEMV (``csrc/dequant_gemv_s8.cu``) takes int8 activations against
+the int transports (int8 container, sb4, sb2).
 
 Tensors on the CPU go to the plain version. Tensors on a CUDA device go to a
-kernel or raise: there is no silent fallback. The ``emi8`` and ``emi8m``
-transports have kernels; the others raise on CUDA (ROADMAP queue 2 items
-1-2).
+kernel or raise: there is no silent fallback. The float8 containers raise
+on CUDA: the JAX package serves them only through XLA (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from ...formats import get_format_params
 from .. import packing as pk
 from . import build
 
@@ -28,9 +35,18 @@ GEMV_TILE_N = 512                 # kThreads * kCols in dequant_gemv.cu
 _GEMV_TARGET_BLOCKS = 8 * 132     # ~8 blocks per SM of an H100
 _GEMV_MIN_BLOCKS_PER_SPLIT = 4    # keeps the f32 partials << the codes
 
-# launches per kernel wrapper, for showing that a run went through the
+# decode name -> mxq::Decode id of csrc/common.cuh; the names key the launch
+# counts ("emi8" serves emi8 and emi8m, "native" the int8 container)
+_DECODES = {"emi8": 0, "native": 1, "sb4": 2, "sb2": 3, "pf4": 4, "pf6": 5,
+            "bf16": 6, "fp16": 7}
+_S8_DECODES = ("native", "sb4", "sb2")
+_CODE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+# launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them after
-launch_counts = {"dequant_gemv_emi8": 0, "dequant_matmul_emi8": 0}
+launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
+                 **{f"dequant_matmul_{d}": 0 for d in _DECODES},
+                 **{f"dequant_gemv_s8_{d}": 0 for d in _S8_DECODES}}
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
@@ -43,10 +59,12 @@ def reset_launch_counts() -> None:
 
 # C entry points: (source in csrc/, argument types), pointers (and the
 # stream) as c_void_p, ints as c_int
-_ENTRIES = {"dequant_gemv_emi8": ("dequant_gemv", [_ptr] * 5 + [_int] * 9
-                                  + [_ptr]),
-            "dequant_matmul_emi8": ("dequant_matmul", [_ptr] * 4 + [_int] * 8
-                                    + [_ptr])}
+_ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 11
+                             + [_ptr]),
+            "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 10
+                               + [_ptr]),
+            "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 9
+                                + [_ptr])}
 
 
 def _kernel(name: str):
@@ -64,18 +82,42 @@ def dequant_matmul_reference(x: torch.Tensor, w: pk.PackedMX,
     return y.to(out_dtype)
 
 
-def emi8_decode_params(w: pk.PackedMX) -> Tuple[int, int]:
-    """(mw, fold) of the in-kernel emi8 decode: the format's for emi8, the
-    tensor's own field split for the merged-outlier emi8m stream (as the
-    TPU wrapper's ``_sad_fold``); other transports raise."""
-    if w.transport == "emi8":
+def scale_fold(fmt: str) -> int:
+    """Extra exponent shift of the int formats' codes (code = value ·
+    2^(mbits-2)), folded into the scale: 6 for int8, 2 for int4, 0 for int2
+    (the TPU wrapper's ``_scale_fold``)."""
+    if fmt in ("int8", "int4", "int2"):
+        return get_format_params(fmt).mbits - 2
+    return 0
+
+
+def sad_decode_params(w: pk.PackedMX) -> Tuple[str, int, int, int]:
+    """(decode, fold, mw, ebits) of the in-kernel decode, as the TPU
+    wrapper's ``_sad_fold``: emi8 with the format's field split, emi8m with
+    the tensor's own, sb4/sb2 and the int8 container with the int fold,
+    pf4/pf6 with the format's stored mantissa bits and exponent bits, the
+    bf16/fp16 containers as they are. Float8 containers raise."""
+    t = w.transport
+    if t == "emi8":
         mw, _, _ = pk.emi8_params(w.elem_format)
-        return mw, pk.emi8_fold(w.elem_format)
-    if w.transport == "emi8m":
-        return w.transport_mw, w.transport_fold
+        return "emi8", pk.emi8_fold(w.elem_format), mw, 0
+    if t == "emi8m":
+        return "emi8", w.transport_fold, w.transport_mw, 0
+    if t in ("sb4", "sb2"):
+        return t, scale_fold(w.elem_format), 0, 0
+    if t in ("pf4", "pf6"):
+        ebits, mbits, _, _, _ = get_format_params(w.elem_format)
+        return t, pk.emi8_fold(w.elem_format), mbits - 2, ebits
+    if t != "native":
+        raise ValueError(f"unknown transport {t!r}")
+    if w.codes.dtype == torch.int8:
+        return "native", scale_fold(w.elem_format), 0, 0
+    for name, dt in _CODE_DTYPES.items():
+        if w.codes.dtype == dt:
+            return name, 0, 0, 0
     raise NotImplementedError(
-        f"transport {w.transport!r} has no CUDA kernel yet "
-        "(ROADMAP queue 2 items 1-2)")
+        f"{w.codes.dtype} codes have no CUDA kernel: the JAX package serves "
+        "float8 containers only through XLA (ROADMAP queue 2)")
 
 
 def gemv_ksplit(N: int, NB: int) -> Tuple[int, int]:
@@ -91,29 +133,36 @@ def gemv_ksplit(N: int, NB: int) -> Tuple[int, int]:
 
 
 def _operands(x: torch.Tensor, w: pk.PackedMX, out_dtype):
-    """Checked (x2 bf16 (M, K), serving-layout weight, mw, fold)."""
-    mw, fold = emi8_decode_params(w)
+    """Checked (x (M, K), serving-layout weight, decode, fold, mw, ebits);
+    x is not yet cast."""
+    decode, fold, mw, ebits = sad_decode_params(w)
     if w.axis != 0:
         raise ValueError("the kernels take (K, N) weights blocked on axis 0")
-    ww = pk.to_serving_layout(w)
+    ww = pk.to_serving_layout(w)          # a view for 2-D (K, N) codes
     if not (x.is_cuda and ww.codes.device == x.device
             and ww.scale_exp.device == x.device):
         raise ValueError("x and the packed weight must be on one CUDA device")
-    if ww.codes.dtype != torch.int8 or ww.scale_exp.dtype != torch.int8:
-        raise ValueError("emi8 codes and exponents must be int8")
+    want = _CODE_DTYPES.get(decode, torch.int8)
+    if ww.codes.dtype != want or ww.scale_exp.dtype != torch.int8:
+        raise ValueError(f"{decode} codes must be {want} and exponents int8, "
+                         f"got {ww.codes.dtype}, {ww.scale_exp.dtype}")
     if not (ww.codes.is_contiguous() and ww.scale_exp.is_contiguous()):
         raise ValueError("packed weight must be contiguous")
-    NB, B, N = ww.codes.shape
-    if ww.scale_exp.shape != (NB, N) or ww.block_size != B:
-        raise ValueError(f"scale_exp {tuple(ww.scale_exp.shape)} does not "
-                         f"match codes {tuple(ww.codes.shape)}")
+    if ww.codes.data_ptr() % 16 or ww.scale_exp.data_ptr() % 16:
+        raise ValueError("packed weight must be 16-byte aligned")
+    NB, rows, N = ww.codes.shape
+    B = ww.block_size
+    if (ww.scale_exp.shape != (NB, N)
+            or rows != pk.transport_rows_per_block(w.transport, B)):
+        raise ValueError(f"scale_exp {tuple(ww.scale_exp.shape)} and codes "
+                         f"{tuple(ww.codes.shape)} do not match a "
+                         f"{w.transport} weight of block {B}")
     K = x.shape[-1]
     if K != w.orig_dim or K > NB * B:
         raise ValueError(f"x has K={K}, weight has K={w.orig_dim}")
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
-    x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
-    return x2, ww, mw, fold
+    return x.reshape(-1, K), ww, decode, fold, mw, ebits
 
 
 def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
@@ -122,43 +171,46 @@ def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
     TPU kernel does."""
     if x.device.type == "cpu":
         return dequant_matmul_reference(x, w, out_dtype)
-    x2, ww, mw, fold = _operands(x, w, out_dtype)
+    x2, ww, decode, fold, mw, ebits = _operands(x, w, out_dtype)
+    x2 = x2.to(torch.bfloat16).contiguous()
     M, K = x2.shape
     if not 0 < M <= GEMV_MAX_M:
         raise ValueError(f"GEMV takes 1..{GEMV_MAX_M} rows, got {M}")
-    NB, B, N = ww.codes.shape
+    NB, _, N = ww.codes.shape
     ksplit, _ = gemv_ksplit(N, NB)
     ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    err = _kernel("dequant_gemv_emi8")(
+    err = _kernel("dequant_gemv")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), M, K, N, NB, B, mw, fold, ksplit,
+        ws.data_ptr(), out.data_ptr(), M, K, N, NB, ww.block_size,
+        _DECODES[decode], mw, ebits, fold, ksplit,
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "dequant_gemv_emi8")
-    launch_counts["dequant_gemv_emi8"] += 1
+    build.check(err, f"dequant_gemv_{decode}")
+    launch_counts[f"dequant_gemv_{decode}"] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
 
 def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
                  out_dtype=torch.float32) -> torch.Tensor:
-    """Tiled GEMM with the emi8 decode inside the kernel (any M; the
+    """Tiled GEMM with the transport's decode inside the kernel (any M; the
     dispatch sends it M > 64)."""
     if x.device.type == "cpu":
         return dequant_matmul_reference(x, w, out_dtype)
-    x2, ww, mw, fold = _operands(x, w, out_dtype)
+    x2, ww, decode, fold, mw, ebits = _operands(x, w, out_dtype)
+    x2 = x2.to(torch.bfloat16).contiguous()
     M, K = x2.shape
-    NB, B, N = ww.codes.shape
+    NB, _, N = ww.codes.shape
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    err = _kernel("dequant_matmul_emi8")(
+    err = _kernel("dequant_matmul")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
-        out.data_ptr(), M, K, N, NB * B, B, mw, fold,
-        int(out_dtype == torch.bfloat16),
+        out.data_ptr(), M, K, N, NB * ww.block_size, ww.block_size,
+        _DECODES[decode], mw, ebits, fold, int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "dequant_matmul_emi8")
-    launch_counts["dequant_matmul_emi8"] += 1
+    build.check(err, f"dequant_matmul_{decode}")
+    launch_counts[f"dequant_matmul_{decode}"] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
 
@@ -171,3 +223,79 @@ def dequant_matmul(x: torch.Tensor, w: pk.PackedMX,
     if 0 < M <= GEMV_MAX_M:
         return dequant_gemv(x, w, out_dtype)
     return dequant_gemm(x, w, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# W8A8: per-token int8 activations against integer weight codes
+# ---------------------------------------------------------------------------
+def quantize_activations_int8(x: torch.Tensor):
+    """Per-token symmetric int8 quantization: (codes, scale), x: (..., K)
+    -> int8 codes of x's shape and an f32 scale (..., 1). Divides by
+    amax / 127 and rounds half to even, bit for bit as the JAX function."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _s8_check(w: pk.PackedMX) -> Tuple[str, int]:
+    """(decode, fold) of a weight the W8A8 path takes, else ValueError."""
+    if w.axis != 0:
+        raise ValueError("the W8A8 path takes (K, N) weights blocked on "
+                         "axis 0")
+    if w.elem_format not in ("int8", "int4", "int2"):
+        raise ValueError("the W8A8 path needs integer weight codes, got "
+                         f"{w.elem_format}")
+    decode, fold, _, _ = sad_decode_params(w)
+    if decode not in _S8_DECODES:
+        raise ValueError(f"the W8A8 path takes the int8 container, sb4 and "
+                         f"sb2, got {w.transport} with {w.codes.dtype} codes")
+    return decode, fold
+
+
+def dequant_matmul_sad_s8_reference(x: torch.Tensor, w: pk.PackedMX,
+                                    out_dtype=torch.float32) -> torch.Tensor:
+    """Plain twin of the W8A8 kernel: the same per-token int8 activation
+    grid, float32 math."""
+    x2 = x.reshape(-1, x.shape[-1])
+    xq, xscale = quantize_activations_int8(x2)
+    dense = pk.dequantize_mx(w, dtype=torch.float32)
+    y = torch.matmul(xq.to(torch.float32), dense) * xscale
+    return y.to(out_dtype).reshape(x.shape[:-1] + (dense.shape[1],))
+
+
+def dequant_matmul_sad_s8(x: torch.Tensor, w: pk.PackedMX,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """y ≈ x @ dequant(w) with int8 activations (the W8A8 decode path):
+    integer-exact given the quantized operands, whose only approximation is
+    the per-token int8 activation grid. Int-format weights in the int8
+    container, sb4 or sb2. On a CUDA device the activations are quantized by
+    the same PyTorch operations as on the CPU (the TPU wrapper runs them in
+    XLA, outside its kernel), then the kernel runs."""
+    decode, fold = _s8_check(w)
+    if x.device.type == "cpu":
+        return dequant_matmul_sad_s8_reference(x, w, out_dtype)
+    x2, ww, _, _, _, _ = _operands(x, w, out_dtype)
+    rows = ww.codes.shape[1]
+    if rows % 4:
+        raise ValueError(f"the W8A8 kernel reads 4 packed rows at a time; "
+                         f"block {ww.block_size} gives {rows}")
+    M, K = x2.shape
+    NB, _, N = ww.codes.shape
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out.reshape(x.shape[:-1] + (N,))
+    xq, xscale = quantize_activations_int8(x2)
+    xq, xscale = xq.contiguous(), xscale.reshape(M).contiguous()
+    ksplit, _ = gemv_ksplit(N, NB)
+    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+    err = _kernel("dequant_gemv_s8")(
+        xq.data_ptr(), xscale.data_ptr(), ww.codes.data_ptr(),
+        ww.scale_exp.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, NB,
+        ww.block_size, _DECODES[decode], fold, ksplit,
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"dequant_gemv_s8_{decode}")
+    launch_counts[f"dequant_gemv_s8_{decode}"] += 1
+    return out.reshape(x.shape[:-1] + (N,))

@@ -26,11 +26,11 @@ from typing import Tuple
 
 import torch
 
-from ...formats import get_format_params
 from .. import packing as pk
 from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
 from .dequant_matmul import gemv_ksplit
+from .dequant_matmul import scale_fold as _scale_fold
 
 GEMM_FROM_M = 256                 # rows from which the GEMMs take over
 NB_THREADS = 128                  # kThreads in nb_matmul.cu
@@ -68,14 +68,6 @@ def _rows(x: torch.Tensor) -> int:
     for d in x.shape[:-1]:
         M *= d
     return M
-
-
-def _scale_fold(fmt: str) -> int:
-    """Exponent shift folded into the scale of int codes
-    (code = value · 2^(mbits-2))."""
-    if fmt in ("int8", "int4", "int2"):
-        return get_format_params(fmt).mbits - 2
-    return 0
 
 
 def _on_cpu(x: torch.Tensor, tensors) -> bool:

@@ -99,8 +99,9 @@ def test_cpu_path_launches_no_kernel():
     dm.reset_launch_counts()
     dm.dequant_matmul(torch.zeros(4, 64), t)
     dm.dequant_matmul(torch.zeros(100, 64), t)
-    assert dm.launch_counts == {"dequant_gemv_emi8": 0,
-                                "dequant_matmul_emi8": 0}
+    assert {"dequant_gemv_emi8", "dequant_matmul_emi8"} <= set(
+        dm.launch_counts)
+    assert not any(dm.launch_counts.values())
 
 
 @pytest.mark.parametrize("K,N", [(4096, 6144), (4096, 4096), (4096, 28672),
@@ -113,12 +114,14 @@ def test_gemv_ksplit_covers_k_and_ignores_m(K, N):
 
 
 def test_unported_transport_has_no_kernel():
+    """The float8 containers have no CUDA decode (JAX serves them through
+    XLA); the emi8 decode keeps the format's field split and fold."""
     W = torch.randn(64, 32)
-    p = tpk.pack_mx(W, 8, "int8", 32, axis=0)
+    p = tpk.pack_mx(W, 8, "fp8_e4m3", 32, axis=0)
     with pytest.raises(NotImplementedError, match="queue 2"):
-        dm.emi8_decode_params(p)
-    assert dm.emi8_decode_params(tpk.pack_mx(
-        W, 8, "fp6_e3m2", 32, axis=0, transport="emi8")) == (4, 4)
+        dm.sad_decode_params(p)
+    assert dm.sad_decode_params(tpk.pack_mx(
+        W, 8, "fp6_e3m2", 32, axis=0, transport="emi8")) == ("emi8", 4, 4, 0)
 
 
 def _edge_pair():

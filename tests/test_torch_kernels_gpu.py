@@ -132,10 +132,134 @@ def test_wrappers_check_operands(cuda):
                                 scale_exp=w.scale_exp.cpu())
     with pytest.raises(ValueError, match="one CUDA device"):
         dm.dequant_gemm(_x(100, 256, 0, cuda), cpu_w)
-    native = tpk.to_serving_layout(tpk.pack_mx(
-        torch.randn(256, 128, device=cuda), 8, "int8", 32, axis=0))
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        dm.dequant_matmul(_x(4, 256, 0, cuda), native)
+    for fmt in ("fp6_e3m2", "fp8_e4m3", "fp8_e5m2"):     # float8 containers
+        f8 = tpk.to_serving_layout(tpk.pack_mx(
+            torch.randn(256, 128, device=cuda), 8, fmt, 32, axis=0))
+        for M in (4, 100):
+            with pytest.raises(NotImplementedError, match="queue 2"):
+                dm.dequant_matmul(_x(M, 256, 0, cuda), f8)
+    sb4 = tpk.to_serving_layout(tpk.pack_mx(
+        torch.randn(256, 128, device=cuda), 8, "int4", 32, axis=0,
+        transport="sb4"))
+    with pytest.raises(ValueError, match="do not match"):
+        dm.dequant_gemv(_x(4, 256, 0, cuda), dataclasses.replace(
+            sb4, transport="sb2"))
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.empty(sb4.codes.numel() + 1, dtype=torch.int8,
+                              device=cuda)[1:].view(sb4.codes.shape)
+        dm.dequant_gemv(_x(4, 256, 0, cuda), dataclasses.replace(
+            sb4, codes=shifted))
+
+
+# ---------------------------------------------------------------------------
+# every other transport of the GEMV and GEMM, the W8A8 GEMV, the quantizer
+# ---------------------------------------------------------------------------
+# (format, transport, block, weight scale): every decode of _sad_kernel; the
+# bfloat16 weights are N(0, 64) so that no block exponent clamps at -127
+TRANSPORTS = [("int4", "sb4", 32, 1.0), ("int2", "sb2", 16, 1.0),
+              ("int8", "native", 32, 1.0), ("int2", "native", 32, 1.0),
+              ("fp4_e2m1", "pf4", 32, 1.0), ("fp6_e3m2", "pf6", 32, 1.0),
+              ("fp6_e2m3", "pf6", 32, 1.0), ("bfloat16", "native", 32, 8.0),
+              ("fp16", "native", 16, 1.0), ("fp6_e3m2", "emi8", 16, 1.0)]
+
+
+def _packed_as(K, N, fmt, transport, bs, scale, seed, device, serving=True):
+    rng = np.random.default_rng(seed)
+    W = (rng.standard_normal((K, N)) * scale
+         * np.exp(rng.uniform(-2, 2, (1, N)) * (scale == 1.0))
+         ).astype(np.float32)
+    p = tpk.pack_mx(torch.from_numpy(W).to(device), 8, fmt, bs, axis=0,
+                    transport=transport)
+    return tpk.to_serving_layout(p) if serving else p
+
+
+@pytest.mark.parametrize("fmt,transport,bs,scale", TRANSPORTS)
+@pytest.mark.parametrize("K,N,M", [(256, 384, 1), (256, 384, 8),
+                                   (200, 130, 3), (4096, 1040, 64),
+                                   (256, 384, 65), (200, 130, 300),
+                                   (4096, 1040, 256)])
+def test_every_transport_matches_twin(cuda, fmt, transport, bs, scale, K, N,
+                                      M):
+    w = _packed_as(K, N, fmt, transport, bs, scale, M, cuda)
+    x = _x(M, K, M + 1, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul(x, w)
+    want = dm.dequant_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    decode = dm.sad_decode_params(w)[0]
+    kind = "gemv" if M <= 64 else "matmul"
+    assert dm.launch_counts[f"dequant_{kind}_{decode}"] == 1
+    assert sum(dm.launch_counts.values()) == 1
+    assert got.shape == (M, N)
+    assert _rel(got, want) < (1e-5 if M <= 64 else 2e-3)
+
+
+@pytest.mark.parametrize("M", [4, 300])
+def test_native2d_codes_go_to_the_kernel_by_a_view(cuda, M):
+    w = _packed_as(256, 384, "int8", "native", 32, 1.0, 5, cuda,
+                   serving=False)
+    assert w.codes.ndim == 2
+    x = _x(M, 256, 6, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul(x, w)
+    kind = "gemv" if M <= 64 else "matmul"
+    assert dm.launch_counts[f"dequant_{kind}_native"] == 1
+    assert torch.equal(got, dm.dequant_matmul(x, tpk.to_serving_layout(w)))
+    assert _rel(got, dm.dequant_matmul_reference(x, w)) < (
+        1e-5 if M <= 64 else 2e-3)
+
+
+@pytest.mark.parametrize("fmt,transport,bs", [("int8", "native", 32),
+                                              ("int4", "sb4", 16),
+                                              ("int2", "sb2", 16),
+                                              ("int4", "native", 32)])
+@pytest.mark.parametrize("K,N,M", [(256, 384, 1), (4096, 1040, 8),
+                                   (200, 130, 3), (512, 256, 64)])
+def test_w8a8_kernel_matches_twin(cuda, fmt, transport, bs, K, N, M):
+    w = _packed_as(K, N, fmt, transport, bs, 1.0, K + M, cuda)
+    x = _x(M, K, M, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul_sad_s8(x, w)
+    want = dm.dequant_matmul_sad_s8_reference(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_gemv_s8_{transport}"] == 1
+    assert got.shape == (M, N)
+    assert _rel(got, want) < 1e-5
+
+
+def test_w8a8_rows_do_not_depend_on_batch(cuda):
+    w = _packed_as(4096, 1024, "int4", "sb4", 32, 1.0, 1, cuda)
+    x = _x(64, 4096, 2, cuda)
+    full = dm.dequant_matmul_sad_s8(x, w)
+    for M in (1, 5, 8, 33):
+        assert torch.equal(dm.dequant_matmul_sad_s8(x[:M], w), full[:M])
+
+
+@pytest.mark.parametrize("fmt", ["fp6_e3m2", "fp4_e2m1", "int8", "int4",
+                                 "int2", "fp8_e4m3", "fp8_e5m2", "fp16",
+                                 "bfloat16"])
+@pytest.mark.parametrize("shape,bs", [((64, 512), 32), ((10, 200), 16),
+                                      ((3, 5, 96), 32), ((7, 300), 64),
+                                      ((4096, 1024), 32), ((33, 130), 8)])
+def test_quantizer_is_bit_exact(cuda, fmt, shape, bs):
+    from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
+
+    rng = np.random.default_rng(len(shape) * bs)
+    x = (rng.standard_normal(shape)
+         * np.exp(rng.uniform(-3, 3, shape[:-1] + (1,)))).astype(np.float32)
+    x.reshape(-1)[:bs] = 0.0                      # a zero block
+    x.reshape(-1)[-bs // 2:] = 1e-40              # a subnormal amax
+    xt = torch.from_numpy(x).to(cuda)
+    mq.reset_launch_counts()
+    got = mq.quantize_mx_block(xt, 8, fmt, bs)
+    want = mq.quantize_mx_reference(xt, 8, fmt, bs)
+    torch.cuda.synchronize()
+    assert mq.launch_counts["quantize_mx"] == 1
+    raw = lambda t: t.view(torch.uint8 if t.element_size() == 1
+                           else torch.int16)
+    assert got.codes.dtype == want.codes.dtype
+    assert torch.equal(raw(got.codes), raw(want.codes))
+    assert torch.equal(got.scale_exp, want.scale_exp)
 
 
 # ---------------------------------------------------------------------------
