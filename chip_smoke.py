@@ -8,10 +8,10 @@ exits non-zero, printing no result, when no CUDA device is present or when
 the package is missing. Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``) and the device count;
-2. build the seven CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
+2. build the eight CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
    (the GEMV and GEMM with a decode per transport, the W8A8 GEMV, the block
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
-   GEMM), one ``nvcc`` each, all at once;
+   GEMM, the prefill-GEMM experiments), one ``nvcc`` each, all at once;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -85,7 +85,16 @@ the package is missing. Phases, each of which raises on failure:
     beside the bf16-activation GEMV, ``torch.matmul`` and ``torch._int_mm``;
 17. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
     weight shape (block 32) and a ragged one (block 16), bit-equal to
-    ``pack_mx(exact_scale=True)``, timed beside the byte bound.
+    ``pack_mx(exact_scale=True)``, timed beside the byte bound;
+18. ``prefill_experiments``: the port's four prefill-GEMM experiment
+    scripts (``microscopiq_tpu_torch.scripts.exp_prefill_floor``,
+    ``_tiles2``, ``_overlap``, ``_pipe``) through their ``main()`` at
+    gate_up, M = 1024, on one seeded setup: one line per arm (the
+    predecoded, tile-swept, sub-chunked, pipelined and resident-x GEMMs of
+    ``csrc/exp_prefill.cu``, the shipped GEMM and ``torch.matmul``), each
+    held to its plain version and timed in three interleaved passes, then
+    ``prefill_decomposition``: dense, tile loop, convert, decode, best
+    tiles, pipelining and resident x side by side.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -96,11 +105,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
+
+# the timing helpers, shared with the experiment scripts (this import fails
+# where the package is missing, and the script with it)
+from microscopiq_tpu_torch.utils.observability import (card_line, copies_for,
+                                                       cuda_ms)
 
 # Tolerances of kernel vs plain version, relative to max |plain|:
 # - GEMV: both sum exact f32 products of bf16 x and emi8 integers in f32 and
@@ -129,7 +142,6 @@ SHAPES = [("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
           ("down", 14336, 4096), ("lm_head", 4096, 128256)]
 GEMV_M = (1, 8, 64)
 GEMM_M = (128, 1024)
-L2_BYTES = 50 * 2 ** 20
 
 
 def log(**rec):
@@ -138,11 +150,12 @@ def log(**rec):
 
 def _wrappers():
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
     from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
     from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
-    return dm, qa, om, mq
+    return dm, qa, om, mq, ep
 
 
 def reset_counts() -> None:
@@ -169,32 +182,7 @@ def want_counts(**nonzero) -> dict:
 def card_info():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True
-    ).stdout.strip().splitlines()[0]
-    return smi, torch.cuda.get_device_name(0), torch.cuda.device_count()
-
-
-def cuda_ms(fn, n_args: int, target_ms: float = 40.0) -> float:
-    """Mean ms per call of fn(i), i cycling over n_args operand copies."""
-    import torch
-
-    fn(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn(1 % n_args)
-    torch.cuda.synchronize()
-    est = max((time.perf_counter() - t0) * 1e3, 1e-3)
-    iters = int(min(200, max(3, target_ms / est)))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i % n_args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    return card_line(), torch.cuda.get_device_name(0), torch.cuda.device_count()
 
 
 def device_ms(fn, n_args: int, calls: int = 16) -> float:
@@ -246,12 +234,6 @@ def graph_ms(fn, n_args: int, calls: int = 16, replays: int = 3) -> float:
     ms = start.elapsed_time(end) / (replays * calls)
     del graph
     return ms
-
-
-def copies_for(nbytes: int) -> int:
-    """Operand copies whose total exceeds the L2 cache four times over, so
-    that each timed call streams its weight from HBM, as decode does."""
-    return int(min(16, max(1, -(-4 * L2_BYTES // nbytes))))
 
 
 def kernel_phase(card: str):
@@ -1855,6 +1837,86 @@ def quant_phase(card: str):
     return rows, counts
 
 
+PREFILL_SCRIPTS = ("exp_prefill_floor", "exp_prefill_tiles2",
+                   "exp_prefill_overlap", "exp_prefill_pipe")
+# a bf16 output against the f32 plain output: its own rounding, half an ulp
+# (2^-8 of |y|), as tests/test_torch_kernels_gpu.py::test_kernel_bf16_output
+BF16_OUT_REL_TOL = 2 ** -8
+
+
+def prefill_decomposition(recs) -> dict:
+    """The prefill GEMM taken apart, from the four scripts' records: each
+    piece's arm, ms, share of the bound and ratio to its run's dense arm."""
+    def arm(script, name):
+        return next(r for r in recs if r["script"] == f"exp_prefill_{script}"
+                    and r["arm"] == name)
+
+    def best(kernel):
+        return min((r for r in recs if r["kernel"].startswith(kernel)
+                    and r["out"] == "f32"), key=lambda r: r["ms"])
+
+    pieces = {"dense": arm("floor", "dense"),
+              "predecoded": arm("floor", "predecoded"),
+              "native_int8": arm("floor", "native_int8"),
+              "native_floor": arm("overlap", "native_floor"),
+              "inkernel": arm("floor", "inkernel"),
+              "tiles_best_pre": best("exp_gemm_tiles_pre"),
+              "tiles_best_emi8": best("exp_gemm_tiles_emi8"),
+              "overlap_best": best("exp_gemm_unroll"),
+              "pipe_best": best("exp_gemm_pipe"),
+              "rx_best": best("exp_gemm_rx")}
+    return {k: {f: r[f] for f in ("script", "arm", "tiles", "ms",
+                                  "bound_share", "vs_dense")}
+            for k, r in pieces.items()}
+
+
+def prefill_experiments_phase(card: str):
+    """The four prefill-GEMM experiment scripts of the port
+    (``microscopiq_tpu_torch.scripts.exp_prefill_*``), each through its
+    ``main()``, on one setup (gate_up, M = 1024, seeded weights made once on
+    the card with their plain outputs): every arm is held to its plain
+    version and timed in three interleaved passes beside ``torch.matmul``.
+    Counts are zeroed just before the four runs and read just after: every
+    kernel of ``csrc/exp_prefill.cu`` (each compiled configuration of the
+    tile sweep) must have launched. Returns (records, launches)."""
+    import importlib
+    import io
+
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
+    from microscopiq_tpu_torch.scripts import _prefill
+
+    t0 = time.perf_counter()
+    setup = _prefill.make_setup("cuda")
+    mods = [importlib.import_module(f"microscopiq_tpu_torch.scripts.{n}")
+            for n in PREFILL_SCRIPTS]
+    reset_counts()
+    recs = []
+    for mod in mods:
+        with contextlib.redirect_stdout(io.StringIO()):
+            recs += mod.main([], setup=setup)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    misses = []
+    for r in recs:
+        tol = GEMM_REL_TOL if r["out"] == "f32" else BF16_OUT_REL_TOL
+        rel = r["rel_err"]
+        if rel is not None and not (np.isfinite(rel) and rel < tol):
+            misses.append(f"{r['script']} {r['arm']}: rel err {rel} >= {tol}")
+        log(phase="prefill_experiments", **r, tol=tol if rel is not None
+            else None)
+    missing = [k for k in ep.launch_counts if not counts.get(k)]
+    log(phase="prefill_decomposition", pieces=prefill_decomposition(recs),
+        launches=counts, seconds=time.perf_counter() - t0, card=card)
+    if misses or missing:
+        raise AssertionError(f"prefill experiments: {misses}; kernels not "
+                             f"launched: {missing}")
+    del setup
+    torch.cuda.empty_cache()
+    return recs, counts
+
+
 def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
                               "plain_ms", "library_ms", "max_abs_err",
                               "rel_err")):
@@ -1862,7 +1924,8 @@ def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
 
 
 def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
-                 icounts, tcounts, srows, scounts, mrows, mcounts):
+                 icounts, tcounts, srows, scounts, mrows, mcounts, prows,
+                 pcounts):
     """One record per kernel (and per decode of the GEMV and GEMM), at its
     heaviest main-path call (gate_up: M = 8 for the GEMVs, M = 1024 for the
     GEMMs; B = 4 x 3136 live tokens for the quantized-KV attention), with
@@ -2011,7 +2074,48 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
               "every format and shape; no single PyTorch call computes it",
         "shapes": [[r[k] for k in qkeys] for r in mrows],
         "shape_keys": list(qkeys)})
+    out += prefill_kernel_records(prows, pcounts)
     return {"kernels": out}
+
+
+def prefill_kernel_records(prows, pcounts):
+    """The kernels line's records of ``csrc/exp_prefill.cu``: per kernel (per
+    sweep configuration), timed at the arm named here, every arm that
+    launches it listed in ``arms``."""
+    from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
+
+    # kernel -> (TPU script file:line, the script, the arm the record times)
+    meta = {"exp_gemm_pre": ("exp_prefill_floor.py:77", "floor",
+                             "predecoded"),
+            "exp_gemm_unroll": ("exp_prefill_overlap.py:93", "overlap",
+                                "unroll4"),
+            "exp_gemm_pipe": ("exp_prefill_pipe.py:68", "pipe", "pipe_tn256"),
+            "exp_gemm_rx": ("exp_prefill_pipe.py:150", "pipe",
+                            "residentx_tn256")}
+    for src, bm, bn, bk in ep.TILES:
+        meta[ep.tiles_key(src, bm, bn, bk)] = (
+            "exp_prefill_tiles2.py:52", "tiles2", f"{src}_bm{bm}_bn{bn}_bk{bk}")
+    akeys = ("arm", "tiles", "out", "ms", "ms_min", "ms_max", "rel_err")
+    out = []
+    for name, (line, script, timed) in meta.items():
+        mine = [r for r in prows if r["kernel"] == name]
+        at = next(r for r in mine if r["arm"] == timed
+                  and r["script"] == f"exp_prefill_{script}")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "microscopiq_tpu_torch/ops/cuda/csrc/exp_prefill.cu",
+            "replaces": f"scripts/{line}",
+            "launches": pcounts.get(name, 0),
+            "launches_by_path": {"prefill_experiments": pcounts.get(name, 0)},
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": f"gate_up (4096, 28672) M=1024, arm {timed} {at['tiles']}; "
+                  "library: torch.matmul on bf16, same passes",
+            "arms": [[r[k] for k in akeys] for r in mine],
+            "arm_keys": list(akeys)})
+    return out
 
 
 def main() -> int:
@@ -2053,10 +2157,12 @@ def main() -> int:
     tcounts = int_two_layer_phase(card)
     srows, scounts = s8_phase(card)
     mrows, mcounts = quant_phase(card)
+    prows, pcounts = prefill_experiments_phase(card)
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
                                   ocounts, irows, icounts, tcounts, srows,
-                                  scounts, mrows, mcounts)), flush=True)
+                                  scounts, mrows, mcounts, prows, pcounts)),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

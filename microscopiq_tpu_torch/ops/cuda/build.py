@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,9 +31,12 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("dequant_gemv", "dequant_matmul", "quant_attention", "nb_matmul",
-           "outlier_matmul", "dequant_gemv_s8", "mx_quant")
+           "outlier_matmul", "dequant_gemv_s8", "mx_quant", "exp_prefill")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the anonymous namespace of a kernel's mangled name, e.g.
+# "_ZN47_GLOBAL__N__cb217a5d_14_exp_prefill_cu_e541f9617" before "gemm_rx..."
+_ANON = re.compile(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+")
 
 
 def nvcc_path() -> str:
@@ -86,13 +90,24 @@ def build_all(names=SOURCES) -> float:
 
 
 def ptxas_report(names=SOURCES) -> List[str]:
-    """The ``-Xptxas -v`` lines of each built library."""
+    """One line per kernel of each built library: ``<source> <kernel>:
+    <registers>; <spills>`` from its ``-Xptxas -v`` log (the kernel's
+    mangled name, without its anonymous-namespace prefix)."""
     lines = []
     for n in names:
         log = _lib_path(n).with_suffix(".ptxas.txt")
-        if log.exists():
-            lines += [ln for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+        if not log.exists():
+            continue
+        kernel = spill = ""
+        for ln in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                kernel, spill = _ANON.sub("", m.group(1)), ""
+            elif "spill" in ln:
+                spill = ln.strip()
+            elif "registers" in ln:
+                lines.append(f"{n} {kernel}: {ln.split(':', 1)[-1].strip()}"
+                             f"; {spill}")
     return lines
 
 

@@ -14,7 +14,10 @@ attention 2e-2, the bound of tests/test_quant_attention.py:47 (float32 sums
 in another order, split across blocks and merged); the outlier GEMVs (NB
 and side-band) 1e-5: their weights and products are exact in float32 and
 only the order of the sums differs; the outlier GEMMs 2e-3, as the emi8
-GEMM (the same bf16 weights through bf16 MMA with float32 accumulation).
+GEMM (the same bf16 weights through bf16 MMA with float32 accumulation);
+the prefill-GEMM experiments 2e-3 against the f32 plain output (2^-8 with
+a bf16 output, its rounding), at a small shape and at the scripts' own
+(gate_up, M = 1024).
 """
 
 import dataclasses
@@ -26,8 +29,13 @@ import torch
 from microscopiq_tpu_torch.ops import packing as tpk
 from microscopiq_tpu_torch.ops import outlier as tol
 from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
 from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
 from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
+from microscopiq_tpu_torch.scripts import (_prefill, exp_prefill_floor,
+                                           exp_prefill_overlap,
+                                           exp_prefill_pipe,
+                                           exp_prefill_tiles2)
 
 pytestmark = pytest.mark.gpu
 
@@ -574,3 +582,72 @@ def test_outlier_wrappers_check_operands(cuda):
             om.dequant_matmul_outlier(_x(M, 64, 0, cuda), big)
         with pytest.raises(ValueError, match="one device"):
             om.dequant_matmul_nb(_x(M, 256, 0, cuda), cpu_w)
+
+
+# ---------------------------------------------------------------------------
+# prefill-GEMM experiments (ops/cuda/exp_prefill.py, scripts/exp_prefill_*)
+# ---------------------------------------------------------------------------
+_EXP_SCRIPTS = {m.NAME: m for m in (exp_prefill_floor, exp_prefill_tiles2,
+                                    exp_prefill_overlap, exp_prefill_pipe)}
+# (script, arm) of every arm that runs a kernel of csrc/exp_prefill.cu: every
+# compiled configuration of each kernel
+_EXP_ARMS = [(name, a.name) for name, m in _EXP_SCRIPTS.items()
+             for a in m.arms() if a.kernel.startswith("exp_gemm")]
+
+
+def _exp_setup(**shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _prefill.make_setup("cuda", **shape)
+
+
+@pytest.fixture(scope="module")
+def exp_small():
+    return _exp_setup(K=256, N=512, M=256)
+
+
+@pytest.fixture(scope="module")
+def exp_gate_up():
+    return _exp_setup()            # K 4096, N 28672, M 1024, as the scripts
+
+
+def _exp_check(setup, script, arm_name):
+    """The arm's kernel, launched once, against the f32 plain output: 2e-3
+    of max |plain| (bf16 MMA, f32 sums in another order), 2^-8 for a bf16
+    output (its own rounding, half an ulp, as test_kernel_bf16_output)."""
+    arm = next(a for a in _EXP_SCRIPTS[script].arms() if a.name == arm_name)
+    ep.reset_launch_counts()
+    got = arm.call(setup.x, setup.weights[arm.weight][0])
+    torch.cuda.synchronize()
+    assert ep.launch_counts[arm.kernel] == 1
+    assert sum(ep.launch_counts.values()) == 1
+    assert got.dtype == arm.out_dtype and got.shape == setup.plain(
+        arm.weight).shape
+    tol = 2e-3 if arm.out_dtype == torch.float32 else 2 ** -8
+    assert _rel(got.float(), setup.plain(arm.weight)) < tol
+
+
+@pytest.mark.parametrize("script,arm", _EXP_ARMS)
+def test_exp_prefill_kernel_matches_plain_small(exp_small, script, arm):
+    _exp_check(exp_small, script, arm)
+
+
+@pytest.mark.parametrize("script,arm", _EXP_ARMS)
+def test_exp_prefill_kernel_matches_plain_gate_up(exp_gate_up, script, arm):
+    _exp_check(exp_gate_up, script, arm)
+
+
+def test_exp_prefill_wrappers_check_operands(exp_small):
+    w = exp_small.weights["emi8"][0]
+    x = exp_small.x
+    cpu_w = dataclasses.replace(w, codes=w.codes.cpu(),
+                                scale_exp=w.scale_exp.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ep.gemm_pipe(x, cpu_w, bm=128, bn=128, bk=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ep.gemm_rx(x, w, tn=512, bk=256)
+    with pytest.raises(ValueError, match="not compiled"):
+        ep.gemm_tiles(x, w, bm=64, bn=64, bk=32)
+    with pytest.raises(ValueError, match="does not divide"):
+        ep.gemm_tiles(x[:100], w, bm=128, bn=128, bk=32)
