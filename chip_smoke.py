@@ -8,10 +8,11 @@ exits non-zero, printing no result, when no CUDA device is present or when
 the package is missing. Phases, each of which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``) and the device count;
-2. build the eight CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
+2. build the nine CUDA sources of ``microscopiq_tpu_torch/ops/cuda/csrc``
    (the GEMV and GEMM with a decode per transport, the W8A8 GEMV, the block
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
-   GEMM, the prefill-GEMM experiments), one ``nvcc`` each, all at once;
+   GEMM, the prefill-GEMM and the decode-GEMV experiments), one ``nvcc``
+   each, all at once;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -66,8 +67,10 @@ the package is missing. Phases, each of which raises on failure:
 13. ``int_kernels_vs_plain``: the GEMV (M = 1, 8, 64) and GEMM (M = 128,
     1024) in every other transport of the TPU kernels at the Llama-3-8B
     shapes (int4/sb4, int8 and int2 in the int8 container, int2/sb2 at
-    block 16, fp6/pf6, fp4/pf4; the bf16 and fp16 containers and 2-D
-    ``native2d`` int8 codes at some shapes), each against
+    block 16, fp6/pf6, fp4/pf4; the bf16 and fp16 containers, 2-D
+    ``native2d`` int8 codes, and the float8 containers (fp8_e4m3, fp8_e5m2,
+    fp6 in ``float8_e4m3fn``, 2-D fp8_e4m3 codes) at some shapes), each
+    against
     ``dequant_matmul_reference``, timed beside the bound, the plain
     version and ``torch.matmul`` on the dequantized bf16 weight;
 14. ``int_main_path``: the 32-layer full-width model with every linear
@@ -77,9 +80,10 @@ the package is missing. Phases, each of which raises on failure:
     memory, each timed interleaved with the MX-FP6 model; ``int_engine``: a
     dense-slot ``BatchEngine`` over the int4 model, each request
     token-identical to single-sequence decode;
-15. ``int_two_layer_logits``: per case of phase 13, a 2-layer full-width
-    model, 4 x 120-token prompt and 8 decode steps, through the kernels
-    against the plain versions;
+15. ``int_two_layer_logits``: per case of phase 13 (of the float8 ones,
+    the ``pack_params`` models in fp8_e4m3 and fp8_e5m2), a 2-layer
+    full-width model, 4 x 120-token prompt and 8 decode steps, through the
+    kernels against the plain versions;
 16. ``sad_s8_vs_plain``: the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
     shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``,
     beside the bf16-activation GEMV, ``torch.matmul`` and ``torch._int_mm``;
@@ -94,7 +98,17 @@ the package is missing. Phases, each of which raises on failure:
     ``csrc/exp_prefill.cu``, the shipped GEMM and ``torch.matmul``), each
     held to its plain version and timed in three interleaved passes, then
     ``prefill_decomposition``: dense, tile loop, convert, decode, best
-    tiles, pipelining and resident x side by side.
+    tiles, pipelining and resident x side by side;
+19. ``gemv_experiments``: the port's three decode-GEMV experiment scripts
+    (``microscopiq_tpu_torch.scripts.exp_decode_variants``,
+    ``exp_sad_tiles``, ``exp_nb_variants``) through their ``main()`` on
+    their own setups (M = 8): one line per arm (the decode variants, the
+    tile sweep and the NB modes of ``csrc/exp_gemv.cu``, the shipped GEMVs
+    and ``torch.matmul``), each held to its own plain version, i16, ebf8
+    and f32dot bit-equal to i32, timed in three interleaved passes, then
+    ``gemv_decomposition``: dense, the zero-decode floor, the decodes, the
+    shipped GEMV, the best tile, the shipped NB GEMV and the best NB mode
+    side by side.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -150,12 +164,13 @@ def log(**rec):
 
 def _wrappers():
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import exp_gemv as eg
     from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
     from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
     from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
-    return dm, qa, om, mq, ep
+    return dm, qa, om, mq, ep, eg
 
 
 def reset_counts() -> None:
@@ -189,21 +204,26 @@ def device_ms(fn, n_args: int, calls: int = 16) -> float:
     """Device time per call of fn(i), i cycling over n_args operand copies:
     the CUDA kernels' time in a torch.profiler window over ``calls`` calls,
     over their number. For a call whose host time exceeds its device time,
-    where back-to-back CUDA events would time the host."""
+    where back-to-back CUDA events would time the host. A window in which
+    the profiler delivered no device record is taken again; after three
+    such windows the call is timed with CUDA events, and stderr says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(i % n_args)
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i % n_args)
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / calls
+    print("chip_smoke: torch.profiler recorded no device time in three "
+          "windows; timed with CUDA events", file=sys.stderr, flush=True)
+    return cuda_ms(fn, n_args)
 
 
 def graph_ms(fn, n_args: int, calls: int = 16, replays: int = 3) -> float:
@@ -1335,7 +1355,18 @@ INT_CASES = {
     "bf16_container": ("bfloat16", "native", 32, False, ("qkv", "gate_up")),
     "fp16_container": ("fp16", "native", 32, False, ("qkv",)),
     "int8_native2d": ("int8", "native", 32, True, ("qkv", "gate_up")),
+    # the float8 containers: fp8_e4m3 and fp8_e5m2 as pack_params makes
+    # them, fp6 codes in float8_e4m3fn, and 2-D codes (the TPU's native2d)
+    "fp8_e4m3_native": ("fp8_e4m3", "native", 32, False,
+                        ("qkv", "gate_up", "down")),
+    "fp8_e5m2_native": ("fp8_e5m2", "native", 32, False, ("qkv", "gate_up")),
+    "fp6_native": ("fp6_e3m2", "native", 32, False, ("qkv", "gate_up")),
+    "fp8_e4m3_native2d": ("fp8_e4m3", "native", 32, True, ("qkv", "gate_up")),
 }
+# kernel-phase cases that run no 2-layer model (pack_params makes emi8 for
+# fp6; the 2-D float8 codes take the kernels by the view that int8_native2d
+# already drives)
+INT_KERNEL_ONLY = ("fp6_native", "fp8_e4m3_native2d")
 # the 32-layer arms and their cases (the transports pack_params gives them)
 INT_ARMS = {"int4": "int4_sb4", "int8": "int8_native"}
 INT_ARM_BITS = {"int4": 4.25, "int8": 8.25}   # codes + one exponent a block
@@ -1644,7 +1675,7 @@ def int_two_layer_phase(card: str):
     ids = torch.as_tensor(np.random.default_rng(6).integers(
         0, 128256, (B, S0)), device="cuda")
     out = {}
-    for case in INT_CASES:
+    for case in (c for c in INT_CASES if c not in INT_KERNEL_ONLY):
         two_k, tree = int_model(case, 2, seed=41)
         two_p, _ = int_model(case, 2, seed=41, use_kernels=False, tree=tree)
         toks, *_, first = prefill_decode(two_k, ids, STEPS, max_len)
@@ -1917,6 +1948,99 @@ def prefill_experiments_phase(card: str):
     return recs, counts
 
 
+GEMV_SCRIPTS = ("exp_decode_variants", "exp_sad_tiles", "exp_nb_variants")
+
+
+def gemv_decomposition(recs) -> dict:
+    """The decode GEMV taken apart, from the three scripts' records: each
+    piece's arm, ms, GB/s of codes, share of the byte bound and ratio to
+    its run's dense arm (torch.matmul on bf16 at the script's shape)."""
+    from microscopiq_tpu_torch.ops.cuda import exp_gemv as eg
+
+    def arm(script, name):
+        return next(r for r in recs if r["script"] == script
+                    and r["arm"] == name)
+
+    def best(script, names):
+        return min((r for r in recs if r["script"] == script
+                    and r["arm"] in names), key=lambda r: r["ms"])
+
+    dv, st, nb = GEMV_SCRIPTS
+    tiles = [f"tm{mt}_tn{tn}_kb{kb}" for mt, tn, kb in eg.TILES]
+    nb_full = list(eg.FULL_MODES) + [f"{m}_k1024" for m in ("pdot", "pdot3")]
+    pieces = {"dense": arm(dv, "dense"), "zero": arm(dv, "zero"),
+              "i32": arm(dv, "i32"), "f32dot": arm(dv, "f32dot"),
+              "ebf8": arm(dv, "ebf8"), "i16": arm(dv, "i16"),
+              "shipped_gemv": arm(dv, "shipped"),
+              "tiles_dense": arm(st, "dense"),
+              "tiles_shipped": arm(st, "tm0_tn0_kb0"),
+              "tiles_best": best(st, tiles),
+              "nb_dense": arm(nb, "dense"), "nb_cur": arm(nb, "cur"),
+              "nb_best_mode": best(nb, nb_full)}
+    return {k: {f: r[f] for f in ("script", "arm", "tiles", "N", "ms",
+                                  "codes_GBps", "bound_share", "vs_dense")}
+            for k, r in pieces.items()}
+
+
+def gemv_experiments_phase(card: str):
+    """The three decode-GEMV experiment scripts of the port
+    (``microscopiq_tpu_torch.scripts.exp_decode_variants``,
+    ``exp_sad_tiles``, ``exp_nb_variants``), each through its ``main()`` on
+    its own setup (seeded weights made once on the card with their plain
+    outputs, M = 8): every arm is held to its own plain version within the
+    GEMV tolerance, i16, ebf8 and f32dot to i32 bit for bit, and each is
+    timed in three interleaved passes beside ``torch.matmul``. Counts are
+    zeroed just before the three runs and read just after: every kernel of
+    ``csrc/exp_gemv.cu`` (each variant, tile configuration and NB mode) and
+    the shipped emi8 and NB GEMVs must have launched. Returns (records,
+    launches)."""
+    import importlib
+    import io
+
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import exp_gemv as eg
+    from microscopiq_tpu_torch.scripts import _gemv
+
+    t0 = time.perf_counter()
+    makers = dict(zip(GEMV_SCRIPTS, (_gemv.decode_setup, _gemv.tiles_setup,
+                                     _gemv.nb_setup)))
+    setups = {n: make("cuda") for n, make in makers.items()}
+    mods = {n: importlib.import_module(f"microscopiq_tpu_torch.scripts.{n}")
+            for n in GEMV_SCRIPTS}
+    reset_counts()
+    recs = []
+    for name in GEMV_SCRIPTS:
+        with contextlib.redirect_stdout(io.StringIO()):
+            recs += mods[name].main([], setup=setups[name])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    misses = []
+    for r in recs:
+        rel = r["rel_err"]
+        if rel is not None and not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+            misses.append(f"{r['script']} {r['arm']}: rel err {rel}")
+        if r.get("parity_exact") is False:
+            misses.append(f"{r['arm']} is not bit-equal to i32: "
+                          f"{r['parity_max_delta']}")
+        log(phase="gemv_experiments", **r,
+            tol=GEMV_REL_TOL if rel is not None else None)
+    parity = {r["arm"]: r["parity_exact"] for r in recs if "parity_exact" in r}
+    if set(parity) != {"i16", "ebf8", "f32dot"}:
+        misses.append(f"parity not checked: {parity}")
+    missing = [k for k in list(eg.launch_counts)
+               + ["dequant_gemv_emi8", "dequant_gemv_nb"] if not counts.get(k)]
+    log(phase="gemv_decomposition", pieces=gemv_decomposition(recs),
+        parity_exact=parity, launches=counts,
+        seconds=time.perf_counter() - t0, card=card)
+    if misses or missing:
+        raise AssertionError(f"gemv experiments: {misses}; kernels not "
+                             f"launched: {missing}")
+    del setups
+    torch.cuda.empty_cache()
+    return recs, counts
+
+
 def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
                               "plain_ms", "library_ms", "max_abs_err",
                               "rel_err")):
@@ -1925,7 +2049,7 @@ def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
 
 def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                  icounts, tcounts, srows, scounts, mrows, mcounts, prows,
-                 pcounts):
+                 pcounts, grows, gcounts):
     """One record per kernel (and per decode of the GEMV and GEMM), at its
     heaviest main-path call (gate_up: M = 8 for the GEMVs, M = 1024 for the
     GEMMs; B = 4 x 3136 live tokens for the quantized-KV attention), with
@@ -2008,7 +2132,9 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                   "sb2": ("int2_sb2", "gate_up"), "pf4": ("fp4_pf4", "gate_up"),
                   "pf6": ("fp6_pf6", "gate_up"),
                   "bf16": ("bf16_container", "gate_up"),
-                  "fp16": ("fp16_container", "qkv")}
+                  "fp16": ("fp16_container", "qkv"),
+                  "fp8_e4m3": ("fp8_e4m3_native", "gate_up"),
+                  "fp8_e5m2": ("fp8_e5m2_native", "gate_up")}
     for kind, src, line, m_at in (("gemv", "dequant_gemv.cu", 162, 8),
                                   ("matmul", "dequant_matmul.cu", 71, 1024)):
         for decode, (case, lin) in timed_case.items():
@@ -2022,7 +2148,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                 "name": name, "route": "cuda",
                 "source": f"microscopiq_tpu_torch/ops/cuda/csrc/{src}",
                 "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:"
-                            + str(80 if case.endswith("2d") else line),
+                            + str(80 if case.endswith("2d")
+                                  or decode.startswith("fp8") else line),
                 "launches": sum(launches.values()),
                 "launches_by_path": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -2075,16 +2202,41 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
         "shapes": [[r[k] for k in qkeys] for r in mrows],
         "shape_keys": list(qkeys)})
     out += prefill_kernel_records(prows, pcounts)
+    out += gemv_kernel_records(grows, gcounts)
     return {"kernels": out}
 
 
+def script_kernel_records(rows, counts, meta, source, path, shape):
+    """The kernels line's records of one experiment source: per kernel (per
+    compiled configuration), timed at the arm that ``meta`` names (kernel ->
+    (the TPU kernel's file:line, script, arm)), every arm that launches it
+    listed in ``arms``; launches are the experiment path's."""
+    akeys = ("arm", "tiles", "out", "ms", "ms_min", "ms_max", "rel_err")
+    out = []
+    for name, (replaces, script, timed) in meta.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        at = next(r for r in mine if r["arm"] == timed
+                  and r["script"] == script)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"microscopiq_tpu_torch/ops/cuda/csrc/{source}",
+            "replaces": replaces, "launches": counts.get(name, 0),
+            "launches_by_path": {path: counts.get(name, 0)},
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": f"{shape(at)}, arm {timed} {at['tiles']}; library: "
+                  "torch.matmul on bf16, same passes",
+            "arms": [[r[k] for k in akeys] for r in mine],
+            "arm_keys": list(akeys)})
+    return out
+
+
 def prefill_kernel_records(prows, pcounts):
-    """The kernels line's records of ``csrc/exp_prefill.cu``: per kernel (per
-    sweep configuration), timed at the arm named here, every arm that
-    launches it listed in ``arms``."""
+    """The kernels line's records of ``csrc/exp_prefill.cu``."""
     from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
 
-    # kernel -> (TPU script file:line, the script, the arm the record times)
     meta = {"exp_gemm_pre": ("exp_prefill_floor.py:77", "floor",
                              "predecoded"),
             "exp_gemm_unroll": ("exp_prefill_overlap.py:93", "overlap",
@@ -2095,27 +2247,31 @@ def prefill_kernel_records(prows, pcounts):
     for src, bm, bn, bk in ep.TILES:
         meta[ep.tiles_key(src, bm, bn, bk)] = (
             "exp_prefill_tiles2.py:52", "tiles2", f"{src}_bm{bm}_bn{bn}_bk{bk}")
-    akeys = ("arm", "tiles", "out", "ms", "ms_min", "ms_max", "rel_err")
-    out = []
-    for name, (line, script, timed) in meta.items():
-        mine = [r for r in prows if r["kernel"] == name]
-        at = next(r for r in mine if r["arm"] == timed
-                  and r["script"] == f"exp_prefill_{script}")
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "microscopiq_tpu_torch/ops/cuda/csrc/exp_prefill.cu",
-            "replaces": f"scripts/{line}",
-            "launches": pcounts.get(name, 0),
-            "launches_by_path": {"prefill_experiments": pcounts.get(name, 0)},
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": at["ms"], "plain_ms": at["plain_ms"],
-            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"],
-            "at": f"gate_up (4096, 28672) M=1024, arm {timed} {at['tiles']}; "
-                  "library: torch.matmul on bf16, same passes",
-            "arms": [[r[k] for k in akeys] for r in mine],
-            "arm_keys": list(akeys)})
-    return out
+    meta = {k: (f"scripts/{line}", f"exp_prefill_{script}", arm)
+            for k, (line, script, arm) in meta.items()}
+    return script_kernel_records(
+        prows, pcounts, meta, "exp_prefill.cu", "prefill_experiments",
+        lambda r: "gate_up (4096, 28672) M=1024")
+
+
+def gemv_kernel_records(grows, gcounts):
+    """The kernels line's records of ``csrc/exp_gemv.cu``: each decode
+    variant, tile configuration and NB mode at its scripts' shape, M = 8."""
+    from microscopiq_tpu_torch.ops.cuda import exp_gemv as eg
+
+    meta = {eg.variant_key(v): ("scripts/exp_decode_variants.py:82",
+                                "exp_decode_variants", v)
+            for v in eg.VARIANTS}
+    # the tile sweep's GEMV is _sad_kernel's, swept by scripts/exp_sad_tiles
+    for mt, tn, kb in eg.TILES:
+        meta[eg.tiles_key(mt, tn, kb)] = (
+            "microscopiq_tpu/ops/pallas/dequant_matmul.py:162",
+            "exp_sad_tiles", f"tm{mt}_tn{tn}_kb{kb}")
+    meta.update({eg.fd_key(m): ("scripts/exp_nb_variants.py:55",
+                                "exp_nb_variants", m) for m in eg.MODES})
+    return script_kernel_records(
+        grows, gcounts, meta, "exp_gemv.cu", "gemv_experiments",
+        lambda r: f"{r['script']} (K={r['K']}, N={r['N']}) M={r['M']}")
 
 
 def main() -> int:
@@ -2158,10 +2314,12 @@ def main() -> int:
     srows, scounts = s8_phase(card)
     mrows, mcounts = quant_phase(card)
     prows, pcounts = prefill_experiments_phase(card)
+    grows, gcounts = gemv_experiments_phase(card)
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
                                   ocounts, irows, icounts, tcounts, srows,
-                                  scounts, mrows, mcounts, prows, pcounts)),
+                                  scounts, mrows, mcounts, prows, pcounts,
+                                  grows, gcounts)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("dequant_gemv", "dequant_matmul", "quant_attention", "nb_matmul",
-           "outlier_matmul", "dequant_gemv_s8", "mx_quant", "exp_prefill")
+           "outlier_matmul", "dequant_gemv_s8", "mx_quant", "exp_prefill",
+           "exp_gemv")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # the anonymous namespace of a kernel's mangled name, e.g.

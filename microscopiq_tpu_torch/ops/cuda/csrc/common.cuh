@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <mma.h>
 #include <stdint.h>
 
@@ -34,6 +35,9 @@ enum Decode : int {
   kBf16 = 6,    // bf16 container: the value as it is
   kFp16 = 7,    // fp16 container: the value rounded to bf16, as the TPU
                 // kernel's astype(bfloat16)
+  kFp8E4m3 = 8, // float8_e4m3fn container (fp8_e4m3; fp6 and fp4 codes
+                // packed with transport "native"): the value as it is
+  kFp8E5m2 = 9, // float8_e5m2 container (fp8_e5m2): the value as it is
 };
 
 // K rows that one packed row carries. Sub-byte layouts are blockwise
@@ -46,6 +50,10 @@ __host__ __device__ constexpr int fields() {
 template <int D>
 __host__ __device__ constexpr int code_bytes() {
   return (D == kBf16 || D == kFp16) ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr bool is_fp8() {
+  return D == kFp8E4m3 || D == kFp8E5m2;
 }
 // Packed rows of one block of B K rows (transport_rows_per_block).
 template <int D>
@@ -84,6 +92,26 @@ __device__ __forceinline__ float decode_half(int h) {
     __half_raw r;
     r.x = static_cast<unsigned short>(h);
     return __bfloat162float(__float2bfloat16(__half2float(__half(r))));
+  }
+}
+
+// n float8 codes (the sign-extended bytes that load_row gives) -> their
+// values, two at a time through Hopper's paired float8 -> f16 convert. Every
+// e4m3 and e5m2 value is an f16 value, so the decode is exact, and so is the
+// value times a power of two in f32 or bf16.
+template <int D, int n>
+__device__ __forceinline__ void decode_fp8(const int c[n], float w[n]) {
+  static_assert(is_fp8<D>() && n % 2 == 0, "pairs of float8 codes");
+  constexpr __nv_fp8_interpretation_t kKind =
+      D == kFp8E4m3 ? __NV_E4M3 : __NV_E5M2;
+#pragma unroll
+  for (int i = 0; i < n; i += 2) {
+    const auto pair = static_cast<__nv_fp8x2_storage_t>(
+        (c[i] & 0xFF) | ((c[i + 1] & 0xFF) << 8));     // code i in the low byte
+    const float2 f =
+        __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, kKind)));
+    w[i] = f.x;
+    w[i + 1] = f.y;
   }
 }
 
@@ -187,6 +215,8 @@ __device__ __forceinline__ void decode_group(const int8_t* __restrict__ codes,
   } else if constexpr (code_bytes<D>() == 2) {
 #pragma unroll
     for (int i = 0; i < n; ++i) w[0][i] = decode_half<D>(c[i]);
+  } else if constexpr (is_fp8<D>()) {
+    decode_fp8<D, n>(c, w[0]);
   } else {
 #pragma unroll
     for (int f = 0; f < fields<D>(); ++f)
@@ -210,6 +240,9 @@ __device__ __forceinline__ void decode_row(const int8_t* __restrict__ codes,
 #pragma unroll
     for (int i = 0; i < n; ++i)
       w[i] = decode_pf6(c[i], f >> 1, hi[i], f, mw, ebits);
+  } else if constexpr (is_fp8<D>()) {
+    load_row<D, n>(codes, base + g, col0, N, vec, c);
+    decode_fp8<D, n>(c, w);
   } else {
     load_row<D, n>(codes, base + g, col0, N, vec, c);
 #pragma unroll

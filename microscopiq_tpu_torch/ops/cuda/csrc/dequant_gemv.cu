@@ -4,7 +4,10 @@
 // dequant_matmul_sad) in every decode it has: emi8 and emi8m, the int8
 // container, sb4 and sb2, pf4 and pf6, and the bf16 and fp16 containers. It
 // carries every linear of a decode step, the last_only lm_head and engine
-// prefills of <= 64 tokens.
+// prefills of <= 64 tokens. It also takes the float8 containers (e4m3: the
+// fp8_e4m3 codes and fp6/fp4 packed "native"; e5m2), which the JAX package
+// sends to _dq_matmul_kernel's native2d branch (2-D codes) or to XLA
+// (serving layout) at every M; one byte a weight, as the int8 container.
 //
 // What bounds it on the H100: bytes. At M = 8 the codes (1 byte/weight for
 // emi8 and int8, 1/2 for sb4 and pf4, 3/4 for pf6, 1/4 for sb2, 2 for the
@@ -192,6 +195,8 @@ extern "C" int dequant_gemv(const void* x, const void* codes, const void* se,
     case mxq::kPf6: MXQ_GEMV(mxq::kPf6); break;
     case mxq::kBf16: MXQ_GEMV(mxq::kBf16); break;
     case mxq::kFp16: MXQ_GEMV(mxq::kFp16); break;
+    case mxq::kFp8E4m3: MXQ_GEMV(mxq::kFp8E4m3); break;
+    case mxq::kFp8E5m2: MXQ_GEMV(mxq::kFp8E5m2); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MXQ_GEMV

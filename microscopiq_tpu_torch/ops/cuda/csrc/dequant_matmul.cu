@@ -4,9 +4,12 @@
 // Replaces the serving-layout branches of
 // microscopiq_tpu/ops/pallas/dequant_matmul.py::_dq_matmul_kernel (emi8,
 // emi8m and the int8 container, launched from dequant_matmul) and its legacy
-// `native2d` branch: 2-D (K, N) int8 codes reach the (NB, B, N) serving
-// layout by a view (packing.to_serving_layout, no copy), so this same kernel
-// serves them. The sb4, sb2, pf4, pf6, bf16 and fp16 transports, which the
+// `native2d` branch: 2-D (K, N) int8 and float8 (e4m3, e5m2) codes reach the
+// (NB, B, N) serving layout by a view (packing.to_serving_layout, no copy),
+// so this same kernel serves them; serving-layout float8 codes, which the
+// JAX package sends to XLA, come here too. Float8 codes decode exactly to
+// f16 in hardware (common.cuh's decode_fp8). The sb4, sb2, pf4, pf6, bf16
+// and fp16 transports, which the
 // JAX package sends to XLA's dequantize-then-dot at this size, come here too
 // with their own B-tile decode. It carries every linear of a prefill of more
 // than 64 tokens (the bench shape is M = 8 x 128 = 1024).
@@ -25,8 +28,9 @@
 //   (common.cuh's decode_row; the codes are not a flat (K, N) matrix when a
 //   packed row holds several K rows). Each decoded code is multiplied by
 //   2^(se - fold) and stored as bf16. Integer codes have at most 7
-//   significant bits (pf6: 3) and bf16/fp16 containers are rounded to bf16
-//   first, so the product is exact in bf16 and matches the plain twin's
+//   significant bits (pf6: 3, float8: 4) and bf16/fp16 containers are
+//   rounded to bf16 first, so the product is exact in bf16 and matches the
+//   plain twin's
 //   dequantized bf16 weight bit for bit.
 // - ragged M, N and K are masked: x columns k >= K and rows m >= M load as
 //   zeros, code columns n >= N decode to zero, and the epilogue stores only
@@ -111,6 +115,8 @@ extern "C" int dequant_matmul(const void* x, const void* codes,
     case mxq::kPf6: MXQ_GEMM(mxq::kPf6); break;
     case mxq::kBf16: MXQ_GEMM(mxq::kBf16); break;
     case mxq::kFp16: MXQ_GEMM(mxq::kFp16); break;
+    case mxq::kFp8E4m3: MXQ_GEMM(mxq::kFp8E4m3); break;
+    case mxq::kFp8E5m2: MXQ_GEMM(mxq::kFp8E5m2); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MXQ_GEMM

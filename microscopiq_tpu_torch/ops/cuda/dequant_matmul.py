@@ -8,15 +8,19 @@ with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
 the kernel (``csrc/dequant_matmul.cu``). Both take every transport that the
 TPU kernels decode: emi8 and emi8m, the int8 container (pre-blocked or 2-D,
-which reaches the serving layout by a view), sb4, sb2, pf4, pf6 and the
-bf16/fp16 containers. Where the JAX package sends sb4/sb2/pf4/pf6/bf16/fp16
-at M > 64 to XLA's dequantize-then-dot, the port's GEMM decodes them too.
-The W8A8 GEMV (``csrc/dequant_gemv_s8.cu``) takes int8 activations against
-the int transports (int8 container, sb4, sb2).
+which reaches the serving layout by a view), sb4, sb2, pf4, pf6, the
+bf16/fp16 containers and the float8 containers (``float8_e4m3fn`` from
+fp8_e4m3, and from fp6/fp4 packed ``native``; ``float8_e5m2`` from
+fp8_e5m2). Where the JAX package sends sb4/sb2/pf4/pf6/bf16/fp16 at M > 64
+to XLA's dequantize-then-dot, the port's GEMM decodes them too. JAX sends
+2-D float8 codes to ``_dq_matmul_kernel``'s ``native2d`` branch at every M
+and serving-layout float8 codes to XLA; the port routes both as every other
+transport, the GEMV for M <= 64 and the GEMM above (the same function, f32
+sums in another order). The W8A8 GEMV (``csrc/dequant_gemv_s8.cu``) takes
+int8 activations against the int transports (int8 container, sb4, sb2).
 
 Tensors on the CPU go to the plain version. Tensors on a CUDA device go to a
-kernel or raise: there is no silent fallback. The float8 containers raise
-on CUDA: the JAX package serves them only through XLA (ROADMAP queue 2).
+kernel or raise: there is no silent fallback.
 """
 
 from __future__ import annotations
@@ -36,11 +40,15 @@ _GEMV_TARGET_BLOCKS = 8 * 132     # ~8 blocks per SM of an H100
 _GEMV_MIN_BLOCKS_PER_SPLIT = 4    # keeps the f32 partials << the codes
 
 # decode name -> mxq::Decode id of csrc/common.cuh; the names key the launch
-# counts ("emi8" serves emi8 and emi8m, "native" the int8 container)
+# counts ("emi8" serves emi8 and emi8m, "native" the int8 container,
+# "fp8_e4m3" every float8_e4m3fn container)
 _DECODES = {"emi8": 0, "native": 1, "sb4": 2, "sb2": 3, "pf4": 4, "pf6": 5,
-            "bf16": 6, "fp16": 7}
+            "bf16": 6, "fp16": 7, "fp8_e4m3": 8, "fp8_e5m2": 9}
 _S8_DECODES = ("native", "sb4", "sb2")
-_CODE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+# decode -> code container, for the decodes whose codes are not int8
+_CODE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
+                "fp8_e4m3": torch.float8_e4m3fn,
+                "fp8_e5m2": torch.float8_e5m2}
 
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them after
@@ -96,7 +104,8 @@ def sad_decode_params(w: pk.PackedMX) -> Tuple[str, int, int, int]:
     wrapper's ``_sad_fold``: emi8 with the format's field split, emi8m with
     the tensor's own, sb4/sb2 and the int8 container with the int fold,
     pf4/pf6 with the format's stored mantissa bits and exponent bits, the
-    bf16/fp16 containers as they are. Float8 containers raise."""
+    bf16/fp16 and float8 containers as they are (fold 0, as the TPU
+    wrapper's ``_scale_fold`` gives a float format)."""
     t = w.transport
     if t == "emi8":
         mw, _, _ = pk.emi8_params(w.elem_format)
@@ -115,9 +124,8 @@ def sad_decode_params(w: pk.PackedMX) -> Tuple[str, int, int, int]:
     for name, dt in _CODE_DTYPES.items():
         if w.codes.dtype == dt:
             return name, 0, 0, 0
-    raise NotImplementedError(
-        f"{w.codes.dtype} codes have no CUDA kernel: the JAX package serves "
-        "float8 containers only through XLA (ROADMAP queue 2)")
+    raise ValueError(f"{w.codes.dtype} codes are no container of a packed "
+                     f"MX weight ({w.elem_format})")
 
 
 def gemv_ksplit(N: int, NB: int) -> Tuple[int, int]:

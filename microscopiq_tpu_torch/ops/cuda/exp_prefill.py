@@ -34,6 +34,7 @@ import torch
 from .. import packing as pk
 from . import build
 from . import dequant_matmul as dm
+from . import operands as op
 
 SMEM_MAX = 232448                 # bytes of shared memory a block may take
 _PAD = 8                          # kPad: bf16 row padding of the tiles
@@ -115,50 +116,6 @@ def _check_tiles(what: str, M: int, N: int, K: int, bm: int, bn: int,
                          f"{SMEM_MAX} a block may take")
 
 
-def _compiled(what: str, cfg, table) -> None:
-    if cfg not in table:
-        raise ValueError(f"{what}: {cfg} was not compiled; the kernel takes "
-                         f"{list(table)}")
-
-
-def _x2(x: torch.Tensor, K: int) -> Tuple[int, int]:
-    if x.dim() != 2 or x.shape[1] != K:
-        raise ValueError(f"x must be (M, {K}), got {tuple(x.shape)}")
-    return x.shape[0], K
-
-
-def _packed(w: pk.PackedMX, decodes) -> Tuple[pk.PackedMX, str, int, int]:
-    """(serving-layout weight, decode, fold, mw) of a (K, N) weight whose
-    K is a whole number of blocks and whose decode is in ``decodes``."""
-    decode, fold, mw, _ = dm.sad_decode_params(w)
-    if decode not in decodes or w.axis != 0:
-        raise ValueError(f"the kernel takes (K, N) weights blocked on axis 0 "
-                         f"in {decodes}, got {w.transport} ({decode}) on "
-                         f"axis {w.axis}")
-    ww = pk.to_serving_layout(w)
-    NB, rows, N = ww.codes.shape
-    if rows != ww.block_size or ww.scale_exp.shape != (NB, N):
-        raise ValueError(f"codes {tuple(ww.codes.shape)} and exponents "
-                         f"{tuple(ww.scale_exp.shape)} are not a one-byte "
-                         f"serving layout of block {ww.block_size}")
-    if w.orig_dim != NB * ww.block_size:
-        raise ValueError(f"K = {w.orig_dim} is not a multiple of the block "
-                         f"{ww.block_size}")
-    return ww, decode, fold, mw
-
-
-def _on_card(x: torch.Tensor, *ts: torch.Tensor) -> None:
-    if not x.is_cuda or any(t.device != x.device for t in ts):
-        raise ValueError("x and the weight must be on one CUDA device")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in ts):
-        raise ValueError("weight tensors must be contiguous and 16-byte "
-                         "aligned")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _kernel(name: str):
     return build.entry("exp_prefill", name, _ENTRIES[name])
 
@@ -191,7 +148,7 @@ def _dense_weight(x: torch.Tensor, wd: torch.Tensor) -> Tuple[int, int, int]:
         raise ValueError(f"wd must be a (K, N) bf16 matrix, got "
                          f"{tuple(wd.shape)} {wd.dtype}")
     K, N = wd.shape
-    M, _ = _x2(x, K)
+    M, _ = op.x2d(x, K)
     return M, K, N
 
 
@@ -204,10 +161,10 @@ def gemm_pre(x: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return reference(x, wd)
     x2 = x.to(torch.bfloat16).contiguous()
-    _on_card(x2, wd)
+    op.on_card(x2, wd)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     _launched(_kernel("exp_gemm_pre")(x2.data_ptr(), wd.data_ptr(),
-                                      out.data_ptr(), M, K, N, _stream(x)),
+                                      out.data_ptr(), M, K, N, op.stream(x)),
               "exp_gemm_pre")
     return out
 
@@ -224,22 +181,22 @@ def gemm_tiles(x: torch.Tensor, w, *, bm: int, bn: int, bk: int,
         ops, B, mw, fold = (w, w), 0, 0, 0
     else:
         src = "emi8"
-        ww, _, fold, mw = _packed(w, ("emi8",))
+        ww, _, fold, mw = op.serving_packed(w, ("emi8",))
         NB, B, N = ww.codes.shape
-        M, K = _x2(x, NB * B)
+        M, K = op.x2d(x, NB * B)
         ops = (ww.codes, ww.scale_exp)
     _check_tiles("gemm_tiles", M, N, K, bm, bn, bk, tiles_smem(bm, bn, bk))
-    _compiled("gemm_tiles", (src, bm, bn, bk), TILES)
+    op.compiled("gemm_tiles", (src, bm, bn, bk), TILES)
     if x.device.type == "cpu":
         return reference(x, w, out_dtype)
     x2 = x.to(torch.bfloat16).contiguous()
-    _on_card(x2, *ops)
+    op.on_card(x2, *ops)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     key = tiles_key(src, bm, bn, bk)
     _launched(_kernel("exp_gemm_tiles")(
         x2.data_ptr(), ops[0].data_ptr(), ops[1].data_ptr(), out.data_ptr(),
         M, K, N, B, _SRC[src], bm, bn, bk, mw, fold,
-        int(out_dtype == torch.bfloat16), _stream(x)), key)
+        int(out_dtype == torch.bfloat16), op.stream(x)), key)
     return out
 
 
@@ -248,25 +205,25 @@ def gemm_unroll(x: torch.Tensor, w: pk.PackedMX, *, s: int, interleave: bool,
     """y = x @ dequant(w) (f32), each bk-deep K step in ``s`` sub-chunks,
     the decode of sub-chunk s+1 issued before the MMAs of s (interleave) or
     decode then MMAs; emi8 or the int8 container."""
-    ww, decode, fold, mw = _packed(w, ("emi8", "native"))
+    ww, decode, fold, mw = op.serving_packed(w, ("emi8", "native"))
     NB, B, N = ww.codes.shape
-    M, K = _x2(x, NB * B)
+    M, K = op.x2d(x, NB * B)
     if s <= 0 or bk % s or (bk // s) % 16:
         raise ValueError(f"gemm_unroll: s = {s} does not cut the K step "
                          f"{bk} into sub-chunks of a multiple of 16 rows")
     _check_tiles("gemm_unroll", M, N, K, bm, bn, bk,
                  unroll_smem(bm, bn, bk, s))
-    _compiled("gemm_unroll", (decode, s, bool(interleave), bm, bn, bk),
+    op.compiled("gemm_unroll", (decode, s, bool(interleave), bm, bn, bk),
               UNROLL)
     if x.device.type == "cpu":
         return reference(x, w)
     x2 = x.to(torch.bfloat16).contiguous()
-    _on_card(x2, ww.codes, ww.scale_exp)
+    op.on_card(x2, ww.codes, ww.scale_exp)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     _launched(_kernel("exp_gemm_unroll")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
         out.data_ptr(), M, K, N, B, _DECODE_IDS[decode], s, int(interleave),
-        bm, bn, bk, mw, fold, _stream(x)), "exp_gemm_unroll")
+        bm, bn, bk, mw, fold, op.stream(x)), "exp_gemm_unroll")
     return out
 
 
@@ -275,19 +232,19 @@ def gemm_pipe(x: torch.Tensor, w: pk.PackedMX, *, bm: int, bn: int,
     """y = x @ dequant(w) (f32, emi8) with two A/B stages along K: x of
     step k+1 by cp.async and the codes of k+1 into registers before the
     MMAs of k, their decode after; one barrier a step."""
-    ww, _, fold, mw = _packed(w, ("emi8",))
+    ww, _, fold, mw = op.serving_packed(w, ("emi8",))
     NB, B, N = ww.codes.shape
-    M, K = _x2(x, NB * B)
+    M, K = op.x2d(x, NB * B)
     _check_tiles("gemm_pipe", M, N, K, bm, bn, bk, pipe_smem(bm, bn, bk))
-    _compiled("gemm_pipe", (bm, bn, bk), PIPE)
+    op.compiled("gemm_pipe", (bm, bn, bk), PIPE)
     if x.device.type == "cpu":
         return reference(x, w)
     x2 = x.to(torch.bfloat16).contiguous()
-    _on_card(x2, ww.codes, ww.scale_exp)
+    op.on_card(x2, ww.codes, ww.scale_exp)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     _launched(_kernel("exp_gemm_pipe")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
-        out.data_ptr(), M, K, N, B, bm, bn, bk, mw, fold, _stream(x)),
+        out.data_ptr(), M, K, N, B, bm, bn, bk, mw, fold, op.stream(x)),
         "exp_gemm_pipe")
     return out
 
@@ -308,20 +265,20 @@ def gemm_rx(x: torch.Tensor, w: pk.PackedMX, *, tn: int,
             bk: int = 32) -> torch.Tensor:
     """y = x @ dequant(w) (f32, emi8) with 16 rows of x resident in shared
     memory for the whole K, walking N tiles of ``tn`` columns."""
-    ww, _, fold, mw = _packed(w, ("emi8",))
+    ww, _, fold, mw = op.serving_packed(w, ("emi8",))
     NB, B, N = ww.codes.shape
-    M, K = _x2(x, NB * B)
+    M, K = op.x2d(x, NB * B)
     _check_tiles("gemm_rx", M, N, K, RX_ROWS, tn, bk, rx_smem(K, tn, bk))
-    _compiled("gemm_rx", (tn, bk), RX)
+    op.compiled("gemm_rx", (tn, bk), RX)
     if x.device.type == "cpu":
         return reference(x, w)
     x2 = x.to(torch.bfloat16).contiguous()
-    _on_card(x2, ww.codes, ww.scale_exp)
+    op.on_card(x2, ww.codes, ww.scale_exp)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tiles = rx_tiles_per_block(M, N, tn, sms)
     _launched(_kernel("exp_gemm_rx")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
-        out.data_ptr(), M, K, N, B, tn, bk, tiles, mw, fold, _stream(x)),
+        out.data_ptr(), M, K, N, B, tn, bk, tiles, mw, fold, op.stream(x)),
         "exp_gemm_rx")
     return out

@@ -29,6 +29,7 @@ import torch
 from .. import packing as pk
 from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
+from . import operands as op
 from .dequant_matmul import gemv_ksplit
 from .dequant_matmul import scale_fold as _scale_fold
 
@@ -42,7 +43,7 @@ _TARGET_BLOCKS = 8 * 132          # ~8 blocks per SM of an H100
 launch_counts = {"dequant_gemv_nb": 0, "dequant_gemm_nb": 0,
                  "dequant_gemv_outlier": 0, "dequant_gemm_outlier": 0}
 
-_OUT_DTYPES = (torch.bfloat16, torch.float32)
+_OUT_DTYPES = op.OUT_DTYPES
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: (source in csrc/, argument types)
 _ENTRIES = {
@@ -68,14 +69,6 @@ def _rows(x: torch.Tensor) -> int:
     for d in x.shape[:-1]:
         M *= d
     return M
-
-
-def _on_cpu(x: torch.Tensor, tensors) -> bool:
-    """True when x and the weight lie on the CPU (the twin's case); raises
-    when they lie on different devices."""
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("x and the packed weight must be on one device")
-    return x.device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -118,47 +111,13 @@ def nb_ksplit(NB: int, K: int) -> Tuple[int, int]:
     return -(-groups // per), per
 
 
-def _nb_operands(x: torch.Tensor, w: PackedOutlierNB, out_dtype):
-    if not x.is_cuda:
-        raise ValueError("the NB kernel takes CUDA tensors")
-    if w.block_size != 16:
-        raise ValueError("the compact transport is specified for block 16")
-    if w.elem_format != "int2" or w.outlier_format not in ("fp4",
-                                                           "fp4_e2m1"):
-        raise ValueError(f"the NB kernel decodes int2 + fp4, got "
-                         f"{w.elem_format} + {w.outlier_format}")
-    tensors = (w.codes, w.scale_exp, w.out_byte, w.out_scale_exp)
-    if any(t.dtype != torch.int8 for t in tensors):
-        raise ValueError("NB codes, exponents and slot bytes must be int8")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("packed weight must be contiguous")
-    Np4, K = w.codes.shape
-    NB = Np4 // 4
-    if (w.scale_exp.shape != (NB, K) or w.out_scale_exp.shape != (NB, K)
-            or w.out_byte.shape[1:] != (NB, K) or 4 * Np4 < w.orig_n
-            or K != w.orig_k):
-        raise ValueError(f"NB operands disagree: codes {tuple(w.codes.shape)}"
-                         f", scale_exp {tuple(w.scale_exp.shape)}, out_byte "
-                         f"{tuple(w.out_byte.shape)}, orig ({w.orig_n}, "
-                         f"{w.orig_k})")
-    if x.shape[-1] != K:
-        raise ValueError(f"x has K={x.shape[-1]}, weight has K={K}")
-    if out_dtype not in _OUT_DTYPES:
-        raise ValueError(f"out_dtype {out_dtype} not in {_OUT_DTYPES}")
-    return x.reshape(-1, K).to(torch.bfloat16).contiguous()
-
-
-def _nb_tensors(w: PackedOutlierNB):
-    return (w.codes, w.scale_exp, w.out_byte, w.out_scale_exp)
-
-
 def dequant_gemv_nb(x: torch.Tensor, w: PackedOutlierNB,
                     out_dtype=torch.float32) -> torch.Tensor:
     """The NB GEMV kernel (any M; the dispatch sends it M < GEMM_FROM_M).
     x is rounded to bf16 first, as the TPU kernel does."""
-    if _on_cpu(x, _nb_tensors(w)):
+    if op.on_cpu(x, op.nb_tensors(w)):
         return dequant_matmul_nb_reference(x, w, out_dtype)
-    x2 = _nb_operands(x, w, out_dtype)
+    x2 = op.nb_operands(x, w, out_dtype)
     M, K = x2.shape
     N, Np = w.orig_n, 4 * w.codes.shape[0]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
@@ -181,9 +140,9 @@ def dequant_gemm_nb(x: torch.Tensor, w: PackedOutlierNB,
                     out_dtype=torch.float32) -> torch.Tensor:
     """The NB tensor-core GEMM (any M; the dispatch sends it
     M >= GEMM_FROM_M). x is rounded to bf16 first."""
-    if _on_cpu(x, _nb_tensors(w)):
+    if op.on_cpu(x, op.nb_tensors(w)):
         return dequant_matmul_nb_reference(x, w, out_dtype)
-    x2 = _nb_operands(x, w, out_dtype)
+    x2 = op.nb_operands(x, w, out_dtype)
     M, K = x2.shape
     N, Np = w.orig_n, 4 * w.codes.shape[0]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
@@ -274,7 +233,7 @@ def dequant_gemv_outlier(x: torch.Tensor, w: PackedMXOutlier,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The side-band GEMV kernel (any M; the dispatch sends it
     M < GEMM_FROM_M). x is rounded to bf16 first, as the TPU kernel does."""
-    if _on_cpu(x, _sideband_tensors(w)):
+    if op.on_cpu(x, _sideband_tensors(w)):
         return dequant_matmul_outlier_reference(x, w, out_dtype)
     inl = w.inlier
     x2, (codes_fp8, oc_fp8) = _outlier_operands(x, w, out_dtype)
@@ -303,7 +262,7 @@ def dequant_gemm_outlier(x: torch.Tensor, w: PackedMXOutlier,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The side-band tensor-core GEMM (any M; the dispatch sends it
     M >= GEMM_FROM_M). x is rounded to bf16 first."""
-    if _on_cpu(x, _sideband_tensors(w)):
+    if op.on_cpu(x, _sideband_tensors(w)):
         return dequant_matmul_outlier_reference(x, w, out_dtype)
     inl = w.inlier
     x2, (codes_fp8, oc_fp8) = _outlier_operands(x, w, out_dtype)

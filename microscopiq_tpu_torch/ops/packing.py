@@ -929,24 +929,36 @@ def pack_outlier_nb(decisions: dict, budget: int = 0,
                            orig_n=N, orig_k=K)
 
 
-def dequantize_outlier_nb(p: PackedOutlierNB, dtype=torch.float32
-                          ) -> torch.Tensor:
-    """Dense (N, K) tensor from the compact transport: the plain twin of the
-    kernel's decode, exact against the fake-quant output."""
+def outlier_nb_parts(p: PackedOutlierNB) -> dict:
+    """The (N, K) f32 parts of the compact transport: ``codes`` (the inlier
+    codes as stored), ``inliers`` (their values, codes times the level-1
+    scale) and ``outliers`` (each slot's value at its row, zero elsewhere).
+    Inliers are zero at outlier rows, so inliers + outliers is exact."""
     bs = p.block_size
     icodes = _subbyte_unpack(p.codes.T, bs, 4, 2).T              # (Np, K)
     Np, K = icodes.shape
     nb = Np // bs
     vals = _code_decode(icodes, p.elem_format)
     se_in = p.scale_exp.to(torch.float32)                         # (nb, K)
-    v3 = mul_pow2(vals.reshape(nb, bs, K), se_in[:, None, :])
+    inl = mul_pow2(vals.reshape(nb, bs, K), se_in[:, None, :])
     b = p.out_byte.to(torch.int32) & 0xFF                         # (s, nb, K)
     pos = b >> 4
     oval = decode_fp_bits(b & 0xF, p.outlier_format)
     contrib = mul_pow2(oval, (p.out_scale_exp.to(torch.float32) - se_in)[None])
-    row = torch.arange(bs, device=v3.device)[None, :, None]
-    zero = torch.zeros((), device=v3.device)
+    row = torch.arange(bs, device=inl.device)[None, :, None]
+    out = torch.zeros_like(inl)
     for s in range(p.out_byte.shape[0]):
-        v3 = v3 + torch.where(row == pos[s][:, None, :],
-                              contrib[s][:, None, :], zero)
-    return v3.reshape(Np, K)[:p.orig_n].to(dtype)
+        out = out + torch.where(row == pos[s][:, None, :],
+                                contrib[s][:, None, :], 0.0)
+    n = p.orig_n
+    return {"codes": icodes[:n].to(torch.float32),
+            "inliers": inl.reshape(Np, K)[:n],
+            "outliers": out.reshape(Np, K)[:n]}
+
+
+def dequantize_outlier_nb(p: PackedOutlierNB, dtype=torch.float32
+                          ) -> torch.Tensor:
+    """Dense (N, K) tensor from the compact transport: the plain twin of the
+    kernel's decode, exact against the fake-quant output."""
+    parts = outlier_nb_parts(p)
+    return (parts["inliers"] + parts["outliers"]).to(dtype)

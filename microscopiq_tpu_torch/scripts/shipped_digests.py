@@ -1,0 +1,74 @@
+"""Digests of the shipped GEMV's and GEMM's outputs, one per decode.
+
+    python -m microscopiq_tpu_torch.scripts.shipped_digests
+
+Packs a seeded (512, 384) weight in each decode that ``csrc/common.cuh``
+had before the float8 decodes joined it, runs ``dequant_gemv`` (M = 8) and
+``dequant_gemm`` (M = 300) on seeded x, and prints one JSON object:
+{decode: {"gemv": sha256, "gemm": sha256}} (the first 16 hex digits of the
+f32 outputs' bytes). Run it in two checkouts on one card (this file copied
+into the older one) and compare the lines: equal lines show that an edit of
+the shared decode left every shipped decode's outputs bit for bit as they
+were. The digests depend on the build, so they are compared, never pinned.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..ops import packing as pk
+from ..ops.cuda import dequant_matmul as dm
+
+# (format, transport, block, weight scale): the decodes before float8; the
+# bfloat16 weights are N(0, 64) so that no block exponent clamps at -127
+DECODES = (("int4", "sb4", 32, 1.0), ("int2", "sb2", 16, 1.0),
+           ("int8", "native", 32, 1.0), ("int2", "native", 32, 1.0),
+           ("fp4_e2m1", "pf4", 32, 1.0), ("fp6_e3m2", "pf6", 32, 1.0),
+           ("fp6_e2m3", "pf6", 32, 1.0), ("bfloat16", "native", 32, 8.0),
+           ("fp16", "native", 16, 1.0), ("fp6_e3m2", "emi8", 16, 1.0),
+           ("fp6_e3m2", "emi8", 32, 1.0))
+
+
+def _case(fmt: str, transport: str, bs: int, scale: float, dev):
+    """Operands made on the CPU from numpy, then moved to ``dev``."""
+    rng = np.random.default_rng(len(fmt) * 7 + bs)
+    W = (rng.standard_normal((512, 384)) * scale).astype(np.float32)
+    p = pk.to_serving_layout(pk.pack_mx(torch.from_numpy(W), 8, fmt, bs,
+                                        axis=0, transport=transport))
+    p = dataclasses.replace(p, codes=p.codes.to(dev),
+                            scale_exp=p.scale_exp.to(dev))
+    x = torch.from_numpy(rng.standard_normal((300, 512)).astype(np.float32))
+    return p, x.to(dev)
+
+
+def digests(device="cuda") -> dict:
+    dev = resolve_device(device)
+    out = {}
+    for fmt, transport, bs, scale in DECODES:
+        p, x = _case(fmt, transport, bs, scale, dev)
+        out[f"{fmt}_{transport}_b{bs}"] = {
+            kind: hashlib.sha256(fn(x[:m], p).cpu().numpy().tobytes()
+                                 ).hexdigest()[:16]
+            for kind, fn, m in (("gemv", dm.dequant_gemv, 8),
+                                ("gemm", dm.dequant_gemm, 300))}
+    return out
+
+
+def main(argv=None, *, device="cuda") -> dict:
+    argparse.ArgumentParser(
+        description=__doc__.strip().splitlines()[0],
+        epilog="Runs on the CUDA card; prints one JSON line.").parse_args(argv)
+    got = digests(device)
+    print(json.dumps(got, sort_keys=True), flush=True)
+    return got
+
+
+if __name__ == "__main__":
+    main()

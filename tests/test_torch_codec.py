@@ -204,11 +204,10 @@ def test_serving_layout_roundtrip_and_dequant():
 
 def test_unported_transports_raise():
     """Every pack_mx transport is ported (tests/test_torch_outlier.py holds
-    them bit-exact) and every one but the float8 containers has a CUDA
-    decode; those raise at the kernel's operand check, naming their ROADMAP
-    queue, and a transport that pack_mx does not make (emi8m comes from
-    merge_outlier_emi8) or a format that does not match its transport
-    raises as in JAX."""
+    them bit-exact) and every one has a CUDA decode, the float8 containers
+    included (fp6 codes packed "native" sit in float8_e4m3fn); a transport
+    that pack_mx does not make (emi8m comes from merge_outlier_emi8) or a
+    format that does not match its transport raises as in JAX."""
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
 
     W = _t(_weights(64, 32))
@@ -216,10 +215,9 @@ def test_unported_transports_raise():
         p = tpk.to_serving_layout(tpk.pack_mx(W, 8, fmt, 32, axis=0,
                                               transport=tr))
         assert dm.sad_decode_params(p)[0] == tr
-    for fmt in ("fp6_e3m2", "fp8_e5m2"):
+    for fmt, decode in (("fp6_e3m2", "fp8_e4m3"), ("fp8_e5m2", "fp8_e5m2")):
         p = tpk.to_serving_layout(tpk.pack_mx(W, 8, fmt, 32, axis=0))
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            dm.sad_decode_params(p)
+        assert dm.sad_decode_params(p) == (decode, 0, 0, 0)
     with pytest.raises(ValueError, match="unknown transport"):
         tpk.pack_mx(W, 8, "int4", 32, axis=0, transport="emi8m")
     with pytest.raises(ValueError, match="matching fp format"):

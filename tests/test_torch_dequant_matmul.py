@@ -114,12 +114,13 @@ def test_gemv_ksplit_covers_k_and_ignores_m(K, N):
 
 
 def test_unported_transport_has_no_kernel():
-    """The float8 containers have no CUDA decode (JAX serves them through
-    XLA); the emi8 decode keeps the format's field split and fold."""
+    """The float8 containers have a CUDA decode of their own, fold 0 (JAX
+    sends 2-D float8 codes to its native2d kernel); the emi8 decode keeps
+    the format's field split and fold."""
     W = torch.randn(64, 32)
     p = tpk.pack_mx(W, 8, "fp8_e4m3", 32, axis=0)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        dm.sad_decode_params(p)
+    assert dm.sad_decode_params(p) == ("fp8_e4m3", 0, 0, 0)
+    assert dm.sad_decode_params(tpk.to_serving_layout(p))[0] == "fp8_e4m3"
     assert dm.sad_decode_params(tpk.pack_mx(
         W, 8, "fp6_e3m2", 32, axis=0, transport="emi8")) == ("emi8", 4, 4, 0)
 

@@ -17,7 +17,9 @@ only the order of the sums differs; the outlier GEMMs 2e-3, as the emi8
 GEMM (the same bf16 weights through bf16 MMA with float32 accumulation);
 the prefill-GEMM experiments 2e-3 against the f32 plain output (2^-8 with
 a bf16 output, its rounding), at a small shape and at the scripts' own
-(gate_up, M = 1024).
+(gate_up, M = 1024); the decode-GEMV experiments 1e-5 (GEMVs: exact
+products, f32 sums in another order), each against its own plain version,
+the decode variants i16, ebf8 and f32dot bit-equal to i32.
 """
 
 import dataclasses
@@ -29,13 +31,17 @@ import torch
 from microscopiq_tpu_torch.ops import packing as tpk
 from microscopiq_tpu_torch.ops import outlier as tol
 from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+from microscopiq_tpu_torch.ops.cuda import exp_gemv as eg
 from microscopiq_tpu_torch.ops.cuda import exp_prefill as ep
 from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
 from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
-from microscopiq_tpu_torch.scripts import (_prefill, exp_prefill_floor,
+from microscopiq_tpu_torch.scripts import (_gemv, _prefill,
+                                           exp_decode_variants,
+                                           exp_nb_variants,
+                                           exp_prefill_floor,
                                            exp_prefill_overlap,
                                            exp_prefill_pipe,
-                                           exp_prefill_tiles2)
+                                           exp_prefill_tiles2, exp_sad_tiles)
 
 pytestmark = pytest.mark.gpu
 
@@ -140,12 +146,19 @@ def test_wrappers_check_operands(cuda):
                                 scale_exp=w.scale_exp.cpu())
     with pytest.raises(ValueError, match="one CUDA device"):
         dm.dequant_gemm(_x(100, 256, 0, cuda), cpu_w)
-    for fmt in ("fp6_e3m2", "fp8_e4m3", "fp8_e5m2"):     # float8 containers
+    # float8 containers: the GEMV and the GEMM decode them (fp6 and fp4
+    # codes packed "native" sit in float8_e4m3fn)
+    for fmt, decode in (("fp6_e3m2", "fp8_e4m3"), ("fp8_e4m3", "fp8_e4m3"),
+                        ("fp8_e5m2", "fp8_e5m2")):
         f8 = tpk.to_serving_layout(tpk.pack_mx(
             torch.randn(256, 128, device=cuda), 8, fmt, 32, axis=0))
-        for M in (4, 100):
-            with pytest.raises(NotImplementedError, match="queue 2"):
-                dm.dequant_matmul(_x(M, 256, 0, cuda), f8)
+        for M, kind in ((4, "gemv"), (100, "matmul")):
+            dm.reset_launch_counts()
+            x = _x(M, 256, 0, cuda)
+            got = dm.dequant_matmul(x, f8)
+            assert dm.launch_counts[f"dequant_{kind}_{decode}"] == 1
+            assert _rel(got, dm.dequant_matmul_reference(x, f8)) < (
+                1e-5 if kind == "gemv" else 2e-3)
     sb4 = tpk.to_serving_layout(tpk.pack_mx(
         torch.randn(256, 128, device=cuda), 8, "int4", 32, axis=0,
         transport="sb4"))
@@ -168,7 +181,10 @@ TRANSPORTS = [("int4", "sb4", 32, 1.0), ("int2", "sb2", 16, 1.0),
               ("int8", "native", 32, 1.0), ("int2", "native", 32, 1.0),
               ("fp4_e2m1", "pf4", 32, 1.0), ("fp6_e3m2", "pf6", 32, 1.0),
               ("fp6_e2m3", "pf6", 32, 1.0), ("bfloat16", "native", 32, 8.0),
-              ("fp16", "native", 16, 1.0), ("fp6_e3m2", "emi8", 16, 1.0)]
+              ("fp16", "native", 16, 1.0), ("fp6_e3m2", "emi8", 16, 1.0),
+              # the float8 containers
+              ("fp8_e4m3", "native", 32, 1.0), ("fp8_e5m2", "native", 32, 1.0),
+              ("fp6_e3m2", "native", 32, 1.0), ("fp4_e2m1", "native", 16, 1.0)]
 
 
 def _packed_as(K, N, fmt, transport, bs, scale, seed, device, serving=True):
@@ -212,6 +228,26 @@ def test_native2d_codes_go_to_the_kernel_by_a_view(cuda, M):
     got = dm.dequant_matmul(x, w)
     kind = "gemv" if M <= 64 else "matmul"
     assert dm.launch_counts[f"dequant_{kind}_native"] == 1
+    assert torch.equal(got, dm.dequant_matmul(x, tpk.to_serving_layout(w)))
+    assert _rel(got, dm.dequant_matmul_reference(x, w)) < (
+        1e-5 if M <= 64 else 2e-3)
+
+
+@pytest.mark.parametrize("fmt,decode", [("fp8_e4m3", "fp8_e4m3"),
+                                        ("fp8_e5m2", "fp8_e5m2"),
+                                        ("fp6_e3m2", "fp8_e4m3")])
+@pytest.mark.parametrize("M", [4, 300])
+def test_native2d_float8_codes_go_to_the_kernel_by_a_view(cuda, fmt, decode,
+                                                         M):
+    """2-D float8 codes (the TPU kernel's native2d branch) reach the
+    serving-layout kernels by a view, as 2-D int8 codes do."""
+    w = _packed_as(200, 130, fmt, "native", 32, 1.0, M, cuda, serving=False)
+    assert w.codes.ndim == 2
+    x = _x(M, 200, 7, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul(x, w)
+    kind = "gemv" if M <= 64 else "matmul"
+    assert dm.launch_counts[f"dequant_{kind}_{decode}"] == 1
     assert torch.equal(got, dm.dequant_matmul(x, tpk.to_serving_layout(w)))
     assert _rel(got, dm.dequant_matmul_reference(x, w)) < (
         1e-5 if M <= 64 else 2e-3)
@@ -651,3 +687,114 @@ def test_exp_prefill_wrappers_check_operands(exp_small):
         ep.gemm_tiles(x, w, bm=64, bn=64, bk=32)
     with pytest.raises(ValueError, match="does not divide"):
         ep.gemm_tiles(x[:100], w, bm=128, bn=128, bk=32)
+
+
+# ---------------------------------------------------------------------------
+# decode-GEMV experiments (ops/cuda/exp_gemv.py, scripts/exp_decode_variants,
+# exp_sad_tiles, exp_nb_variants)
+# ---------------------------------------------------------------------------
+_GEMV_SCRIPTS = {exp_decode_variants.NAME: (exp_decode_variants,
+                                            _gemv.decode_setup),
+                 exp_sad_tiles.NAME: (exp_sad_tiles, _gemv.tiles_setup),
+                 exp_nb_variants.NAME: (exp_nb_variants, _gemv.nb_setup)}
+_GEMV_SMALL = {exp_decode_variants.NAME: dict(K=256, N=512),
+               exp_sad_tiles.NAME: dict(K=256, N=512),
+               exp_nb_variants.NAME: dict(K=256, N=256)}
+# (script, arm) of every arm that runs a kernel of csrc/exp_gemv.cu: every
+# variant, tile configuration and NB mode
+_GEMV_ARMS = [(name, a.name) for name, (m, _) in _GEMV_SCRIPTS.items()
+              for a in m.arms() if a.kernel.startswith("exp_")]
+
+
+@pytest.fixture(scope="module")
+def gemv_setup():
+    """setup(script, small): the script's setup on the card, made once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    made = {}
+
+    def get(script, small):
+        if (script, small) not in made:
+            shape = _GEMV_SMALL[script] if small else {}
+            made[(script, small)] = _GEMV_SCRIPTS[script][1]("cuda", **shape)
+        return made[(script, small)]
+
+    yield get
+    made.clear()
+
+
+def _gemv_check(setup, script, arm_name):
+    """The arm's kernel, launched once, within 1e-5 of max |plain| of its
+    own plain version."""
+    arm = next(a for a in _GEMV_SCRIPTS[script][0].arms()
+               if a.name == arm_name)
+    eg.reset_launch_counts()
+    got = arm.call(setup.x, setup.weights[arm.weight][0])
+    torch.cuda.synchronize()
+    assert eg.launch_counts[arm.kernel] == 1
+    assert sum(eg.launch_counts.values()) == 1
+    want = setup.plain(arm.plain_key)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("script,arm", _GEMV_ARMS)
+def test_exp_gemv_kernel_matches_plain_small(gemv_setup, script, arm):
+    _gemv_check(gemv_setup(script, True), script, arm)
+
+
+@pytest.mark.parametrize("script,arm", _GEMV_ARMS)
+def test_exp_gemv_kernel_matches_plain_full(gemv_setup, script, arm):
+    _gemv_check(gemv_setup(script, False), script, arm)
+
+
+@pytest.mark.parametrize("small", [True, False])
+def test_decode_variants_bit_equal_to_i32(gemv_setup, small):
+    par = exp_decode_variants.parity(
+        gemv_setup(exp_decode_variants.NAME, small))
+    assert par["exact"], par
+
+
+def test_shipped_tile_repeats_the_shipped_gemv(gemv_setup):
+    """At (4096, 28672) the shipped GEMV splits K into 7-block splits:
+    tile (8, 512, 7) does its arithmetic in its order."""
+    s = gemv_setup(exp_sad_tiles.NAME, False)
+    w = s.weights["emi8"][0]
+    assert dm.gemv_ksplit(w.codes.shape[2], w.codes.shape[0])[1] == 7
+    assert torch.equal(eg.gemv_tiles(s.x, w, mt=8, tn=512, kb=7),
+                       dm.dequant_gemv(s.x, w))
+
+
+@pytest.mark.parametrize("mode", list(eg.MODES))
+def test_nb_fd_rows_by_field_and_slot(cuda, mode):
+    """x rows are unit vectors, so y[m] is column k_m of the mode's weight,
+    exactly: every row 16b + 4i + r of every N-block (each field i of each
+    code byte r) and every slot row lands in its place."""
+    w = _nb(256, 256, 2, 5, cuda)
+    ks = [0, 3, 64, 97, 130, 131, 200, 255]
+    x = torch.zeros((8, 256), device=cuda)
+    x[torch.arange(8), torch.tensor(ks)] = 1.0
+    parts = tpk.outlier_nb_parts(w)
+    assert (parts["outliers"][:, ks] != 0).sum() >= 8
+    part = eg.ABLATIONS.get(mode)
+    want = (parts[part] if part else parts["inliers"] + parts["outliers"])
+    got = eg.fd_matmul(x, w, mode)
+    assert torch.equal(got, want[:, ks].T)
+
+
+def test_exp_gemv_wrappers_check_operands(gemv_setup):
+    s = gemv_setup(exp_decode_variants.NAME, True)
+    w = s.weights["emi8"][0]
+    cpu_w = dataclasses.replace(w, codes=w.codes.cpu(),
+                                scale_exp=w.scale_exp.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        eg.gemv_variant(s.x, cpu_w, "i32")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        eg.gemv_tiles(s.x, cpu_w, mt=8, tn=512, kb=7)
+    with pytest.raises(ValueError, match="ebf8_weight"):
+        eg.gemv_variant(s.x, w, "ebf8")
+    nb = gemv_setup(exp_nb_variants.NAME, True).weights["nb"][0]
+    with pytest.raises(ValueError, match="one device"):
+        eg.fd_matmul(s.x[:, :256], dataclasses.replace(
+            nb, out_byte=nb.out_byte.cpu()), "pdot")
