@@ -12,7 +12,9 @@ the package is missing. Phases, each of which raises on failure:
    (the GEMV and GEMM with a decode per transport, the W8A8 GEMV, the block
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
    GEMM, the prefill-GEMM and the decode-GEMV experiments), one ``nvcc``
-   each, all at once;
+   each, all at once; then ``build_sm90``: the registers and spills of the
+   pf6 and side-band GEMMs on the wgmma + TMA mainloop
+   (``csrc/gemm_sm90.cuh``) and the shared memory of their rings;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -112,6 +114,12 @@ the package is missing. Phases, each of which raises on failure:
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --gemm-times
+
+times only the pf6 and side-band GEMMs at M = 1024 at every Llama-3-8B shape
+on seeded operands and prints them as one JSON line (``sm90_gemm_times``),
+to compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -2099,6 +2107,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
             "at": f"gate_up (4096, 28672) M={m_at}"
                   + (", MX-FP6 emi8 block 32" if emi8 else ""),
             "shapes": _shape_rows(mine)}
+        if name == "dequant_gemm_outlier":
+            rec["mainloop"] = SM90_SOURCE
         if emi8:
             em = [r for r in orows if r["kernel"] == name]
             rec["max_abs_err_emi8m_block16"] = max(r["max_abs_err"]
@@ -2160,6 +2170,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                       f"{fmt[0]} {fmt[1]} block {fmt[2]}",
                 "shapes": [[r[k] for k in short] for r in mine],
                 "shape_keys": list(short)})
+            if name == "dequant_matmul_pf6":
+                out[-1]["mainloop"] = SM90_SOURCE
     for transport in ("native", "sb4", "sb2"):
         name = f"dequant_gemv_s8_{transport}"
         mine = [r for r in srows if r["kernel"] == name]
@@ -2274,13 +2286,89 @@ def gemv_kernel_records(grows, gcounts):
         lambda r: f"{r['script']} (K={r['K']}, N={r['N']}) M={r['M']}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Slice 7: the pf6 and side-band GEMMs on the wgmma + TMA mainloop
+# ---------------------------------------------------------------------------
+SM90_M = 1024
+SM90_SOURCE = "microscopiq_tpu_torch/ops/cuda/csrc/gemm_sm90.cuh"
+
+
+def sm90_build_line(card: str) -> None:
+    """The two wgmma + TMA GEMMs' ptxas lines (registers, spills) and the
+    dynamic shared memory that their host-side plan gives each compiled
+    ring (ptxas reports static shared memory only)."""
+    from microscopiq_tpu_torch.ops.cuda import build
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    lines = [ln for ln in build.ptxas_report(("dequant_matmul",
+                                              "outlier_matmul"))
+             if "_sm90" in ln]
+    smem = {f"pf6_block{b}": dm.sm90_plan("pf6", 4096, 4096, b)["smem_bytes"]
+            for b in (16, 32)}
+    smem.update({f"sideband_block{b}_slots{s}": dm.sm90_plan(
+        "sideband", 4096, 4096, b, s)["smem_bytes"]
+        for b in (16, 32) for s in (1, 2, 4, 8)})
+    log(phase="build_sm90", ptxas=lines, smem_bytes=smem, card=card)
+
+
+def sm90_gemm_times() -> list:
+    """The pf6 GEMM (MX-FP6 fp6_e3m2, block 32) and the side-band GEMM
+    (int2 + fp4 outliers, block 16, budget 4) at M = 1024 at every
+    Llama-3-8B shape, CUDA events over L2-cold operand copies, on weights
+    and x made from fixed seeds: two checkouts time the same operands.
+    ``python3 chip_smoke.py --gemm-times`` prints the rows as one JSON line;
+    run it in two checkouts in one call (this script copied into the other
+    one) to compare their kernels."""
     import torch
 
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    gen = torch.Generator(device="cuda").manual_seed(707)
+    rows = []
+    for lin, K, N in SHAPES:
+        x = torch.randn((SM90_M, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for kind in ("pf6", "sideband"):
+            if kind == "pf6":
+                p = int_packed("fp6_pf6", int_weight("fp6_e3m2", (K, N), gen))
+                fn = dm.dequant_gemm
+            else:
+                p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8,
+                                       "int2", "fp4_e2m1", std_dev=2.0,
+                                       block_size=16,
+                                       outlier_budget=SIDEBAND_BUDGET, axis=0)
+                fn = om.dequant_gemm_outlier
+            nc = copies_for(p.nbytes())
+            ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+            ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
+            bound, by = row_bound(p.nbytes() + x.numel() * 2
+                                  + SM90_M * N * 4, SM90_M, N, K)
+            rows.append(dict(kernel=kind, linear=lin, M=SM90_M, K=K, N=N,
+                             ms=ms, bound_ms=bound, bound_by=by))
+            del ps, p
+            torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv not in ([], ["--gemm-times"]):
+        print("usage: chip_smoke.py [--gemm-times]", file=sys.stderr)
+        return 2
     from microscopiq_tpu_torch.ops.cuda import build
+
+    if argv:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False      # plain twins: f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2293,6 +2381,7 @@ def main() -> int:
     build_s = build.build_all()
     log(phase="build", seconds=build_s, ptxas=build.ptxas_report(),
         card=card)
+    sm90_build_line(card)
 
     rows = kernel_phase(card)
     packed, counts, _ = model_phase(card)

@@ -6,10 +6,11 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 ``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
-the kernel (``csrc/dequant_matmul.cu``). Both take every transport that the
-TPU kernels decode: emi8 and emi8m, the int8 container (pre-blocked or 2-D,
-which reaches the serving layout by a view), sb4, sb2, pf4, pf6, the
-bf16/fp16 containers and the float8 containers (``float8_e4m3fn`` from
+the kernel (``csrc/dequant_matmul.cu``; pf6 on the wgmma + TMA mainloop of
+``csrc/gemm_sm90.cuh``, whose host-side plan is :func:`sm90_plan`). Both
+take every transport that the TPU kernels decode: emi8 and emi8m, the int8
+container (pre-blocked or 2-D, which reaches the serving layout by a view),
+sb4, sb2, pf4, pf6, the bf16/fp16 containers and the float8 containers (``float8_e4m3fn`` from
 fp8_e4m3, and from fp6/fp4 packed ``native``; ``float8_e5m2`` from
 fp8_e5m2). Where the JAX package sends sb4/sb2/pf4/pf6/bf16/fp16 at M > 64
 to XLA's dequantize-then-dot, the port's GEMM decodes them too. JAX sends
@@ -58,6 +59,63 @@ launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
+
+# csrc/gemm_sm90.cuh: the output tile and K step (BM, BN, BK), the shared
+# memory a block may use, one ring stage (x tile + bf16 B tile)
+SM90_TILE = (256, 128, 64)
+SM90_MAX_SMEM = 232448
+_SM90_STAGE_BYTES = (SM90_TILE[0] + SM90_TILE[1]) * SM90_TILE[2] * 2
+
+
+def sm90_plan(kind: str, K: int, N: int, block: int,
+              budget: int = 0) -> dict:
+    """Host-side plan of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) for a
+    ``"pf6"`` or ``"sideband"`` weight of K rows and N columns in blocks of
+    ``block`` (16 or 32) with ``budget`` outlier slots, mirroring the
+    kernels' ``Ring`` and decoder sizes (``Pf6Sm90``, ``SidebandSm90``):
+    the tile, the ring's stages and raw buffers, the outlier slots read, one
+    step's raw weight bytes, the dynamic shared memory, whether the raw
+    operands come by TMA (N % 16 == 0; else plain copies), and x's row
+    length ``k_x``: K rounded up to a multiple of 8 (TMA needs rows of a
+    multiple of 16 bytes), with ``pad_x`` where that adds zero columns.
+    Nothing here depends on M.
+    Raises ValueError for what the kernels refuse."""
+    if block not in (16, 32):
+        raise ValueError(f"the sm90 GEMM takes blocks of 16 or 32, got "
+                         f"{block}")
+    BM, BN, BK = SM90_TILE
+    nblk = BK // block
+    if kind == "pf6":
+        slots, stages, raw_bufs = 0, 4, 3
+        raw = (nblk * 3 * block // 4 + nblk) * BN
+    elif kind == "sideband":
+        if not 0 <= budget <= 8:
+            raise ValueError(f"budget {budget} > 8")
+        slots = 1 if budget <= 1 else 2 if budget <= 2 else \
+            4 if budget <= 4 else 8
+        stages, raw_bufs = 3, (3 if slots <= 4 else 2)
+        # codes, se, seo, outlier codes, int32 positions
+        raw = BK * BN + 2 * nblk * BN + 5 * nblk * BN * slots
+    else:
+        raise ValueError(f"unknown sm90 GEMM {kind!r}")
+    # alignment slack, the stages, the raw buffers, the mbarriers
+    smem = (1024 + stages * _SM90_STAGE_BYTES
+            + raw_bufs * (-(-raw // 128) * 128) + (2 * stages + raw_bufs) * 8)
+    k_x = -(-K // 8) * 8
+    return {"tile": SM90_TILE, "stages": stages, "raw_buffers": raw_bufs,
+            "slots": slots, "raw_bytes": raw, "smem_bytes": smem,
+            "tma": N % 16 == 0, "k_x": k_x, "pad_x": k_x != K}
+
+
+def sm90_x(x2: torch.Tensor, k_x: int) -> torch.Tensor:
+    """x (M, K) bf16 as the sm90 GEMM's TMA reads it: zero columns up to
+    ``k_x`` (exact: they meet weight rows that the sum then adds as zeros)
+    and a 16-byte aligned start."""
+    if x2.shape[1] != k_x:
+        x2 = torch.nn.functional.pad(x2, (0, k_x - x2.shape[1]))
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    return x2
 
 
 def reset_launch_counts() -> None:
@@ -212,6 +270,9 @@ def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
+    if decode == "pf6":                   # the sm90 mainloop
+        K = sm90_plan("pf6", K, N, ww.block_size)["k_x"]
+        x2 = sm90_x(x2, K)
     err = _kernel("dequant_matmul")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
         out.data_ptr(), M, K, N, NB * ww.block_size, ww.block_size,

@@ -9,7 +9,8 @@ Counterpart of the outlier parts of
   stored (N, K);
 * :func:`dequant_matmul_outlier` (``csrc/outlier_matmul.cu``, replaces
   ``_dq_matmul_outlier_kernel``): the side-band :class:`PackedMXOutlier`,
-  stored (K, N).
+  stored (K, N); its GEMM runs on the wgmma + TMA mainloop of
+  ``csrc/gemm_sm90.cuh`` (plan: ``dequant_matmul.sm90_plan``).
 
 Each format has two kernels: a K-split GEMV for fewer than ``GEMM_FROM_M``
 rows and a tensor-core GEMM that decodes the weight tile in shared memory
@@ -30,7 +31,7 @@ from .. import packing as pk
 from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
 from . import operands as op
-from .dequant_matmul import gemv_ksplit
+from .dequant_matmul import gemv_ksplit, sm90_plan, sm90_x
 from .dequant_matmul import scale_fold as _scale_fold
 
 GEMM_FROM_M = 256                 # rows from which the GEMMs take over
@@ -271,6 +272,8 @@ def dequant_gemm_outlier(x: torch.Tensor, w: PackedMXOutlier,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
+    K = sm90_plan("sideband", K, N, inl.block_size, w.budget)["k_x"]
+    x2 = sm90_x(x2, K)
     err = _kernel("dequant_gemm_outlier")(
         x2.data_ptr(), _view8(inl.codes).data_ptr(),
         inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),

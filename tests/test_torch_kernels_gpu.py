@@ -798,3 +798,112 @@ def test_exp_gemv_wrappers_check_operands(gemv_setup):
     with pytest.raises(ValueError, match="one device"):
         eg.fd_matmul(s.x[:, :256], dataclasses.replace(
             nb, out_byte=nb.out_byte.cpu()), "pdot")
+
+
+# ---------------------------------------------------------------------------
+# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6 and side-band
+# ---------------------------------------------------------------------------
+LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096),
+             "gate_up": (4096, 28672), "down": (14336, 4096),
+             "lm_head": (4096, 128256)}
+
+
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+def test_sm90_pf6_gemm_at_llama_shapes(cuda, lin):
+    K, N = LLAMA3_8B[lin]
+    w = _packed_as(K, N, "fp6_e3m2", "pf6", 32, 1.0, 7, cuda)
+    x = _x(1024, K, 8, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_gemm(x, w)
+    want = dm.dequant_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["dequant_matmul_pf6"] == 1
+    assert _rel(got, want) < 2e-3
+
+
+@pytest.mark.parametrize("budget", [1, 2, 4, 8])
+@pytest.mark.parametrize("lin", ["qkv", "gate_up"])
+def test_sm90_sideband_gemm_budgets(cuda, lin, budget):
+    K, N = LLAMA3_8B[lin]
+    w = _sideband(K, N, budget, budget, cuda)
+    assert w.budget == budget
+    x = _x(1024, K, 9, cuda)
+    om.reset_launch_counts()
+    got = om.dequant_gemm_outlier(x, w)
+    want = om.dequant_matmul_outlier_reference(x, w)
+    torch.cuda.synchronize()
+    assert om.launch_counts["dequant_gemm_outlier"] == 1
+    assert _rel(got, want) < 2e-3
+
+
+def _sideband_shared_rows(K, N, seed, device):
+    """Budget 4, and in every block whose first slot is filled a second
+    slot that names the same row with its own code: the kernel must add
+    both in slot order."""
+    w = _sideband(K, N, 4, seed, device)
+    pos, oc = w.out_pos.clone(), w.out_codes.clone()
+    hit = pos[..., 0] >= 0
+    pos[..., 1] = torch.where(hit, pos[..., 0], pos[..., 1])
+    oc[..., 1] = torch.where(hit, oc[..., 0], oc[..., 1])
+    assert hit.any()
+    return dataclasses.replace(w, out_pos=pos, out_codes=oc)
+
+
+@pytest.mark.parametrize("N", [384, 130])
+@pytest.mark.parametrize("K", [256, 512])
+@pytest.mark.parametrize("kind", ["pf6", "sideband"])
+def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
+    """x = I: every output row is one row of the decoded B tile (products
+    with 1 and 0 are exact in f32), so the GEMM's f32 output is the twin's
+    bf16 weight at every element; a swizzle or fragment-layout error shows
+    where it occurs. torch.equal, since the f32 sum turns -0 into +0."""
+    x = torch.eye(K, device=cuda)
+    if kind == "pf6":
+        w = _packed_as(K, N, "fp6_e3m2", "pf6", 32, 1.0, K + N, cuda)
+        got = dm.dequant_gemm(x, w)
+        dense = tpk.dequantize_mx(w, dtype=torch.bfloat16)
+    else:
+        w = _sideband_shared_rows(K, N, K + N, cuda)
+        got = om.dequant_gemm_outlier(x, w)
+        cpu = dataclasses.replace(
+            w, inlier=dataclasses.replace(
+                w.inlier, codes=w.inlier.codes.cpu(),
+                scale_exp=w.inlier.scale_exp.cpu()),
+            out_codes=w.out_codes.cpu(), out_pos=w.out_pos.cpu(),
+            out_scale_exp=w.out_scale_exp.cpu())
+        # on the CPU scatter_add adds the slots in slot order
+        dense = tpk.dequantize_mx_outlier(cpu, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), dense.float().cpu())
+
+
+@pytest.mark.parametrize("kind", ["pf6", "sideband"])
+def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
+    K, N, M = 203, 384, 300
+    if kind == "pf6":
+        w = _packed_as(K, N, "fp6_e3m2", "pf6", 32, 1.0, 3, cuda)
+        fn, ref = dm.dequant_gemm, dm.dequant_matmul_reference
+        plan = dm.sm90_plan("pf6", K, N, 32)
+    else:
+        w = _sideband(K, N, 4, 3, cuda)
+        fn, ref = om.dequant_gemm_outlier, om.dequant_matmul_outlier_reference
+        plan = dm.sm90_plan("sideband", K, N, 16, 4)
+    assert plan["pad_x"] and plan["k_x"] == 208
+    for out_dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2 ** -8)):
+        x = _x(M, K, 4, cuda)
+        got = fn(x, w, out_dtype=out_dtype)
+        assert got.dtype == out_dtype and got.shape == (M, N)
+        assert _rel(got.float(), ref(x, w)) < tol
+
+
+def test_sm90_kernels_do_not_spill(cuda):
+    from microscopiq_tpu_torch.ops.cuda import build
+
+    build.build_all(("dequant_matmul", "outlier_matmul"))
+    lines = [ln for ln in build.ptxas_report(("dequant_matmul",
+                                              "outlier_matmul"))
+             if "_sm90" in ln]
+    assert any("gemm_dq_sm90" in ln for ln in lines)
+    assert sum("outlier_gemm_sm90" in ln for ln in lines) == 8
+    for ln in lines:
+        assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
