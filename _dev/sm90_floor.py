@@ -1,9 +1,10 @@
 """The floor of the wgmma + TMA mainloop (csrc/gemm_sm90.cuh): the same
 loop with a bf16 weight whose decode is a copy (_dev/sm90_floor.cu), at
 every Llama-3-8B shape, M = 1024, beside torch.matmul on the same bf16
-weight and the shipped pf6 and side-band GEMMs on chip_smoke.py's seeded
-operands. CUDA events over L2-cold operand copies (copies_for), one JSON
-line per shape; the floor's output is held to torch.matmul first.
+weight and the shipped pf6, side-band, pf4 and fp16-container GEMMs on
+chip_smoke.py's seeded operands. CUDA events over L2-cold operand copies
+(copies_for), one JSON line per shape; the floor's output is held to
+torch.matmul first.
 
     python _dev/sm90_floor.py          (from the repository root, on a card)
 """
@@ -72,7 +73,9 @@ def main() -> None:
             floor_ms=cuda_ms(run, nc),
             matmul_ms=cuda_ms(lambda i: torch.matmul(x, ws[i]), nc),
             pf6_ms=shipped[("pf6", lin)],
-            sideband_ms=shipped[("sideband", lin)], bound_ms=bound,
+            sideband_ms=shipped[("sideband", lin)],
+            pf4_ms=shipped[("pf4", lin)], fp16_ms=shipped[("fp16", lin)],
+            bound_ms=bound,
             bound_by=by, rel_err=rel, card=card)), flush=True)
         del ws, w, out, ref
         torch.cuda.empty_cache()

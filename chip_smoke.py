@@ -13,8 +13,9 @@ the package is missing. Phases, each of which raises on failure:
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
    GEMM, the prefill-GEMM and the decode-GEMV experiments), one ``nvcc``
    each, all at once; then ``build_sm90``: the registers and spills of the
-   pf6 and side-band GEMMs on the wgmma + TMA mainloop
-   (``csrc/gemm_sm90.cuh``) and the shared memory of their rings;
+   pf6, pf4, fp16-container and side-band GEMMs on the wgmma + TMA mainloop
+   (``csrc/gemm_sm90.cuh``, every compiled block) and the shared memory of
+   their rings;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -69,7 +70,8 @@ the package is missing. Phases, each of which raises on failure:
 13. ``int_kernels_vs_plain``: the GEMV (M = 1, 8, 64) and GEMM (M = 128,
     1024) in every other transport of the TPU kernels at the Llama-3-8B
     shapes (int4/sb4, int8 and int2 in the int8 container, int2/sb2 at
-    block 16, fp6/pf6, fp4/pf4; the bf16 and fp16 containers, 2-D
+    block 16, fp6/pf6, fp4/pf4; the bf16 and fp16 containers (qkv and
+    gate_up), 2-D
     ``native2d`` int8 codes, and the float8 containers (fp8_e4m3, fp8_e5m2,
     fp6 in ``float8_e4m3fn``, 2-D fp8_e4m3 codes) at some shapes), each
     against
@@ -86,13 +88,21 @@ the package is missing. Phases, each of which raises on failure:
     the ``pack_params`` models in fp8_e4m3 and fp8_e5m2), a 2-layer
     full-width model, 4 x 120-token prompt and 8 decode steps, through the
     kernels against the plain versions;
-16. ``sad_s8_vs_plain``: the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
+16. ``gemm_block_routes``: the GEMMs at the MX blocks that the JAX
+    packers take and no other phase packs (pf6 at 64 and 128, pf4 at 16,
+    64 and 48, the fp16 container at 8, 64 and 48, the side-band format at
+    8, 64 and 48 with 4 slots and at 8 with 8), at gate_up, M = 1024, each
+    on the kernel that ``dequant_matmul.gemm_route`` names (the sm90 loop,
+    or ``gemm_tile`` where the block does not divide its K step) and held
+    to its plain twin, timed; then one call a case as the entry point's
+    run, with exact launch counts;
+17. ``sad_s8_vs_plain``: the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
     shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``,
     beside the bf16-activation GEMV, ``torch.matmul`` and ``torch._int_mm``;
-17. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
+18. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
     weight shape (block 32) and a ragged one (block 16), bit-equal to
     ``pack_mx(exact_scale=True)``, timed beside the byte bound;
-18. ``prefill_experiments``: the port's four prefill-GEMM experiment
+19. ``prefill_experiments``: the port's four prefill-GEMM experiment
     scripts (``microscopiq_tpu_torch.scripts.exp_prefill_floor``,
     ``_tiles2``, ``_overlap``, ``_pipe``) through their ``main()`` at
     gate_up, M = 1024, on one seeded setup: one line per arm (the
@@ -101,7 +111,7 @@ the package is missing. Phases, each of which raises on failure:
     held to its plain version and timed in three interleaved passes, then
     ``prefill_decomposition``: dense, tile loop, convert, decode, best
     tiles, pipelining and resident x side by side;
-19. ``gemv_experiments``: the port's three decode-GEMV experiment scripts
+20. ``gemv_experiments``: the port's three decode-GEMV experiment scripts
     (``microscopiq_tpu_torch.scripts.exp_decode_variants``,
     ``exp_sad_tiles``, ``exp_nb_variants``) through their ``main()`` on
     their own setups (M = 8): one line per arm (the decode variants, the
@@ -117,9 +127,10 @@ it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --gemm-times
 
-times only the pf6 and side-band GEMMs at M = 1024 at every Llama-3-8B shape
-on seeded operands and prints them as one JSON line (``sm90_gemm_times``),
-to compare two checkouts on one card.
+times only the pf6, side-band, pf4 and fp16-container GEMMs (and
+``torch.matmul`` on a bf16 weight) at M = 1024 at every Llama-3-8B shape on
+seeded operands and prints them as one JSON line (``sm90_gemm_times``), to
+compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -1361,7 +1372,7 @@ INT_CASES = {
     "fp6_pf6": ("fp6_e3m2", "pf6", 32, False, None),
     "fp4_pf4": ("fp4_e2m1", "pf4", 32, False, None),
     "bf16_container": ("bfloat16", "native", 32, False, ("qkv", "gate_up")),
-    "fp16_container": ("fp16", "native", 32, False, ("qkv",)),
+    "fp16_container": ("fp16", "native", 32, False, ("qkv", "gate_up")),
     "int8_native2d": ("int8", "native", 32, True, ("qkv", "gate_up")),
     # the float8 containers: fp8_e4m3 and fp8_e5m2 as pack_params makes
     # them, fp6 codes in float8_e4m3fn, and 2-D codes (the TPU's native2d)
@@ -2057,7 +2068,7 @@ def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
 
 def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                  icounts, tcounts, srows, scounts, mrows, mcounts, prows,
-                 pcounts, grows, gcounts):
+                 pcounts, grows, gcounts, rrows, rcounts):
     """One record per kernel (and per decode of the GEMV and GEMM), at its
     heaviest main-path call (gate_up: M = 8 for the GEMVs, M = 1024 for the
     GEMMs; B = 4 x 3136 live tokens for the quantized-KV attention), with
@@ -2066,13 +2077,17 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     paths; for the decodes that no 32-layer arm packs (sb2, pf4, pf6, the
     16-bit containers, int2 in the int8 container), the 2-layer
     full-width model runs (``two_layer_<case>``); for the W8A8 GEMV and the
-    quantizer, which no model path calls, their entry point's own run. The
+    quantizer, which no model path calls, their entry point's own run; for
+    the GEMMs at the MX blocks that no model path packs (the gemm_tile
+    routes of pf6, pf4, fp16 and the side-band format, and the sm90 ones at
+    blocks 8 and 64), the block-route entry point's run. The
     emi8 GEMV and GEMM run on three paths: their timed numbers and
     ``shapes`` are MX-FP6 emi8 at block 32, ``shapes_emi8m_block16`` the
     emi8m stream."""
     paths = {"mxfp6": counts, "quant_kv": qcounts, **ocounts, **icounts}
     flat = {**{f"two_layer_{c}": n for c, n in tcounts.items()},
-            "w8a8_entry_point": scounts, "quantizer_entry_point": mcounts}
+            "w8a8_entry_point": scounts, "quantizer_entry_point": mcounts,
+            "block_routes_entry_point": rcounts}
 
     def by_path(name):
         got = {p: c["prefill"][name] + c["decode"][name]
@@ -2109,6 +2124,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
             "shapes": _shape_rows(mine)}
         if name == "dequant_gemm_outlier":
             rec["mainloop"] = SM90_SOURCE
+            rec["blocks"] = _route_rows(rrows, name)
+            rec["block_keys"] = list(ROUTE_KEYS)
         if emi8:
             em = [r for r in orows if r["kernel"] == name]
             rec["max_abs_err_emi8m_block16"] = max(r["max_abs_err"]
@@ -2142,7 +2159,7 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                   "sb2": ("int2_sb2", "gate_up"), "pf4": ("fp4_pf4", "gate_up"),
                   "pf6": ("fp6_pf6", "gate_up"),
                   "bf16": ("bf16_container", "gate_up"),
-                  "fp16": ("fp16_container", "qkv"),
+                  "fp16": ("fp16_container", "gate_up"),
                   "fp8_e4m3": ("fp8_e4m3_native", "gate_up"),
                   "fp8_e5m2": ("fp8_e5m2_native", "gate_up")}
     for kind, src, line, m_at in (("gemv", "dequant_gemv.cu", 162, 8),
@@ -2170,8 +2187,10 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                       f"{fmt[0]} {fmt[1]} block {fmt[2]}",
                 "shapes": [[r[k] for k in short] for r in mine],
                 "shape_keys": list(short)})
-            if name == "dequant_matmul_pf6":
+            if kind == "matmul" and decode in ("pf6", "pf4", "fp16"):
                 out[-1]["mainloop"] = SM90_SOURCE
+                out[-1]["blocks"] = _route_rows(rrows, name)
+                out[-1]["block_keys"] = list(ROUTE_KEYS)
     for transport in ("native", "sb4", "sb2"):
         name = f"dequant_gemv_s8_{transport}"
         mine = [r for r in srows if r["kernel"] == name]
@@ -2213,6 +2232,25 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
               "every format and shape; no single PyTorch call computes it",
         "shapes": [[r[k] for k in qkeys] for r in mrows],
         "shape_keys": list(qkeys)})
+    for name, (src, line) in ROUTE_KERNELS.items():
+        mine = [r for r in rrows if r["kernel"] == name]
+        at = mine[0]
+        launches = by_path(name)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"microscopiq_tpu_torch/ops/cuda/csrc/{src}",
+            "replaces": f"microscopiq_tpu/ops/pallas/dequant_matmul.py:{line}",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": f"gate_up (4096, 28672) M={SM90_M}, {at['kind']} block "
+                  f"{at['block']}" + (f", budget {at['budget']}"
+                                      if at["kind"] == "sideband" else ""),
+            "blocks": _route_rows(rrows, name),
+            "block_keys": list(ROUTE_KEYS)})
     out += prefill_kernel_records(prows, pcounts)
     out += gemv_kernel_records(grows, gcounts)
     return {"kernels": out}
@@ -2294,8 +2332,9 @@ SM90_SOURCE = "microscopiq_tpu_torch/ops/cuda/csrc/gemm_sm90.cuh"
 
 
 def sm90_build_line(card: str) -> None:
-    """The two wgmma + TMA GEMMs' ptxas lines (registers, spills) and the
-    dynamic shared memory that their host-side plan gives each compiled
+    """The wgmma + TMA GEMMs' ptxas lines (registers, spills: pf6, pf4 and
+    fp16 in dequant_matmul.cu, the side-band GEMM in outlier_matmul.cu) and
+    the dynamic shared memory that their host-side plan gives each compiled
     ring (ptxas reports static shared memory only)."""
     from microscopiq_tpu_torch.ops.cuda import build
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
@@ -2303,22 +2342,27 @@ def sm90_build_line(card: str) -> None:
     lines = [ln for ln in build.ptxas_report(("dequant_matmul",
                                               "outlier_matmul"))
              if "_sm90" in ln]
-    smem = {f"pf6_block{b}": dm.sm90_plan("pf6", 4096, 4096, b)["smem_bytes"]
-            for b in (16, 32)}
-    smem.update({f"sideband_block{b}_slots{s}": dm.sm90_plan(
-        "sideband", 4096, 4096, b, s)["smem_bytes"]
-        for b in (16, 32) for s in (1, 2, 4, 8)})
+    smem = {}
+    for kind, blocks in dm.SM90_BLOCKS.items():
+        for b in blocks:
+            for slots in ((1, 2, 4, 8) if kind == "sideband" else (0,)):
+                if dm.gemm_route(kind, b, slots) == "sm90":
+                    key = f"{kind}_block{b}" + (f"_slots{slots}" if slots
+                                                else "")
+                    smem[key] = dm.sm90_plan(kind, 4096, 4096, b,
+                                             slots)["smem_bytes"]
     log(phase="build_sm90", ptxas=lines, smem_bytes=smem, card=card)
 
 
 def sm90_gemm_times() -> list:
-    """The pf6 GEMM (MX-FP6 fp6_e3m2, block 32) and the side-band GEMM
-    (int2 + fp4 outliers, block 16, budget 4) at M = 1024 at every
-    Llama-3-8B shape, CUDA events over L2-cold operand copies, on weights
-    and x made from fixed seeds: two checkouts time the same operands.
-    ``python3 chip_smoke.py --gemm-times`` prints the rows as one JSON line;
-    run it in two checkouts in one call (this script copied into the other
-    one) to compare their kernels."""
+    """The pf6 (MX-FP6 fp6_e3m2, block 32), side-band (int2 + fp4 outliers,
+    block 16, budget 4), pf4 (fp4_e2m1, block 32) and fp16-container (block
+    32) GEMMs at M = 1024 at every Llama-3-8B shape, beside torch.matmul on
+    a bf16 weight of the same shape, CUDA events over L2-cold operand
+    copies, on weights and x made from fixed seeds: two checkouts time the
+    same operands. ``python3 chip_smoke.py --gemm-times`` prints the rows as
+    one JSON line; run it in two checkouts in one call (this script copied
+    into the other one) to compare their kernels."""
     import torch
 
     from microscopiq_tpu_torch.ops import packing as pk
@@ -2330,26 +2374,144 @@ def sm90_gemm_times() -> list:
     for lin, K, N in SHAPES:
         x = torch.randn((SM90_M, K), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
-        for kind in ("pf6", "sideband"):
-            if kind == "pf6":
-                p = int_packed("fp6_pf6", int_weight("fp6_e3m2", (K, N), gen))
-                fn = dm.dequant_gemm
-            else:
+        for kind in ("pf6", "sideband", "pf4", "fp16", "torch_matmul"):
+            if kind == "sideband":
                 p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8,
                                        "int2", "fp4_e2m1", std_dev=2.0,
                                        block_size=16,
                                        outlier_budget=SIDEBAND_BUDGET, axis=0)
                 fn = om.dequant_gemm_outlier
-            nc = copies_for(p.nbytes())
+            elif kind == "torch_matmul":
+                p = int_weight("bfloat16", (K, N), gen) / BF16_GAIN
+                fn = lambda x, w, _: torch.matmul(x, w)   # noqa: E731
+            else:
+                case = {"pf6": "fp6_pf6", "pf4": "fp4_pf4",
+                        "fp16": "fp16_container"}[kind]
+                p = int_packed(case, int_weight(INT_CASES[case][0], (K, N),
+                                                gen))
+                fn = dm.dequant_gemm
+            nbytes = p.numel() * 2 if kind == "torch_matmul" else p.nbytes()
+            nc = copies_for(nbytes)
             ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
             ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
-            bound, by = row_bound(p.nbytes() + x.numel() * 2
-                                  + SM90_M * N * 4, SM90_M, N, K)
+            bound, by = row_bound(nbytes + x.numel() * 2 + SM90_M * N * 4,
+                                  SM90_M, N, K)
             rows.append(dict(kernel=kind, linear=lin, M=SM90_M, K=K, N=N,
                              ms=ms, bound_ms=bound, bound_by=by))
             del ps, p
             torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: every MX block the JAX packers take, on its GEMM route
+# ---------------------------------------------------------------------------
+# (kind, format, block, budget): the blocks that no other phase packs, for
+# pf6 (fp6_e3m2; packers: block % 32 == 0), pf4 (fp4_e2m1; % 16), the fp16
+# container and the side-band format (int2 + fp4, any block): the sm90 loop
+# at 8 and 64, gemm_tile at 48 and 128 and for the side-band format at
+# block 8 with 8 slots
+ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
+               ("pf4", "fp4_e2m1", 16, 0), ("pf4", "fp4_e2m1", 64, 0),
+               ("pf4", "fp4_e2m1", 48, 0), ("fp16", "fp16", 8, 0),
+               ("fp16", "fp16", 64, 0), ("fp16", "fp16", 48, 0),
+               ("sideband", "int2", 8, 4), ("sideband", "int2", 64, 4),
+               ("sideband", "int2", 48, 4), ("sideband", "int2", 8, 8))
+# the gemm_tile routes' kernel records: counter -> (source, TPU kernel line)
+ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_pf4_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_fp16_tile": ("dequant_matmul.cu", 71),
+                 "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111)}
+ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
+              "library_ms", "rel_err")
+
+
+def _route_rows(rrows, name):
+    return [[r[k] for k in ROUTE_KEYS] for r in rrows
+            if r["kernel"] == name]
+
+
+def route_phase(card: str):
+    """Each case of ROUTE_CASES at gate_up, M = 1024, through the GEMM
+    wrapper against its plain twin (2e-3 of max |twin|), on the kernel that
+    ``gemm_route`` names, timed beside the bound, the plain version and
+    torch.matmul on the dequantized bf16 weight; then the entry point's own
+    run: one call a case, counts zeroed just before and read just after.
+    Returns (rows, launches)."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    _, K, N = next(s for s in SHAPES if s[0] == "gate_up")
+    gen = torch.Generator(device="cuda").manual_seed(808)
+    x = torch.randn((SM90_M, K), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    rows, weights = [], []
+    for kind, fmt, block, budget in ROUTE_CASES:
+        route = dm.gemm_route(kind, block, budget)
+        if kind == "sideband":
+            p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8, fmt,
+                                   "fp4_e2m1", std_dev=2.0,
+                                   block_size=block, outlier_budget=budget,
+                                   axis=0)
+            fn, ref = om.dequant_gemm_outlier, \
+                om.dequant_matmul_outlier_reference
+            dense = pk.dequantize_mx_outlier(p, dtype=torch.bfloat16)
+            name = om.gemm_counter(block, budget)
+        else:
+            transport = "native" if kind == "fp16" else kind
+            p = pk.to_serving_layout(pk.pack_mx(
+                int_weight(fmt, (K, N), gen).float(), 8, fmt, block, axis=0,
+                transport=transport))
+            fn, ref = dm.dequant_gemm, dm.dequant_matmul_reference
+            dense = pk.dequantize_mx(p, dtype=torch.bfloat16)
+            name = dm.gemm_counter(kind, block)
+        reset_counts()
+        got = fn(x, p, torch.float32)
+        want = ref(x, p, torch.float32)
+        torch.cuda.synchronize()
+        if launches()[name] != 1:
+            raise AssertionError(f"{kind} block {block}: no {name}")
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if not (np.isfinite(rel) and rel < GEMM_REL_TOL):
+            raise AssertionError(f"{name} block {block}: rel err {rel}")
+        nc = copies_for(p.nbytes())
+        ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+        nd = copies_for(dense.numel() * 2)
+        ds = [dense] + [dense.clone() for _ in range(nd - 1)]
+        ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
+        plain_ms = cuda_ms(lambda i: ref(x, p, torch.float32), 1,
+                           target_ms=20.0)
+        lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
+        bound, by = row_bound(p.nbytes() + x.numel() * 2 + SM90_M * N * 4,
+                              SM90_M, N, K)
+        row = dict(kernel=name, route=route, kind=kind, format=fmt,
+                   block=block, budget=budget, linear="gate_up", M=SM90_M,
+                   K=K, N=N, max_abs_err=err, rel_err=rel,
+                   tol=GEMM_REL_TOL, ms=ms, bound_ms=bound, bound_by=by,
+                   plain_ms=plain_ms, library_ms=lib_ms, card=card)
+        rows.append(row)
+        log(phase="gemm_block_routes", **row)
+        weights.append((fn, p))
+        del ps, ds, dense, got, want
+        torch.cuda.empty_cache()
+    reset_counts()
+    for fn, p in weights:
+        fn(x, p, torch.bfloat16)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items() if v}
+    want = {}
+    for r in rows:
+        want[r["kernel"]] = want.get(r["kernel"], 0) + 1
+    if counts != want:
+        raise AssertionError(f"block-route entry point launches {counts}, "
+                             f"want {want}")
+    del weights
+    torch.cuda.empty_cache()
+    return rows, counts
 
 
 def main(argv=None) -> int:
@@ -2400,6 +2562,7 @@ def main(argv=None) -> int:
     irows = int_kernel_phase(card)
     icounts = int_main_path(card)
     tcounts = int_two_layer_phase(card)
+    rrows, rcounts = route_phase(card)
     srows, scounts = s8_phase(card)
     mrows, mcounts = quant_phase(card)
     prows, pcounts = prefill_experiments_phase(card)
@@ -2408,7 +2571,7 @@ def main(argv=None) -> int:
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
                                   ocounts, irows, icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
-                                  grows, gcounts)),
+                                  grows, gcounts, rrows, rcounts)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -37,15 +37,27 @@
 //   in-range elements. 16-byte vector loads are used when N % 16 == 0 and
 //   K % 8 == 0, element loads otherwise.
 //
-// The pf6 transport runs on gemm_sm90.cuh's wgmma + TMA mainloop instead
-// (gemm_dq_sm90): its decode reads the TMA-loaded raw copy of the packed
-// rows in shared memory, a column of one MX block per thread. One read of
-// the two low-plane rows and the high-plane row of packed-row group g gives
-// K rows g, g + B/4, g + B/2 and g + 3B/4 (common.cuh's decode_group
-// order), each times 2^(se - fold): at most 3 significant bits times a
-// power of two, exact in bf16, so the B tile is the twin's bf16 weight bit
-// for bit. The wgmma k16 steps sum in gemm_dq's order; the shipped digests
-// of the pf6 GEMM stayed equal.
+// The pf6 and pf4 transports and the fp16 container run on gemm_sm90.cuh's
+// wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX block that
+// divides its 64-deep K step (pf6: 16, 32, 64; pf4: 16, 32, 64; fp16: 8,
+// 16, 32, 64); other blocks (48, 96, 128, ...) take gemm_dq's tile loop.
+// dequant_matmul.py::gemm_route chooses by block size before the launch
+// and passes the choice here. Each decoder reads the TMA-loaded raw copy of
+// a step's packed rows and exponents in shared memory and writes the bf16
+// B tile, every value being the twin's bf16 weight bit for bit:
+// - pf6: a column of one MX block a thread (half a block at B = 64): one
+//   read of the two low-plane rows and the high-plane row of packed-row
+//   group g gives K rows g, g + B/4, g + B/2 and g + 3B/4 (common.cuh's
+//   decode_group order), each times 2^(se - fold): at most 3 significant
+//   bits times a power of two, exact in bf16;
+// - pf4: 16 of the step's 32 packed rows of a column a thread: one read of
+//   packed row g gives K rows g (low nibble) and g + B/2 (high nibble);
+//   at most 2 significant bits times a power of two, exact in bf16;
+// - fp16: 32 of the step's 64 K rows of a column a thread, each code
+//   rounded to bf16 and then scaled, decode_half<kFp16>'s order.
+// The wgmma k16 steps sum in gemm_dq's order.
+#include <type_traits>
+
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 
@@ -98,28 +110,27 @@ gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
   mxq::gemm_tile(x, out, M, K, N, Kp, out_bf16, decode);
 }
 
-// ---------------------------------------------------------------------------
-// pf6 on the sm90 mainloop
-// ---------------------------------------------------------------------------
-// The pf6 decoder of gemm_sm90.cuh's mainloop for blocks of B K rows. Raw
-// copy of a 64-row step: the 3B/4 packed rows of each of its 64/B blocks,
-// then one exponent row a block, 128 bytes (columns) a row. A decode
-// thread owns one column of a block: one read of the two low-plane rows and
-// the high-plane row of packed-row group g gives K rows g, g + B/4,
-// g + B/2 and g + 3B/4.
-template <int B>
-struct Pf6Sm90 {
-  static_assert(B == 16 || B == 32, "block of 16 or 32");
-  static constexpr int kN = mxq::sm90::kBN;
-  static constexpr int kRows = 3 * B / 4;
-  static constexpr int kBlocks = mxq::sm90::kBK / B;
-  static constexpr int kCodeRows = kBlocks * kRows;
-  static constexpr int kRawBytes = (kCodeRows + kBlocks) * kN;
-  static constexpr int kStages = 4, kRawBufs = 3, kDwg = 2;   // 213 KB
 
-  const int8_t* __restrict__ codes;     // (NB, 3B/4, N)
+// ---------------------------------------------------------------------------
+// pf6, pf4 and fp16 on the sm90 mainloop
+// ---------------------------------------------------------------------------
+// The raw operands of a 64-row step that the decoders here read: the ROWS
+// packed rows of each of its 64/B blocks (CB-byte codes), then one exponent
+// row a block, 128 columns a row; TMA copies where N % 16 == 0, else plain
+// loads by every decode thread.
+template <int CB, int ROWS, int B>
+struct Sm90Raw {
+  static constexpr int kN = mxq::sm90::kBN;
+  static constexpr int kRows = ROWS;                    // of a block
+  static constexpr int kBlocks = mxq::sm90::kBK / B;
+  static constexpr int kCodeRows = kBlocks * kRows;     // of a step
+  static constexpr int kCodeBytes = CB;
+  static constexpr int kSeOff = kCodeRows * kN * CB;
+  static constexpr int kRawBytes = kSeOff + kBlocks * kN;
+
+  const int8_t* __restrict__ codes;     // (NB, ROWS, N) codes of CB bytes
   const int8_t* __restrict__ se;        // (NB, N)
-  const CUtensorMap* codes_map;         // codes as (NB * 3B/4, N) rows
+  const CUtensorMap* codes_map;         // codes as (NB * ROWS, N) rows
   const CUtensorMap* se_map;
   int N, NB, mw, ebits, fold;
   bool tma;                             // N % 16 == 0: TMA copies
@@ -130,111 +141,270 @@ struct Pf6Sm90 {
                                            uint32_t bar) const {
     const int nb0 = k0 / B;
     mxq::sm90::tma_load_2d(raw, codes_map, n0, nb0 * kRows, bar);
-    mxq::sm90::tma_load_2d(raw + kCodeRows * kN, se_map, n0, nb0, bar);
+    mxq::sm90::tma_load_2d(raw + kSeOff, se_map, n0, nb0, bar);
   }
 
   template <int DWG>
   __device__ __forceinline__ void copy(int8_t* raw, int k0, int n0,
                                        int t) const {
+    constexpr int kRowBytes = kN * CB;
     const int nb0 = k0 / B;
-    for (int c = t; c < (kCodeRows + kBlocks) * kN; c += 128 * DWG) {
-      const int i = c / kN, n = n0 + c % kN;
-      const bool code_row = i < kCodeRows;
-      const int nb = nb0 + (code_row ? i / kRows : i - kCodeRows);
+    for (int c = t; c < kRawBytes; c += 128 * DWG) {
       int8_t v = 0;
-      if (nb < NB && n < N)
-        v = code_row ? codes[(static_cast<size_t>(nb) * kRows + i % kRows)
-                             * N + n]
-                     : se[static_cast<size_t>(nb) * N + n];
+      if (c < kSeOff) {
+        const int i = c / kRowBytes, j = c % kRowBytes;
+        const int nb = nb0 + i / kRows;
+        if (nb < NB && n0 + j / CB < N)
+          v = codes[((static_cast<size_t>(nb) * kRows + i % kRows) * N + n0)
+                        * CB + j];
+      } else {
+        const int nb = nb0 + (c - kSeOff) / kN, n = n0 + (c - kSeOff) % kN;
+        if (nb < NB && n < N) v = se[static_cast<size_t>(nb) * N + n];
+      }
       raw[c] = v;
     }
   }
 
-  // The B weights of one column of a block, in bf16 pairs (K rows 2i,
-  // 2i + 1 in u[i]); wt(lo, flo, hi, fhi) decodes one field.
+  // se - fold of column col of the step's block blk, clamped as exp2_i32
+  __device__ __forceinline__ int scale_exp(const int8_t* raw, int blk,
+                                           int col) const {
+    return max(-126, min(127, static_cast<int>(raw[kSeOff + blk * kN + col])
+                                  - fold));
+  }
+};
+
+// pf6: a decode thread owns one column of a block (two threads, one half
+// each, at B = 64, where a step holds one block). One read of the two
+// low-plane rows and the high-plane row of packed-row group g gives K rows
+// g, g + B/4, g + B/2 and g + 3B/4.
+template <int B>
+struct Pf6Sm90 : Sm90Raw<1, 3 * B / 4, B> {
+  static_assert(B == 16 || B == 32 || B == 64, "block of 16, 32 or 64");
+  using Raw = Sm90Raw<1, 3 * B / 4, B>;
+  static constexpr int kStages = 4, kRawBufs = 3, kDwg = 2;   // 213 KB
+  static constexpr int kParts = B == 64 ? 2 : 1;   // threads a block column
+
+  // The B / kParts weights of part h of one column of a block, in bf16
+  // pairs: u[i] holds the part's rows 2i, 2i + 1, its rows being the
+  // packed-row groups h * n.. h * n + n - 1 of each quarter of the block in
+  // turn; wt(lo, flo, hi, fhi) decodes one field.
   template <class Wt>
-  __device__ __forceinline__ void decode_block(const int8_t* cb,
-                                               uint32_t (&u)[B / 2],
-                                               Wt wt) const {
-    constexpr int q = B / 4;
+  __device__ __forceinline__ void decode_part(const int8_t* cb, int h,
+                                              uint32_t (&u)[B / 2 / kParts],
+                                              Wt wt) const {
+    constexpr int kN = Raw::kN, q = B / 4, n = q / kParts;
 #pragma unroll
-    for (int g = 0; g < q; g += 2) {
+    for (int gl = 0; gl < n; gl += 2) {
+      const int g = h * n + gl;
       const int lo0 = cb[g * kN], lo1 = cb[(g + q) * kN];
       const int hi = cb[(2 * q + g) * kN];
       const int lo0b = cb[(g + 1) * kN], lo1b = cb[(g + 1 + q) * kN];
       const int hib = cb[(2 * q + g + 1) * kN];
-      u[g / 2] = mxq::sm90::pack_bf16(wt(lo0, 0, hi, 0), wt(lo0b, 0, hib, 0));
-      u[(g + q) / 2] =
+      u[gl / 2] = mxq::sm90::pack_bf16(wt(lo0, 0, hi, 0), wt(lo0b, 0, hib, 0));
+      u[(gl + n) / 2] =
           mxq::sm90::pack_bf16(wt(lo1, 0, hi, 1), wt(lo1b, 0, hib, 1));
-      u[(g + 2 * q) / 2] =
+      u[(gl + 2 * n) / 2] =
           mxq::sm90::pack_bf16(wt(lo0, 1, hi, 2), wt(lo0b, 1, hib, 2));
-      u[(g + 3 * q) / 2] =
+      u[(gl + 3 * n) / 2] =
           mxq::sm90::pack_bf16(wt(lo1, 1, hi, 3), wt(lo1b, 1, hib, 3));
+    }
+  }
+
+  __device__ __forceinline__ void decode_block(const int8_t* raw, uint8_t* b,
+                                               int col, int blk,
+                                               int h) const {
+    const int8_t* cb = raw + blk * Raw::kRows * Raw::kN + col;
+    const int s = this->scale_exp(raw, blk, col);
+    const int mw = this->mw, ebits = this->ebits;
+    uint32_t u[B / 2 / kParts];
+    if (mw + ebits == 5 && s + 62 + mw <= 127) {
+      // The code's 5 e/m bits placed as an f32 with exponent field e and
+      // mantissa m (a subnormal for e = 0) are its decode_pf magnitude
+      // times 2^-(126 + mw) for every e, so two exact products, by 2^64
+      // and by 2^(62 + mw + s), give decode_pf(c) · 2^s with one rounding,
+      // as decode_pf's float(mag) · exp2_i32(s); a negative zero code
+      // gives +0, as decode_pf.
+      const float scale = __int_as_float((s + 62 + mw + 127) << 23);
+      const int sh = 23 - mw;
+      decode_part(cb, h, u, [&](int lo, int flo, int hi, int fhi) {
+        const int e = hi >> (2 * fhi);
+        const uint32_t c5 = ((lo >> (4 * flo)) & 0xF) | ((e & 1) << 4);
+        const uint32_t bits = (static_cast<uint32_t>(e & 2) << 30)
+                              | (c5 << sh);
+        return __uint_as_float(c5 ? bits : 0u) * 0x1p64f * scale;
+      });
+    } else {                            // scales near the f32 limits
+      const float sc = mxq::exp2_i32(s);
+      decode_part(cb, h, u, [&](int lo, int flo, int hi, int fhi) {
+        return mxq::decode_pf6(lo, flo, hi, fhi, mw, ebits) * sc;
+      });
+    }
+    if constexpr (kParts == 1) {
+      mxq::sm90::store_b_words<B>(b, col, blk * B / 8, u);
+    } else {                            // rows 8h.. 8h + 7 of each quarter
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        mxq::sm90::store_b_chunk(
+            b, col, (blk * B + r * (B / 4)) / 8 + h,
+            make_uint4(u[4 * r], u[4 * r + 1], u[4 * r + 2], u[4 * r + 3]));
     }
   }
 
   template <int DWG>
   __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* b,
                                          int t) const {
-    const int col = t % kN;
+    constexpr int kJobs = Raw::kBlocks * kParts;   // (block, part) pairs
+    const int col = t % Raw::kN;
 #pragma unroll
-    for (int i = 0; i < (kBlocks + DWG - 1) / DWG; ++i) {
-      const int blk = t / kN + i * DWG;
-      if (blk >= kBlocks) break;
-      const int8_t* cb = raw + blk * kRows * kN + col;
-      const int s = max(-126, min(127, static_cast<int>(
-                                           raw[(kCodeRows + blk) * kN + col])
-                                           - fold));
-      uint32_t u[B / 2];
-      if (mw + ebits == 5 && s + 62 + mw <= 127) {
-        // The code's 5 e/m bits placed as an f32 with exponent field e and
-        // mantissa m (a subnormal for e = 0) are its decode_pf magnitude
-        // times 2^-(126 + mw) for every e, so two exact products, by 2^64
-        // and by 2^(62 + mw + s), give decode_pf(c) · 2^s with one
-        // rounding, as decode_pf's float(mag) · exp2_i32(s); a negative
-        // zero code gives +0, as decode_pf.
-        const float scale = __int_as_float((s + 62 + mw + 127) << 23);
-        const int sh = 23 - mw;
-        decode_block(cb, u, [&](int lo, int flo, int hi, int fhi) {
-          const int h = hi >> (2 * fhi);
-          const uint32_t c5 = ((lo >> (4 * flo)) & 0xF) | ((h & 1) << 4);
-          const uint32_t bits = (static_cast<uint32_t>(h & 2) << 30)
-                                | (c5 << sh);
-          return __uint_as_float(c5 ? bits : 0u) * 0x1p64f * scale;
-        });
-      } else {                          // scales near the f32 limits
-        const float sc = mxq::exp2_i32(s);
-        decode_block(cb, u, [&](int lo, int flo, int hi, int fhi) {
-          return mxq::decode_pf6(lo, flo, hi, fhi, mw, ebits) * sc;
-        });
-      }
-      mxq::sm90::store_b_words<B>(b, col, blk * B / 8, u);
+    for (int i = 0; i < (kJobs + DWG - 1) / DWG; ++i) {
+      const int job = t / Raw::kN + i * DWG;
+      if (job >= kJobs) break;
+      decode_block(raw, b, col, job / kParts, job % kParts);
     }
   }
 };
 
+// pf4: a step holds 32 packed rows at every B (B/2 a block); a decode
+// thread owns 32 / DWG of them in one column, 8 at a time: one read of
+// packed row g of a block gives K rows g (low nibble) and g + B/2 (high
+// nibble), each times 2^(se - fold).
+template <int B>
+struct Pf4Sm90 : Sm90Raw<1, B / 2, B> {
+  static_assert(B == 16 || B == 32 || B == 64, "block of 16, 32 or 64");
+  using Raw = Sm90Raw<1, B / 2, B>;
+  static constexpr int kStages = 4, kRawBufs = 3, kDwg = 2;   // 211 KB
+
+  template <int DWG>
+  __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* b,
+                                         int t) const {
+    constexpr int kN = Raw::kN, kHalf = B / 2;
+    constexpr int P = Raw::kCodeRows / DWG;     // packed rows a thread
+    static_assert(P % 8 == 0 && kHalf % 8 == 0, "whole 16-byte chunks");
+    const int col = t % kN, p0 = (t / kN) * P;
+    const int mw = this->mw, ebits = this->ebits;
+#pragma unroll
+    for (int i = 0; i < P; i += 8) {
+      const int p = p0 + i, blk = p / kHalf, g = p % kHalf;
+      const int s = this->scale_exp(raw, blk, col);
+      int c[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[j] = raw[(p + j) * kN + col];
+      uint32_t lo[4], hi[4];
+      if (mw + ebits == 3 && s + 62 + mw <= 127) {
+        // pf6's exact f32 placement (Pf6Sm90) of the 3 e/m bits of a
+        // nibble, its sign bit as the f32 sign
+        const float scale = __int_as_float((s + 62 + mw + 127) << 23);
+        const int sh = 23 - mw;
+        auto wt = [&](int nib) {
+          const uint32_t c3 = nib & 7;
+          const uint32_t bits = (static_cast<uint32_t>(nib & 8) << 28)
+                                | (c3 << sh);
+          return __uint_as_float(c3 ? bits : 0u) * 0x1p64f * scale;
+        };
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo[j] = mxq::sm90::pack_bf16(wt(c[2 * j]), wt(c[2 * j + 1]));
+          hi[j] = mxq::sm90::pack_bf16(wt(c[2 * j] >> 4),
+                                       wt(c[2 * j + 1] >> 4));
+        }
+      } else {                          // scales near the f32 limits
+        const float sc = mxq::exp2_i32(s);
+        auto wt = [&](int code, int f) {
+          return mxq::decode_field<mxq::kPf4>(code, f, mw, ebits) * sc;
+        };
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo[j] = mxq::sm90::pack_bf16(wt(c[2 * j], 0), wt(c[2 * j + 1], 0));
+          hi[j] = mxq::sm90::pack_bf16(wt(c[2 * j], 1), wt(c[2 * j + 1], 1));
+        }
+      }
+      const int k = blk * B + g;
+      mxq::sm90::store_b_chunk(b, col, k / 8,
+                               make_uint4(lo[0], lo[1], lo[2], lo[3]));
+      mxq::sm90::store_b_chunk(b, col, (k + kHalf) / 8,
+                               make_uint4(hi[0], hi[1], hi[2], hi[3]));
+    }
+  }
+};
+
+// The fp16 container: a decode thread owns 64 / DWG of a step's K rows in
+// one column, 8 at a time, each code rounded to bf16 and then times
+// 2^(se - fold), as decode_half<kFp16>. The 16 KB raw copy of a step takes
+// a ring of 3 stages and 3 raw buffers (196-201 KB; 4 stages and 3 would
+// need 247 KB).
+template <int B>
+struct Fp16Sm90 : Sm90Raw<2, B, B> {
+  static_assert(B == 8 || B == 16 || B == 32 || B == 64,
+                "block of 8, 16, 32 or 64");
+  using Raw = Sm90Raw<2, B, B>;
+  static constexpr int kStages = 3, kRawBufs = 3, kDwg = 2;
+
+  template <int DWG>
+  __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* b,
+                                         int t) const {
+    constexpr int kN = Raw::kN, C = 8 / DWG;    // chunks of 8 rows a thread
+    const uint16_t* w = reinterpret_cast<const uint16_t*>(raw);
+    const int col = t % kN, c0 = (t / kN) * C;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c = c0 + i;
+      const int s = this->scale_exp(raw, 8 * c / B, col);
+      const float sc = mxq::exp2_i32(s);
+      uint32_t u[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t pair = w[(8 * c + 2 * j) * kN + col]
+                              | (static_cast<uint32_t>(
+                                     w[(8 * c + 2 * j + 1) * kN + col])
+                                 << 16);
+        if (s >= -102) {
+          // Every nonzero fp16 value is at least 2^-24 in size, so its
+          // product with 2^s (s >= -102) is exact in f32 and no bf16
+          // subnormal: one rounding of the product gives the rounded
+          // value times 2^s, bit for bit.
+          const float2 f = __half22float2(
+              *reinterpret_cast<const __half2*>(&pair));
+          u[j] = mxq::sm90::pack_bf16(f.x * sc, f.y * sc);
+        } else {
+          u[j] = mxq::sm90::pack_bf16(
+              mxq::decode_half<mxq::kFp16>(pair & 0xFFFF) * sc,
+              mxq::decode_half<mxq::kFp16>(pair >> 16) * sc);
+        }
+      }
+      mxq::sm90::store_b_chunk(b, col, c, make_uint4(u[0], u[1], u[2], u[3]));
+    }
+  }
+};
+
+template <int D, int B>
+using Sm90Dec = std::conditional_t<
+    D == mxq::kPf6, Pf6Sm90<B>,
+    std::conditional_t<D == mxq::kPf4, Pf4Sm90<B>, Fp16Sm90<B>>>;
+
 // grid: M tiles x N tiles of 256 x 128 (gemm_sm90.cuh); x (M, K) bf16 with
 // K % 8 == 0 through xmap.
 template <int D, int B>
-__global__ void __launch_bounds__(mxq::sm90::threads(Pf6Sm90<B>::kDwg), 1)
+__global__ void __launch_bounds__(mxq::sm90::threads(Sm90Dec<D, B>::kDwg), 1)
 gemm_dq_sm90(const __grid_constant__ CUtensorMap xmap,
              const __grid_constant__ CUtensorMap codes_map,
              const __grid_constant__ CUtensorMap se_map,
              const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
              void* out, int M, int K, int N, int NB, int mw, int ebits,
              int fold, int out_bf16, int tma) {
-  static_assert(D == mxq::kPf6, "the sm90 mainloop decodes pf6");
-  using Dec = Pf6Sm90<B>;
-  Dec dec{codes, se, &codes_map, &se_map, N, NB, mw, ebits, fold, tma != 0};
+  static_assert(D == mxq::kPf6 || D == mxq::kPf4 || D == mxq::kFp16,
+                "the sm90 mainloop decodes pf6, pf4 and fp16");
+  using Dec = Sm90Dec<D, B>;
+  Dec dec{{codes, se, &codes_map, &se_map, N, NB, mw, ebits, fold,
+           tma != 0}};
   mxq::sm90::gemm<Dec::kStages, Dec::kRawBufs, Dec::kDwg>(&xmap, out, M, N,
                                                          K, out_bf16, dec);
 }
 
-template <int B>
-int launch_pf6(const void* x, const int8_t* codes, const int8_t* se,
-               void* out, int M, int K, int N, int NB, int mw, int ebits,
-               int fold, int out_bf16, cudaStream_t st) {
-  using Dec = Pf6Sm90<B>;
+template <int D, int B>
+int launch_sm90(const void* x, const int8_t* codes, const int8_t* se,
+                void* out, int M, int K, int N, int NB, int mw, int ebits,
+                int fold, int out_bf16, cudaStream_t st) {
+  using Dec = Sm90Dec<D, B>;
   constexpr int smem =
       mxq::sm90::Ring<Dec::kStages, Dec::kRawBytes, Dec::kRawBufs>::kBytes;
   // TMA copies of the raw operands where their rows are 16-byte multiples
@@ -242,35 +412,51 @@ int launch_pf6(const void* x, const int8_t* codes, const int8_t* se,
   const int tma = N % 16 == 0;
   if (tma) {
     const long long rows = static_cast<long long>(NB) * Dec::kRows;
-    int err = mxq::sm90::raw_tensor_map(&codes_map, codes, 1, N, rows,
-                                        Dec::kN, Dec::kCodeRows);
+    int err = mxq::sm90::raw_tensor_map(&codes_map, codes, Dec::kCodeBytes,
+                                        N, rows, Dec::kN, Dec::kCodeRows);
     if (err == 0)
       err = mxq::sm90::raw_tensor_map(&se_map, se, 1, N, NB, Dec::kN,
                                       Dec::kBlocks);
     if (err != 0) return err;
   }
-  return mxq::sm90::launch<Dec::kDwg>(gemm_dq_sm90<mxq::kPf6, B>, smem, x,
-                                      M, N, K, st, codes_map, se_map, codes,
-                                      se, out, M, K, N, NB, mw, ebits, fold,
-                                      out_bf16, tma);
+  return mxq::sm90::launch<Dec::kDwg>(gemm_dq_sm90<D, B>, smem, x, M, N, K,
+                                      st, codes_map, se_map, codes, se, out,
+                                      M, K, N, NB, mw, ebits, fold, out_bf16,
+                                      tma);
 }
 
 }  // namespace
 
 // x: (M, K) bf16; codes: (NB, rows, N) in the transport's container, with
 // Kp = NB * B >= K; se: (NB, N) int8; out: (M, N) bf16 or f32; decode: an
-// mxq::Decode. pf6 (gemm_dq_sm90) needs K % 8 == 0, x 16-byte aligned and
-// B = 16 or 32. Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for an unknown decode or operands pf6 refuses).
+// mxq::Decode; sm90: the route that dequant_matmul.py::gemm_route chose,
+// 1 for gemm_dq_sm90 (pf6 and pf4 at B = 16, 32, 64; fp16 at B = 8, 16,
+// 32, 64; x with K % 8 == 0, 16-byte aligned), 0 for gemm_dq (every decode,
+// any B). Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for an unknown decode or an sm90 decode and block
+// with no kernel).
 extern "C" int dequant_matmul(const void* x, const void* codes,
                               const void* se, void* out, int M, int K, int N,
                               int Kp, int B, int decode, int mw, int ebits,
-                              int fold, int out_bf16, void* stream) {
+                              int fold, int out_bf16, int sm90,
+                              void* stream) {
   const dim3 grid = mxq::gemm_grid(M, N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* cp = static_cast<const int8_t*>(codes);
   const auto* sp = static_cast<const int8_t*>(se);
+  if (sm90) {
+#define MXQ_SM90(D, BS)                                                    \
+  if (decode == D && B == BS)                                              \
+  return launch_sm90<D, BS>(x, cp, sp, out, M, K, N, Kp / B, mw, ebits,    \
+                            fold, out_bf16, st)
+    MXQ_SM90(mxq::kPf6, 16); MXQ_SM90(mxq::kPf6, 32); MXQ_SM90(mxq::kPf6, 64);
+    MXQ_SM90(mxq::kPf4, 16); MXQ_SM90(mxq::kPf4, 32); MXQ_SM90(mxq::kPf4, 64);
+    MXQ_SM90(mxq::kFp16, 8); MXQ_SM90(mxq::kFp16, 16);
+    MXQ_SM90(mxq::kFp16, 32); MXQ_SM90(mxq::kFp16, 64);
+#undef MXQ_SM90
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define MXQ_GEMM(D)                                                     \
   gemm_dq<D><<<grid, mxq::kGemmThreads, 0, st>>>(xp, cp, sp, out, M, K, N, \
                                                  Kp, B, mw, ebits, fold,  \
@@ -281,14 +467,7 @@ extern "C" int dequant_matmul(const void* x, const void* codes,
     case mxq::kSb4: MXQ_GEMM(mxq::kSb4); break;
     case mxq::kSb2: MXQ_GEMM(mxq::kSb2); break;
     case mxq::kPf4: MXQ_GEMM(mxq::kPf4); break;
-    case mxq::kPf6:
-      if (B == 32)
-        return launch_pf6<32>(x, cp, sp, out, M, K, N, Kp / B, mw, ebits,
-                              fold, out_bf16, st);
-      if (B == 16)
-        return launch_pf6<16>(x, cp, sp, out, M, K, N, Kp / B, mw, ebits,
-                              fold, out_bf16, st);
-      return static_cast<int>(cudaErrorInvalidValue);
+    case mxq::kPf6: MXQ_GEMM(mxq::kPf6); break;
     case mxq::kBf16: MXQ_GEMM(mxq::kBf16); break;
     case mxq::kFp16: MXQ_GEMM(mxq::kFp16); break;
     case mxq::kFp8E4m3: MXQ_GEMM(mxq::kFp8E4m3); break;

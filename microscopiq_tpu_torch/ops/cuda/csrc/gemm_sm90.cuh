@@ -3,12 +3,15 @@
 // shared memory by the caller's decoder.
 //
 // It serves the GEMMs of two TPU kernels' paths:
-// - microscopiq_tpu/ops/pallas/dequant_matmul.py::_dq_matmul_kernel, the pf6
-//   transport above 64 tokens (which the JAX package sends to XLA's
-//   dequantize-then-dot): dequant_matmul.cu's gemm_dq_sm90;
+// - microscopiq_tpu/ops/pallas/dequant_matmul.py::_dq_matmul_kernel, the
+//   pf6 and pf4 transports and the fp16 container above 64 tokens (which
+//   the JAX package sends to XLA's dequantize-then-dot), at every MX block
+//   that divides the 64-deep K step: dequant_matmul.cu's gemm_dq_sm90;
 // - ::_dq_matmul_outlier_kernel, the side-band PackedMXOutlier from 256
-//   tokens on (JAX: XLA): outlier_matmul.cu's outlier_gemm_sm90.
-// Every other GEMM stays on common.cuh's gemm_tile.
+//   tokens on (JAX: XLA), at blocks of 8 to 64: outlier_matmul.cu's
+//   outlier_gemm_sm90.
+// Every other GEMM, and these transports at other blocks, stay on
+// common.cuh's gemm_tile.
 //
 // What bounds it on the H100: operations. At M = 1024 each weight byte
 // feeds ~1000 flops, far above the ~295 flop/byte balance point, so the
@@ -18,9 +21,9 @@
 // - One block per SM (dynamic shared memory above 48 KB). Output tile
 //   BM x BN = 256 x 128, K step BK = 64: 64 bf16 are 128 bytes, so a row of
 //   x, and a column of the K-major B tile, fill one 128-byte swizzle row,
-//   and a step holds whole MX blocks of 16 and 32.
-// - DWG decode warpgroups (two for pf6 and the side-band format up to 4
-//   slots, one for 8 slots) and two consumer warpgroups, 384 or 512
+//   and a step holds whole MX blocks of 8, 16, 32 and 64.
+// - DWG decode warpgroups (two for pf6, pf4, fp16 and the side-band format
+//   up to 4 slots, one for 8 slots) and two consumer warpgroups, 384 or 512
 //   threads, registers split by setmaxnreg (decoders 96 each of two, or
 //   136; consumers 160, of which 128 hold the accumulators):
 //   * the decoders produce. Thread 0 issues the TMA load of each step's x
@@ -91,13 +94,21 @@ constexpr int kEmptyArrivals = 8;             // one lane per consumer warp
 // Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
 // stages, RAWBUFS raw buffers of RAW bytes, the mbarriers (full and empty
 // a stage, one a raw buffer).
+__host__ __device__ constexpr int raw_pad(int raw) {
+  return (raw + 127) / 128 * 128;
+}
+__host__ __device__ constexpr int ring_bytes(int stages, int raw,
+                                             int rawbufs) {
+  return 1024 + stages * kStageBytes + rawbufs * raw_pad(raw)
+         + (2 * stages + rawbufs) * 8;
+}
 template <int STAGES, int RAW, int RAWBUFS>
 struct Ring {
   static_assert(STAGES >= 3 && RAWBUFS >= 2, "ring of 3 stages or more");
-  static constexpr int kRawPad = (RAW + 127) / 128 * 128;
+  static constexpr int kRawPad = raw_pad(RAW);
   static constexpr int kRawOff = STAGES * kStageBytes;
   static constexpr int kBarOff = kRawOff + RAWBUFS * kRawPad;
-  static constexpr int kBytes = 1024 + kBarOff + (2 * STAGES + RAWBUFS) * 8;
+  static constexpr int kBytes = ring_bytes(STAGES, RAW, RAWBUFS);
   static_assert(kBytes <= kMaxSmem, "ring exceeds 227 KB of shared memory");
 };
 
@@ -433,13 +444,14 @@ static inline int x_tensor_map(CUtensorMap* map, const void* x, int M,
                        kBK, kBM, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// A tensor map of raw weight bytes (int8 codes or exponents, or int32
-// positions) for the decoders' TMA copies: no swizzle.
+// A tensor map of raw weight operands (int8 codes or exponents, 16-bit
+// fp16 codes, or int32 positions) for the decoders' TMA copies: no swizzle.
 static inline int raw_tensor_map(CUtensorMap* map, const void* p, int esize,
                                  long long d0, long long d1, int b0, int b1) {
   return tensor_map_2d(map,
-                       esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_INT32
-                                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                       esize == 4   ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                       : esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                        esize, p, d0, d1, b0, b1, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 

@@ -2,7 +2,8 @@
 // PackedMXOutlier (K, N) weight blocked along K. Two kernels:
 // - dequant_gemv_outlier, for M < 256 tokens: every linear of a decode step
 //   of the side-band format, the last_only lm_head and engine prefills;
-// - dequant_gemm_outlier, for M >= 256: every linear of a long prefill.
+// - dequant_gemm_outlier, for M >= 256: every linear of a long prefill
+//   (outlier_gemm_sm90, or outlier_gemm at the blocks it does not take).
 //
 // Both replace microscopiq_tpu/ops/pallas/dequant_matmul.py::
 // _dq_matmul_outlier_kernel (wrapper dequant_matmul_outlier). The JAX
@@ -52,7 +53,19 @@
 // rounding, and writes them to the K-major B tile, so no f32 tile and no
 // extra barrier lie between the decode and the MMA. The kernel is
 // templated on the budget (1, 2, 4 or 8 slots read; a smaller budget
-// reads its own slots and adds nothing for the rest, as weight() does).
+// reads its own slots and adds nothing for the rest, as weight() does)
+// and on the block (8, 16, 32 or 64, which divide the K step). At B = 64
+// a step holds one K-block, so the second of two decode warpgroups idles:
+// splitting a column between two threads would make each scan every slot
+// for the rows of its half, and no configuration that the port serves uses
+// the side-band format at block 64. Blocks that do not divide the K step
+// (48, 96, 128, ...), and B = 8 with 8 slots, whose raw copy (51 KB a
+// step) leaves no room for a ring, take outlier_gemm: common.cuh's bf16
+// wmma tile loop (128 x 128 output tile, 32-deep K steps) with the weight
+// tile built in f32 in shared memory, the slots added by one thread per
+// (K-block, column), then rounded to the bf16 B tile.
+// outlier_matmul.py::dequant_gemm_outlier chooses the kernel by block and
+// slot count before the launch (dequant_matmul.py::gemm_route).
 // The weights are the GEMV's bf16 weights; the tensor cores' f32
 // accumulation differs from a CUDA-core sum in order and internal rounding
 // (the emi8 GEMM's 2e-3 tolerance).
@@ -61,6 +74,7 @@
 
 namespace {
 
+using mxq::BTile;
 using mxq::exp2_i32;
 
 constexpr int kThreads = 128;
@@ -204,6 +218,87 @@ outlier_partial(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// grid: mxq::gemm_grid(M, N). Per K step the weight tile is built in f32
+// in wf and then rounded into the bf16 B tile, in three passes:
+// 1. thread t decodes the inliers of row t / 8 and 16 columns from
+//    16 * (t % 8), one 16-byte load each of codes and exponents;
+// 2. one thread per (K-block, column) of the step adds its slots, in slot
+//    order, to the rows they name;
+// 3. each thread rounds its 16 weights to bf16.
+__global__ void __launch_bounds__(mxq::kGemmThreads)
+outlier_gemm(const __nv_bfloat16* __restrict__ x,
+             const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
+             const int8_t* __restrict__ seo, const int8_t* __restrict__ oc,
+             const int* __restrict__ pos, void* out, int M, int K, int N,
+             int Kp, int B, int budget, int fold, int codes_fp8, int oc_fp8,
+             int out_bf16) {
+  constexpr int BK = mxq::kGemmBK, BN = mxq::kGemmBN;
+  __shared__ __align__(16) float wf[BK][BN];
+  const int n_blk = blockIdx.x * BN;
+  const bool nvec = (N % 16) == 0;
+  const int b_r = threadIdx.x >> 3, b_c = (threadIdx.x & 7) * 16;
+  auto decode_b = [&](BTile Bs, int k0) {
+    const int k = k0 + b_r, n = n_blk + b_c;
+    float w[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = 0.f;
+    if (k < Kp) {
+      const int8_t* crow = codes + static_cast<size_t>(k) * N;
+      const int8_t* srow = se + static_cast<size_t>(k / B) * N;
+      if (nvec) {
+        if (n < N) {
+          const int4 cv = __ldg(reinterpret_cast<const int4*>(crow + n));
+          const int4 sv = __ldg(reinterpret_cast<const int4*>(srow + n));
+          const int8_t* cb = reinterpret_cast<const int8_t*>(&cv);
+          const int8_t* sb = reinterpret_cast<const int8_t*>(&sv);
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            w[j] = decode(cb[j], codes_fp8) *
+                   exp2_i32(static_cast<int>(sb[j]) - fold);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (n + j < N)
+            w[j] = decode(crow[n + j], codes_fp8) *
+                   exp2_i32(static_cast<int>(srow[n + j]) - fold);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; j += 4)
+      *reinterpret_cast<float4*>(&wf[b_r][b_c + j]) =
+          make_float4(w[j], w[j + 1], w[j + 2], w[j + 3]);
+    __syncthreads();
+    const int nb0 = k0 / B;                   // K-blocks of rows k0..
+    const int nbs = (min(k0 + BK, Kp) - 1) / B - nb0 + 1;
+    for (int p = threadIdx.x; p < nbs * BN; p += mxq::kGemmThreads) {
+      const int nb = nb0 + p / BN, c = p % BN, nc = n_blk + c;
+      if (nc >= N) continue;
+      float sc_in, oval[kMaxBudget];
+      int opos[kMaxBudget];
+      load_slots(se, seo, oc, pos, static_cast<size_t>(nb) * N + nc, budget,
+                 fold, oc_fp8, sc_in, opos, oval);
+#pragma unroll
+      for (int s = 0; s < kMaxBudget; ++s) {
+        const int r = nb * B + opos[s] - k0;
+        if (opos[s] >= 0 && r >= 0 && r < BK) wf[r][c] += oval[s];
+      }
+    }
+    __syncthreads();
+    uint32_t u[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(wf[b_r][b_c + 2 * j],
+                                               wf[b_r][b_c + 2 * j + 1]);
+      u[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(&Bs[b_r][b_c]);
+    dst[0] = make_uint4(u[0], u[1], u[2], u[3]);
+    dst[1] = make_uint4(u[4], u[5], u[6], u[7]);
+  };
+  mxq::gemm_tile(x, out, M, K, N, K, out_bf16, decode_b);
+}
+
 // decode() for the GEMM's decoder (whose own decode() would hide it), with
 // Hopper's float8 -> f16 convert for float8_e4m3fn codes: exact, and equal
 // to e4m3_to_f32 for every code but NaN, which the formats never store.
@@ -226,15 +321,20 @@ __device__ __forceinline__ float decode_code(int8_t c, int fp8) {
 // value and turns -0 into +0, which the final + 0.f does here.
 template <int MAXB, int B>
 struct SidebandSm90 {
-  static_assert(B == 16 || B == 32, "block of 16 or 32");
+  static_assert(B == 8 || B == 16 || B == 32 || B == 64,
+                "block of 8, 16, 32 or 64");
   static constexpr int kN = mxq::sm90::kBN, kBlocks = mxq::sm90::kBK / B;
   static constexpr int kSeOff = mxq::sm90::kBK * kN;
   static constexpr int kSeoOff = kSeOff + kBlocks * kN;
   static constexpr int kOcOff = kSeoOff + kBlocks * kN;
   static constexpr int kPosOff = kOcOff + kBlocks * kN * MAXB;
   static constexpr int kRawBytes = kPosOff + kBlocks * kN * MAXB * 4;
-  // the ring (within 227 KB): 3 stages, 3 raw buffers up to 4 slots, else 2
-  static constexpr int kStages = 3, kRawBufs = MAXB <= 4 ? 3 : 2;
+  // the ring (within 227 KB): 3 stages; 3 raw buffers up to 4 slots where
+  // they fit (not at B = 8 with 4 slots), else 2
+  static constexpr bool kThreeRaw =
+      MAXB <= 4
+      && mxq::sm90::ring_bytes(3, kRawBytes, 3) <= mxq::sm90::kMaxSmem;
+  static constexpr int kStages = 3, kRawBufs = kThreeRaw ? 3 : 2;
   // two decode warpgroups (96 registers each) up to 4 slots; eight slots'
   // operands need one warpgroup's 136
   static constexpr int kDwg = MAXB <= 4 ? 2 : 1;
@@ -486,17 +586,31 @@ extern "C" int dequant_gemv_outlier(
   return mxq::launch_split_reduce(wp, out, M, N, N, ksplit, out_bf16, st);
 }
 
-// x: (M, K) bf16 with K % 8 == 0 and 16-byte aligned; codes, se, seo, oc,
-// pos as above with Kp = NB * B >= K; out: (M, N) bf16 or f32. budget <= 8,
-// B = 16 or 32. Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for operands the kernel refuses).
+// x: (M, K) bf16; codes, se, seo, oc, pos as above with Kp = NB * B >= K;
+// out: (M, N) bf16 or f32; budget <= 8; sm90: the route that
+// dequant_matmul.py::gemm_route chose, 1 for outlier_gemm_sm90 (B = 8, 16,
+// 32 or 64, not 8 slots at B = 8; x with K % 8 == 0, 16-byte aligned), 0
+// for outlier_gemm (any B). Returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue for operands the kernel refuses).
 extern "C" int dequant_gemm_outlier(
     const void* x, const void* codes, const void* se, const void* seo,
     const void* oc, const void* pos, void* out, int M, int K, int N, int Kp,
     int B, int budget, int fold, int codes_fp8, int oc_fp8, int out_bf16,
-    void* stream) {
-  if (budget < 0 || budget > kMaxBudget || (B != 16 && B != 32))
+    int sm90, void* stream) {
+  if (budget < 0 || budget > kMaxBudget)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* cp = static_cast<const int8_t*>(codes);
+  const auto* sp = static_cast<const int8_t*>(se);
+  const auto* op = static_cast<const int8_t*>(seo);
+  const auto* ocp = static_cast<const int8_t*>(oc);
+  const auto* pp = static_cast<const int*>(pos);
+  if (!sm90) {
+    outlier_gemm<<<mxq::gemm_grid(M, N), mxq::kGemmThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), cp, sp, op, ocp, pp, out, M, K,
+        N, Kp, B, budget, fold, codes_fp8, oc_fp8, out_bf16);
+    return static_cast<int>(cudaGetLastError());
+  }
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -504,20 +618,16 @@ extern "C" int dequant_gemm_outlier(
                   && aligned(seo) && (budget == 0
                                       || (aligned(oc) && aligned(pos)));
   const int maxb = budget <= 1 ? 1 : budget <= 2 ? 2 : budget <= 4 ? 4 : 8;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* cp = static_cast<const int8_t*>(codes);
-  const auto* sp = static_cast<const int8_t*>(se);
-  const auto* op = static_cast<const int8_t*>(seo);
-  const auto* ocp = static_cast<const int8_t*>(oc);
-  const auto* pp = static_cast<const int*>(pos);
 #define MXQ_SIDEBAND(MB, BS)                                               \
   if (maxb == MB && B == BS)                                               \
   return launch_sideband<MB, BS>(x, cp, sp, op, ocp, pp, out, M, K, N,     \
                                  Kp / B, budget, fold, codes_fp8, oc_fp8,  \
                                  out_bf16, tma, st)
+  MXQ_SIDEBAND(1, 8); MXQ_SIDEBAND(2, 8); MXQ_SIDEBAND(4, 8);
   MXQ_SIDEBAND(1, 16); MXQ_SIDEBAND(2, 16); MXQ_SIDEBAND(4, 16);
   MXQ_SIDEBAND(8, 16); MXQ_SIDEBAND(1, 32); MXQ_SIDEBAND(2, 32);
-  MXQ_SIDEBAND(4, 32); MXQ_SIDEBAND(8, 32);
+  MXQ_SIDEBAND(4, 32); MXQ_SIDEBAND(8, 32); MXQ_SIDEBAND(1, 64);
+  MXQ_SIDEBAND(2, 64); MXQ_SIDEBAND(4, 64); MXQ_SIDEBAND(8, 64);
 #undef MXQ_SIDEBAND
   return static_cast<int>(cudaErrorInvalidValue);
 }

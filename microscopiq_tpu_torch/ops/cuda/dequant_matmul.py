@@ -6,8 +6,9 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 ``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
-the kernel (``csrc/dequant_matmul.cu``; pf6 on the wgmma + TMA mainloop of
-``csrc/gemm_sm90.cuh``, whose host-side plan is :func:`sm90_plan`). Both
+the kernel (``csrc/dequant_matmul.cu``; pf6, pf4 and the fp16 container on
+the wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` at the blocks that
+:func:`gemm_route` gives it, whose host-side plan is :func:`sm90_plan`). Both
 take every transport that the TPU kernels decode: emi8 and emi8m, the int8
 container (pre-blocked or 2-D, which reaches the serving layout by a view),
 sb4, sb2, pf4, pf6, the bf16/fp16 containers and the float8 containers (``float8_e4m3fn`` from
@@ -51,60 +52,114 @@ _CODE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
                 "fp8_e4m3": torch.float8_e4m3fn,
                 "fp8_e5m2": torch.float8_e5m2}
 
-# launches per kernel and decode, for showing that a run went through the
-# kernels; chip_smoke.py zeroes them before the main path and reads them after
-launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
-                 **{f"dequant_matmul_{d}": 0 for d in _DECODES},
-                 **{f"dequant_gemv_s8_{d}": 0 for d in _S8_DECODES}}
-
-_OUT_DTYPES = (torch.bfloat16, torch.float32)
-_ptr, _int = ctypes.c_void_p, ctypes.c_int
-
 # csrc/gemm_sm90.cuh: the output tile and K step (BM, BN, BK), the shared
 # memory a block may use, one ring stage (x tile + bf16 B tile)
 SM90_TILE = (256, 128, 64)
 SM90_MAX_SMEM = 232448
 _SM90_STAGE_BYTES = (SM90_TILE[0] + SM90_TILE[1]) * SM90_TILE[2] * 2
+# the GEMMs with a decoder on that mainloop -> the MX blocks it is compiled
+# for (those that divide the 64-deep K step; pf6 at 16 is one that no
+# packer makes); "fp16" is the fp16 container, "sideband" the
+# PackedMXOutlier GEMM of outlier_matmul.py
+SM90_BLOCKS = {"pf6": (16, 32, 64), "pf4": (16, 32, 64),
+               "fp16": (8, 16, 32, 64), "sideband": (8, 16, 32, 64)}
+MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
+
+# launches per kernel and decode, for showing that a run went through the
+# kernels; chip_smoke.py zeroes them before the main path and reads them
+# after. dequant_matmul_<decode> counts the GEMM that gemm_route gives the
+# default blocks (the sm90 kernel for pf6, pf4 and fp16), and
+# dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
+launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
+                 **{f"dequant_matmul_{d}": 0 for d in _DECODES},
+                 **{f"dequant_matmul_{d}_tile": 0 for d in SM90_BLOCKS
+                    if d in _DECODES},
+                 **{f"dequant_gemv_s8_{d}": 0 for d in _S8_DECODES}}
+
+_OUT_DTYPES = (torch.bfloat16, torch.float32)
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+
+def _ring_bytes(stages: int, raw: int, raw_bufs: int) -> int:
+    """gemm_sm90.cuh's ring_bytes: alignment slack, the stages, the raw
+    buffers (128-byte padded), the mbarriers."""
+    return (1024 + stages * _SM90_STAGE_BYTES
+            + raw_bufs * (-(-raw // 128) * 128) + (2 * stages + raw_bufs) * 8)
+
+
+def _sm90_ring(kind: str, block: int, budget: int):
+    """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
+    for ``kind`` at ``block`` (and ``budget`` slots), mirroring its
+    decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``SidebandSm90``);
+    None where no such kernel is compiled. Raises ValueError for a budget
+    that no kernel takes."""
+    if kind == "sideband" and not 0 <= budget <= MAX_OUTLIER_BUDGET:
+        raise ValueError(f"budget {budget} > {MAX_OUTLIER_BUDGET}")
+    if block not in SM90_BLOCKS.get(kind, ()):
+        return None
+    BN, BK = SM90_TILE[1:]
+    nblk = BK // block
+    if kind == "pf6":                     # 3B/4 packed rows a block
+        return 0, 4, 3, (nblk * 3 * block // 4 + nblk) * BN
+    if kind == "pf4":                     # B/2 packed rows a block
+        return 0, 4, 3, (BK // 2 + nblk) * BN
+    if kind == "fp16":                    # 2-byte codes
+        return 0, 3, 3, (2 * BK + nblk) * BN
+    slots = 1 if budget <= 1 else 2 if budget <= 2 else \
+        4 if budget <= 4 else 8
+    # codes, se, seo, outlier codes, int32 positions
+    raw = BK * BN + 2 * nblk * BN + 5 * nblk * BN * slots
+    raw_bufs = 3 if slots <= 4 and _ring_bytes(3, raw, 3) <= SM90_MAX_SMEM \
+        else 2
+    if _ring_bytes(3, raw, raw_bufs) > SM90_MAX_SMEM:
+        return None                       # block 8 with 8 slots
+    return slots, 3, raw_bufs, raw
 
 
 def sm90_plan(kind: str, K: int, N: int, block: int,
               budget: int = 0) -> dict:
     """Host-side plan of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) for a
-    ``"pf6"`` or ``"sideband"`` weight of K rows and N columns in blocks of
-    ``block`` (16 or 32) with ``budget`` outlier slots, mirroring the
-    kernels' ``Ring`` and decoder sizes (``Pf6Sm90``, ``SidebandSm90``):
-    the tile, the ring's stages and raw buffers, the outlier slots read, one
-    step's raw weight bytes, the dynamic shared memory, whether the raw
-    operands come by TMA (N % 16 == 0; else plain copies), and x's row
-    length ``k_x``: K rounded up to a multiple of 8 (TMA needs rows of a
-    multiple of 16 bytes), with ``pad_x`` where that adds zero columns.
-    Nothing here depends on M.
-    Raises ValueError for what the kernels refuse."""
-    if block not in (16, 32):
-        raise ValueError(f"the sm90 GEMM takes blocks of 16 or 32, got "
-                         f"{block}")
-    BM, BN, BK = SM90_TILE
-    nblk = BK // block
-    if kind == "pf6":
-        slots, stages, raw_bufs = 0, 4, 3
-        raw = (nblk * 3 * block // 4 + nblk) * BN
-    elif kind == "sideband":
-        if not 0 <= budget <= 8:
-            raise ValueError(f"budget {budget} > 8")
-        slots = 1 if budget <= 1 else 2 if budget <= 2 else \
-            4 if budget <= 4 else 8
-        stages, raw_bufs = 3, (3 if slots <= 4 else 2)
-        # codes, se, seo, outlier codes, int32 positions
-        raw = BK * BN + 2 * nblk * BN + 5 * nblk * BN * slots
-    else:
+    ``"pf6"``, ``"pf4"``, ``"fp16"`` (container) or ``"sideband"`` weight of
+    K rows and N columns in blocks of ``block`` with ``budget`` outlier
+    slots, mirroring the kernels' ``Ring`` and decoder sizes: the tile, the
+    ring's stages and raw buffers, the outlier slots read, one step's raw
+    weight bytes, the dynamic shared memory, whether the raw operands come
+    by TMA (N % 16 == 0; else plain copies), and x's row length ``k_x``: K
+    rounded up to a multiple of 8 (TMA needs rows of a multiple of 16
+    bytes), with ``pad_x`` where that adds zero columns. Nothing here
+    depends on M. Raises ValueError for what no sm90 kernel takes (those
+    blocks go to ``gemm_tile``: :func:`gemm_route`)."""
+    if kind not in SM90_BLOCKS:
         raise ValueError(f"unknown sm90 GEMM {kind!r}")
-    # alignment slack, the stages, the raw buffers, the mbarriers
-    smem = (1024 + stages * _SM90_STAGE_BYTES
-            + raw_bufs * (-(-raw // 128) * 128) + (2 * stages + raw_bufs) * 8)
+    ring = _sm90_ring(kind, block, budget)
+    if ring is None:
+        raise ValueError(f"no sm90 {kind} GEMM takes block {block}"
+                         + (f" with {budget} slots" if budget else ""))
+    slots, stages, raw_bufs, raw = ring
     k_x = -(-K // 8) * 8
     return {"tile": SM90_TILE, "stages": stages, "raw_buffers": raw_bufs,
-            "slots": slots, "raw_bytes": raw, "smem_bytes": smem,
+            "slots": slots, "raw_bytes": raw,
+            "smem_bytes": _ring_bytes(stages, raw, raw_bufs),
             "tma": N % 16 == 0, "k_x": k_x, "pad_x": k_x != K}
+
+
+def gemm_route(kind: str, block: int, budget: int = 0) -> str:
+    """The hand-written kernel that runs the GEMM (M > 64; the side-band
+    format from 256 rows) of a weight of transport or decode ``kind`` in
+    blocks of ``block`` (``budget`` outlier slots for ``"sideband"``):
+    ``"sm90"``, the wgmma + TMA mainloop (:func:`sm90_plan`), for pf6 and
+    pf4 at blocks 16, 32 and 64, the fp16 container and the side-band
+    format at 8, 16, 32 and 64 (not the side-band format at 8 with more
+    than 4 slots, whose ring does not fit); else ``"tile"``, common.cuh's
+    ``gemm_tile``, which takes every block. Chosen from the weight alone,
+    before the launch. Raises ValueError for a budget above 8."""
+    return "sm90" if _sm90_ring(kind, block, budget) is not None else "tile"
+
+
+def gemm_counter(decode: str, block: int) -> str:
+    """The ``launch_counts`` key of the GEMM that ``dequant_gemm`` launches
+    for ``decode`` at ``block``."""
+    tile = decode in SM90_BLOCKS and gemm_route(decode, block) == "tile"
+    return f"dequant_matmul_{decode}" + ("_tile" if tile else "")
 
 
 def sm90_x(x2: torch.Tensor, k_x: int) -> torch.Tensor:
@@ -127,7 +182,7 @@ def reset_launch_counts() -> None:
 # stream) as c_void_p, ints as c_int
 _ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 11
                              + [_ptr]),
-            "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 10
+            "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 11
                                + [_ptr]),
             "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 9
                                 + [_ptr])}
@@ -260,7 +315,8 @@ def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
 def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
                  out_dtype=torch.float32) -> torch.Tensor:
     """Tiled GEMM with the transport's decode inside the kernel (any M; the
-    dispatch sends it M > 64)."""
+    dispatch sends it M > 64): the kernel that :func:`gemm_route` names for
+    the weight's decode and block."""
     if x.device.type == "cpu":
         return dequant_matmul_reference(x, w, out_dtype)
     x2, ww, decode, fold, mw, ebits = _operands(x, w, out_dtype)
@@ -270,16 +326,18 @@ def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    if decode == "pf6":                   # the sm90 mainloop
-        K = sm90_plan("pf6", K, N, ww.block_size)["k_x"]
+    sm90 = gemm_route(decode, ww.block_size) == "sm90"
+    if sm90:
+        K = sm90_plan(decode, K, N, ww.block_size)["k_x"]
         x2 = sm90_x(x2, K)
+    counter = gemm_counter(decode, ww.block_size)
     err = _kernel("dequant_matmul")(
         x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
         out.data_ptr(), M, K, N, NB * ww.block_size, ww.block_size,
         _DECODES[decode], mw, ebits, fold, int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"dequant_matmul_{decode}")
-    launch_counts[f"dequant_matmul_{decode}"] += 1
+        int(sm90), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, counter)
+    launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
 

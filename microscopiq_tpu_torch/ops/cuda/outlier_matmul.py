@@ -10,7 +10,8 @@ Counterpart of the outlier parts of
 * :func:`dequant_matmul_outlier` (``csrc/outlier_matmul.cu``, replaces
   ``_dq_matmul_outlier_kernel``): the side-band :class:`PackedMXOutlier`,
   stored (K, N); its GEMM runs on the wgmma + TMA mainloop of
-  ``csrc/gemm_sm90.cuh`` (plan: ``dequant_matmul.sm90_plan``).
+  ``csrc/gemm_sm90.cuh`` (plan: ``dequant_matmul.sm90_plan``) at the blocks
+  that ``dequant_matmul.gemm_route`` gives it, else on ``gemm_tile``.
 
 Each format has two kernels: a K-split GEMV for fewer than ``GEMM_FROM_M``
 rows and a tensor-core GEMM that decodes the weight tile in shared memory
@@ -31,18 +32,21 @@ from .. import packing as pk
 from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
 from . import operands as op
-from .dequant_matmul import gemv_ksplit, sm90_plan, sm90_x
+from .dequant_matmul import (MAX_OUTLIER_BUDGET, gemm_route, gemv_ksplit,
+                             sm90_plan, sm90_x)
 from .dequant_matmul import scale_fold as _scale_fold
 
 GEMM_FROM_M = 256                 # rows from which the GEMMs take over
 NB_THREADS = 128                  # kThreads in nb_matmul.cu
-MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
 _TARGET_BLOCKS = 8 * 132          # ~8 blocks per SM of an H100
 
 # launches per kernel wrapper, for showing that a run went through the
-# kernels; chip_smoke.py zeroes them before the main path and reads them after
+# kernels; chip_smoke.py zeroes them before the main path and reads them
+# after. dequant_gemm_outlier counts the sm90 side-band GEMM,
+# dequant_gemm_outlier_tile the gemm_tile one (gemm_route's "tile" blocks).
 launch_counts = {"dequant_gemv_nb": 0, "dequant_gemm_nb": 0,
-                 "dequant_gemv_outlier": 0, "dequant_gemm_outlier": 0}
+                 "dequant_gemv_outlier": 0, "dequant_gemm_outlier": 0,
+                 "dequant_gemm_outlier_tile": 0}
 
 _OUT_DTYPES = op.OUT_DTYPES
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
@@ -53,7 +57,7 @@ _ENTRIES = {
     "dequant_gemv_outlier": ("outlier_matmul",
                              [_ptr] * 8 + [_int] * 11 + [_ptr]),
     "dequant_gemm_outlier": ("outlier_matmul",
-                             [_ptr] * 7 + [_int] * 10 + [_ptr])}
+                             [_ptr] * 7 + [_int] * 11 + [_ptr])}
 
 
 def reset_launch_counts() -> None:
@@ -259,10 +263,18 @@ def dequant_gemv_outlier(x: torch.Tensor, w: PackedMXOutlier,
     return out.reshape(x.shape[:-1] + (N,))
 
 
+def gemm_counter(block: int, budget: int) -> str:
+    """The ``launch_counts`` key of the GEMM that ``dequant_gemm_outlier``
+    launches for a side-band weight of ``block`` and ``budget`` slots."""
+    tile = gemm_route("sideband", block, budget) == "tile"
+    return "dequant_gemm_outlier" + ("_tile" if tile else "")
+
+
 def dequant_gemm_outlier(x: torch.Tensor, w: PackedMXOutlier,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The side-band tensor-core GEMM (any M; the dispatch sends it
-    M >= GEMM_FROM_M). x is rounded to bf16 first."""
+    M >= GEMM_FROM_M): the kernel that ``gemm_route("sideband", block,
+    budget)`` names. x is rounded to bf16 first."""
     if op.on_cpu(x, _sideband_tensors(w)):
         return dequant_matmul_outlier_reference(x, w, out_dtype)
     inl = w.inlier
@@ -272,17 +284,20 @@ def dequant_gemm_outlier(x: torch.Tensor, w: PackedMXOutlier,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    K = sm90_plan("sideband", K, N, inl.block_size, w.budget)["k_x"]
-    x2 = sm90_x(x2, K)
+    sm90 = gemm_route("sideband", inl.block_size, w.budget) == "sm90"
+    if sm90:
+        K = sm90_plan("sideband", K, N, inl.block_size, w.budget)["k_x"]
+        x2 = sm90_x(x2, K)
+    counter = gemm_counter(inl.block_size, w.budget)
     err = _kernel("dequant_gemm_outlier")(
         x2.data_ptr(), _view8(inl.codes).data_ptr(),
         inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),
         _view8(w.out_codes).data_ptr(), w.out_pos.data_ptr(), out.data_ptr(),
         M, K, N, Kp, inl.block_size, w.budget, _scale_fold(inl.elem_format),
-        codes_fp8, oc_fp8, int(out_dtype == torch.bfloat16),
+        codes_fp8, oc_fp8, int(out_dtype == torch.bfloat16), int(sm90),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "dequant_gemm_outlier")
-    launch_counts["dequant_gemm_outlier"] += 1
+    build.check(err, counter)
+    launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
 

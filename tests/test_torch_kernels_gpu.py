@@ -471,9 +471,10 @@ def _nb(K, N, budget, seed, device):
     return tpk.pack_outlier_nb(dec, budget=budget)
 
 
-def _sideband(K, N, budget, seed, device, ifmt="int2", ofmt="fp4_e2m1"):
+def _sideband(K, N, budget, seed, device, ifmt="int2", ofmt="fp4_e2m1",
+              block=16):
     return tpk.pack_mx_outlier(_outlier_weight(K, N, seed, device), 8, 8,
-                               ifmt, ofmt, std_dev=2.0, block_size=16,
+                               ifmt, ofmt, std_dev=2.0, block_size=block,
                                outlier_budget=budget, axis=0)
 
 
@@ -801,11 +802,41 @@ def test_exp_gemv_wrappers_check_operands(gemv_setup):
 
 
 # ---------------------------------------------------------------------------
-# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6 and side-band
+# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, the fp16 container
+# and the side-band format, and the gemm_tile kernels that take their other
+# blocks
 # ---------------------------------------------------------------------------
 LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096),
              "gate_up": (4096, 28672), "down": (14336, 4096),
              "lm_head": (4096, 128256)}
+# kind -> (format, transport) of the GEMMs of dequant_matmul.cu
+SM90_DQ = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
+           "fp16": ("fp16", "native")}
+
+
+def _sideband_dense(w):
+    """The side-band twin's bf16 weight, made on the CPU, where
+    scatter_add adds the slots in slot order."""
+    return tpk.dequantize_mx_outlier(dataclasses.replace(
+        w, inlier=dataclasses.replace(w.inlier, codes=w.inlier.codes.cpu(),
+                                      scale_exp=w.inlier.scale_exp.cpu()),
+        out_codes=w.out_codes.cpu(), out_pos=w.out_pos.cpu(),
+        out_scale_exp=w.out_scale_exp.cpu()), dtype=torch.bfloat16)
+
+
+def _sm90_weight(kind, K, N, seed, device, block=32, budget=4):
+    """A ``kind`` weight and (GEMM wrapper, plain twin, dense bf16 weight
+    as the twin makes it on the CPU)."""
+    if kind == "sideband":
+        w = _sideband(K, N, budget, seed, device, block=block)
+        return (w, om.dequant_gemm_outlier,
+                om.dequant_matmul_outlier_reference, _sideband_dense(w))
+    fmt, transport = SM90_DQ[kind]
+    w = _packed_as(K, N, fmt, transport, block, 1.0, seed, device)
+    return (w, dm.dequant_gemm, dm.dequant_matmul_reference,
+            tpk.dequantize_mx(w, dtype=torch.bfloat16))
+
+
 
 
 @pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
@@ -818,6 +849,21 @@ def test_sm90_pf6_gemm_at_llama_shapes(cuda, lin):
     want = dm.dequant_matmul_reference(x, w)
     torch.cuda.synchronize()
     assert dm.launch_counts["dequant_matmul_pf6"] == 1
+    assert _rel(got, want) < 2e-3
+
+
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+@pytest.mark.parametrize("kind", ["pf4", "fp16"])
+def test_sm90_pf4_and_fp16_gemm_at_llama_shapes(cuda, kind, lin):
+    K, N = LLAMA3_8B[lin]
+    w, fn, ref, _ = _sm90_weight(kind, K, N, 17, cuda)
+    x = _x(1024, K, 18, cuda)
+    dm.reset_launch_counts()
+    got = fn(x, w)
+    want = ref(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{kind}"] == 1
+    assert sum(dm.launch_counts.values()) == 1
     assert _rel(got, want) < 2e-3
 
 
@@ -836,11 +882,11 @@ def test_sm90_sideband_gemm_budgets(cuda, lin, budget):
     assert _rel(got, want) < 2e-3
 
 
-def _sideband_shared_rows(K, N, seed, device):
+def _sideband_shared_rows(K, N, seed, device, block=16):
     """Budget 4, and in every block whose first slot is filled a second
     slot that names the same row with its own code: the kernel must add
     both in slot order."""
-    w = _sideband(K, N, 4, seed, device)
+    w = _sideband(K, N, 4, seed, device, block=block)
     pos, oc = w.out_pos.clone(), w.out_codes.clone()
     hit = pos[..., 0] >= 0
     pos[..., 1] = torch.where(hit, pos[..., 0], pos[..., 1])
@@ -851,49 +897,72 @@ def _sideband_shared_rows(K, N, seed, device):
 
 @pytest.mark.parametrize("N", [384, 130])
 @pytest.mark.parametrize("K", [256, 512])
-@pytest.mark.parametrize("kind", ["pf6", "sideband"])
+@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16"])
 def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
     """x = I: every output row is one row of the decoded B tile (products
     with 1 and 0 are exact in f32), so the GEMM's f32 output is the twin's
     bf16 weight at every element; a swizzle or fragment-layout error shows
     where it occurs. torch.equal, since the f32 sum turns -0 into +0."""
     x = torch.eye(K, device=cuda)
-    if kind == "pf6":
-        w = _packed_as(K, N, "fp6_e3m2", "pf6", 32, 1.0, K + N, cuda)
-        got = dm.dequant_gemm(x, w)
-        dense = tpk.dequantize_mx(w, dtype=torch.bfloat16)
-    else:
+    if kind == "sideband":
         w = _sideband_shared_rows(K, N, K + N, cuda)
         got = om.dequant_gemm_outlier(x, w)
-        cpu = dataclasses.replace(
-            w, inlier=dataclasses.replace(
-                w.inlier, codes=w.inlier.codes.cpu(),
-                scale_exp=w.inlier.scale_exp.cpu()),
-            out_codes=w.out_codes.cpu(), out_pos=w.out_pos.cpu(),
-            out_scale_exp=w.out_scale_exp.cpu())
-        # on the CPU scatter_add adds the slots in slot order
-        dense = tpk.dequantize_mx_outlier(cpu, dtype=torch.bfloat16)
+        dense = _sideband_dense(w)
+    else:
+        w, fn, _, dense = _sm90_weight(kind, K, N, K + N, cuda)
+        got = fn(x, w)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), dense.float().cpu())
 
 
-@pytest.mark.parametrize("kind", ["pf6", "sideband"])
+@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16"])
 def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
     K, N, M = 203, 384, 300
-    if kind == "pf6":
-        w = _packed_as(K, N, "fp6_e3m2", "pf6", 32, 1.0, 3, cuda)
-        fn, ref = dm.dequant_gemm, dm.dequant_matmul_reference
-        plan = dm.sm90_plan("pf6", K, N, 32)
-    else:
-        w = _sideband(K, N, 4, 3, cuda)
-        fn, ref = om.dequant_gemm_outlier, om.dequant_matmul_outlier_reference
-        plan = dm.sm90_plan("sideband", K, N, 16, 4)
+    block = 16 if kind == "sideband" else 32
+    w, fn, ref, _ = _sm90_weight(kind, K, N, 3, cuda, block=block)
+    plan = dm.sm90_plan(kind, K, N, block, 4 if kind == "sideband" else 0)
     assert plan["pad_x"] and plan["k_x"] == 208
     for out_dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2 ** -8)):
         x = _x(M, K, 4, cuda)
         got = fn(x, w, out_dtype=out_dtype)
         assert got.dtype == out_dtype and got.shape == (M, N)
         assert _rel(got.float(), ref(x, w)) < tol
+
+
+# every block the JAX packers take for these formats, on its route: the
+# sm90 kernel where the block divides the K step (pf4 48, pf6 128, fp16 48
+# and the side-band format at 48, or at 8 with 8 slots: gemm_tile)
+SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
+                    ("pf4", 48, 0), ("pf6", 64, 0), ("pf6", 128, 0),
+                    ("fp16", 8, 0), ("fp16", 64, 0), ("fp16", 48, 0),
+                    ("sideband", 8, 4), ("sideband", 8, 8),
+                    ("sideband", 64, 4), ("sideband", 64, 8),
+                    ("sideband", 48, 4)]
+
+
+@pytest.mark.parametrize("kind,block,budget", SM90_BLOCK_CASES)
+def test_sm90_every_packer_block_runs_its_route(cuda, kind, block, budget):
+    """The GEMM at M = 300 (and K % 8 != 0) within 2e-3 of the twin, on
+    the route that gemm_route names, and its B tile (x = I) bit-equal to
+    the twin's bf16 weight."""
+    K, N, M = 389, 384, 300
+    w, fn, ref, dense = _sm90_weight(kind, K, N, block, cuda, block=block,
+                                     budget=budget)
+    if kind == "sideband":
+        counter, counts = om.gemm_counter(block, budget), om.launch_counts
+    else:
+        counter, counts = dm.gemm_counter(kind, block), dm.launch_counts
+    x = _x(M, K, 5, cuda)
+    dm.reset_launch_counts()
+    om.reset_launch_counts()
+    got = fn(x, w)
+    want = ref(x, w)
+    torch.cuda.synchronize()
+    assert counts[counter] == 1 and sum(counts.values()) == 1
+    assert _rel(got, want) < 2e-3
+    eye = fn(torch.eye(K, device=cuda), w)
+    torch.cuda.synchronize()
+    assert torch.equal(eye.cpu(), dense.float().cpu())
 
 
 def test_sm90_kernels_do_not_spill(cuda):
@@ -903,7 +972,7 @@ def test_sm90_kernels_do_not_spill(cuda):
     lines = [ln for ln in build.ptxas_report(("dequant_matmul",
                                               "outlier_matmul"))
              if "_sm90" in ln]
-    assert any("gemm_dq_sm90" in ln for ln in lines)
-    assert sum("outlier_gemm_sm90" in ln for ln in lines) == 8
+    assert sum("gemm_dq_sm90" in ln for ln in lines) == 10
+    assert sum("outlier_gemm_sm90" in ln for ln in lines) == 15
     for ln in lines:
         assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln

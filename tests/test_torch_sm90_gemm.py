@@ -1,10 +1,12 @@
 """The host side of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) that the
-pf6 and side-band GEMMs run on: its plan (tile, stages, shared memory,
-padding of x) at every Llama-3-8B shape, and the zero-padding of x to a
-multiple of 8 columns, which must leave the plain versions' results bit for
-bit as they are, against the JAX twins on the same numpy inputs. The kernel
-itself is held to the plain versions on a card by
-tests/test_torch_kernels_gpu.py (``-k sm90``).
+pf6, pf4, fp16-container and side-band GEMMs run on: its plan (tile,
+stages, shared memory, padding of x) at every Llama-3-8B shape and every
+block it is compiled for; the routing of every block that the JAX packers
+take to a hand-written kernel (the sm90 loop or ``gemm_tile``); and the
+zero-padding of x to a multiple of 8 columns, which must leave the plain
+versions' results bit for bit as they are, against the JAX twins on the
+same numpy inputs. The kernels themselves are held to the plain versions
+on a card by tests/test_torch_kernels_gpu.py (``-k sm90``).
 """
 
 import dataclasses
@@ -47,14 +49,57 @@ def test_plan_fits_shared_memory_at_llama_shapes(lin, block, kind, budget):
         assert plan["slots"] in (1, 2, 4, 8)
 
 
-def test_plan_pads_ragged_k_and_refuses_other_blocks():
+# (kind, budget, block) of every sm90 kernel beyond the blocks 16 and 32 of
+# pf6 and the side-band format
+NEW_PLANS = ([("pf4", 0, b) for b in (16, 32, 64)]
+             + [("fp16", 0, b) for b in (8, 16, 32, 64)]
+             + [("pf6", 0, 64)]
+             + [("sideband", s, b) for b in (8, 64) for s in (0, 1, 2, 4, 8)
+                if (b, s) != (8, 8)])
+
+
+@pytest.mark.parametrize("kind,budget,block", NEW_PLANS)
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
+                                                     block):
+    K, N = LLAMA3_8B[lin]
+    plan = dm.sm90_plan(kind, K, N, block, budget)
+    assert dm.gemm_route(kind, block, budget) == "sm90"
+    assert plan["tile"] == (256, 128, 64) and plan["stages"] >= 3
+    assert plan["smem_bytes"] <= dm.SM90_MAX_SMEM == 232448
+    assert plan["tma"] and plan["k_x"] == K and not plan["pad_x"]
+    nblk = 64 // block
+    raw = {"pf6": (48 + nblk) * 128, "pf4": (32 + nblk) * 128,
+           "fp16": (128 + nblk) * 128}.get(kind)
+    if raw is not None:           # the decoder's raw copy of one step
+        assert plan["raw_bytes"] == raw
+    if kind == "fp16":            # 16 KB of codes a step: 3 stages, 3 buffers
+        assert (plan["stages"], plan["raw_buffers"]) == (3, 3)
+
+
+# (sm90_plan arguments) that no sm90 kernel takes: the blocks that do not
+# divide the 64-deep K step, pf6 below 16, the side-band format at block 8
+# with 8 slots (gemm_tile takes them), and a budget above 8 (nothing does)
+REFUSED = [("pf6", 256, 128, 8), ("pf6", 256, 128, 128),
+           ("pf4", 256, 128, 48), ("pf4", 256, 128, 128),
+           ("fp16", 256, 128, 48), ("fp16", 256, 128, 4),
+           ("sideband", 256, 128, 8, 8), ("sideband", 256, 128, 48, 4),
+           ("sideband", 256, 128, 16, 9), ("emi8", 256, 128, 32)]
+
+
+@pytest.mark.parametrize("args", REFUSED, ids=lambda a: "-".join(map(str, a)))
+def test_plan_pads_ragged_k_and_refuses_other_blocks(args):
     plan = dm.sm90_plan("pf6", 203, 130, 32)
     assert plan["pad_x"] and plan["k_x"] == 208 and not plan["tma"]
     assert not dm.sm90_plan("sideband", 200, 384, 16, 4)["pad_x"]
-    for args in (("pf6", 256, 128, 8), ("sideband", 256, 128, 64, 4),
-                 ("sideband", 256, 128, 16, 9), ("pf4", 256, 128, 32)):
+    with pytest.raises(ValueError):
+        dm.sm90_plan(*args)
+    kind, block, budget = args[0], args[3], (args[4:] or (0,))[0]
+    if budget <= dm.MAX_OUTLIER_BUDGET:
+        assert dm.gemm_route(kind, block, budget) == "tile"
+    else:
         with pytest.raises(ValueError):
-            dm.sm90_plan(*args)
+            dm.gemm_route(kind, block, budget)
 
 
 def test_plan_mirrors_the_kernel_sources():
@@ -62,11 +107,99 @@ def test_plan_mirrors_the_kernel_sources():
     head = (CSRC / "gemm_sm90.cuh").read_text()
     assert "kBM = 256, kBN = 128, kBK = 64" in head
     assert f"kMaxSmem = {dm.SM90_MAX_SMEM}" in head
-    assert "1024 + kBarOff + (2 * STAGES + RAWBUFS) * 8" in head
-    pf6 = (CSRC / "dequant_matmul.cu").read_text()
-    assert "kStages = 4, kRawBufs = 3" in pf6
+    assert ("return 1024 + stages * kStageBytes + rawbufs * raw_pad(raw)\n"
+            "         + (2 * stages + rawbufs) * 8;") in head
+    assert "esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16" in head
+    dq = (CSRC / "dequant_matmul.cu").read_text()
+    for dec, ring, blocks in (("Pf6Sm90", "kStages = 4, kRawBufs = 3",
+                               "B == 16 || B == 32 || B == 64"),
+                              ("Pf4Sm90", "kStages = 4, kRawBufs = 3",
+                               "B == 16 || B == 32 || B == 64"),
+                              ("Fp16Sm90", "kStages = 3, kRawBufs = 3",
+                               "B == 8 || B == 16 || B == 32 || B == 64")):
+        body = dq[dq.index(f"struct {dec} "):]
+        body = body[:body.index("\n};\n")]
+        assert ring in body and f"static_assert({blocks}" in body
+    for kind, blocks in dm.SM90_BLOCKS.items():
+        if kind == "sideband":
+            continue
+        decode = {"pf6": "kPf6", "pf4": "kPf4", "fp16": "kFp16"}[kind]
+        assert [b for b in (4, 8, 16, 32, 48, 64, 128)
+                if f"MXQ_SM90(mxq::{decode}, {b})" in dq] == list(blocks)
     sb = (CSRC / "outlier_matmul.cu").read_text()
-    assert "kStages = 3, kRawBufs = MAXB <= 4 ? 3 : 2;" in sb
+    assert ("MAXB <= 4\n"
+            "      && mxq::sm90::ring_bytes(3, kRawBytes, 3) <= "
+            "mxq::sm90::kMaxSmem;") in sb
+    assert "kStages = 3, kRawBufs = kThreeRaw ? 3 : 2;" in sb
+    built = sorted((int(b), int(m)) for m, b in
+                   __import__("re").findall(r"MXQ_SIDEBAND\((\d+), (\d+)\)",
+                                            sb))
+    want = sorted((b, s) for b in dm.SM90_BLOCKS["sideband"]
+                  for s in (1, 2, 4, 8)
+                  if dm.gemm_route("sideband", b, s) == "sm90")
+    assert built == want
+
+
+# (JAX packer call, port kind, budget) for each transport the GEMMs take;
+# pack_mx at block B, or pack_mx_outlier
+ROUTED = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
+          "fp16": ("fp16", "native"), "bf16": ("bfloat16", "native"),
+          "sb4": ("int4", "sb4"), "emi8": ("fp6_e3m2", "emi8"),
+          "sideband": None, "sideband8": None}
+
+
+def _jax_packs(name, block):
+    """Whether the JAX packer takes ``name`` at ``block``; the port's
+    packer must agree."""
+    W = np.random.default_rng(block).standard_normal((128, 64)
+                                                     ).astype(np.float32)
+
+    def pack(lib, A):
+        if name.startswith("sideband"):
+            return lib.pack_mx_outlier(
+                A, 8, 8, "int2", "fp4_e2m1", std_dev=2.0, block_size=block,
+                outlier_budget=8 if name == "sideband8" else 4, axis=0)
+        fmt, transport = ROUTED[name]
+        return lib.pack_mx(A, 8, fmt, block, axis=0, transport=transport)
+
+    try:
+        pack(jpk, jnp.asarray(W))
+    except (AssertionError, ValueError):
+        with pytest.raises((AssertionError, ValueError)):
+            pack(tpk, torch.from_numpy(W))
+        return False
+    pack(tpk, torch.from_numpy(W))
+    return True
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 48, 64, 128])
+@pytest.mark.parametrize("name", sorted(ROUTED))
+def test_gemm_route_names_a_kernel_for_every_block_the_packers_take(
+        name, block):
+    """Every block that the JAX packer accepts routes to a hand-written
+    kernel: the sm90 loop, whose plan then fits, or gemm_tile; and the
+    launch counter of that kernel exists."""
+    if not _jax_packs(name, block):
+        assert name in ("pf6", "pf4") and block % (32 if name == "pf6"
+                                                   else 16)
+        return
+    if name.startswith("sideband"):
+        budget = 8 if name == "sideband8" else 4
+        route = dm.gemm_route("sideband", block, budget)
+        assert om.gemm_counter(block, budget) in om.launch_counts
+        if route == "sm90":
+            dm.sm90_plan("sideband", 4096, 4096, block, budget)
+        want = block in (8, 16, 32, 64) and (block, budget) != (8, 8)
+    else:
+        decode = {"sb4": "sb4", "emi8": "emi8", "bf16": "bf16"}.get(name,
+                                                                    name)
+        route = dm.gemm_route(decode, block)
+        assert dm.gemm_counter(decode, block) in dm.launch_counts
+        if route == "sm90":
+            plan = dm.sm90_plan(decode, 4096, 4096, block)
+            assert plan["smem_bytes"] <= dm.SM90_MAX_SMEM
+        want = block in dm.SM90_BLOCKS.get(decode, ())
+    assert route == ("sm90" if want else "tile")
 
 
 def _x(M, K, seed):
@@ -118,6 +251,63 @@ def test_k8_padding_leaves_the_sideband_reference_unchanged():
     plan = dm.sm90_plan("sideband", K, N, 16, t.budget)
     assert plan["pad_x"] and t.inlier.codes.shape[0] >= plan["k_x"]
     x = _x(M, K, 14)
+    want = np.asarray(j_outlier_ref(jnp.asarray(x), j))
+    y = om.dequant_matmul_outlier_reference(torch.from_numpy(x), t)
+    t8 = dataclasses.replace(t, inlier=dataclasses.replace(
+        t.inlier, orig_dim=plan["k_x"]))
+    y8 = om.dequant_matmul_outlier_reference(_padded(x, plan["k_x"]), t8)
+    assert torch.equal(y8, y)
+    np.testing.assert_array_equal(y8.numpy(), want)
+
+
+@pytest.mark.parametrize("fmt,transport,block", [
+    ("fp4_e2m1", "pf4", 16), ("fp4_e2m1", "pf4", 32), ("fp4_e2m1", "pf4", 64),
+    ("fp16", "native", 8), ("fp16", "native", 32), ("fp16", "native", 64),
+    ("fp6_e3m2", "pf6", 64)])
+def test_k8_padding_leaves_the_sm90_references_unchanged(fmt, transport,
+                                                         block):
+    K, N, M = 203, 96, 5
+    rng = np.random.default_rng(block + len(fmt))
+    W = (rng.standard_normal((K, N))
+         * np.exp(rng.uniform(-2, 2, (1, N)))).astype(np.float32)
+    if fmt == "fp16":
+        # fp16 codes keep 11 bits: small integers times a power of two a
+        # column keep every f32 sum exact, as pf4's and pf6's coarse codes
+        W = (rng.integers(-16, 17, (K, N))
+             * 2.0 ** rng.integers(-3, 3, (1, N))).astype(np.float32)
+    j = jpk.to_serving_layout(jpk.pack_mx(jnp.asarray(W), 8, fmt, block,
+                                          axis=0, transport=transport))
+    t = tpk.to_serving_layout(tpk.pack_mx(torch.from_numpy(W), 8, fmt,
+                                          block, axis=0,
+                                          transport=transport))
+    decode = dm.sad_decode_params(t)[0]
+    assert dm.gemm_route(decode, block) == "sm90"
+    plan = dm.sm90_plan(decode, K, N, block)
+    assert plan["pad_x"] and t.codes.shape[0] * block >= plan["k_x"]
+    x = _x(M, K, block)
+    want = np.asarray(j_reference(jnp.asarray(x), j))
+    y = dm.dequant_matmul_reference(torch.from_numpy(x), t)
+    y8 = dm.dequant_matmul_reference(
+        _padded(x, plan["k_x"]), dataclasses.replace(t, orig_dim=plan["k_x"]))
+    assert torch.equal(y8, y)
+    np.testing.assert_array_equal(y8.numpy(), want)
+
+
+@pytest.mark.parametrize("block", [8, 64])
+def test_k8_padding_leaves_the_sideband_reference_unchanged_at_new_blocks(
+        block):
+    K, N, M = 203, 96, 5
+    rng = np.random.default_rng(block)
+    W = (rng.standard_normal((K, N))
+         * np.exp(rng.uniform(-1, 1, (1, N)))).astype(np.float32)
+    W.ravel()[rng.integers(0, K * N, K * N // 64)] *= 25.0
+    args = (8, 8, "int2", "fp4_e2m1")
+    kw = dict(std_dev=2.0, block_size=block, outlier_budget=4, axis=0)
+    j = jpk.pack_mx_outlier(jnp.asarray(W), *args, **kw)
+    t = tpk.pack_mx_outlier(torch.from_numpy(W), *args, **kw)
+    plan = dm.sm90_plan("sideband", K, N, block, t.budget)
+    assert plan["pad_x"] and t.inlier.codes.shape[0] >= plan["k_x"]
+    x = _x(M, K, block + 1)
     want = np.asarray(j_outlier_ref(jnp.asarray(x), j))
     y = om.dequant_matmul_outlier_reference(torch.from_numpy(x), t)
     t8 = dataclasses.replace(t, inlier=dataclasses.replace(
