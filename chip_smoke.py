@@ -13,9 +13,9 @@ the package is missing. Phases, each of which raises on failure:
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
    GEMM, the prefill-GEMM and the decode-GEMV experiments), one ``nvcc``
    each, all at once; then ``build_sm90``: the registers and spills of the
-   pf6, pf4, fp16-container and side-band GEMMs on the wgmma + TMA mainloop
-   (``csrc/gemm_sm90.cuh``, every compiled block) and the shared memory of
-   their rings;
+   pf6, pf4, fp16-container, emi8/emi8m, side-band and compact-NB GEMMs on
+   the wgmma + TMA mainloop (``csrc/gemm_sm90.cuh``, every compiled block
+   and slot class) and the shared memory of their rings;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -91,7 +91,8 @@ the package is missing. Phases, each of which raises on failure:
 16. ``gemm_block_routes``: the GEMMs at the MX blocks that the JAX
     packers take and no other phase packs (pf6 at 64 and 128, pf4 at 16,
     64 and 48, the fp16 container at 8, 64 and 48, the side-band format at
-    8, 64 and 48 with 4 slots and at 8 with 8), at gate_up, M = 1024, each
+    8, 64 and 48 with 4 slots and at 8 with 8, emi8 at 8, 64 and 48), at
+    gate_up, M = 1024, each
     on the kernel that ``dequant_matmul.gemm_route`` names (the sm90 loop,
     or ``gemm_tile`` where the block does not divide its K step) and held
     to its plain twin, timed; then one call a case as the entry point's
@@ -127,10 +128,10 @@ it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --gemm-times
 
-times only the pf6, side-band, pf4 and fp16-container GEMMs (and
-``torch.matmul`` on a bf16 weight) at M = 1024 at every Llama-3-8B shape on
-seeded operands and prints them as one JSON line (``sm90_gemm_times``), to
-compare two checkouts on one card.
+times only the pf6, side-band, pf4, fp16-container, emi8, emi8m and
+compact-NB GEMMs (and ``torch.matmul`` on a bf16 weight) at M = 1024 at
+every Llama-3-8B shape on seeded operands and prints them as one JSON line
+(``sm90_gemm_times``), to compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -2122,8 +2123,10 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
             "at": f"gate_up (4096, 28672) M={m_at}"
                   + (", MX-FP6 emi8 block 32" if emi8 else ""),
             "shapes": _shape_rows(mine)}
-        if name == "dequant_gemm_outlier":
+        if name in ("dequant_gemm_outlier", "dequant_matmul_emi8",
+                    "dequant_gemm_nb"):
             rec["mainloop"] = SM90_SOURCE
+        if name in ("dequant_gemm_outlier", "dequant_matmul_emi8"):
             rec["blocks"] = _route_rows(rrows, name)
             rec["block_keys"] = list(ROUTE_KEYS)
         if emi8:
@@ -2332,20 +2335,22 @@ SM90_SOURCE = "microscopiq_tpu_torch/ops/cuda/csrc/gemm_sm90.cuh"
 
 
 def sm90_build_line(card: str) -> None:
-    """The wgmma + TMA GEMMs' ptxas lines (registers, spills: pf6, pf4 and
-    fp16 in dequant_matmul.cu, the side-band GEMM in outlier_matmul.cu) and
-    the dynamic shared memory that their host-side plan gives each compiled
-    ring (ptxas reports static shared memory only)."""
+    """The wgmma + TMA GEMMs' ptxas lines (registers, spills: pf6, pf4,
+    fp16 and emi8 in dequant_matmul.cu, the side-band GEMM in
+    outlier_matmul.cu, the compact NB GEMM in nb_matmul.cu) and the dynamic
+    shared memory that their host-side plan gives each compiled ring
+    (ptxas reports static shared memory only)."""
     from microscopiq_tpu_torch.ops.cuda import build
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
 
     lines = [ln for ln in build.ptxas_report(("dequant_matmul",
-                                              "outlier_matmul"))
+                                              "outlier_matmul", "nb_matmul"))
              if "_sm90" in ln]
+    slot_classes = {"sideband": (1, 2, 4, 8), "nb": dm.NB_SLOT_CLASSES}
     smem = {}
     for kind, blocks in dm.SM90_BLOCKS.items():
         for b in blocks:
-            for slots in ((1, 2, 4, 8) if kind == "sideband" else (0,)):
+            for slots in slot_classes.get(kind, (0,)):
                 if dm.gemm_route(kind, b, slots) == "sm90":
                     key = f"{kind}_block{b}" + (f"_slots{slots}" if slots
                                                 else "")
@@ -2356,13 +2361,16 @@ def sm90_build_line(card: str) -> None:
 
 def sm90_gemm_times() -> list:
     """The pf6 (MX-FP6 fp6_e3m2, block 32), side-band (int2 + fp4 outliers,
-    block 16, budget 4), pf4 (fp4_e2m1, block 32) and fp16-container (block
-    32) GEMMs at M = 1024 at every Llama-3-8B shape, beside torch.matmul on
-    a bf16 weight of the same shape, CUDA events over L2-cold operand
-    copies, on weights and x made from fixed seeds: two checkouts time the
-    same operands. ``python3 chip_smoke.py --gemm-times`` prints the rows as
-    one JSON line; run it in two checkouts in one call (this script copied
-    into the other one) to compare their kernels."""
+    block 16, budget 4), pf4 (fp4_e2m1, block 32), fp16-container (block
+    32), emi8 (MX-FP6 fp6_e3m2, block 32, the main path's), emi8m (block
+    16, the emi8m arm's merged stream of a side-band weight) and compact NB
+    (budget 2, the NB arm's) GEMMs at M = 1024 at every Llama-3-8B shape,
+    beside torch.matmul on a bf16 weight of the same shape, CUDA events
+    over L2-cold operand copies, on weights and x made from fixed seeds:
+    two checkouts time the same operands. ``python3 chip_smoke.py
+    --gemm-times`` prints the rows as one JSON line; run it in two
+    checkouts in one call (this script copied into the other one) to
+    compare their kernels."""
     import torch
 
     from microscopiq_tpu_torch.ops import packing as pk
@@ -2374,13 +2382,27 @@ def sm90_gemm_times() -> list:
     for lin, K, N in SHAPES:
         x = torch.randn((SM90_M, K), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
-        for kind in ("pf6", "sideband", "pf4", "fp16", "torch_matmul"):
-            if kind == "sideband":
+        for kind in ("pf6", "sideband", "pf4", "fp16", "torch_matmul",
+                     "emi8", "emi8m", "nb"):
+            if kind in ("sideband", "emi8m"):
                 p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8,
                                        "int2", "fp4_e2m1", std_dev=2.0,
                                        block_size=16,
                                        outlier_budget=SIDEBAND_BUDGET, axis=0)
                 fn = om.dequant_gemm_outlier
+                if kind == "emi8m":
+                    p = pk.to_serving_layout(pk.merge_outlier_emi8(p))
+                    fn = dm.dequant_gemm
+            elif kind == "emi8":
+                p = pk.to_serving_layout(pk.pack_mx(
+                    int_weight("fp6_e3m2", (K, N), gen).float(), 8,
+                    "fp6_e3m2", 32, axis=0, transport="emi8"))
+                fn = dm.dequant_gemm
+            elif kind == "nb":
+                p = pk.pack_outlier_nb(nb_decisions(outlier_weight((K, N),
+                                                                   gen)),
+                                       budget=NB_BUDGET)
+                fn = om.dequant_gemm_nb
             elif kind == "torch_matmul":
                 p = int_weight("bfloat16", (K, N), gen) / BF16_GAIN
                 fn = lambda x, w, _: torch.matmul(x, w)   # noqa: E731
@@ -2408,20 +2430,25 @@ def sm90_gemm_times() -> list:
 # ---------------------------------------------------------------------------
 # (kind, format, block, budget): the blocks that no other phase packs, for
 # pf6 (fp6_e3m2; packers: block % 32 == 0), pf4 (fp4_e2m1; % 16), the fp16
-# container and the side-band format (int2 + fp4, any block): the sm90 loop
-# at 8 and 64, gemm_tile at 48 and 128 and for the side-band format at
-# block 8 with 8 slots
+# container, emi8 (fp6_e3m2, any block) and the side-band format (int2 +
+# fp4, any block): the sm90 loop at 8 and 64, gemm_tile at 48 and 128 and
+# for the side-band format at block 8 with 8 slots. The compact NB format
+# (block 16) takes the sm90 loop at every budget its packer makes (up to
+# 16): it has no gemm_tile case here.
 ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
                ("pf4", "fp4_e2m1", 16, 0), ("pf4", "fp4_e2m1", 64, 0),
                ("pf4", "fp4_e2m1", 48, 0), ("fp16", "fp16", 8, 0),
                ("fp16", "fp16", 64, 0), ("fp16", "fp16", 48, 0),
                ("sideband", "int2", 8, 4), ("sideband", "int2", 64, 4),
-               ("sideband", "int2", 48, 4), ("sideband", "int2", 8, 8))
+               ("sideband", "int2", 48, 4), ("sideband", "int2", 8, 8),
+               ("emi8", "fp6_e3m2", 8, 0), ("emi8", "fp6_e3m2", 64, 0),
+               ("emi8", "fp6_e3m2", 48, 0))
 # the gemm_tile routes' kernel records: counter -> (source, TPU kernel line)
 ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_pf4_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_fp16_tile": ("dequant_matmul.cu", 71),
-                 "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111)}
+                 "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111),
+                 "dequant_matmul_emi8_tile": ("dequant_matmul.cu", 71)}
 ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
               "library_ms", "rel_err")
 

@@ -37,10 +37,11 @@
 //   in-range elements. 16-byte vector loads are used when N % 16 == 0 and
 //   K % 8 == 0, element loads otherwise.
 //
-// The pf6 and pf4 transports and the fp16 container run on gemm_sm90.cuh's
-// wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX block that
-// divides its 64-deep K step (pf6: 16, 32, 64; pf4: 16, 32, 64; fp16: 8,
-// 16, 32, 64); other blocks (48, 96, 128, ...) take gemm_dq's tile loop.
+// The pf6 and pf4 transports, the fp16 container and emi8 / emi8m run on
+// gemm_sm90.cuh's wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX
+// block that divides its 64-deep K step and whose ring fits (pf6: 16, 32,
+// 64; pf4: 16, 32, 64; fp16: 8, 16, 32, 64; emi8: 4, 8, 16, 32, 64); other
+// blocks (48, 96, 128, ...) take gemm_dq's tile loop.
 // dequant_matmul.py::gemm_route chooses by block size before the launch
 // and passes the choice here. Each decoder reads the TMA-loaded raw copy of
 // a step's packed rows and exponents in shared memory and writes the bf16
@@ -54,7 +55,9 @@
 //   packed row g gives K rows g (low nibble) and g + B/2 (high nibble);
 //   at most 2 significant bits times a power of two, exact in bf16;
 // - fp16: 32 of the step's 64 K rows of a column a thread, each code
-//   rounded to bf16 and then scaled, decode_half<kFp16>'s order.
+//   rounded to bf16 and then scaled, decode_half<kFp16>'s order;
+// - emi8: the same share, each byte's m̂ and 2^e' formed as f32 bits, their
+//   exact product times 2^(se - fold) as gemm_dq multiplies it.
 // The wgmma k16 steps sum in gemm_dq's order.
 #include <type_traits>
 
@@ -112,7 +115,7 @@ gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
 
 
 // ---------------------------------------------------------------------------
-// pf6, pf4 and fp16 on the sm90 mainloop
+// pf6, pf4, fp16 and emi8 on the sm90 mainloop
 // ---------------------------------------------------------------------------
 // The raw operands of a 64-row step that the decoders here read: the ROWS
 // packed rows of each of its 64/B blocks (CB-byte codes), then one exponent
@@ -376,10 +379,63 @@ struct Fp16Sm90 : Sm90Raw<2, B, B> {
   }
 };
 
+// emi8 and emi8m: a decode thread owns 64 / DWG of a step's K rows in one
+// column, 8 at a time (Fp16Sm90's share), each byte's m̂ · 2^e'
+// (decode_emi8) times 2^(se - fold), clamped as exp2_i32. m̂ becomes an
+// f32 through the 1.5 · 2^23 bias (exact for |m̂| < 2^22, two full-rate
+// operations instead of a quarter-rate convert) and 2^e' is placed as
+// exponent bits (e' <= 2^(8 - mw) - 1 <= 127), so their product is
+// decode_emi8's integer m̂ · 2^e' converted, exactly (at most 7 significant
+// bits; the packers keep |m̂| · 2^e' < 2^31). Its product with the scale is
+// gemm_dq's single f32 multiply, so the B tile is gemm_tile's bit for bit.
+// At B = 4 a chunk of 8 rows spans two blocks; B = 2's 12 KB raw step
+// leaves no 4-stage ring (dequant_matmul.py::_sm90_ring).
+template <int B>
+struct Emi8Sm90 : Sm90Raw<1, B, B> {
+  static_assert(B == 4 || B == 8 || B == 16 || B == 32 || B == 64,
+                "block of 4, 8, 16, 32 or 64");
+  using Raw = Sm90Raw<1, B, B>;
+  static constexpr int kStages = 4, kRawBufs = 3, kDwg = 2;   // 218-223 KB
+
+  template <int DWG>
+  __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* b,
+                                         int t) const {
+    constexpr int kN = Raw::kN, C = 8 / DWG;    // chunks of 8 rows a thread
+    constexpr int R = B < 8 ? B : 8;            // rows under one scale
+    const int col = t % kN, c0 = (t / kN) * C;
+    const int sh = 8 - this->mw, emask = (1 << sh) - 1;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c = c0 + i;
+      float sc[8 / R];
+#pragma unroll
+      for (int h = 0; h < 8 / R; ++h)
+        sc[h] = mxq::exp2_i32(this->scale_exp(raw, (8 * c + h * R) / B, col));
+      float w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int code = raw[(8 * c + j) * kN + col];
+        const float m = __int_as_float(0x4B400000 + (code >> sh))
+                        - 12582912.f;
+        const float p = __int_as_float(((code & emask) + 127) << 23);
+        w[j] = m * p * sc[j / R];
+      }
+      mxq::sm90::store_b_chunk(
+          b, col, c,
+          make_uint4(mxq::sm90::pack_bf16(w[0], w[1]),
+                     mxq::sm90::pack_bf16(w[2], w[3]),
+                     mxq::sm90::pack_bf16(w[4], w[5]),
+                     mxq::sm90::pack_bf16(w[6], w[7])));
+    }
+  }
+};
+
 template <int D, int B>
 using Sm90Dec = std::conditional_t<
     D == mxq::kPf6, Pf6Sm90<B>,
-    std::conditional_t<D == mxq::kPf4, Pf4Sm90<B>, Fp16Sm90<B>>>;
+    std::conditional_t<
+        D == mxq::kPf4, Pf4Sm90<B>,
+        std::conditional_t<D == mxq::kEmi8, Emi8Sm90<B>, Fp16Sm90<B>>>>;
 
 // grid: M tiles x N tiles of 256 x 128 (gemm_sm90.cuh); x (M, K) bf16 with
 // K % 8 == 0 through xmap.
@@ -391,8 +447,9 @@ gemm_dq_sm90(const __grid_constant__ CUtensorMap xmap,
              const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
              void* out, int M, int K, int N, int NB, int mw, int ebits,
              int fold, int out_bf16, int tma) {
-  static_assert(D == mxq::kPf6 || D == mxq::kPf4 || D == mxq::kFp16,
-                "the sm90 mainloop decodes pf6, pf4 and fp16");
+  static_assert(D == mxq::kPf6 || D == mxq::kPf4 || D == mxq::kFp16
+                    || D == mxq::kEmi8,
+                "the sm90 mainloop decodes pf6, pf4, fp16 and emi8");
   using Dec = Sm90Dec<D, B>;
   Dec dec{{codes, se, &codes_map, &se_map, N, NB, mw, ebits, fold,
            tma != 0}};
@@ -431,7 +488,8 @@ int launch_sm90(const void* x, const int8_t* codes, const int8_t* se,
 // Kp = NB * B >= K; se: (NB, N) int8; out: (M, N) bf16 or f32; decode: an
 // mxq::Decode; sm90: the route that dequant_matmul.py::gemm_route chose,
 // 1 for gemm_dq_sm90 (pf6 and pf4 at B = 16, 32, 64; fp16 at B = 8, 16,
-// 32, 64; x with K % 8 == 0, 16-byte aligned), 0 for gemm_dq (every decode,
+// 32, 64; emi8 at B = 4, 8, 16, 32, 64; x with K % 8 == 0, 16-byte
+// aligned), 0 for gemm_dq (every decode,
 // any B). Returns the cudaError_t of the launch (0 on success;
 // cudaErrorInvalidValue for an unknown decode or an sm90 decode and block
 // with no kernel).
@@ -454,6 +512,9 @@ extern "C" int dequant_matmul(const void* x, const void* codes,
     MXQ_SM90(mxq::kPf4, 16); MXQ_SM90(mxq::kPf4, 32); MXQ_SM90(mxq::kPf4, 64);
     MXQ_SM90(mxq::kFp16, 8); MXQ_SM90(mxq::kFp16, 16);
     MXQ_SM90(mxq::kFp16, 32); MXQ_SM90(mxq::kFp16, 64);
+    MXQ_SM90(mxq::kEmi8, 4); MXQ_SM90(mxq::kEmi8, 8);
+    MXQ_SM90(mxq::kEmi8, 16); MXQ_SM90(mxq::kEmi8, 32);
+    MXQ_SM90(mxq::kEmi8, 64);
 #undef MXQ_SM90
     return static_cast<int>(cudaErrorInvalidValue);
   }

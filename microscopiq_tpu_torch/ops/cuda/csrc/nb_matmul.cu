@@ -47,14 +47,29 @@
 // - N is padded to a multiple of 16 in storage; the reduce writes only the
 //   orig_n real columns.
 //
-// GEMM design: the bf16 wmma tile loop of common.cuh (128 x 128 output
-// tile, 32-deep K steps). Per K step warp w decodes N-block (tile's 8
-// blocks) w and lane l column k0 + l: 16 weights in registers, written to
-// the shared B tile as two 16-byte rows of bf16; the decoded tile then
-// serves all 128 rows of x. Weights are exact in bf16, so the tensor cores
-// see the twin's weights; their f32 accumulation differs from a CUDA-core
-// sum in order and internal rounding (the emi8 GEMM's 2e-3 tolerance).
+// GEMM design: gemm_sm90.cuh's wgmma + TMA mainloop (256 x 128 output
+// tile, 64-deep K steps, two decode warpgroups feeding two wgmma
+// warpgroups) with NbSm90's decode. A 128-column output tile is 8 N-blocks
+// of the (N, K) weight; a step's raw copy holds their 32 code rows, 8 se
+// and 8 seo rows and, slot by slot, 8 rows of slot bytes, 64 K columns
+// each (one TMA box a stream and slot; plain copies where K % 16 != 0).
+// Decode thread (b, p) forms the 16 weights of N-block b at K columns 2p
+// and 2p + 1 in registers, in decode_column's order and arithmetic (the
+// inliers, then the slots in slot order, both exponent clamps), rounds
+// them once to bf16 and writes them to the K-major B tile: the B tile is
+// nb_gemm's bit for bit. The kernel is templated on the slots its ring
+// holds (1, 2, 4, 8, 16; a smaller budget reads its own); every budget the
+// format takes (<= 16: a slot's row is 4 bits) fits a 4-stage ring.
+// nb_gemm, the bf16 wmma tile loop of
+// common.cuh (128 x 128 output tile, 32-deep K steps; warp w decodes
+// N-block w of a step, lane l column k0 + l), takes a budget above 16,
+// which no packer makes. outlier_matmul.py::dequant_gemm_nb chooses by
+// budget before the launch (dequant_matmul.py::gemm_route). Weights are
+// exact in bf16, so the tensor cores see the twin's weights; their f32
+// accumulation differs from a CUDA-core sum in order and internal rounding
+// (the emi8 GEMM's 2e-3 tolerance).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -231,6 +246,203 @@ nb_gemm(const __nv_bfloat16* __restrict__ x,
   mxq::gemm_tile(x, out, M, K, N, K, out_bf16, decode);
 }
 
+// The compact NB decoder of gemm_sm90.cuh's mainloop, MAXB slots in its
+// ring (budget <= MAXB). Raw copy of a 64-column K step of a 128-column
+// output tile (8 N-blocks from nb0 = n0 / 16): the code rows 4 nb0..
+// [32][64], se and seo [8][64] each, then slot s's bytes [8][64] for each
+// s < budget. Decode thread t = 32b + p owns the 16 rows of N-block b at
+// K columns 2p and 2p + 1: one exponent pair and one slot byte pair a
+// slot serve all 16 (a thread of 4 rows at 8 K columns forms every scale
+// four times over, and was slower on the H100). Each row's two weights go
+// to the B tile as one 4-byte word; a warp's 32 words of a row fill its
+// 128 bytes, conflict-free.
+template <int MAXB>
+struct NbSm90 {
+  static_assert(MAXB == 1 || MAXB == 2 || MAXB == 4 || MAXB == 8
+                || MAXB == 16, "1, 2, 4, 8 or 16 slots");
+  static constexpr int kK = mxq::sm90::kBK;               // 64 K columns
+  static constexpr int kBlocks = mxq::sm90::kBN / kRows;  // 8 N-blocks
+  static constexpr int kCodeRows = 4 * kBlocks;           // 32
+  static constexpr int kSeOff = kCodeRows * kK;           // 2048
+  static constexpr int kSeoOff = kSeOff + kBlocks * kK;
+  static constexpr int kObOff = kSeoOff + kBlocks * kK;   // 3072
+  static constexpr int kSlotBytes = kBlocks * kK;         // 512
+  static constexpr int kRawBytes = kObOff + MAXB * kSlotBytes;
+  // 4 stages and 3 raw buffers: 208,472-231,512 bytes
+  static constexpr int kStages = 4, kRawBufs = 3, kDwg = 2;
+
+  const int8_t* __restrict__ codes;     // (Np/4, K)
+  const int8_t* __restrict__ se;        // (NB, K)
+  const int8_t* __restrict__ seo;       // (NB, K)
+  const int8_t* __restrict__ ob;        // (budget, NB, K)
+  const CUtensorMap* codes_map;         // box 64 x 32
+  const CUtensorMap* se_map;            // se, seo: box 64 x 8
+  const CUtensorMap* seo_map;
+  const CUtensorMap* ob_map;            // ob as (budget * NB, K), 64 x 8
+  int K, NB, budget, fold;
+  bool tma;          // K % 16 == 0 and 16-byte aligned operands
+
+  __device__ __forceinline__ int tx_bytes() const {
+    return kObOff + budget * kSlotBytes;
+  }
+
+  __device__ __forceinline__ void copy_tma(int8_t* raw, int k0, int n0,
+                                           uint32_t bar) const {
+    using mxq::sm90::tma_load_2d;
+    const int nb0 = n0 / kRows;
+    tma_load_2d(raw, codes_map, k0, 4 * nb0, bar);
+    tma_load_2d(raw + kSeOff, se_map, k0, nb0, bar);
+    tma_load_2d(raw + kSeoOff, seo_map, k0, nb0, bar);
+    // rows past NB of slot s are slot s + 1's; decode reads no slot of an
+    // N-block past NB
+    for (int s = 0; s < budget; ++s)
+      tma_load_2d(raw + kObOff + s * kSlotBytes, ob_map, k0, s * NB + nb0,
+                  bar);
+  }
+
+  template <int DWG>
+  __device__ __forceinline__ void copy(int8_t* raw, int k0, int n0,
+                                       int t) const {
+    const int nb0 = n0 / kRows;
+    for (int c = t; c < tx_bytes(); c += 128 * DWG) {
+      const int row = c / kK, k = k0 + c % kK;
+      int8_t v = 0;
+      if (k < K) {
+        if (c < kSeOff) {
+          if (4 * nb0 + row < 4 * NB)
+            v = codes[static_cast<size_t>(4 * nb0 + row) * K + k];
+        } else if (c < kObOff) {
+          const int i = row - kCodeRows, nb = nb0 + i % kBlocks;
+          if (nb < NB)
+            v = (i < kBlocks ? se : seo)[static_cast<size_t>(nb) * K + k];
+        } else {
+          const int i = row - kCodeRows - 2 * kBlocks;
+          const int s = i / kBlocks, nb = nb0 + i % kBlocks;
+          if (nb < NB)
+            v = ob[(static_cast<size_t>(s) * NB + nb) * K + k];
+        }
+      }
+      raw[c] = v;
+    }
+  }
+
+  template <int DWG>
+  __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* bt,
+                                         int t) const {
+    static_assert(DWG == 2, "256 decode threads: 8 N-blocks x 32 K pairs");
+    const int b = t >> 5, p = t & 31;     // N-block b, K columns 2p, 2p + 1
+    // no slot of an N-block past the weight (its rows are another slot's)
+    const int slots = blockIdx.y * kBlocks + b < NB ? budget : 0;
+    uint32_t cw[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      cw[r] = *reinterpret_cast<const uint16_t*>(raw + (4 * b + r) * kK
+                                                 + 2 * p);
+    const uint32_t sw = *reinterpret_cast<const uint16_t*>(
+        raw + kSeOff + b * kK + 2 * p);
+    const uint32_t ow = *reinterpret_cast<const uint16_t*>(
+        raw + kSeoOff + b * kK + 2 * p);
+    // w[j][h]: row 16b + j at K column 2p + h; decode_column's inliers
+    // (the int2 code as an f32 through the 1.5 · 2^23 bias: exact)
+    float w[kRows][2], osc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s_in = static_cast<int8_t>(sw >> (8 * h));
+      const float sc = exp2_i32(s_in - fold);
+      osc[h] = exp2_i32(static_cast<int8_t>(ow >> (8 * h)) - s_in - 1);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint32_t code = static_cast<uint32_t>(
+            static_cast<int>(static_cast<int8_t>(cw[r] >> (8 * h))));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int v = static_cast<int>(code << (30 - 2 * i)) >> 30;
+          w[r + 4 * i][h] = (__int_as_float(0x4B400000 + v) - 12582912.f)
+                            * sc;
+        }
+      }
+    }
+    // the slots in slot order: 2·fp4 placed as f32 bits (exponent field e,
+    // mantissa m: a subnormal for e = 0) times 2^127 is fp4_twice exactly
+    // (-0 for the code 8, which adds as fp4_twice's +0 does); decode_column
+    // adds +0 at every other row, which changes no weight (none is -0)
+#pragma unroll 1
+    for (int s = 0; s < slots && s < MAXB; ++s) {
+      const uint32_t bw = *reinterpret_cast<const uint16_t*>(
+          raw + kObOff + s * kSlotBytes + b * kK + 2 * p);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t ub = (bw >> (8 * h)) & 0xFF;
+        const int pos = ub >> 4;
+        const float val =
+            __uint_as_float(((ub & 7) << 22) | ((ub & 8) << 28)) * 0x1p127f
+            * osc[h];
+#pragma unroll
+        for (int j = 0; j < kRows; ++j)
+          if (pos == j) w[j][h] += val;
+      }
+    }
+    // row n's K columns 2p, 2p + 1: word p % 4 of its swizzled chunk p / 4
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int n = kRows * b + j;
+      *reinterpret_cast<uint32_t*>(
+          bt + n * 128 + (((p >> 2) ^ (j & 7)) << 4) + (p & 3) * 4) =
+          mxq::sm90::pack_bf16(w[j][0], w[j][1]);
+    }
+  }
+};
+
+// grid: M tiles x N tiles of 256 x 128 (gemm_sm90.cuh); x (M, Kx) bf16
+// with Kx % 8 == 0 (K rounded up) through xmap; the weight's streams
+// through the four maps where tma is set.
+template <int MAXB>
+__global__ void __launch_bounds__(mxq::sm90::threads(NbSm90<MAXB>::kDwg), 1)
+nb_gemm_sm90(const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap codes_map,
+             const __grid_constant__ CUtensorMap se_map,
+             const __grid_constant__ CUtensorMap seo_map,
+             const __grid_constant__ CUtensorMap ob_map,
+             const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
+             const int8_t* __restrict__ seo, const int8_t* __restrict__ ob,
+             void* out, int M, int Kx, int N, int K, int NB, int budget,
+             int fold, int out_bf16, int tma) {
+  using Dec = NbSm90<MAXB>;
+  Dec dec{codes, se, seo, ob, &codes_map, &se_map, &seo_map, &ob_map, K, NB,
+          budget, fold, tma != 0};
+  mxq::sm90::gemm<Dec::kStages, Dec::kRawBufs, Dec::kDwg>(&xmap, out, M, N,
+                                                         Kx, out_bf16, dec);
+}
+
+template <int MAXB>
+int launch_nb_sm90(const void* x, const int8_t* codes, const int8_t* se,
+                   const int8_t* seo, const int8_t* ob, void* out, int M,
+                   int K, int Kx, int N, int NB, int budget, int fold,
+                   int out_bf16, int tma, cudaStream_t st) {
+  using Dec = NbSm90<MAXB>;
+  constexpr int smem =
+      mxq::sm90::Ring<Dec::kStages, Dec::kRawBytes, Dec::kRawBufs>::kBytes;
+  CUtensorMap maps[4] = {};
+  if (tma) {
+    using mxq::sm90::raw_tensor_map;
+    int err = raw_tensor_map(&maps[0], codes, 1, K, 4LL * NB, Dec::kK,
+                             Dec::kCodeRows);
+    if (err == 0)
+      err = raw_tensor_map(&maps[1], se, 1, K, NB, Dec::kK, Dec::kBlocks);
+    if (err == 0)
+      err = raw_tensor_map(&maps[2], seo, 1, K, NB, Dec::kK, Dec::kBlocks);
+    if (err == 0 && budget > 0)
+      err = raw_tensor_map(&maps[3], ob, 1, K,
+                           static_cast<long long>(budget) * NB, Dec::kK,
+                           Dec::kBlocks);
+    if (err != 0) return err;
+  }
+  return mxq::sm90::launch<Dec::kDwg>(
+      nb_gemm_sm90<MAXB>, smem, x, M, N, Kx, st, maps[0], maps[1], maps[2],
+      maps[3], codes, se, seo, ob, out, M, Kx, N, K, NB, budget, fold,
+      out_bf16, tma);
+}
+
 template <int MT>
 void launch_partial(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
                     const int8_t* codes, const int8_t* se, const int8_t* seo,
@@ -273,19 +485,40 @@ extern "C" int dequant_gemv_nb(const void* x, const void* codes,
   return mxq::launch_split_reduce(wp, out, M, Np, N, ksplit, out_bf16, st);
 }
 
-// x: (M, K) bf16; codes, se, seo, ob as above with NB = Np/16 N-blocks;
-// out: (M, N) bf16 or f32 with N <= Np. Returns the cudaError_t of the
-// launch (0 on success).
+// x: (M, Kx) bf16, Kx >= K; codes, se, seo, ob as above with NB = Np/16
+// N-blocks and K columns; out: (M, N) bf16 or f32 with N <= Np; sm90: the
+// route that dequant_matmul.py::gemm_route chose, 1 for nb_gemm_sm90
+// (budget <= 16; Kx = K rounded up to a multiple of 8, x 16-byte
+// aligned), 0 for nb_gemm (Kx = K, any budget). Returns the cudaError_t of
+// the launch (0 on success; cudaErrorInvalidValue for a budget no sm90
+// kernel takes).
 extern "C" int dequant_gemm_nb(const void* x, const void* codes,
                                const void* se, const void* seo,
                                const void* ob, void* out, int M, int K,
-                               int Np, int N, int budget, int fold,
-                               int out_bf16, void* stream) {
-  nb_gemm<<<mxq::gemm_grid(M, N), mxq::kGemmThreads, 0,
-            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(codes),
-      static_cast<const int8_t*>(se), static_cast<const int8_t*>(seo),
-      static_cast<const int8_t*>(ob), out, M, K, N, Np / kRows, budget, fold,
-      out_bf16);
-  return static_cast<int>(cudaGetLastError());
+                               int Kx, int Np, int N, int budget, int fold,
+                               int out_bf16, int sm90, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* cp = static_cast<const int8_t*>(codes);
+  const auto* sp = static_cast<const int8_t*>(se);
+  const auto* op = static_cast<const int8_t*>(seo);
+  const auto* bp = static_cast<const int8_t*>(ob);
+  const int NB = Np / kRows;
+  if (!sm90) {
+    nb_gemm<<<mxq::gemm_grid(M, N), mxq::kGemmThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), cp, sp, op, bp, out, M, K, N,
+        NB, budget, fold, out_bf16);
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int tma = K % 16 == 0 && aligned(codes) && aligned(se)
+                  && aligned(seo) && (budget == 0 || aligned(ob));
+#define MXQ_NB(MB)                                                          \
+  if (budget <= MB)                                                         \
+  return launch_nb_sm90<MB>(x, cp, sp, op, bp, out, M, K, Kx, N, NB, budget, \
+                            fold, out_bf16, tma, st)
+  MXQ_NB(1); MXQ_NB(2); MXQ_NB(4); MXQ_NB(8); MXQ_NB(16);
+#undef MXQ_NB
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,9 +6,10 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 ``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
-the kernel (``csrc/dequant_matmul.cu``; pf6, pf4 and the fp16 container on
-the wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` at the blocks that
-:func:`gemm_route` gives it, whose host-side plan is :func:`sm90_plan`). Both
+the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, the fp16 container and
+emi8/emi8m on the wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` at the
+blocks that :func:`gemm_route` gives it, whose host-side plan is
+:func:`sm90_plan`). Both
 take every transport that the TPU kernels decode: emi8 and emi8m, the int8
 container (pre-blocked or 2-D, which reaches the serving layout by a view),
 sb4, sb2, pf4, pf6, the bf16/fp16 containers and the float8 containers (``float8_e4m3fn`` from
@@ -57,18 +58,22 @@ _CODE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
 SM90_TILE = (256, 128, 64)
 SM90_MAX_SMEM = 232448
 _SM90_STAGE_BYTES = (SM90_TILE[0] + SM90_TILE[1]) * SM90_TILE[2] * 2
+NB_BLOCK = 16                     # the compact NB transport's one block
 # the GEMMs with a decoder on that mainloop -> the MX blocks it is compiled
-# for (those that divide the 64-deep K step; pf6 at 16 is one that no
-# packer makes); "fp16" is the fp16 container, "sideband" the
-# PackedMXOutlier GEMM of outlier_matmul.py
+# for (those that divide the 64-deep K step and whose ring fits; pf6 at 16
+# is one that no packer makes); "fp16" is the fp16 container, "emi8" emi8
+# and emi8m, "sideband" the PackedMXOutlier GEMM and "nb" the compact
+# PackedOutlierNB GEMM (block 16 only) of outlier_matmul.py
 SM90_BLOCKS = {"pf6": (16, 32, 64), "pf4": (16, 32, 64),
-               "fp16": (8, 16, 32, 64), "sideband": (8, 16, 32, 64)}
+               "fp16": (8, 16, 32, 64), "emi8": (4, 8, 16, 32, 64),
+               "sideband": (8, 16, 32, 64), "nb": (NB_BLOCK,)}
 MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
+NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
 
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
 # after. dequant_matmul_<decode> counts the GEMM that gemm_route gives the
-# default blocks (the sm90 kernel for pf6, pf4 and fp16), and
+# default blocks (the sm90 kernel for pf6, pf4, fp16 and emi8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
 launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
@@ -89,9 +94,10 @@ def _ring_bytes(stages: int, raw: int, raw_bufs: int) -> int:
 def _sm90_ring(kind: str, block: int, budget: int):
     """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
     for ``kind`` at ``block`` (and ``budget`` slots), mirroring its
-    decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``SidebandSm90``);
-    None where no such kernel is compiled. Raises ValueError for a budget
-    that no kernel takes."""
+    decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``Emi8Sm90``,
+    ``SidebandSm90``, ``NbSm90``); None where no such kernel is compiled
+    or its ring would not fit. Raises ValueError for a budget that no
+    kernel takes."""
     if kind == "sideband" and not 0 <= budget <= MAX_OUTLIER_BUDGET:
         raise ValueError(f"budget {budget} > {MAX_OUTLIER_BUDGET}")
     if block not in SM90_BLOCKS.get(kind, ()):
@@ -104,6 +110,21 @@ def _sm90_ring(kind: str, block: int, budget: int):
         return 0, 4, 3, (BK // 2 + nblk) * BN
     if kind == "fp16":                    # 2-byte codes
         return 0, 3, 3, (2 * BK + nblk) * BN
+    def four_stages(slots, raw):          # pf6's ring, where it fits
+        fits = _ring_bytes(4, raw, 3) <= SM90_MAX_SMEM
+        return (slots, 4, 3, raw) if fits else None
+
+    if kind == "emi8":                    # one byte a K row
+        return four_stages(0, (BK + nblk) * BN)
+    if kind == "nb":
+        # the 8 N-blocks of a tile, 64 K columns: 32 code rows, se, seo,
+        # then 8 rows a slot, the slots of the smallest class that holds
+        # the budget
+        slots = next((c for c in NB_SLOT_CLASSES if budget <= c), None)
+        if slots is None:
+            return None
+        return four_stages(slots,
+                           (BN // 4 + (2 + slots) * (BN // 16)) * BK)
     slots = 1 if budget <= 1 else 2 if budget <= 2 else \
         4 if budget <= 4 else 8
     # codes, se, seo, outlier codes, int32 positions
@@ -118,12 +139,14 @@ def _sm90_ring(kind: str, block: int, budget: int):
 def sm90_plan(kind: str, K: int, N: int, block: int,
               budget: int = 0) -> dict:
     """Host-side plan of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) for a
-    ``"pf6"``, ``"pf4"``, ``"fp16"`` (container) or ``"sideband"`` weight of
-    K rows and N columns in blocks of ``block`` with ``budget`` outlier
-    slots, mirroring the kernels' ``Ring`` and decoder sizes: the tile, the
-    ring's stages and raw buffers, the outlier slots read, one step's raw
-    weight bytes, the dynamic shared memory, whether the raw operands come
-    by TMA (N % 16 == 0; else plain copies), and x's row length ``k_x``: K
+    ``"pf6"``, ``"pf4"``, ``"fp16"`` (container), ``"emi8"`` (emi8, emi8m),
+    ``"sideband"`` or ``"nb"`` weight of K rows and N columns (output
+    columns) in blocks of ``block`` with ``budget`` outlier slots,
+    mirroring the kernels' ``Ring`` and decoder sizes: the tile, the ring's
+    stages and raw buffers, the outlier slots read, one step's raw weight
+    bytes, the dynamic shared memory, whether the raw operands come by TMA
+    (rows of a multiple of 16 bytes: N % 16 == 0, for the (N, K) NB weight
+    K % 16 == 0; else plain copies), and x's row length ``k_x``: K
     rounded up to a multiple of 8 (TMA needs rows of a multiple of 16
     bytes), with ``pad_x`` where that adds zero columns. Nothing here
     depends on M. Raises ValueError for what no sm90 kernel takes (those
@@ -139,19 +162,22 @@ def sm90_plan(kind: str, K: int, N: int, block: int,
     return {"tile": SM90_TILE, "stages": stages, "raw_buffers": raw_bufs,
             "slots": slots, "raw_bytes": raw,
             "smem_bytes": _ring_bytes(stages, raw, raw_bufs),
-            "tma": N % 16 == 0, "k_x": k_x, "pad_x": k_x != K}
+            "tma": (K if kind == "nb" else N) % 16 == 0, "k_x": k_x,
+            "pad_x": k_x != K}
 
 
 def gemm_route(kind: str, block: int, budget: int = 0) -> str:
-    """The hand-written kernel that runs the GEMM (M > 64; the side-band
-    format from 256 rows) of a weight of transport or decode ``kind`` in
-    blocks of ``block`` (``budget`` outlier slots for ``"sideband"``):
-    ``"sm90"``, the wgmma + TMA mainloop (:func:`sm90_plan`), for pf6 and
-    pf4 at blocks 16, 32 and 64, the fp16 container and the side-band
-    format at 8, 16, 32 and 64 (not the side-band format at 8 with more
-    than 4 slots, whose ring does not fit); else ``"tile"``, common.cuh's
-    ``gemm_tile``, which takes every block. Chosen from the weight alone,
-    before the launch. Raises ValueError for a budget above 8."""
+    """The hand-written kernel that runs the GEMM (M > 64; the outlier
+    formats from 256 rows) of a weight of transport or decode ``kind`` in
+    blocks of ``block`` (``budget`` outlier slots for ``"sideband"`` and
+    ``"nb"``): ``"sm90"``, the wgmma + TMA mainloop (:func:`sm90_plan`),
+    for pf6 and pf4 at blocks 16, 32 and 64, the fp16 container and the
+    side-band format at 8, 16, 32 and 64 (not the side-band format at 8
+    with more than 4 slots, whose ring does not fit), emi8/emi8m at 4, 8,
+    16, 32 and 64, and the compact NB format (block 16) with up to 16
+    slots; else ``"tile"``, common.cuh's ``gemm_tile``, which takes every
+    block and budget. Chosen from the weight alone, before the launch.
+    Raises ValueError for a side-band budget above 8."""
     return "sm90" if _sm90_ring(kind, block, budget) is not None else "tile"
 
 

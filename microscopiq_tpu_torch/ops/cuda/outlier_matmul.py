@@ -6,7 +6,10 @@ Counterpart of the outlier parts of
 
 * :func:`dequant_matmul_nb` (``csrc/nb_matmul.cu``, replaces ``_nb_kernel``):
   the compact N-blocked int2 + fp4 transport, :class:`PackedOutlierNB`,
-  stored (N, K);
+  stored (N, K); its GEMM runs on the wgmma + TMA mainloop of
+  ``csrc/gemm_sm90.cuh`` at the budgets that ``dequant_matmul.gemm_route``
+  gives it (every budget up to 16, all that the packer makes), else on
+  ``gemm_tile``;
 * :func:`dequant_matmul_outlier` (``csrc/outlier_matmul.cu``, replaces
   ``_dq_matmul_outlier_kernel``): the side-band :class:`PackedMXOutlier`,
   stored (K, N); its GEMM runs on the wgmma + TMA mainloop of
@@ -32,8 +35,8 @@ from .. import packing as pk
 from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
 from . import operands as op
-from .dequant_matmul import (MAX_OUTLIER_BUDGET, gemm_route, gemv_ksplit,
-                             sm90_plan, sm90_x)
+from .dequant_matmul import (MAX_OUTLIER_BUDGET, NB_BLOCK, gemm_route,
+                             gemv_ksplit, sm90_plan, sm90_x)
 from .dequant_matmul import scale_fold as _scale_fold
 
 GEMM_FROM_M = 256                 # rows from which the GEMMs take over
@@ -42,18 +45,18 @@ _TARGET_BLOCKS = 8 * 132          # ~8 blocks per SM of an H100
 
 # launches per kernel wrapper, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
-# after. dequant_gemm_outlier counts the sm90 side-band GEMM,
-# dequant_gemm_outlier_tile the gemm_tile one (gemm_route's "tile" blocks).
+# after. dequant_gemm_outlier and dequant_gemm_nb count the sm90 GEMMs,
+# their _tile keys the gemm_tile ones (gemm_route's "tile" routes).
 launch_counts = {"dequant_gemv_nb": 0, "dequant_gemm_nb": 0,
-                 "dequant_gemv_outlier": 0, "dequant_gemm_outlier": 0,
-                 "dequant_gemm_outlier_tile": 0}
+                 "dequant_gemm_nb_tile": 0, "dequant_gemv_outlier": 0,
+                 "dequant_gemm_outlier": 0, "dequant_gemm_outlier_tile": 0}
 
 _OUT_DTYPES = op.OUT_DTYPES
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: (source in csrc/, argument types)
 _ENTRIES = {
     "dequant_gemv_nb": ("nb_matmul", [_ptr] * 7 + [_int] * 9 + [_ptr]),
-    "dequant_gemm_nb": ("nb_matmul", [_ptr] * 6 + [_int] * 7 + [_ptr]),
+    "dequant_gemm_nb": ("nb_matmul", [_ptr] * 6 + [_int] * 9 + [_ptr]),
     "dequant_gemv_outlier": ("outlier_matmul",
                              [_ptr] * 8 + [_int] * 11 + [_ptr]),
     "dequant_gemm_outlier": ("outlier_matmul",
@@ -141,10 +144,18 @@ def dequant_gemv_nb(x: torch.Tensor, w: PackedOutlierNB,
     return out.reshape(x.shape[:-1] + (N,))
 
 
+def nb_gemm_counter(budget: int) -> str:
+    """The ``launch_counts`` key of the GEMM that ``dequant_gemm_nb``
+    launches for a compact NB weight of ``budget`` slots."""
+    tile = gemm_route("nb", NB_BLOCK, budget) == "tile"
+    return "dequant_gemm_nb" + ("_tile" if tile else "")
+
+
 def dequant_gemm_nb(x: torch.Tensor, w: PackedOutlierNB,
                     out_dtype=torch.float32) -> torch.Tensor:
     """The NB tensor-core GEMM (any M; the dispatch sends it
-    M >= GEMM_FROM_M). x is rounded to bf16 first."""
+    M >= GEMM_FROM_M): the kernel that ``gemm_route("nb", 16, budget)``
+    names. x is rounded to bf16 first."""
     if op.on_cpu(x, op.nb_tensors(w)):
         return dequant_matmul_nb_reference(x, w, out_dtype)
     x2 = op.nb_operands(x, w, out_dtype)
@@ -153,14 +164,20 @@ def dequant_gemm_nb(x: torch.Tensor, w: PackedOutlierNB,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
+    sm90 = gemm_route("nb", NB_BLOCK, w.budget) == "sm90"
+    k_x = K
+    if sm90:
+        k_x = sm90_plan("nb", K, N, NB_BLOCK, w.budget)["k_x"]
+        x2 = sm90_x(x2, k_x)
+    counter = nb_gemm_counter(w.budget)
     err = _kernel("dequant_gemm_nb")(
         x2.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
         w.out_scale_exp.data_ptr(), w.out_byte.data_ptr(), out.data_ptr(),
-        M, K, Np, N, w.budget, _scale_fold(w.elem_format),
-        int(out_dtype == torch.bfloat16),
+        M, K, k_x, Np, N, w.budget, _scale_fold(w.elem_format),
+        int(out_dtype == torch.bfloat16), int(sm90),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "dequant_gemm_nb")
-    launch_counts["dequant_gemm_nb"] += 1
+    build.check(err, counter)
+    launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
 

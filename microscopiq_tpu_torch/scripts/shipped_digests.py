@@ -3,10 +3,11 @@
     python -m microscopiq_tpu_torch.scripts.shipped_digests
 
 Packs a seeded (512, 384) weight in each decode that ``csrc/common.cuh``
-had before the float8 decodes joined it, runs ``dequant_gemv`` (M = 8) and
-``dequant_gemm`` (M = 300) on seeded x, and prints one JSON object:
-{decode: {"gemv": sha256, "gemm": sha256}} (the first 16 hex digits of the
-f32 outputs' bytes). Run it in two checkouts on one card (this file copied
+had before the float8 decodes joined it, and in the compact NB format
+(int2 + fp4, block 16, budget 2), runs the GEMV (M = 8) and the GEMM
+(M = 300: ``dequant_gemm``, ``dequant_gemm_nb``) on seeded x, and prints
+one JSON object: {decode: {"gemv": sha256, "gemm": sha256}} (the first 16
+hex digits of the f32 outputs' bytes). Run it in two checkouts on one card (this file copied
 into the older one) and compare the lines: equal lines show that an edit of
 the shared decode left every shipped decode's outputs bit for bit as they
 were. The digests depend on the build, so they are compared, never pinned.
@@ -25,6 +26,8 @@ import torch
 from .. import resolve_device
 from ..ops import packing as pk
 from ..ops.cuda import dequant_matmul as dm
+from ..ops.cuda import outlier_matmul as om
+from ..ops.outlier import quantize_mx_outlier_hessian_decisions
 
 # (format, transport, block, weight scale): the decodes before float8; the
 # bfloat16 weights are N(0, 64) so that no block exponent clamps at -127
@@ -48,16 +51,41 @@ def _case(fmt: str, transport: str, bs: int, scale: float, dev):
     return p, x.to(dev)
 
 
+def _nb_case(dev):
+    """A compact NB weight (budget 2, from RTN decisions on the (N, K)
+    transpose, made on the CPU) and x, moved to ``dev``."""
+    rng = np.random.default_rng(2)
+    W = (rng.standard_normal((512, 384)) * 0.02).astype(np.float32)
+    W[rng.random(W.shape) < 0.03] *= 10.0
+    _, _, dec = quantize_mx_outlier_hessian_decisions(
+        torch.from_numpy(W.T.copy()), 8, 8, "int2", "fp4_e2m1", "max", 2.0,
+        [0], 16, max_outliers_per_block=2)
+    dec["block_size"] = 16
+    p = pk.pack_outlier_nb(dec, budget=2)
+    p = dataclasses.replace(p, **{f: getattr(p, f).to(dev) for f in (
+        "codes", "scale_exp", "out_byte", "out_scale_exp")})
+    x = torch.from_numpy(rng.standard_normal((300, 512)).astype(np.float32))
+    return p, x.to(dev)
+
+
+def _digest(y: torch.Tensor) -> str:
+    return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def digests(device="cuda") -> dict:
     dev = resolve_device(device)
     out = {}
     for fmt, transport, bs, scale in DECODES:
         p, x = _case(fmt, transport, bs, scale, dev)
         out[f"{fmt}_{transport}_b{bs}"] = {
-            kind: hashlib.sha256(fn(x[:m], p).cpu().numpy().tobytes()
-                                 ).hexdigest()[:16]
+            kind: _digest(fn(x[:m], p))
             for kind, fn, m in (("gemv", dm.dequant_gemv, 8),
                                 ("gemm", dm.dequant_gemm, 300))}
+    p, x = _nb_case(dev)
+    out["int2_fp4_nb_b16"] = {
+        kind: _digest(fn(x[:m], p))
+        for kind, fn, m in (("gemv", om.dequant_gemv_nb, 8),
+                            ("gemm", om.dequant_gemm_nb, 300))}
     return out
 
 

@@ -462,11 +462,18 @@ def _outlier_weight(K, N, seed, device):
 
 def _nb(K, N, budget, seed, device):
     """The compact transport from the port's own RTN decisions on the
-    (N, K) transpose, outliers capped at ``budget`` per block."""
+    (N, K) transpose, outliers capped at ``budget`` per block; for large
+    weights in chunks of whole N-blocks (the same decisions, bounded
+    temporaries), as chip_smoke.nb_decisions."""
     W = _outlier_weight(K, N, seed, device)
-    _, _, dec = tol.quantize_mx_outlier_hessian_decisions(
-        W.T.contiguous(), 8, 8, "int2", "fp4_e2m1", "max", 2.0, [0], 16,
-        max_outliers_per_block=budget)
+    step = N if N * K <= 1 << 26 else max(16, (1 << 25) // K // 16 * 16)
+    parts = []
+    for i in range(0, N, step):
+        _, _, d = tol.quantize_mx_outlier_hessian_decisions(
+            W.T[i:i + step].contiguous(), 8, 8, "int2", "fp4_e2m1", "max",
+            2.0, [0], 16, max_outliers_per_block=budget)
+        parts.append(d)
+    dec = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
     dec["block_size"] = 16
     return tpk.pack_outlier_nb(dec, budget=budget)
 
@@ -802,16 +809,16 @@ def test_exp_gemv_wrappers_check_operands(gemv_setup):
 
 
 # ---------------------------------------------------------------------------
-# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, the fp16 container
-# and the side-band format, and the gemm_tile kernels that take their other
-# blocks
+# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, the fp16 container,
+# emi8/emi8m, the side-band and the compact NB format, and the gemm_tile
+# kernels that take their other blocks and budgets
 # ---------------------------------------------------------------------------
 LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096),
              "gate_up": (4096, 28672), "down": (14336, 4096),
              "lm_head": (4096, 128256)}
 # kind -> (format, transport) of the GEMMs of dequant_matmul.cu
 SM90_DQ = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
-           "fp16": ("fp16", "native")}
+           "fp16": ("fp16", "native"), "emi8": ("fp6_e3m2", "emi8")}
 
 
 def _sideband_dense(w):
@@ -824,13 +831,46 @@ def _sideband_dense(w):
         out_scale_exp=w.out_scale_exp.cpu()), dtype=torch.bfloat16)
 
 
-def _sm90_weight(kind, K, N, seed, device, block=32, budget=4):
+def _nb_dense(w):
+    """The NB twin's bf16 weight as (K, N), made on the CPU."""
+    return tpk.dequantize_outlier_nb(dataclasses.replace(w, **{
+        f: getattr(w, f).cpu() for f in ("codes", "scale_exp", "out_byte",
+                                         "out_scale_exp")}),
+        dtype=torch.bfloat16).T
+
+
+def _nb_slots(K, N, budget, seed, device):
+    """A compact NB weight of exactly ``budget`` slot planes: the
+    packer's (which makes 1 to 16) with its planes removed for 0, or
+    empty planes (byte 0) added above 16."""
+    w = _nb(K, N, min(max(budget, 1), 16), seed, device)
+    ob = w.out_byte[:budget]
+    if budget > ob.shape[0]:
+        ob = torch.cat([ob, ob.new_zeros((budget - ob.shape[0],)
+                                         + ob.shape[1:])])
+    return dataclasses.replace(w, out_byte=ob.contiguous())
+
+
+def _sm90_weight(kind, K, N, seed, device, block=32, budget=4,
+                 dense=True):
     """A ``kind`` weight and (GEMM wrapper, plain twin, dense bf16 weight
-    as the twin makes it on the CPU)."""
+    as the twin makes it on the CPU); ``emi8m`` is the merged stream of a
+    side-band weight of ``block``, ``nb`` the compact format (block 16)
+    with ``budget`` slots; no dense weight with ``dense=False``."""
     if kind == "sideband":
         w = _sideband(K, N, budget, seed, device, block=block)
         return (w, om.dequant_gemm_outlier,
-                om.dequant_matmul_outlier_reference, _sideband_dense(w))
+                om.dequant_matmul_outlier_reference,
+                _sideband_dense(w) if dense else None)
+    if kind == "nb":
+        w = _nb_slots(K, N, budget, seed, device)
+        return (w, om.dequant_gemm_nb, om.dequant_matmul_nb_reference,
+                _nb_dense(w) if dense else None)
+    if kind == "emi8m":
+        w = tpk.to_serving_layout(tpk.merge_outlier_emi8(
+            _sideband(K, N, 4, seed, device, block=block)))
+        return (w, dm.dequant_gemm, dm.dequant_matmul_reference,
+                tpk.dequantize_mx(w, dtype=torch.bfloat16))
     fmt, transport = SM90_DQ[kind]
     w = _packed_as(K, N, fmt, transport, block, 1.0, seed, device)
     return (w, dm.dequant_gemm, dm.dequant_matmul_reference,
@@ -882,6 +922,85 @@ def test_sm90_sideband_gemm_budgets(cuda, lin, budget):
     assert _rel(got, want) < 2e-3
 
 
+# (kind, block, budget) of the emi8 and compact-NB GEMMs on the sm90 loop:
+# MX-FP6 emi8 (block 32), the emi8m stream (block 16) and the compact NB
+# format at budgets 0 (no slot planes) to 16
+SM90_EMI8_NB = [("emi8", 32, 0), ("emi8m", 16, 0)] + [
+    ("nb", 16, b) for b in (0, 1, 2, 4, 16)]
+
+
+@pytest.mark.parametrize("kind,block,budget", SM90_EMI8_NB)
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+def test_sm90_emi8_and_nb_gemm_at_llama_shapes(cuda, lin, kind, block,
+                                               budget):
+    K, N = LLAMA3_8B[lin]
+    w, fn, ref, _ = _sm90_weight(kind, K, N, 29, cuda, block=block,
+                                 budget=budget, dense=False)
+    if kind == "nb":
+        assert w.budget == budget
+        counter, counts = "dequant_gemm_nb", om.launch_counts
+    else:
+        counter, counts = "dequant_matmul_emi8", dm.launch_counts
+    x = _x(1024, K, 30, cuda)
+    dm.reset_launch_counts()
+    om.reset_launch_counts()
+    got = fn(x, w)
+    want = ref(x, w)
+    torch.cuda.synchronize()
+    assert counts[counter] == 1 and sum(counts.values()) == 1
+    assert _rel(got, want) < 2e-3
+
+
+def _emi8_bytes(mw):
+    """Every byte whose decode m̂ · 2^e' is an int32 (|m̂| · 2^e' < 2^31,
+    as the packers keep it; m̂ in the high mw bits, e' in the low 8 - mw)."""
+    b = torch.arange(256, dtype=torch.int32)
+    c = torch.where(b > 127, b - 256, b)
+    m, e = c >> (8 - mw), c & ((1 << (8 - mw)) - 1)
+    keep = m.abs().double() * torch.exp2(e.double()) < 2.0 ** 31
+    return c[keep].to(torch.int8)
+
+
+@pytest.mark.parametrize("block", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("mw", [2, 3, 4, 5, 6, 7])
+def test_sm90_emi8_b_tile_is_gemm_tile_s_on_every_byte(cuda, monkeypatch,
+                                                       mw, block):
+    """An emi8m weight (fold 0) that holds every byte of the field split mw
+    in every column, under block exponents at both ends of the int8 range
+    (-128 to -120, where the scale clamps at 2^-126, and 118 to 127):
+    through x = I the sm90 GEMM's output is gemm_tile's bit for bit. A
+    byte whose value would pass the f32 range at its block's scale is
+    replaced by 0 there (x = I would turn its inf into NaN); it stays in
+    the blocks of lower scale."""
+    codes = _emi8_bytes(mw)
+    K, N = 256, 128
+    exps = torch.tensor(list(range(-128, -119)) + list(range(118, 128)))
+    kk = torch.arange(K)[:, None]
+    nn = torch.arange(N)[None, :]
+    c = codes[(kk + 7 * nn) % len(codes)].to(torch.int32)
+    se = exps[(torch.arange(K // block)[:, None] + nn) % len(exps)]
+    s = se.repeat_interleave(block, 0).clamp(-126, 127).double()
+    m, e = c >> (8 - mw), c & ((1 << (8 - mw)) - 1)
+    val = m.double() * torch.exp2(e.double() + s)
+    c = torch.where(val.abs().log2() < 128, c, 0).to(torch.int8)
+    w = tpk.to_serving_layout(tpk.PackedMX(
+        codes=c.to(cuda), scale_exp=se.to(torch.int8).to(cuda),
+        elem_format="int2", block_size=block, scale_bits=8, orig_dim=K,
+        axis=0, transport="emi8m", transport_mw=mw, transport_fold=0))
+    x = torch.eye(K, device=cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["dequant_matmul_emi8"] == 1
+    monkeypatch.setattr(dm, "gemm_route", lambda *a, **k: "tile")
+    tile = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["dequant_matmul_emi8_tile"] == 1
+    assert (tile.abs() == 2.0 ** -126).any()
+    assert (tile.abs() >= 2.0 ** 126).any() and tile.isfinite().all()
+    assert torch.equal(got.cpu(), tile.cpu())
+
+
 def _sideband_shared_rows(K, N, seed, device, block=16):
     """Budget 4, and in every block whose first slot is filled a second
     slot that names the same row with its own code: the kernel must add
@@ -897,7 +1016,8 @@ def _sideband_shared_rows(K, N, seed, device, block=16):
 
 @pytest.mark.parametrize("N", [384, 130])
 @pytest.mark.parametrize("K", [256, 512])
-@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16"])
+@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
+                                  "emi8m", "nb"])
 def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
     """x = I: every output row is one row of the decoded B tile (products
     with 1 and 0 are exact in f32), so the GEMM's f32 output is the twin's
@@ -915,12 +1035,14 @@ def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
     assert torch.equal(got.cpu(), dense.float().cpu())
 
 
-@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16"])
+@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
+                                  "emi8m", "nb"])
 def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
     K, N, M = 203, 384, 300
-    block = 16 if kind == "sideband" else 32
+    block = 16 if kind in ("sideband", "nb", "emi8m") else 32
     w, fn, ref, _ = _sm90_weight(kind, K, N, 3, cuda, block=block)
-    plan = dm.sm90_plan(kind, K, N, block, 4 if kind == "sideband" else 0)
+    plan = dm.sm90_plan("emi8" if kind == "emi8m" else kind, K, N, block,
+                        4 if kind in ("sideband", "nb") else 0)
     assert plan["pad_x"] and plan["k_x"] == 208
     for out_dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2 ** -8)):
         x = _x(M, K, 4, cuda)
@@ -930,14 +1052,16 @@ def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
 
 
 # every block the JAX packers take for these formats, on its route: the
-# sm90 kernel where the block divides the K step (pf4 48, pf6 128, fp16 48
-# and the side-band format at 48, or at 8 with 8 slots: gemm_tile)
+# sm90 kernel where the block divides the K step (pf4 48, pf6 128, fp16 48,
+# emi8 48 and the side-band format at 48, or at 8 with 8 slots:
+# gemm_tile); the NB format at its largest budget
 SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
                     ("pf4", 48, 0), ("pf6", 64, 0), ("pf6", 128, 0),
                     ("fp16", 8, 0), ("fp16", 64, 0), ("fp16", 48, 0),
                     ("sideband", 8, 4), ("sideband", 8, 8),
                     ("sideband", 64, 4), ("sideband", 64, 8),
-                    ("sideband", 48, 4)]
+                    ("sideband", 48, 4), ("emi8", 4, 0), ("emi8", 8, 0),
+                    ("emi8", 64, 0), ("emi8", 48, 0), ("nb", 16, 16)]
 
 
 @pytest.mark.parametrize("kind,block,budget", SM90_BLOCK_CASES)
@@ -950,6 +1074,8 @@ def test_sm90_every_packer_block_runs_its_route(cuda, kind, block, budget):
                                      budget=budget)
     if kind == "sideband":
         counter, counts = om.gemm_counter(block, budget), om.launch_counts
+    elif kind == "nb":
+        counter, counts = om.nb_gemm_counter(budget), om.launch_counts
     else:
         counter, counts = dm.gemm_counter(kind, block), dm.launch_counts
     x = _x(M, K, 5, cuda)
@@ -965,14 +1091,33 @@ def test_sm90_every_packer_block_runs_its_route(cuda, kind, block, budget):
     assert torch.equal(eye.cpu(), dense.float().cpu())
 
 
+def test_sm90_nb_budget_above_16_takes_gemm_tile(cuda):
+    """No packer makes more than 16 slots; a weight with 17 (one empty
+    plane added) runs on gemm_tile's nb_gemm, within 2e-3 of the twin,
+    its B tile the twin's weight."""
+    K, N, M = 389, 384, 300
+    w, fn, ref, dense = _sm90_weight("nb", K, N, 31, cuda, budget=17)
+    assert w.budget == 17 and dm.gemm_route("nb", 16, 17) == "tile"
+    x = _x(M, K, 32, cuda)
+    om.reset_launch_counts()
+    got = fn(x, w)
+    torch.cuda.synchronize()
+    assert om.launch_counts["dequant_gemm_nb_tile"] == 1
+    assert sum(om.launch_counts.values()) == 1
+    assert _rel(got, ref(x, w)) < 2e-3
+    eye = fn(torch.eye(K, device=cuda), w)
+    torch.cuda.synchronize()
+    assert torch.equal(eye.cpu(), dense.float().cpu())
+
+
 def test_sm90_kernels_do_not_spill(cuda):
     from microscopiq_tpu_torch.ops.cuda import build
 
-    build.build_all(("dequant_matmul", "outlier_matmul"))
-    lines = [ln for ln in build.ptxas_report(("dequant_matmul",
-                                              "outlier_matmul"))
-             if "_sm90" in ln]
-    assert sum("gemm_dq_sm90" in ln for ln in lines) == 10
+    sources = ("dequant_matmul", "outlier_matmul", "nb_matmul")
+    build.build_all(sources)
+    lines = [ln for ln in build.ptxas_report(sources) if "_sm90" in ln]
+    assert sum("gemm_dq_sm90" in ln for ln in lines) == 15
     assert sum("outlier_gemm_sm90" in ln for ln in lines) == 15
+    assert sum("nb_gemm_sm90" in ln for ln in lines) == 5
     for ln in lines:
         assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln

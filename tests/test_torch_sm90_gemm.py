@@ -1,5 +1,6 @@
 """The host side of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) that the
-pf6, pf4, fp16-container and side-band GEMMs run on: its plan (tile,
+pf6, pf4, fp16-container, emi8/emi8m, side-band and compact-NB GEMMs run
+on: its plan (tile,
 stages, shared memory, padding of x) at every Llama-3-8B shape and every
 block it is compiled for; the routing of every block that the JAX packers
 take to a hand-written kernel (the sm90 loop or ``gemm_tile``); and the
@@ -17,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from microscopiq_tpu.ops import outlier as jol
 from microscopiq_tpu.ops import packing as jpk
 from microscopiq_tpu.ops.pallas.dequant_matmul import (
+    dequant_matmul_nb_reference as j_nb_ref,
     dequant_matmul_outlier_reference as j_outlier_ref,
     dequant_matmul_reference as j_reference)
 from microscopiq_tpu_torch.ops import packing as tpk
@@ -55,7 +58,9 @@ NEW_PLANS = ([("pf4", 0, b) for b in (16, 32, 64)]
              + [("fp16", 0, b) for b in (8, 16, 32, 64)]
              + [("pf6", 0, 64)]
              + [("sideband", s, b) for b in (8, 64) for s in (0, 1, 2, 4, 8)
-                if (b, s) != (8, 8)])
+                if (b, s) != (8, 8)]
+             + [("emi8", 0, b) for b in (4, 8, 16, 32, 64)]
+             + [("nb", s, 16) for s in (0, 1, 2, 4, 8, 16)])
 
 
 @pytest.mark.parametrize("kind,budget,block", NEW_PLANS)
@@ -70,21 +75,30 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
     assert plan["tma"] and plan["k_x"] == K and not plan["pad_x"]
     nblk = 64 // block
     raw = {"pf6": (48 + nblk) * 128, "pf4": (32 + nblk) * 128,
-           "fp16": (128 + nblk) * 128}.get(kind)
+           "fp16": (128 + nblk) * 128, "emi8": (64 + nblk) * 128,
+           # 32 code rows, se, seo and 8 rows a slot of the slot class, 64
+           # K columns each
+           "nb": (48 + 8 * plan["slots"]) * 64}.get(kind)
     if raw is not None:           # the decoder's raw copy of one step
         assert plan["raw_bytes"] == raw
     if kind == "fp16":            # 16 KB of codes a step: 3 stages, 3 buffers
         assert (plan["stages"], plan["raw_buffers"]) == (3, 3)
+    if kind in ("emi8", "nb"):    # pf6's ring: 4 stages, 3 buffers
+        assert (plan["stages"], plan["raw_buffers"]) == (4, 3)
 
 
 # (sm90_plan arguments) that no sm90 kernel takes: the blocks that do not
-# divide the 64-deep K step, pf6 below 16, the side-band format at block 8
-# with 8 slots (gemm_tile takes them), and a budget above 8 (nothing does)
+# divide the 64-deep K step, pf6 below 16, emi8 at block 2 (a 12 KB raw
+# step leaves no 4-stage ring), the side-band format at block 8 with 8
+# slots and the NB format above 16 slots (gemm_tile takes them), and a
+# side-band budget above 8 (nothing does)
 REFUSED = [("pf6", 256, 128, 8), ("pf6", 256, 128, 128),
            ("pf4", 256, 128, 48), ("pf4", 256, 128, 128),
            ("fp16", 256, 128, 48), ("fp16", 256, 128, 4),
            ("sideband", 256, 128, 8, 8), ("sideband", 256, 128, 48, 4),
-           ("sideband", 256, 128, 16, 9), ("emi8", 256, 128, 32)]
+           ("sideband", 256, 128, 16, 9), ("emi8", 256, 128, 48),
+           ("emi8", 256, 128, 2), ("emi8", 256, 128, 128),
+           ("nb", 256, 128, 16, 17), ("nb", 256, 128, 32, 2)]
 
 
 @pytest.mark.parametrize("args", REFUSED, ids=lambda a: "-".join(map(str, a)))
@@ -95,7 +109,7 @@ def test_plan_pads_ragged_k_and_refuses_other_blocks(args):
     with pytest.raises(ValueError):
         dm.sm90_plan(*args)
     kind, block, budget = args[0], args[3], (args[4:] or (0,))[0]
-    if budget <= dm.MAX_OUTLIER_BUDGET:
+    if kind != "sideband" or budget <= dm.MAX_OUTLIER_BUDGET:
         assert dm.gemm_route(kind, block, budget) == "tile"
     else:
         with pytest.raises(ValueError):
@@ -116,16 +130,28 @@ def test_plan_mirrors_the_kernel_sources():
                               ("Pf4Sm90", "kStages = 4, kRawBufs = 3",
                                "B == 16 || B == 32 || B == 64"),
                               ("Fp16Sm90", "kStages = 3, kRawBufs = 3",
-                               "B == 8 || B == 16 || B == 32 || B == 64")):
+                               "B == 8 || B == 16 || B == 32 || B == 64"),
+                              ("Emi8Sm90", "kStages = 4, kRawBufs = 3",
+                               "B == 4 || B == 8 || B == 16 || B == 32 "
+                               "|| B == 64")):
         body = dq[dq.index(f"struct {dec} "):]
         body = body[:body.index("\n};\n")]
         assert ring in body and f"static_assert({blocks}" in body
     for kind, blocks in dm.SM90_BLOCKS.items():
-        if kind == "sideband":
+        if kind in ("sideband", "nb"):
             continue
-        decode = {"pf6": "kPf6", "pf4": "kPf4", "fp16": "kFp16"}[kind]
-        assert [b for b in (4, 8, 16, 32, 48, 64, 128)
+        decode = {"pf6": "kPf6", "pf4": "kPf4", "fp16": "kFp16",
+                  "emi8": "kEmi8"}[kind]
+        assert [b for b in (2, 4, 8, 16, 32, 48, 64, 128)
                 if f"MXQ_SM90(mxq::{decode}, {b})" in dq] == list(blocks)
+    nb = (CSRC / "nb_matmul.cu").read_text()
+    body = nb[nb.index("struct NbSm90 "):]
+    body = body[:body.index("\n};\n")]
+    assert "kStages = 4, kRawBufs = 3, kDwg = 2;" in body
+    assert "kRawBytes = kObOff + MAXB * kSlotBytes;" in body
+    assert [int(c) for c in
+            __import__("re").findall(r"MXQ_NB\((\d+)\);", nb)] == list(
+                dm.NB_SLOT_CLASSES)
     sb = (CSRC / "outlier_matmul.cu").read_text()
     assert ("MAXB <= 4\n"
             "      && mxq::sm90::ring_bytes(3, kRawBytes, 3) <= "
@@ -145,6 +171,7 @@ def test_plan_mirrors_the_kernel_sources():
 ROUTED = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
           "fp16": ("fp16", "native"), "bf16": ("bfloat16", "native"),
           "sb4": ("int4", "sb4"), "emi8": ("fp6_e3m2", "emi8"),
+          "emi8_fp4": ("fp4_e2m1", "emi8"), "emi8m": None,
           "sideband": None, "sideband8": None}
 
 
@@ -159,8 +186,15 @@ def _jax_packs(name, block):
             return lib.pack_mx_outlier(
                 A, 8, 8, "int2", "fp4_e2m1", std_dev=2.0, block_size=block,
                 outlier_budget=8 if name == "sideband8" else 4, axis=0)
+        if name == "emi8m":       # exact values: small integers
+            return lib.pack_emi8m_absolute(lib_round(A), block_size=block,
+                                           axis=0)
         fmt, transport = ROUTED[name]
         return lib.pack_mx(A, 8, fmt, block, axis=0, transport=transport)
+
+    def lib_round(A):
+        return jnp.round(A * 4) if isinstance(A, jnp.ndarray) else \
+            torch.round(A * 4)
 
     try:
         pack(jpk, jnp.asarray(W))
@@ -191,8 +225,7 @@ def test_gemm_route_names_a_kernel_for_every_block_the_packers_take(
             dm.sm90_plan("sideband", 4096, 4096, block, budget)
         want = block in (8, 16, 32, 64) and (block, budget) != (8, 8)
     else:
-        decode = {"sb4": "sb4", "emi8": "emi8", "bf16": "bf16"}.get(name,
-                                                                    name)
+        decode = {"emi8_fp4": "emi8", "emi8m": "emi8"}.get(name, name)
         route = dm.gemm_route(decode, block)
         assert dm.gemm_counter(decode, block) in dm.launch_counts
         if route == "sm90":
@@ -263,7 +296,9 @@ def test_k8_padding_leaves_the_sideband_reference_unchanged():
 @pytest.mark.parametrize("fmt,transport,block", [
     ("fp4_e2m1", "pf4", 16), ("fp4_e2m1", "pf4", 32), ("fp4_e2m1", "pf4", 64),
     ("fp16", "native", 8), ("fp16", "native", 32), ("fp16", "native", 64),
-    ("fp6_e3m2", "pf6", 64)])
+    ("fp6_e3m2", "pf6", 64), ("fp6_e3m2", "emi8", 32),
+    ("fp6_e3m2", "emi8", 8), ("fp4_e2m1", "emi8", 16),
+    ("fp6_e2m3", "emi8", 64)])
 def test_k8_padding_leaves_the_sm90_references_unchanged(fmt, transport,
                                                          block):
     K, N, M = 203, 96, 5
@@ -315,3 +350,133 @@ def test_k8_padding_leaves_the_sideband_reference_unchanged_at_new_blocks(
     y8 = om.dequant_matmul_outlier_reference(_padded(x, plan["k_x"]), t8)
     assert torch.equal(y8, y)
     np.testing.assert_array_equal(y8.numpy(), want)
+
+
+def test_emi8_blocks_are_those_whose_ring_fits():
+    """emi8's sm90 blocks are the divisors of the 64-deep K step whose raw
+    step (64 code rows and one exponent row a block, 128 columns) leaves a
+    ring of 4 stages and 3 raw buffers within 227 KB: 4 to 64, not 2 or
+    1."""
+    fits = tuple(b for b in (1, 2, 4, 8, 16, 32, 64)
+                 if dm._ring_bytes(4, (64 + 64 // b) * 128, 3)
+                 <= dm.SM90_MAX_SMEM)
+    assert fits == dm.SM90_BLOCKS["emi8"] == (4, 8, 16, 32, 64)
+    assert dm.sm90_plan("emi8", 4096, 28672, 32)["smem_bytes"] == 223064
+    assert dm.gemm_counter("emi8", 32) == "dequant_matmul_emi8"
+    assert dm.gemm_counter("emi8", 48) == "dequant_matmul_emi8_tile"
+    assert "dequant_matmul_emi8_tile" in dm.launch_counts
+
+
+@pytest.mark.parametrize("budget", range(0, 18))
+def test_nb_gemm_route_at_every_budget(budget):
+    """The compact NB GEMM takes the sm90 loop at every budget up to 16
+    (a slot's row is 4 bits, so no packer makes more), sized by the
+    smallest slot class that holds it; above 16 gemm_tile's nb_gemm."""
+    route = dm.gemm_route("nb", 16, budget)
+    counter = om.nb_gemm_counter(budget)
+    assert counter in om.launch_counts
+    if budget > 16:
+        assert route == "tile" and counter == "dequant_gemm_nb_tile"
+        with pytest.raises(ValueError):
+            dm.sm90_plan("nb", 4096, 28672, 16, budget)
+        return
+    assert route == "sm90" and counter == "dequant_gemm_nb"
+    plan = dm.sm90_plan("nb", 4096, 28672, 16, budget)
+    want = next(c for c in dm.NB_SLOT_CLASSES if c >= max(budget, 1))
+    assert plan["slots"] == want
+    assert plan["raw_bytes"] == 3072 + 512 * want
+    assert plan["smem_bytes"] <= dm.SM90_MAX_SMEM
+    assert plan["tma"] and not plan["pad_x"]
+    assert not dm.sm90_plan("nb", 4104, 28672, 16, budget)["tma"]
+    assert dm.gemm_route("nb", 32, budget) == "tile"
+
+
+def _nb_decisions(N, K, cap, seed):
+    """RTN decisions on the (N, K) weight from the JAX package, as numpy."""
+    rng = np.random.default_rng(seed)
+    W = (rng.standard_normal((N, K)) * 0.02).astype(np.float32)
+    W[rng.random(W.shape) < 0.03] *= 10.0
+    _, _, dec = jol.quantize_mx_outlier_hessian_decisions(
+        jnp.asarray(W), 8, 8, "int2", "fp4_e2m1", "max", 2.0, [0], 16,
+        max_outliers_per_block=cap)
+    dec = {k: np.asarray(v) for k, v in dec.items()}
+    dec["block_size"] = 16
+    return dec
+
+
+def test_nb_packers_make_at_most_16_slots():
+    """Asked for 20 slots, both packers make 16: every NB weight they make
+    takes the sm90 route."""
+    dec = _nb_decisions(48, 32, 0, 5)
+    j = jpk.pack_outlier_nb(dec, budget=20)
+    t = tpk.pack_outlier_nb({k: (torch.from_numpy(np.array(v))
+                                 if isinstance(v, np.ndarray) else v)
+                             for k, v in dec.items()}, budget=20)
+    assert j.out_byte.shape[0] == t.budget == 16
+    assert dm.gemm_route("nb", 16, t.budget) == "sm90"
+
+
+@pytest.mark.parametrize("budget", [1, 2])
+def test_k8_padding_leaves_the_nb_reference_unchanged(budget):
+    """x padded to k_x columns meets zero weight columns (codes, exponents
+    and slot bytes 0 decode to +0), as the sm90 NB GEMM reads them."""
+    N, K, M = 40, 203, 5
+    dec = _nb_decisions(N, K, budget, 17 + budget)
+    j = jpk.pack_outlier_nb(dec, budget=budget)
+    t = tpk.pack_outlier_nb({k: (torch.from_numpy(np.array(v))
+                                 if isinstance(v, np.ndarray) else v)
+                             for k, v in dec.items()}, budget=budget)
+    plan = dm.sm90_plan("nb", K, N, 16, t.budget)
+    assert plan["pad_x"] and plan["k_x"] == 208 and not plan["tma"]
+    x = _x(M, K, 18)
+    want = np.asarray(j_nb_ref(jnp.asarray(x), j))
+    y = om.dequant_matmul_nb_reference(torch.from_numpy(x), t)
+    pad = lambda a: torch.nn.functional.pad(a, (0, plan["k_x"] - K))
+    t8 = dataclasses.replace(
+        t, codes=pad(t.codes), scale_exp=pad(t.scale_exp),
+        out_byte=pad(t.out_byte), out_scale_exp=pad(t.out_scale_exp),
+        orig_k=plan["k_x"])
+    y8 = om.dequant_matmul_nb_reference(_padded(x, plan["k_x"]), t8)
+    assert torch.equal(y8, y)
+    np.testing.assert_array_equal(y8.numpy(), want)
+
+
+@pytest.mark.parametrize("block", [16, 32])
+def test_k8_padding_leaves_the_emi8m_reference_unchanged(block):
+    """The absolute emi8m stream (its own mw and fold) through the padded
+    x, against the JAX twin."""
+    K, N, M = 203, 96, 5
+    rng = np.random.default_rng(block + 3)
+    W = (rng.integers(-7, 8, (K, N))
+         * 2.0 ** rng.integers(-3, 2, (1, N))).astype(np.float32)
+    j = jpk.to_serving_layout(jpk.pack_emi8m_absolute(jnp.asarray(W),
+                                                      block_size=block))
+    t = tpk.to_serving_layout(tpk.pack_emi8m_absolute(torch.from_numpy(W),
+                                                      block_size=block))
+    assert t.transport == "emi8m" and dm.sad_decode_params(t)[0] == "emi8"
+    assert dm.gemm_route("emi8", block) == "sm90"
+    plan = dm.sm90_plan("emi8", K, N, block)
+    assert plan["pad_x"] and t.codes.shape[0] * block >= plan["k_x"]
+    x = _x(M, K, block)
+    want = np.asarray(j_reference(jnp.asarray(x), j))
+    y = dm.dequant_matmul_reference(torch.from_numpy(x), t)
+    y8 = dm.dequant_matmul_reference(
+        _padded(x, plan["k_x"]), dataclasses.replace(t, orig_dim=plan["k_x"]))
+    assert torch.equal(y8, y)
+    np.testing.assert_array_equal(y8.numpy(), want)
+
+
+def test_shipped_digests_cover_the_nb_gemm():
+    """shipped_digests.py digests the compact NB GEMV and GEMM beside the
+    MX decodes (on the CPU through the plain versions), so that two builds'
+    NB GEMMs can be compared on a card."""
+    from microscopiq_tpu_torch.scripts import shipped_digests as sd
+
+    got = sd.digests("cpu")
+    assert len(got) == len(sd.DECODES) + 1
+    p, x = sd._nb_case(torch.device("cpu"))
+    assert p.budget == 2 and tuple(x.shape) == (300, 512)
+    want = sd._digest(om.dequant_matmul_nb_reference(x, p))
+    assert got["int2_fp4_nb_b16"]["gemm"] == want
+    assert got["int2_fp4_nb_b16"]["gemv"] == sd._digest(
+        om.dequant_matmul_nb_reference(x[:8], p))
