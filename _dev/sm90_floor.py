@@ -1,10 +1,10 @@
 """The floor of the wgmma + TMA mainloop (csrc/gemm_sm90.cuh): the same
 loop with a bf16 weight whose decode is a copy (_dev/sm90_floor.cu), at
 every Llama-3-8B shape, M = 1024, beside torch.matmul on the same bf16
-weight and the shipped pf6, side-band, pf4, fp16-container, emi8, emi8m
-and compact-NB GEMMs on chip_smoke.py's seeded operands. CUDA events over
-L2-cold operand copies (copies_for), one JSON line per shape; the floor's
-output is held to torch.matmul first.
+weight and the shipped pf6, side-band, pf4, fp16-container, emi8, emi8m,
+compact-NB, sb4 and sb2 GEMMs on chip_smoke.py's seeded operands. CUDA
+events over L2-cold operand copies (copies_for), one JSON line per shape;
+the floor's output is held to torch.matmul first.
 
     python _dev/sm90_floor.py          (from the repository root, on a card)
 """
@@ -76,7 +76,8 @@ def main() -> None:
             sideband_ms=shipped[("sideband", lin)],
             pf4_ms=shipped[("pf4", lin)], fp16_ms=shipped[("fp16", lin)],
             emi8_ms=shipped[("emi8", lin)], emi8m_ms=shipped[("emi8m", lin)],
-            nb_ms=shipped[("nb", lin)],
+            nb_ms=shipped[("nb", lin)], sb4_ms=shipped[("sb4", lin)],
+            sb2_ms=shipped[("sb2", lin)],
             bound_ms=bound,
             bound_by=by, rel_err=rel, card=card)), flush=True)
         del ws, w, out, ref

@@ -13,9 +13,9 @@ the package is missing. Phases, each of which raises on failure:
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
    GEMM, the prefill-GEMM and the decode-GEMV experiments), one ``nvcc``
    each, all at once; then ``build_sm90``: the registers and spills of the
-   pf6, pf4, fp16-container, emi8/emi8m, side-band and compact-NB GEMMs on
-   the wgmma + TMA mainloop (``csrc/gemm_sm90.cuh``, every compiled block
-   and slot class) and the shared memory of their rings;
+   pf6, pf4, sb4, sb2, fp16-container, emi8/emi8m, side-band and compact-NB
+   GEMMs on the wgmma + TMA mainloop (``csrc/gemm_sm90.cuh``, every
+   compiled block and slot class) and the shared memory of their rings;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
    the GEMM at M = 128, 1024, with CUDA-event times beside the bound, the
@@ -91,8 +91,8 @@ the package is missing. Phases, each of which raises on failure:
 16. ``gemm_block_routes``: the GEMMs at the MX blocks that the JAX
     packers take and no other phase packs (pf6 at 64 and 128, pf4 at 16,
     64 and 48, the fp16 container at 8, 64 and 48, the side-band format at
-    8, 64 and 48 with 4 slots and at 8 with 8, emi8 at 8, 64 and 48), at
-    gate_up, M = 1024, each
+    8, 64 and 48 with 4 slots and at 8 with 8, emi8 at 8, 64 and 48, sb4
+    at 2, 8, 64 and 48, sb2 at 4, 64 and 48), at gate_up, M = 1024, each
     on the kernel that ``dequant_matmul.gemm_route`` names (the sm90 loop,
     or ``gemm_tile`` where the block does not divide its K step) and held
     to its plain twin, timed; then one call a case as the entry point's
@@ -128,10 +128,11 @@ it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --gemm-times
 
-times only the pf6, side-band, pf4, fp16-container, emi8, emi8m and
-compact-NB GEMMs (and ``torch.matmul`` on a bf16 weight) at M = 1024 at
-every Llama-3-8B shape on seeded operands and prints them as one JSON line
-(``sm90_gemm_times``), to compare two checkouts on one card.
+times only the pf6, side-band, pf4, fp16-container, emi8, emi8m,
+compact-NB, sb4 and sb2 GEMMs (and ``torch.matmul`` on a bf16 weight) at
+M = 1024 at every Llama-3-8B shape on seeded operands and prints them as
+one JSON line (``sm90_gemm_times``), to compare two checkouts on one
+card.
 """
 
 from __future__ import annotations
@@ -1580,7 +1581,9 @@ def int_model(case, layers, seed, use_kernels=True, tree=None):
 def int_main_path(card: str):
     """The int4 (sb4) and int8 (int8 container) arms at 32 layers and full
     width, one after the other: the main path's prefill and decode with
-    exact launch counts, weight bytes and bits per weight, peak memory (the
+    exact launch counts (every prefill GEMM of the int4 arm on
+    ``dequant_matmul_sb4``, the sm90 loop at block 32, and none on its
+    ``_tile`` counter), weight bytes and bits per weight, peak memory (the
     arm's model alone on the card); then each arm timed interleaved with the
     slice-1 MX-FP6 model, built for each window and freed after it. The int4
     model then serves the engine phase. Returns {arm: counts}."""
@@ -2080,9 +2083,12 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     full-width model runs (``two_layer_<case>``); for the W8A8 GEMV and the
     quantizer, which no model path calls, their entry point's own run; for
     the GEMMs at the MX blocks that no model path packs (the gemm_tile
-    routes of pf6, pf4, fp16 and the side-band format, and the sm90 ones at
-    blocks 8 and 64), the block-route entry point's run. The
-    emi8 GEMV and GEMM run on three paths: their timed numbers and
+    routes of pf6, pf4, fp16, emi8, sb4, sb2 and the side-band format, and
+    the sm90 ones at the other blocks of ROUTE_CASES), the block-route
+    entry point's run. The GEMMs that run on the wgmma + TMA mainloop
+    (pf6, pf4, sb4, sb2, fp16, emi8/emi8m, side-band, compact NB) carry
+    ``mainloop``; the int8, bf16 and float8 GEMMs run on ``gemm_tile``.
+    The emi8 GEMV and GEMM run on three paths: their timed numbers and
     ``shapes`` are MX-FP6 emi8 at block 32, ``shapes_emi8m_block16`` the
     emi8m stream."""
     paths = {"mxfp6": counts, "quant_kv": qcounts, **ocounts, **icounts}
@@ -2190,7 +2196,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                       f"{fmt[0]} {fmt[1]} block {fmt[2]}",
                 "shapes": [[r[k] for k in short] for r in mine],
                 "shape_keys": list(short)})
-            if kind == "matmul" and decode in ("pf6", "pf4", "fp16"):
+            if kind == "matmul" and decode in ("pf6", "pf4", "fp16", "sb4",
+                                               "sb2"):
                 out[-1]["mainloop"] = SM90_SOURCE
                 out[-1]["blocks"] = _route_rows(rrows, name)
                 out[-1]["block_keys"] = list(ROUTE_KEYS)
@@ -2336,7 +2343,7 @@ SM90_SOURCE = "microscopiq_tpu_torch/ops/cuda/csrc/gemm_sm90.cuh"
 
 def sm90_build_line(card: str) -> None:
     """The wgmma + TMA GEMMs' ptxas lines (registers, spills: pf6, pf4,
-    fp16 and emi8 in dequant_matmul.cu, the side-band GEMM in
+    fp16, emi8, sb4 and sb2 in dequant_matmul.cu, the side-band GEMM in
     outlier_matmul.cu, the compact NB GEMM in nb_matmul.cu) and the dynamic
     shared memory that their host-side plan gives each compiled ring
     (ptxas reports static shared memory only)."""
@@ -2363,8 +2370,9 @@ def sm90_gemm_times() -> list:
     """The pf6 (MX-FP6 fp6_e3m2, block 32), side-band (int2 + fp4 outliers,
     block 16, budget 4), pf4 (fp4_e2m1, block 32), fp16-container (block
     32), emi8 (MX-FP6 fp6_e3m2, block 32, the main path's), emi8m (block
-    16, the emi8m arm's merged stream of a side-band weight) and compact NB
-    (budget 2, the NB arm's) GEMMs at M = 1024 at every Llama-3-8B shape,
+    16, the emi8m arm's merged stream of a side-band weight), compact NB
+    (budget 2, the NB arm's), sb4 (int4, block 32, the int4 arm's) and sb2
+    (int2, block 16) GEMMs at M = 1024 at every Llama-3-8B shape,
     beside torch.matmul on a bf16 weight of the same shape, CUDA events
     over L2-cold operand copies, on weights and x made from fixed seeds:
     two checkouts time the same operands. ``python3 chip_smoke.py
@@ -2383,7 +2391,7 @@ def sm90_gemm_times() -> list:
         x = torch.randn((SM90_M, K), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         for kind in ("pf6", "sideband", "pf4", "fp16", "torch_matmul",
-                     "emi8", "emi8m", "nb"):
+                     "emi8", "emi8m", "nb", "sb4", "sb2"):
             if kind in ("sideband", "emi8m"):
                 p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8,
                                        "int2", "fp4_e2m1", std_dev=2.0,
@@ -2408,7 +2416,8 @@ def sm90_gemm_times() -> list:
                 fn = lambda x, w, _: torch.matmul(x, w)   # noqa: E731
             else:
                 case = {"pf6": "fp6_pf6", "pf4": "fp4_pf4",
-                        "fp16": "fp16_container"}[kind]
+                        "fp16": "fp16_container", "sb4": "int4_sb4",
+                        "sb2": "int2_sb2"}[kind]
                 p = int_packed(case, int_weight(INT_CASES[case][0], (K, N),
                                                 gen))
                 fn = dm.dequant_gemm
@@ -2430,9 +2439,10 @@ def sm90_gemm_times() -> list:
 # ---------------------------------------------------------------------------
 # (kind, format, block, budget): the blocks that no other phase packs, for
 # pf6 (fp6_e3m2; packers: block % 32 == 0), pf4 (fp4_e2m1; % 16), the fp16
-# container, emi8 (fp6_e3m2, any block) and the side-band format (int2 +
-# fp4, any block): the sm90 loop at 8 and 64, gemm_tile at 48 and 128 and
-# for the side-band format at block 8 with 8 slots. The compact NB format
+# container, emi8 (fp6_e3m2, any block), the side-band format (int2 +
+# fp4, any block), sb4 (int4; % 2) and sb2 (int2; % 4): the sm90 loop at 8
+# and 64 (sb4 also at 2, sb2 at 4), gemm_tile at 48 and 128 and for the
+# side-band format at block 8 with 8 slots. The compact NB format
 # (block 16) takes the sm90 loop at every budget its packer makes (up to
 # 16): it has no gemm_tile case here.
 ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
@@ -2442,13 +2452,18 @@ ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
                ("sideband", "int2", 8, 4), ("sideband", "int2", 64, 4),
                ("sideband", "int2", 48, 4), ("sideband", "int2", 8, 8),
                ("emi8", "fp6_e3m2", 8, 0), ("emi8", "fp6_e3m2", 64, 0),
-               ("emi8", "fp6_e3m2", 48, 0))
+               ("emi8", "fp6_e3m2", 48, 0), ("sb4", "int4", 2, 0),
+               ("sb4", "int4", 8, 0), ("sb4", "int4", 64, 0),
+               ("sb4", "int4", 48, 0), ("sb2", "int2", 4, 0),
+               ("sb2", "int2", 64, 0), ("sb2", "int2", 48, 0))
 # the gemm_tile routes' kernel records: counter -> (source, TPU kernel line)
 ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_pf4_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_fp16_tile": ("dequant_matmul.cu", 71),
                  "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111),
-                 "dequant_matmul_emi8_tile": ("dequant_matmul.cu", 71)}
+                 "dequant_matmul_emi8_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_sb4_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_sb2_tile": ("dequant_matmul.cu", 71)}
 ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
               "library_ms", "rel_err")
 

@@ -37,11 +37,12 @@
 //   in-range elements. 16-byte vector loads are used when N % 16 == 0 and
 //   K % 8 == 0, element loads otherwise.
 //
-// The pf6 and pf4 transports, the fp16 container and emi8 / emi8m run on
-// gemm_sm90.cuh's wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX
-// block that divides its 64-deep K step and whose ring fits (pf6: 16, 32,
-// 64; pf4: 16, 32, 64; fp16: 8, 16, 32, 64; emi8: 4, 8, 16, 32, 64); other
-// blocks (48, 96, 128, ...) take gemm_dq's tile loop.
+// The pf6, pf4, sb4 and sb2 transports, the fp16 container and emi8 /
+// emi8m run on gemm_sm90.cuh's wgmma + TMA mainloop instead (gemm_dq_sm90),
+// at every MX block that divides its 64-deep K step and whose ring fits
+// (pf6: 16, 32, 64; pf4: 16, 32, 64; sb4: 2 to 64; sb2: 4 to 64; fp16: 8,
+// 16, 32, 64; emi8: 4, 8, 16, 32, 64); other blocks (48, 96, 128, ...) take
+// gemm_dq's tile loop, as do the int8, bf16 and float8 containers.
 // dequant_matmul.py::gemm_route chooses by block size before the launch
 // and passes the choice here. Each decoder reads the TMA-loaded raw copy of
 // a step's packed rows and exponents in shared memory and writes the bf16
@@ -57,7 +58,9 @@
 // - fp16: 32 of the step's 64 K rows of a column a thread, each code
 //   rounded to bf16 and then scaled, decode_half<kFp16>'s order;
 // - emi8: the same share, each byte's m̂ and 2^e' formed as f32 bits, their
-//   exact product times 2^(se - fold) as gemm_dq multiplies it.
+//   exact product times 2^(se - fold) as gemm_dq multiplies it;
+// - sb4 and sb2: pf4's share of packed rows (8 of sb2's 16 a thread), each
+//   field's integer code times 2^(se - fold) as gemm_dq multiplies it.
 // The wgmma k16 steps sum in gemm_dq's order.
 #include <type_traits>
 
@@ -115,7 +118,7 @@ gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
 
 
 // ---------------------------------------------------------------------------
-// pf6, pf4, fp16 and emi8 on the sm90 mainloop
+// pf6, pf4, fp16, emi8, sb4 and sb2 on the sm90 mainloop
 // ---------------------------------------------------------------------------
 // The raw operands of a 64-row step that the decoders here read: the ROWS
 // packed rows of each of its 64/B blocks (CB-byte codes), then one exponent
@@ -430,12 +433,101 @@ struct Emi8Sm90 : Sm90Raw<1, B, B> {
   }
 };
 
+// sb4 and sb2: F sign-extended integer codes of 8 / F bits a byte (F = 2,
+// 4); K row j of a block sits in field j / R of packed row j % R, R = B / F
+// (common.cuh's fields). A decode thread owns 64 / F / DWG of the step's
+// packed rows in one column, 8 at a time. Each code becomes an f32 through
+// the 1.5 · 2^23 bias (exact for |code| <= 8: two full-rate operations
+// instead of a quarter-rate convert) and is multiplied once by the clamped
+// scale, gemm_dq's float(code) · exp2_i32(se - fold), so the B tile is
+// gemm_tile's bit for bit. Where a block holds 8 packed rows or more
+// (R >= 8), 8 rows g.. g + 7 give one 16-byte chunk a field, K rows
+// g + f R.. under one scale (pf4's traversal); below, they hold 8 / R whole
+// blocks, the 8F consecutive K rows F p.. under 8 / R scales.
+template <int F, int B>
+struct SubbyteSm90 : Sm90Raw<1, B / F, B> {
+  static_assert((F == 2 && (B == 2 || B == 4 || B == 8 || B == 16
+                            || B == 32 || B == 64))
+                    || (F == 4 && (B == 4 || B == 8 || B == 16 || B == 32
+                                   || B == 64)),
+                "sb4 at blocks 2 to 64, sb2 at 4 to 64");
+  using Raw = Sm90Raw<1, B / F, B>;
+  static constexpr int kStages = 4, kRawBufs = 3, kDwg = 2;   // 204-222 KB
+
+  template <int DWG>
+  __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* b,
+                                         int t) const {
+    constexpr int kN = Raw::kN, R = B / F, kBits = 8 / F;
+    constexpr int P = Raw::kCodeRows / DWG;     // packed rows a thread
+    static_assert(P % 8 == 0, "whole groups of 8 packed rows");
+    const int col = t % kN, p0 = (t / kN) * P;
+#pragma unroll
+    for (int i = 0; i < P; i += 8) {
+      const int p = p0 + i;
+      float v[F][8];                    // field f of packed row p + r
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int c = raw[(p + r) * kN + col];
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          v[f][r] = __int_as_float(0x4B400000
+                                   + mxq::sext(c >> (kBits * f), kBits))
+                    - 12582912.f;
+      }
+      if constexpr (R >= 8) {
+        const int blk = p / R, g = p % R;
+        const float sc = mxq::exp2_i32(this->scale_exp(raw, blk, col));
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          uint32_t u[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            u[j] = mxq::sm90::pack_bf16(v[f][2 * j] * sc,
+                                        v[f][2 * j + 1] * sc);
+          mxq::sm90::store_b_chunk(b, col, (blk * B + g + f * R) / 8,
+                                   make_uint4(u[0], u[1], u[2], u[3]));
+        }
+      } else {
+        float sc[8 / R];
+#pragma unroll
+        for (int q = 0; q < 8 / R; ++q)
+          sc[q] = mxq::exp2_i32(this->scale_exp(raw, p / R + q, col));
+        // K row k of the group: block k / B, field (k % B) / R of packed
+        // row (k / B) R + k % R
+        auto w = [&](int k) {
+          return v[(k % B) / R][(k / B) * R + k % R] * sc[k / B];
+        };
+#pragma unroll
+        for (int c = 0; c < F; ++c) {
+          uint32_t u[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            u[j] = mxq::sm90::pack_bf16(w(8 * c + 2 * j),
+                                        w(8 * c + 2 * j + 1));
+          mxq::sm90::store_b_chunk(b, col, F * p / 8 + c,
+                                   make_uint4(u[0], u[1], u[2], u[3]));
+        }
+      }
+    }
+  }
+};
+
+template <int B>
+using Sb4Sm90 = SubbyteSm90<2, B>;
+template <int B>
+using Sb2Sm90 = SubbyteSm90<4, B>;
+
 template <int D, int B>
 using Sm90Dec = std::conditional_t<
     D == mxq::kPf6, Pf6Sm90<B>,
     std::conditional_t<
         D == mxq::kPf4, Pf4Sm90<B>,
-        std::conditional_t<D == mxq::kEmi8, Emi8Sm90<B>, Fp16Sm90<B>>>>;
+        std::conditional_t<
+            D == mxq::kEmi8, Emi8Sm90<B>,
+            std::conditional_t<
+                D == mxq::kSb4, Sb4Sm90<B>,
+                std::conditional_t<D == mxq::kSb2, Sb2Sm90<B>,
+                                   Fp16Sm90<B>>>>>>;
 
 // grid: M tiles x N tiles of 256 x 128 (gemm_sm90.cuh); x (M, K) bf16 with
 // K % 8 == 0 through xmap.
@@ -448,8 +540,9 @@ gemm_dq_sm90(const __grid_constant__ CUtensorMap xmap,
              void* out, int M, int K, int N, int NB, int mw, int ebits,
              int fold, int out_bf16, int tma) {
   static_assert(D == mxq::kPf6 || D == mxq::kPf4 || D == mxq::kFp16
-                    || D == mxq::kEmi8,
-                "the sm90 mainloop decodes pf6, pf4, fp16 and emi8");
+                    || D == mxq::kEmi8 || D == mxq::kSb4 || D == mxq::kSb2,
+                "the sm90 mainloop decodes pf6, pf4, fp16, emi8, sb4 and "
+                "sb2");
   using Dec = Sm90Dec<D, B>;
   Dec dec{{codes, se, &codes_map, &se_map, N, NB, mw, ebits, fold,
            tma != 0}};
@@ -488,8 +581,8 @@ int launch_sm90(const void* x, const int8_t* codes, const int8_t* se,
 // Kp = NB * B >= K; se: (NB, N) int8; out: (M, N) bf16 or f32; decode: an
 // mxq::Decode; sm90: the route that dequant_matmul.py::gemm_route chose,
 // 1 for gemm_dq_sm90 (pf6 and pf4 at B = 16, 32, 64; fp16 at B = 8, 16,
-// 32, 64; emi8 at B = 4, 8, 16, 32, 64; x with K % 8 == 0, 16-byte
-// aligned), 0 for gemm_dq (every decode,
+// 32, 64; emi8 at B = 4, 8, 16, 32, 64; sb4 at B = 2 to 64; sb2 at B = 4
+// to 64; x with K % 8 == 0, 16-byte aligned), 0 for gemm_dq (every decode,
 // any B). Returns the cudaError_t of the launch (0 on success;
 // cudaErrorInvalidValue for an unknown decode or an sm90 decode and block
 // with no kernel).
@@ -515,6 +608,11 @@ extern "C" int dequant_matmul(const void* x, const void* codes,
     MXQ_SM90(mxq::kEmi8, 4); MXQ_SM90(mxq::kEmi8, 8);
     MXQ_SM90(mxq::kEmi8, 16); MXQ_SM90(mxq::kEmi8, 32);
     MXQ_SM90(mxq::kEmi8, 64);
+    MXQ_SM90(mxq::kSb4, 2); MXQ_SM90(mxq::kSb4, 4); MXQ_SM90(mxq::kSb4, 8);
+    MXQ_SM90(mxq::kSb4, 16); MXQ_SM90(mxq::kSb4, 32);
+    MXQ_SM90(mxq::kSb4, 64);
+    MXQ_SM90(mxq::kSb2, 4); MXQ_SM90(mxq::kSb2, 8); MXQ_SM90(mxq::kSb2, 16);
+    MXQ_SM90(mxq::kSb2, 32); MXQ_SM90(mxq::kSb2, 64);
 #undef MXQ_SM90
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,16 +2,19 @@
 // x (M, K) bf16 row-major and W decoded, a 64 x 128 tile at a time, into
 // shared memory by the caller's decoder.
 //
-// It serves the GEMMs of two TPU kernels' paths:
-// - microscopiq_tpu/ops/pallas/dequant_matmul.py::_dq_matmul_kernel, the
-//   pf6 and pf4 transports and the fp16 container above 64 tokens (which
-//   the JAX package sends to XLA's dequantize-then-dot), at every MX block
-//   that divides the 64-deep K step: dequant_matmul.cu's gemm_dq_sm90;
+// It serves the GEMMs of three TPU kernels' paths:
+// - microscopiq_tpu/ops/pallas/dequant_matmul.py::_dq_matmul_kernel above
+//   64 tokens: emi8/emi8m, and the pf6, pf4, sb4 and sb2 transports and
+//   the fp16 container (which the JAX package sends to XLA's
+//   dequantize-then-dot), at every MX block that divides the 64-deep K
+//   step and whose ring fits: dequant_matmul.cu's gemm_dq_sm90;
 // - ::_dq_matmul_outlier_kernel, the side-band PackedMXOutlier from 256
 //   tokens on (JAX: XLA), at blocks of 8 to 64: outlier_matmul.cu's
-//   outlier_gemm_sm90.
-// Every other GEMM, and these transports at other blocks, stay on
-// common.cuh's gemm_tile.
+//   outlier_gemm_sm90;
+// - ::_nb_kernel, the compact PackedOutlierNB from 256 tokens on (JAX:
+//   XLA), up to 16 slots: nb_matmul.cu's nb_gemm_sm90.
+// Every other GEMM (the int8, bf16 and float8 containers), and these
+// transports at other blocks, stay on common.cuh's gemm_tile.
 //
 // What bounds it on the H100: operations. At M = 1024 each weight byte
 // feeds ~1000 flops, far above the ~295 flop/byte balance point, so the
@@ -21,11 +24,11 @@
 // - One block per SM (dynamic shared memory above 48 KB). Output tile
 //   BM x BN = 256 x 128, K step BK = 64: 64 bf16 are 128 bytes, so a row of
 //   x, and a column of the K-major B tile, fill one 128-byte swizzle row,
-//   and a step holds whole MX blocks of 8, 16, 32 and 64.
-// - DWG decode warpgroups (two for pf6, pf4, fp16 and the side-band format
-//   up to 4 slots, one for 8 slots) and two consumer warpgroups, 384 or 512
-//   threads, registers split by setmaxnreg (decoders 96 each of two, or
-//   136; consumers 160, of which 128 hold the accumulators):
+//   and a step holds whole MX blocks of 2 to 64.
+// - DWG decode warpgroups (two for every decoder but the side-band
+//   format's at 8 slots, which has one) and two consumer warpgroups, 384
+//   or 512 threads, registers split by setmaxnreg (decoders 96 each of
+//   two, or 136; consumers 160, of which 128 hold the accumulators):
 //   * the decoders produce. Thread 0 issues the TMA load of each step's x
 //     tile (256 x 64, 128-byte swizzle, rows past M and columns past K
 //     zero-filled) on the stage's "full" mbarrier with its byte count, two

@@ -6,10 +6,12 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 ``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
-the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, the fp16 container and
-emi8/emi8m on the wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` at the
-blocks that :func:`gemm_route` gives it, whose host-side plan is
-:func:`sm90_plan`). Both
+the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, sb4, sb2, the fp16
+container and emi8/emi8m on the wgmma + TMA mainloop of
+``csrc/gemm_sm90.cuh`` at the blocks that :func:`gemm_route` gives them,
+whose host-side plan is :func:`sm90_plan`; their other blocks and the
+int8, bf16 and float8 containers on ``csrc/common.cuh``'s ``gemm_tile``).
+Both
 take every transport that the TPU kernels decode: emi8 and emi8m, the int8
 container (pre-blocked or 2-D, which reaches the serving layout by a view),
 sb4, sb2, pf4, pf6, the bf16/fp16 containers and the float8 containers (``float8_e4m3fn`` from
@@ -66,6 +68,7 @@ NB_BLOCK = 16                     # the compact NB transport's one block
 # PackedOutlierNB GEMM (block 16 only) of outlier_matmul.py
 SM90_BLOCKS = {"pf6": (16, 32, 64), "pf4": (16, 32, 64),
                "fp16": (8, 16, 32, 64), "emi8": (4, 8, 16, 32, 64),
+               "sb4": (2, 4, 8, 16, 32, 64), "sb2": (4, 8, 16, 32, 64),
                "sideband": (8, 16, 32, 64), "nb": (NB_BLOCK,)}
 MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
 NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
@@ -73,7 +76,7 @@ NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
 # after. dequant_matmul_<decode> counts the GEMM that gemm_route gives the
-# default blocks (the sm90 kernel for pf6, pf4, fp16 and emi8), and
+# default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16 and emi8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
 launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
@@ -95,7 +98,8 @@ def _sm90_ring(kind: str, block: int, budget: int):
     """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
     for ``kind`` at ``block`` (and ``budget`` slots), mirroring its
     decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``Emi8Sm90``,
-    ``SidebandSm90``, ``NbSm90``); None where no such kernel is compiled
+    ``Sb4Sm90``, ``Sb2Sm90``, ``SidebandSm90``, ``NbSm90``); None where no
+    such kernel is compiled
     or its ring would not fit. Raises ValueError for a budget that no
     kernel takes."""
     if kind == "sideband" and not 0 <= budget <= MAX_OUTLIER_BUDGET:
@@ -106,8 +110,10 @@ def _sm90_ring(kind: str, block: int, budget: int):
     nblk = BK // block
     if kind == "pf6":                     # 3B/4 packed rows a block
         return 0, 4, 3, (nblk * 3 * block // 4 + nblk) * BN
-    if kind == "pf4":                     # B/2 packed rows a block
+    if kind in ("pf4", "sb4"):            # B/2 packed rows a block
         return 0, 4, 3, (BK // 2 + nblk) * BN
+    if kind == "sb2":                     # B/4 packed rows a block
+        return 0, 4, 3, (BK // 4 + nblk) * BN
     if kind == "fp16":                    # 2-byte codes
         return 0, 3, 3, (2 * BK + nblk) * BN
     def four_stages(slots, raw):          # pf6's ring, where it fits
@@ -139,8 +145,8 @@ def _sm90_ring(kind: str, block: int, budget: int):
 def sm90_plan(kind: str, K: int, N: int, block: int,
               budget: int = 0) -> dict:
     """Host-side plan of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) for a
-    ``"pf6"``, ``"pf4"``, ``"fp16"`` (container), ``"emi8"`` (emi8, emi8m),
-    ``"sideband"`` or ``"nb"`` weight of K rows and N columns (output
+    ``"pf6"``, ``"pf4"``, ``"sb4"``, ``"sb2"``, ``"fp16"`` (container),
+    ``"emi8"`` (emi8, emi8m), ``"sideband"`` or ``"nb"`` weight of K rows and N columns (output
     columns) in blocks of ``block`` with ``budget`` outlier slots,
     mirroring the kernels' ``Ring`` and decoder sizes: the tile, the ring's
     stages and raw buffers, the outlier slots read, one step's raw weight
@@ -171,12 +177,14 @@ def gemm_route(kind: str, block: int, budget: int = 0) -> str:
     formats from 256 rows) of a weight of transport or decode ``kind`` in
     blocks of ``block`` (``budget`` outlier slots for ``"sideband"`` and
     ``"nb"``): ``"sm90"``, the wgmma + TMA mainloop (:func:`sm90_plan`),
-    for pf6 and pf4 at blocks 16, 32 and 64, the fp16 container and the
-    side-band format at 8, 16, 32 and 64 (not the side-band format at 8
-    with more than 4 slots, whose ring does not fit), emi8/emi8m at 4, 8,
-    16, 32 and 64, and the compact NB format (block 16) with up to 16
-    slots; else ``"tile"``, common.cuh's ``gemm_tile``, which takes every
-    block and budget. Chosen from the weight alone, before the launch.
+    for pf6 and pf4 at blocks 16, 32 and 64, sb4 at 2, 4, 8, 16, 32 and
+    64, sb2 at 4, 8, 16, 32 and 64, the fp16 container and the side-band
+    format at 8, 16, 32 and 64 (not the side-band format at 8 with more
+    than 4 slots, whose ring does not fit), emi8/emi8m at 4, 8, 16, 32 and
+    64, and the compact NB format (block 16) with up to 16 slots; else
+    ``"tile"``, common.cuh's ``gemm_tile``, which takes every block and
+    budget, and every other decode (the int8, bf16 and float8
+    containers). Chosen from the weight alone, before the launch.
     Raises ValueError for a side-band budget above 8."""
     return "sm90" if _sm90_ring(kind, block, budget) is not None else "tile"
 

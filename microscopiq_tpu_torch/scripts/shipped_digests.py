@@ -11,6 +11,13 @@ hex digits of the f32 outputs' bytes). Run it in two checkouts on one card (this
 into the older one) and compare the lines: equal lines show that an edit of
 the shared decode left every shipped decode's outputs bit for bit as they
 were. The digests depend on the build, so they are compared, never pinned.
+
+The GEMMs digested here run on two loops: the sb4, sb2, pf4, pf6, fp16 and
+emi8 lines' (and the NB line's) on the wgmma + TMA mainloop of
+``csrc/gemm_sm90.cuh`` at these blocks (``dequant_matmul.gemm_route``), the
+int8-container and bf16 lines' on ``csrc/common.cuh``'s ``gemm_tile``. A
+line that stays equal across a move from one loop to the other shows the
+new loop's B tile and K order to be the old one's.
 """
 
 from __future__ import annotations

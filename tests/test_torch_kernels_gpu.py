@@ -809,16 +809,17 @@ def test_exp_gemv_wrappers_check_operands(gemv_setup):
 
 
 # ---------------------------------------------------------------------------
-# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, the fp16 container,
-# emi8/emi8m, the side-band and the compact NB format, and the gemm_tile
-# kernels that take their other blocks and budgets
+# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, sb4, sb2, the fp16
+# container, emi8/emi8m, the side-band and the compact NB format, and the
+# gemm_tile kernels that take their other blocks and budgets
 # ---------------------------------------------------------------------------
 LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096),
              "gate_up": (4096, 28672), "down": (14336, 4096),
              "lm_head": (4096, 128256)}
 # kind -> (format, transport) of the GEMMs of dequant_matmul.cu
 SM90_DQ = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
-           "fp16": ("fp16", "native"), "emi8": ("fp6_e3m2", "emi8")}
+           "fp16": ("fp16", "native"), "emi8": ("fp6_e3m2", "emi8"),
+           "sb4": ("int4", "sb4"), "sb2": ("int2", "sb2")}
 
 
 def _sideband_dense(w):
@@ -898,6 +899,24 @@ def test_sm90_pf4_and_fp16_gemm_at_llama_shapes(cuda, kind, lin):
     K, N = LLAMA3_8B[lin]
     w, fn, ref, _ = _sm90_weight(kind, K, N, 17, cuda)
     x = _x(1024, K, 18, cuda)
+    dm.reset_launch_counts()
+    got = fn(x, w)
+    want = ref(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{kind}"] == 1
+    assert sum(dm.launch_counts.values()) == 1
+    assert _rel(got, want) < 2e-3
+
+
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+@pytest.mark.parametrize("kind,block", [("sb4", 32), ("sb2", 16)])
+def test_sm90_sb4_and_sb2_gemm_at_llama_shapes(cuda, kind, block, lin):
+    """int4 sb4 at block 32 (the int4 arm's) and int2 sb2 at block 16, on
+    the sm90 loop's counter, within 2e-3 of the twin."""
+    K, N = LLAMA3_8B[lin]
+    w, fn, ref, _ = _sm90_weight(kind, K, N, 19, cuda, block=block,
+                                 dense=False)
+    x = _x(1024, K, 20, cuda)
     dm.reset_launch_counts()
     got = fn(x, w)
     want = ref(x, w)
@@ -1001,6 +1020,52 @@ def test_sm90_emi8_b_tile_is_gemm_tile_s_on_every_byte(cuda, monkeypatch,
     assert torch.equal(got.cpu(), tile.cpu())
 
 
+# sb4 and sb2: (format, codes a byte, bits a code, scale fold)
+SUBBYTE = {"sb4": ("int4", 2, 4, 2), "sb2": ("int2", 4, 2, 0)}
+
+
+@pytest.mark.parametrize("kind,block",
+                         [("sb4", b) for b in (2, 4, 8, 16, 32, 64)]
+                         + [("sb2", b) for b in (4, 8, 16, 32, 64)])
+def test_sm90_sb_b_tile_is_gemm_tile_s_on_every_code(cuda, monkeypatch, kind,
+                                                     block):
+    """An sb4 (sb2) weight that holds every 4-bit (2-bit) code in every
+    field of its packed rows, under block exponents at both ends of the
+    int8 range (-128 to -120, where the scale clamps at 2^-126, and 118 to
+    127): through x = I the sm90 GEMM's output is gemm_tile's bit for bit.
+    A code whose value would pass the f32 range at its block's scale is
+    replaced by 0 there (x = I would turn its inf into NaN)."""
+    fmt, per, bits, fold = SUBBYTE[kind]
+    assert dm.scale_fold(fmt) == fold
+    codes = torch.arange(-(1 << (bits - 1)), 1 << (bits - 1))
+    K, N = 256, 128
+    exps = torch.tensor(list(range(-128, -119)) + list(range(118, 128)))
+    kk = torch.arange(K)[:, None]
+    nn = torch.arange(N)[None, :]
+    c = codes[(kk + 7 * nn) % len(codes)]
+    se = exps[(torch.arange(K // block)[:, None] + nn) % len(exps)]
+    s = (se.repeat_interleave(block, 0) - fold).clamp(-126, 127).double()
+    val = c.double() * torch.exp2(s)
+    c = torch.where(val.abs().log2() < 128, c, 0)
+    packed = tpk._subbyte_pack(c.T.contiguous(), block, per, bits).T
+    w = tpk.to_serving_layout(tpk.PackedMX(
+        codes=packed.contiguous().to(cuda),
+        scale_exp=se.to(torch.int8).to(cuda), elem_format=fmt,
+        block_size=block, scale_bits=8, orig_dim=K, axis=0, transport=kind))
+    x = torch.eye(K, device=cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{kind}"] == 1
+    monkeypatch.setattr(dm, "gemm_route", lambda *a, **k: "tile")
+    tile = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{kind}_tile"] == 1
+    assert (tile.abs() == 2.0 ** -126).any()
+    assert (tile.abs() >= 2.0 ** 126).any() and tile.isfinite().all()
+    assert torch.equal(got.cpu(), tile.cpu())
+
+
 def _sideband_shared_rows(K, N, seed, device, block=16):
     """Budget 4, and in every block whose first slot is filled a second
     slot that names the same row with its own code: the kernel must add
@@ -1017,7 +1082,7 @@ def _sideband_shared_rows(K, N, seed, device, block=16):
 @pytest.mark.parametrize("N", [384, 130])
 @pytest.mark.parametrize("K", [256, 512])
 @pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
-                                  "emi8m", "nb"])
+                                  "emi8m", "nb", "sb4", "sb2"])
 def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
     """x = I: every output row is one row of the decoded B tile (products
     with 1 and 0 are exact in f32), so the GEMM's f32 output is the twin's
@@ -1036,7 +1101,7 @@ def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
 
 
 @pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
-                                  "emi8m", "nb"])
+                                  "emi8m", "nb", "sb4", "sb2"])
 def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
     K, N, M = 203, 384, 300
     block = 16 if kind in ("sideband", "nb", "emi8m") else 32
@@ -1053,15 +1118,18 @@ def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
 
 # every block the JAX packers take for these formats, on its route: the
 # sm90 kernel where the block divides the K step (pf4 48, pf6 128, fp16 48,
-# emi8 48 and the side-band format at 48, or at 8 with 8 slots:
-# gemm_tile); the NB format at its largest budget
+# emi8 48, sb4 48, sb2 48 and the side-band format at 48, or at 8 with 8
+# slots: gemm_tile); the NB format at its largest budget
 SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
                     ("pf4", 48, 0), ("pf6", 64, 0), ("pf6", 128, 0),
                     ("fp16", 8, 0), ("fp16", 64, 0), ("fp16", 48, 0),
                     ("sideband", 8, 4), ("sideband", 8, 8),
                     ("sideband", 64, 4), ("sideband", 64, 8),
                     ("sideband", 48, 4), ("emi8", 4, 0), ("emi8", 8, 0),
-                    ("emi8", 64, 0), ("emi8", 48, 0), ("nb", 16, 16)]
+                    ("emi8", 64, 0), ("emi8", 48, 0), ("nb", 16, 16),
+                    ("sb4", 2, 0), ("sb4", 8, 0), ("sb4", 64, 0),
+                    ("sb4", 48, 0), ("sb2", 4, 0), ("sb2", 64, 0),
+                    ("sb2", 48, 0)]
 
 
 @pytest.mark.parametrize("kind,block,budget", SM90_BLOCK_CASES)
@@ -1116,7 +1184,7 @@ def test_sm90_kernels_do_not_spill(cuda):
     sources = ("dequant_matmul", "outlier_matmul", "nb_matmul")
     build.build_all(sources)
     lines = [ln for ln in build.ptxas_report(sources) if "_sm90" in ln]
-    assert sum("gemm_dq_sm90" in ln for ln in lines) == 15
+    assert sum("gemm_dq_sm90" in ln for ln in lines) == 26
     assert sum("outlier_gemm_sm90" in ln for ln in lines) == 15
     assert sum("nb_gemm_sm90" in ln for ln in lines) == 5
     for ln in lines:

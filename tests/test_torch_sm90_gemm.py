@@ -1,6 +1,6 @@
 """The host side of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) that the
-pf6, pf4, fp16-container, emi8/emi8m, side-band and compact-NB GEMMs run
-on: its plan (tile,
+pf6, pf4, sb4, sb2, fp16-container, emi8/emi8m, side-band and compact-NB
+GEMMs run on: its plan (tile,
 stages, shared memory, padding of x) at every Llama-3-8B shape and every
 block it is compiled for; the routing of every block that the JAX packers
 take to a hand-written kernel (the sm90 loop or ``gemm_tile``); and the
@@ -60,7 +60,9 @@ NEW_PLANS = ([("pf4", 0, b) for b in (16, 32, 64)]
              + [("sideband", s, b) for b in (8, 64) for s in (0, 1, 2, 4, 8)
                 if (b, s) != (8, 8)]
              + [("emi8", 0, b) for b in (4, 8, 16, 32, 64)]
-             + [("nb", s, 16) for s in (0, 1, 2, 4, 8, 16)])
+             + [("nb", s, 16) for s in (0, 1, 2, 4, 8, 16)]
+             + [("sb4", 0, b) for b in (2, 4, 8, 16, 32, 64)]
+             + [("sb2", 0, b) for b in (4, 8, 16, 32, 64)])
 
 
 @pytest.mark.parametrize("kind,budget,block", NEW_PLANS)
@@ -76,6 +78,7 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
     nblk = 64 // block
     raw = {"pf6": (48 + nblk) * 128, "pf4": (32 + nblk) * 128,
            "fp16": (128 + nblk) * 128, "emi8": (64 + nblk) * 128,
+           "sb4": (32 + nblk) * 128, "sb2": (16 + nblk) * 128,
            # 32 code rows, se, seo and 8 rows a slot of the slot class, 64
            # K columns each
            "nb": (48 + 8 * plan["slots"]) * 64}.get(kind)
@@ -83,22 +86,25 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
         assert plan["raw_bytes"] == raw
     if kind == "fp16":            # 16 KB of codes a step: 3 stages, 3 buffers
         assert (plan["stages"], plan["raw_buffers"]) == (3, 3)
-    if kind in ("emi8", "nb"):    # pf6's ring: 4 stages, 3 buffers
+    if kind in ("emi8", "nb", "sb4", "sb2"):   # pf6's ring: 4 stages, 3
         assert (plan["stages"], plan["raw_buffers"]) == (4, 3)
 
 
 # (sm90_plan arguments) that no sm90 kernel takes: the blocks that do not
-# divide the 64-deep K step, pf6 below 16, emi8 at block 2 (a 12 KB raw
-# step leaves no 4-stage ring), the side-band format at block 8 with 8
-# slots and the NB format above 16 slots (gemm_tile takes them), and a
-# side-band budget above 8 (nothing does)
+# divide the 64-deep K step (sb4 48 and 128, sb2 12 and 48 among them), pf6
+# below 16, emi8 at block 2 (a 12 KB raw step leaves no 4-stage ring), the
+# side-band format at block 8 with 8 slots and the NB format above 16
+# slots (gemm_tile takes them), and a side-band budget above 8 (nothing
+# does)
 REFUSED = [("pf6", 256, 128, 8), ("pf6", 256, 128, 128),
            ("pf4", 256, 128, 48), ("pf4", 256, 128, 128),
            ("fp16", 256, 128, 48), ("fp16", 256, 128, 4),
            ("sideband", 256, 128, 8, 8), ("sideband", 256, 128, 48, 4),
            ("sideband", 256, 128, 16, 9), ("emi8", 256, 128, 48),
            ("emi8", 256, 128, 2), ("emi8", 256, 128, 128),
-           ("nb", 256, 128, 16, 17), ("nb", 256, 128, 32, 2)]
+           ("nb", 256, 128, 16, 17), ("nb", 256, 128, 32, 2),
+           ("sb4", 256, 128, 48), ("sb4", 256, 128, 128),
+           ("sb2", 256, 128, 12), ("sb2", 256, 128, 48)]
 
 
 @pytest.mark.parametrize("args", REFUSED, ids=lambda a: "-".join(map(str, a)))
@@ -133,7 +139,15 @@ def test_plan_mirrors_the_kernel_sources():
                                "B == 8 || B == 16 || B == 32 || B == 64"),
                               ("Emi8Sm90", "kStages = 4, kRawBufs = 3",
                                "B == 4 || B == 8 || B == 16 || B == 32 "
-                               "|| B == 64")):
+                               "|| B == 64"),
+                              ("SubbyteSm90", "kStages = 4, kRawBufs = 3",
+                               "(F == 2 && (B == 2 || B == 4 || B == 8 "
+                               "|| B == 16\n                            "
+                               "|| B == 32 || B == 64))\n"
+                               "                    || (F == 4 && (B == 4 "
+                               "|| B == 8 || B == 16 || B == 32\n"
+                               "                                   "
+                               "|| B == 64))")):
         body = dq[dq.index(f"struct {dec} "):]
         body = body[:body.index("\n};\n")]
         assert ring in body and f"static_assert({blocks}" in body
@@ -141,9 +155,14 @@ def test_plan_mirrors_the_kernel_sources():
         if kind in ("sideband", "nb"):
             continue
         decode = {"pf6": "kPf6", "pf4": "kPf4", "fp16": "kFp16",
-                  "emi8": "kEmi8"}[kind]
+                  "emi8": "kEmi8", "sb4": "kSb4", "sb2": "kSb2"}[kind]
         assert [b for b in (2, 4, 8, 16, 32, 48, 64, 128)
                 if f"MXQ_SM90(mxq::{decode}, {b})" in dq] == list(blocks)
+    # sb4 and sb2 are SubbyteSm90 with 2 and 4 fields a byte
+    assert "using Sb4Sm90 = SubbyteSm90<2, B>;" in dq
+    assert "using Sb2Sm90 = SubbyteSm90<4, B>;" in dq
+    assert "D == mxq::kSb4, Sb4Sm90<B>," in dq
+    assert "D == mxq::kSb2, Sb2Sm90<B>," in dq
     nb = (CSRC / "nb_matmul.cu").read_text()
     body = nb[nb.index("struct NbSm90 "):]
     body = body[:body.index("\n};\n")]
@@ -170,7 +189,8 @@ def test_plan_mirrors_the_kernel_sources():
 # pack_mx at block B, or pack_mx_outlier
 ROUTED = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
           "fp16": ("fp16", "native"), "bf16": ("bfloat16", "native"),
-          "sb4": ("int4", "sb4"), "emi8": ("fp6_e3m2", "emi8"),
+          "sb4": ("int4", "sb4"), "sb2": ("int2", "sb2"),
+          "emi8": ("fp6_e3m2", "emi8"),
           "emi8_fp4": ("fp4_e2m1", "emi8"), "emi8m": None,
           "sideband": None, "sideband8": None}
 
@@ -206,7 +226,11 @@ def _jax_packs(name, block):
     return True
 
 
-@pytest.mark.parametrize("block", [8, 16, 32, 48, 64, 128])
+# the block multiples that the JAX packers require, where they require one
+PACKER_MULTIPLE = {"pf6": 32, "pf4": 16, "sb2": 4}
+
+
+@pytest.mark.parametrize("block", [2, 4, 8, 16, 32, 48, 64, 128])
 @pytest.mark.parametrize("name", sorted(ROUTED))
 def test_gemm_route_names_a_kernel_for_every_block_the_packers_take(
         name, block):
@@ -214,8 +238,7 @@ def test_gemm_route_names_a_kernel_for_every_block_the_packers_take(
     kernel: the sm90 loop, whose plan then fits, or gemm_tile; and the
     launch counter of that kernel exists."""
     if not _jax_packs(name, block):
-        assert name in ("pf6", "pf4") and block % (32 if name == "pf6"
-                                                   else 16)
+        assert block % PACKER_MULTIPLE[name]
         return
     if name.startswith("sideband"):
         budget = 8 if name == "sideband8" else 4
@@ -247,6 +270,21 @@ def _padded(x: np.ndarray, k_x: int) -> torch.Tensor:
     x8 = dm.sm90_x(torch.from_numpy(x).to(torch.bfloat16), k_x)
     assert x8.shape[1] == k_x and not x8[:, x.shape[1]:].any()
     return x8
+
+
+def _zero_blocks(t, k_x: int):
+    """The serving-layout weight t read to k_x rows, as the sm90 GEMM reads
+    it: blocks past the weight (blocks 2 and 4 hold fewer than k_x rows at
+    K = 203) are zero codes, which decode to +0 at any exponent."""
+    nb = -(-k_x // t.block_size) - t.codes.shape[0]
+    if nb > 0:
+        t = dataclasses.replace(
+            t, codes=torch.cat([t.codes, t.codes.new_zeros(
+                (nb,) + t.codes.shape[1:])]),
+            scale_exp=torch.cat([t.scale_exp, t.scale_exp.new_zeros(
+                (nb,) + t.scale_exp.shape[1:])]))
+    assert t.codes.shape[0] * t.block_size >= k_x
+    return dataclasses.replace(t, orig_dim=k_x)
 
 
 def test_k8_padding_leaves_the_pf6_reference_unchanged():
@@ -298,7 +336,9 @@ def test_k8_padding_leaves_the_sideband_reference_unchanged():
     ("fp16", "native", 8), ("fp16", "native", 32), ("fp16", "native", 64),
     ("fp6_e3m2", "pf6", 64), ("fp6_e3m2", "emi8", 32),
     ("fp6_e3m2", "emi8", 8), ("fp4_e2m1", "emi8", 16),
-    ("fp6_e2m3", "emi8", 64)])
+    ("fp6_e2m3", "emi8", 64), ("int4", "sb4", 2), ("int4", "sb4", 8),
+    ("int4", "sb4", 32), ("int4", "sb4", 64), ("int2", "sb2", 4),
+    ("int2", "sb2", 16), ("int2", "sb2", 64)])
 def test_k8_padding_leaves_the_sm90_references_unchanged(fmt, transport,
                                                          block):
     K, N, M = 203, 96, 5
@@ -318,12 +358,12 @@ def test_k8_padding_leaves_the_sm90_references_unchanged(fmt, transport,
     decode = dm.sad_decode_params(t)[0]
     assert dm.gemm_route(decode, block) == "sm90"
     plan = dm.sm90_plan(decode, K, N, block)
-    assert plan["pad_x"] and t.codes.shape[0] * block >= plan["k_x"]
+    assert plan["pad_x"]
     x = _x(M, K, block)
     want = np.asarray(j_reference(jnp.asarray(x), j))
     y = dm.dequant_matmul_reference(torch.from_numpy(x), t)
-    y8 = dm.dequant_matmul_reference(
-        _padded(x, plan["k_x"]), dataclasses.replace(t, orig_dim=plan["k_x"]))
+    y8 = dm.dequant_matmul_reference(_padded(x, plan["k_x"]),
+                                     _zero_blocks(t, plan["k_x"]))
     assert torch.equal(y8, y)
     np.testing.assert_array_equal(y8.numpy(), want)
 
@@ -350,6 +390,24 @@ def test_k8_padding_leaves_the_sideband_reference_unchanged_at_new_blocks(
     y8 = om.dequant_matmul_outlier_reference(_padded(x, plan["k_x"]), t8)
     assert torch.equal(y8, y)
     np.testing.assert_array_equal(y8.numpy(), want)
+
+
+@pytest.mark.parametrize("kind,rows", [("sb4", 32), ("sb2", 16)])
+def test_sb4_and_sb2_rings_fit_at_every_block_dividing_64(kind, rows):
+    """sb4's raw step (32 packed rows and one exponent row a block, 128
+    columns) and sb2's (16 packed rows) leave a ring of 4 stages and 3 raw
+    buffers within 227 KB at every block that the packers take (sb4: even,
+    sb2: multiples of 4) and that divides the 64-deep K step; the largest
+    is sb4 at block 2, 222,296 bytes."""
+    per = {"sb4": 2, "sb2": 4}[kind]
+    blocks = tuple(b for b in (1, 2, 4, 8, 16, 32, 64) if b % per == 0)
+    assert all(dm._ring_bytes(4, (rows + 64 // b) * 128, 3)
+               <= dm.SM90_MAX_SMEM for b in blocks)
+    assert blocks == dm.SM90_BLOCKS[kind]
+    assert dm.sm90_plan("sb4", 4096, 28672, 2)["smem_bytes"] == 222296
+    assert dm.gemm_counter(kind, 32) == f"dequant_matmul_{kind}"
+    assert dm.gemm_counter(kind, 48) == f"dequant_matmul_{kind}_tile"
+    assert f"dequant_matmul_{kind}_tile" in dm.launch_counts
 
 
 def test_emi8_blocks_are_those_whose_ring_fits():
