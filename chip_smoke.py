@@ -13,8 +13,8 @@ the package is missing. Phases, each of which raises on failure:
    quantizer, the quantized-KV attention, the NB and side-band GEMV and
    GEMM, the prefill-GEMM and the decode-GEMV experiments), one ``nvcc``
    each, all at once; then ``build_sm90``: the registers and spills of the
-   pf6, pf4, sb4, sb2, fp16-container, emi8/emi8m, side-band and compact-NB
-   GEMMs on the wgmma + TMA mainloop (``csrc/gemm_sm90.cuh``, every
+   pf6, pf4, sb4, sb2, fp16-container, emi8/emi8m, int8-container, float8,
+   side-band and compact-NB GEMMs on the wgmma + TMA mainloop (``csrc/gemm_sm90.cuh``, every
    compiled block and slot class) and the shared memory of their rings;
 3. the GEMV and GEMM against their plain PyTorch version at every shape of
    Llama-3-8B (qkv, o, gate_up, down, lm_head): the GEMV at M = 1, 8, 64 and
@@ -81,7 +81,9 @@ the package is missing. Phases, each of which raises on failure:
     packed by ``nn.pack_params`` as int4 (sb4) and as int8 (the int8
     container), one after the other, with the main path's prefill and
     decode, exact launch counts, weight bytes, bits per weight and peak
-    memory, each timed interleaved with the MX-FP6 model; ``int_engine``: a
+    memory (every prefill GEMM of both arms on the sm90 loop's counter,
+    none on a ``_tile`` one), each timed interleaved with the MX-FP6
+    model; ``int_engine``: a
     dense-slot ``BatchEngine`` over the int4 model, each request
     token-identical to single-sequence decode;
 15. ``int_two_layer_logits``: per case of phase 13 (of the float8 ones,
@@ -92,7 +94,8 @@ the package is missing. Phases, each of which raises on failure:
     packers take and no other phase packs (pf6 at 64 and 128, pf4 at 16,
     64 and 48, the fp16 container at 8, 64 and 48, the side-band format at
     8, 64 and 48 with 4 slots and at 8 with 8, emi8 at 8, 64 and 48, sb4
-    at 2, 8, 64 and 48, sb2 at 4, 64 and 48), at gate_up, M = 1024, each
+    at 2, 8, 64 and 48, sb2 at 4, 64 and 48, the int8 container and the
+    float8 containers at 8, 64, 2 and 48), at gate_up, M = 1024, each
     on the kernel that ``dequant_matmul.gemm_route`` names (the sm90 loop,
     or ``gemm_tile`` where the block does not divide its K step) and held
     to its plain twin, timed; then one call a case as the entry point's
@@ -129,7 +132,8 @@ it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --gemm-times
 
 times only the pf6, side-band, pf4, fp16-container, emi8, emi8m,
-compact-NB, sb4 and sb2 GEMMs (and ``torch.matmul`` on a bf16 weight) at
+compact-NB, sb4, sb2, int8-container, fp8_e4m3 and fp8_e5m2 GEMMs (and
+``torch.matmul`` on a bf16 weight) at
 M = 1024 at every Llama-3-8B shape on seeded operands and prints them as
 one JSON line (``sm90_gemm_times``), to compare two checkouts on one
 card.
@@ -1582,12 +1586,15 @@ def int_main_path(card: str):
     """The int4 (sb4) and int8 (int8 container) arms at 32 layers and full
     width, one after the other: the main path's prefill and decode with
     exact launch counts (every prefill GEMM of the int4 arm on
-    ``dequant_matmul_sb4``, the sm90 loop at block 32, and none on its
-    ``_tile`` counter), weight bytes and bits per weight, peak memory (the
+    ``dequant_matmul_sb4``, of the int8 arm on ``dequant_matmul_native``:
+    the sm90 loop at block 32, and none on a ``_tile`` counter), weight
+    bytes and bits per weight, peak memory (the
     arm's model alone on the card); then each arm timed interleaved with the
     slice-1 MX-FP6 model, built for each window and freed after it. The int4
     model then serves the engine phase. Returns {arm: counts}."""
     import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
 
     L, B, S0, STEPS = 32, 8, 128, 32
     max_len = S0 + STEPS + 8
@@ -1609,7 +1616,11 @@ def int_main_path(card: str):
         toks, ttft, dec, last, pre, dcounts, *_ = prefill_decode(
             model, ids, STEPS, max_len)
         peak = torch.cuda.max_memory_allocated()
-        want_pre = want_counts(**{f"dequant_matmul_{transport}": 4 * L,
+        gemm = dm.gemm_counter(transport, INT_CASES[case][2])
+        if gemm != f"dequant_matmul_{transport}":
+            raise AssertionError(f"{arm} arm's GEMM counts as {gemm}, not "
+                                 "on the sm90 loop")
+        want_pre = want_counts(**{gemm: 4 * L,
                                   f"dequant_gemv_{transport}": 1})
         want_dec = want_counts(**{f"dequant_gemv_{transport}":
                                   STEPS * (4 * L + 1)})
@@ -2083,11 +2094,12 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     full-width model runs (``two_layer_<case>``); for the W8A8 GEMV and the
     quantizer, which no model path calls, their entry point's own run; for
     the GEMMs at the MX blocks that no model path packs (the gemm_tile
-    routes of pf6, pf4, fp16, emi8, sb4, sb2 and the side-band format, and
-    the sm90 ones at the other blocks of ROUTE_CASES), the block-route
-    entry point's run. The GEMMs that run on the wgmma + TMA mainloop
-    (pf6, pf4, sb4, sb2, fp16, emi8/emi8m, side-band, compact NB) carry
-    ``mainloop``; the int8, bf16 and float8 GEMMs run on ``gemm_tile``.
+    routes of pf6, pf4, fp16, emi8, sb4, sb2, int8, float8 and the
+    side-band format, and the sm90 ones at the other blocks of
+    ROUTE_CASES), the block-route entry point's run. The GEMMs that run on
+    the wgmma + TMA mainloop (pf6, pf4, sb4, sb2, fp16, emi8/emi8m, int8,
+    float8, side-band, compact NB) carry ``mainloop``; the bf16 GEMM runs
+    on ``gemm_tile``.
     The emi8 GEMV and GEMM run on three paths: their timed numbers and
     ``shapes`` are MX-FP6 emi8 at block 32, ``shapes_emi8m_block16`` the
     emi8m stream."""
@@ -2197,7 +2209,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                 "shapes": [[r[k] for k in short] for r in mine],
                 "shape_keys": list(short)})
             if kind == "matmul" and decode in ("pf6", "pf4", "fp16", "sb4",
-                                               "sb2"):
+                                               "sb2", "native", "fp8_e4m3",
+                                               "fp8_e5m2"):
                 out[-1]["mainloop"] = SM90_SOURCE
                 out[-1]["blocks"] = _route_rows(rrows, name)
                 out[-1]["block_keys"] = list(ROUTE_KEYS)
@@ -2343,7 +2356,8 @@ SM90_SOURCE = "microscopiq_tpu_torch/ops/cuda/csrc/gemm_sm90.cuh"
 
 def sm90_build_line(card: str) -> None:
     """The wgmma + TMA GEMMs' ptxas lines (registers, spills: pf6, pf4,
-    fp16, emi8, sb4 and sb2 in dequant_matmul.cu, the side-band GEMM in
+    fp16, emi8, sb4, sb2, int8 and float8 in dequant_matmul.cu, with the
+    B-tile test hook's kernels, the side-band GEMM in
     outlier_matmul.cu, the compact NB GEMM in nb_matmul.cu) and the dynamic
     shared memory that their host-side plan gives each compiled ring
     (ptxas reports static shared memory only)."""
@@ -2371,8 +2385,10 @@ def sm90_gemm_times() -> list:
     block 16, budget 4), pf4 (fp4_e2m1, block 32), fp16-container (block
     32), emi8 (MX-FP6 fp6_e3m2, block 32, the main path's), emi8m (block
     16, the emi8m arm's merged stream of a side-band weight), compact NB
-    (budget 2, the NB arm's), sb4 (int4, block 32, the int4 arm's) and sb2
-    (int2, block 16) GEMMs at M = 1024 at every Llama-3-8B shape,
+    (budget 2, the NB arm's), sb4 (int4, block 32, the int4 arm's), sb2
+    (int2, block 16), int8-container (int8, block 32, the int8 arm's) and
+    float8 (fp8_e4m3, fp8_e5m2, block 32) GEMMs at M = 1024 at every
+    Llama-3-8B shape,
     beside torch.matmul on a bf16 weight of the same shape, CUDA events
     over L2-cold operand copies, on weights and x made from fixed seeds:
     two checkouts time the same operands. ``python3 chip_smoke.py
@@ -2391,7 +2407,8 @@ def sm90_gemm_times() -> list:
         x = torch.randn((SM90_M, K), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         for kind in ("pf6", "sideband", "pf4", "fp16", "torch_matmul",
-                     "emi8", "emi8m", "nb", "sb4", "sb2"):
+                     "emi8", "emi8m", "nb", "sb4", "sb2", "int8",
+                     "fp8_e4m3", "fp8_e5m2"):
             if kind in ("sideband", "emi8m"):
                 p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8,
                                        "int2", "fp4_e2m1", std_dev=2.0,
@@ -2417,7 +2434,9 @@ def sm90_gemm_times() -> list:
             else:
                 case = {"pf6": "fp6_pf6", "pf4": "fp4_pf4",
                         "fp16": "fp16_container", "sb4": "int4_sb4",
-                        "sb2": "int2_sb2"}[kind]
+                        "sb2": "int2_sb2", "int8": "int8_native",
+                        "fp8_e4m3": "fp8_e4m3_native",
+                        "fp8_e5m2": "fp8_e5m2_native"}[kind]
                 p = int_packed(case, int_weight(INT_CASES[case][0], (K, N),
                                                 gen))
                 fn = dm.dequant_gemm
@@ -2440,9 +2459,11 @@ def sm90_gemm_times() -> list:
 # (kind, format, block, budget): the blocks that no other phase packs, for
 # pf6 (fp6_e3m2; packers: block % 32 == 0), pf4 (fp4_e2m1; % 16), the fp16
 # container, emi8 (fp6_e3m2, any block), the side-band format (int2 +
-# fp4, any block), sb4 (int4; % 2) and sb2 (int2; % 4): the sm90 loop at 8
-# and 64 (sb4 also at 2, sb2 at 4), gemm_tile at 48 and 128 and for the
-# side-band format at block 8 with 8 slots. The compact NB format
+# fp4, any block), sb4 (int4; % 2), sb2 (int2; % 4), the int8 container
+# (kind "native", its decode) and the float8 containers (any block): the
+# sm90 loop at 8 and 64 (sb4 also at 2, sb2 at 4), gemm_tile at 48 and 128
+# (int8 and float8 at 2 and 48) and for the side-band format at block 8
+# with 8 slots. The compact NB format
 # (block 16) takes the sm90 loop at every budget its packer makes (up to
 # 16): it has no gemm_tile case here.
 ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
@@ -2456,6 +2477,11 @@ ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
                ("sb4", "int4", 8, 0), ("sb4", "int4", 64, 0),
                ("sb4", "int4", 48, 0), ("sb2", "int2", 4, 0),
                ("sb2", "int2", 64, 0), ("sb2", "int2", 48, 0))
+ROUTE_CASES += tuple((kind, fmt, block, 0)
+                     for kind, fmt in (("native", "int8"),
+                                       ("fp8_e4m3", "fp8_e4m3"),
+                                       ("fp8_e5m2", "fp8_e5m2"))
+                     for block in (8, 64, 2, 48))
 # the gemm_tile routes' kernel records: counter -> (source, TPU kernel line)
 ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_pf4_tile": ("dequant_matmul.cu", 71),
@@ -2463,7 +2489,10 @@ ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
                  "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111),
                  "dequant_matmul_emi8_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_sb4_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_sb2_tile": ("dequant_matmul.cu", 71)}
+                 "dequant_matmul_sb2_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_native_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_fp8_e4m3_tile": ("dequant_matmul.cu", 80),
+                 "dequant_matmul_fp8_e5m2_tile": ("dequant_matmul.cu", 80)}
 ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
               "library_ms", "rel_err")
 
@@ -2503,7 +2532,8 @@ def route_phase(card: str):
             dense = pk.dequantize_mx_outlier(p, dtype=torch.bfloat16)
             name = om.gemm_counter(block, budget)
         else:
-            transport = "native" if kind == "fp16" else kind
+            transport = ("native" if kind in ("fp16", "native", "fp8_e4m3",
+                                              "fp8_e5m2") else kind)
             p = pk.to_serving_layout(pk.pack_mx(
                 int_weight(fmt, (K, N), gen).float(), 8, fmt, block, axis=0,
                 transport=transport))

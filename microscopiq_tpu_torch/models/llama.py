@@ -8,8 +8,10 @@ KV cache, and ``last_only``/``logit_index`` logits. Linears hold a dense
 compact :class:`PackedOutlierNB`; packed ones run through the CUDA kernels
 (``use_kernels=True``, the counterpart of ``use_pallas``) or their plain twin.
 A decode step over a quantized cache goes through the fused flash-decode
-kernel (``ops/cuda/quant_attention.py``) where its layout allows, else through
-``cache.update``.
+kernel (``ops/cuda/quant_attention.py``) where the cache's layout allows and
+the kernel takes the geometry (``decode_route``: head_dim, query heads per
+KV head, gap, bits, V group, rank), else through ``cache.update``; the
+choice is the same on every device.
 
 Weights are a flax-named nested dict (``model/layers_{i}/self_attn/
 qkv_proj/kernel``, ``model/norm/scale``, ``lm_head/kernel``, ...), made by
@@ -39,7 +41,7 @@ from ..ops.cuda.outlier_matmul import (dequant_matmul_nb,
                                        dequant_matmul_nb_reference,
                                        dequant_matmul_outlier,
                                        dequant_matmul_outlier_reference)
-from ..ops.cuda.quant_attention import quant_attention_decode
+from ..ops.cuda.quant_attention import decode_route, quant_attention_decode
 from ..ops.packing import (PackedMX, PackedMXOutlier, PackedOutlierNB,
                            pack_mx, to_serving_layout)
 
@@ -193,9 +195,13 @@ class Attention(nn.Module):
                                            SlotQuantizedDecodeCache))
                     and cache.cfg.n_k_groups == 1
                     and cache.cfg.residual_len == 0
-                    and cache.cfg.out_k == 0):
-                # fused flash decode over the packed KV cache: the dense K/V
-                # of the chunks never exist in device memory
+                    and cache.cfg.out_k == 0
+                    and decode_route(hd, H // KVH, cache.cfg.gap,
+                                     cache.cfg.bits, cache.cfg.v_group,
+                                     cache.cfg.rank) == "fused"):
+                # fused flash decode over the packed KV cache, where the
+                # kernel takes the geometry: the dense K/V of the chunks
+                # never exist in device memory
                 full, new_len = cache.ingest_for_fused(layer_idx, k, v)
                 out = quant_attention_decode(q[:, 0], full, layer_idx,
                                              new_len, cache.cfg.v_group,

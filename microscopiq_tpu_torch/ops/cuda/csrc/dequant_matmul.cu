@@ -37,13 +37,14 @@
 //   in-range elements. 16-byte vector loads are used when N % 16 == 0 and
 //   K % 8 == 0, element loads otherwise.
 //
-// The pf6, pf4, sb4 and sb2 transports, the fp16 container and emi8 /
-// emi8m run on gemm_sm90.cuh's wgmma + TMA mainloop instead (gemm_dq_sm90),
-// at every MX block that divides its 64-deep K step and whose ring fits
-// (pf6: 16, 32, 64; pf4: 16, 32, 64; sb4: 2 to 64; sb2: 4 to 64; fp16: 8,
-// 16, 32, 64; emi8: 4, 8, 16, 32, 64); other blocks (48, 96, 128, ...) take
-// gemm_dq's tile loop, as do the int8, bf16 and float8 containers.
-// dequant_matmul.py::gemm_route chooses by block size before the launch
+// The pf6, pf4, sb4 and sb2 transports, the fp16 container, emi8 / emi8m,
+// the int8 container and the float8 containers run on gemm_sm90.cuh's
+// wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX block that
+// divides its 64-deep K step and whose ring fits (pf6: 16, 32, 64; pf4: 16,
+// 32, 64; sb4: 2 to 64; sb2: 4 to 64; fp16: 8, 16, 32, 64; emi8, int8 and
+// float8: 4, 8, 16, 32, 64); other blocks (48, 96, 128, ...) take gemm_dq's
+// tile loop, as does the bf16 container. dequant_matmul.py::gemm_route
+// chooses by block size before the launch
 // and passes the choice here. Each decoder reads the TMA-loaded raw copy of
 // a step's packed rows and exponents in shared memory and writes the bf16
 // B tile, every value being the twin's bf16 weight bit for bit:
@@ -57,8 +58,9 @@
 //   at most 2 significant bits times a power of two, exact in bf16;
 // - fp16: 32 of the step's 64 K rows of a column a thread, each code
 //   rounded to bf16 and then scaled, decode_half<kFp16>'s order;
-// - emi8: the same share, each byte's m̂ and 2^e' formed as f32 bits, their
-//   exact product times 2^(se - fold) as gemm_dq multiplies it;
+// - emi8, int8 and float8: the same share, each byte's value (emi8's m̂
+//   and 2^e' formed as f32 bits, int8's code, float8's pair convert) times
+//   2^(se - fold) as gemm_dq multiplies it;
 // - sb4 and sb2: pf4's share of packed rows (8 of sb2's 16 a thread), each
 //   field's integer code times 2^(se - fold) as gemm_dq multiplies it.
 // The wgmma k16 steps sum in gemm_dq's order.
@@ -72,18 +74,19 @@ namespace {
 using mxq::BTile;
 using mxq::exp2_i32;
 
+// gemm_dq's B-tile decode of K step k0 (32 rows) and the 128 columns from
+// n_blk on: thread t decodes row t / 8, 16 columns.
 template <int D>
-__global__ void __launch_bounds__(mxq::kGemmThreads)
-gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-        const int8_t* __restrict__ se, void* out, int M, int K, int N, int Kp,
-        int B, int mw, int ebits, int fold, int out_bf16) {
-  constexpr int F = mxq::fields<D>();
-  const bool nvec = (N % 16) == 0;
-  const int per = B / F;
-  // B tile: thread -> row tid/8, 16 columns
-  const int b_r = threadIdx.x >> 3, b_c = (threadIdx.x & 7) * 16;
-  const int n_blk = blockIdx.x * mxq::kGemmBN;
-  auto decode = [&](BTile Bs, int k0) {
+struct TileDec {
+  const int8_t* __restrict__ codes;
+  const int8_t* __restrict__ se;
+  int N, Kp, B, mw, ebits, fold, n_blk;
+
+  __device__ __forceinline__ void operator()(BTile Bs, int k0) const {
+    constexpr int F = mxq::fields<D>();
+    const bool nvec = (N % 16) == 0;
+    const int per = B / F;
+    const int b_r = threadIdx.x >> 3, b_c = (threadIdx.x & 7) * 16;
     const int gk = k0 + b_r;
     const int gn = n_blk + b_c;
     float w[16];
@@ -112,7 +115,16 @@ gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
     }
 #pragma unroll
     for (int j = 0; j < 16; ++j) Bs[b_r][b_c + j] = __float2bfloat16(w[j]);
-  };
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(mxq::kGemmThreads)
+gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
+        const int8_t* __restrict__ se, void* out, int M, int K, int N, int Kp,
+        int B, int mw, int ebits, int fold, int out_bf16) {
+  const TileDec<D> decode{codes, se, N, Kp, B, mw, ebits, fold,
+                          static_cast<int>(blockIdx.x) * mxq::kGemmBN};
   mxq::gemm_tile(x, out, M, K, N, Kp, out_bf16, decode);
 }
 
@@ -382,19 +394,29 @@ struct Fp16Sm90 : Sm90Raw<2, B, B> {
   }
 };
 
-// emi8 and emi8m: a decode thread owns 64 / DWG of a step's K rows in one
-// column, 8 at a time (Fp16Sm90's share), each byte's m̂ · 2^e'
-// (decode_emi8) times 2^(se - fold), clamped as exp2_i32. m̂ becomes an
-// f32 through the 1.5 · 2^23 bias (exact for |m̂| < 2^22, two full-rate
-// operations instead of a quarter-rate convert) and 2^e' is placed as
-// exponent bits (e' <= 2^(8 - mw) - 1 <= 127), so their product is
-// decode_emi8's integer m̂ · 2^e' converted, exactly (at most 7 significant
-// bits; the packers keep |m̂| · 2^e' < 2^31). Its product with the scale is
-// gemm_dq's single f32 multiply, so the B tile is gemm_tile's bit for bit.
+// The one-byte decodes: emi8 and emi8m, the int8 container and the float8
+// containers (fp8_e4m3, fp8_e5m2; fp6 and fp4 codes in float8_e4m3fn). A
+// decode thread owns 64 / DWG of a step's K rows in one column, 8 at a time
+// (Fp16Sm90's share), each byte's value times 2^(se - fold), clamped as
+// exp2_i32, in f32 and rounded once to bf16, as gemm_dq multiplies it, so
+// the B tile is gemm_tile's bit for bit:
+// - emi8: m̂ · 2^e' (decode_emi8). m̂ becomes an f32 through the 1.5 · 2^23
+//   bias (exact for |m̂| < 2^22, two full-rate operations instead of a
+//   quarter-rate convert) and 2^e' is placed as exponent bits (e' <=
+//   2^(8 - mw) - 1 <= 127), so their product is decode_emi8's integer
+//   m̂ · 2^e' converted, exactly (at most 7 significant bits; the packers
+//   keep |m̂| · 2^e' < 2^31);
+// - int8: emi8 with mw = 8, no exponent field: m̂ is the code (the bias is
+//   exact for |code| <= 128) and 2^e' is 1;
+// - float8: four pairs of K rows through common.cuh's decode_fp8, Hopper's
+//   paired float8 -> f16 convert, exact (every e4m3 and e5m2 value is an
+//   f16 value, NaN and inf included).
 // At B = 4 a chunk of 8 rows spans two blocks; B = 2's 12 KB raw step
 // leaves no 4-stage ring (dequant_matmul.py::_sm90_ring).
-template <int B>
-struct Emi8Sm90 : Sm90Raw<1, B, B> {
+template <int D, int B>
+struct ByteSm90 : Sm90Raw<1, B, B> {
+  static_assert(D == mxq::kEmi8 || D == mxq::kInt8 || mxq::is_fp8<D>(),
+                "emi8, int8 or float8 codes");
   static_assert(B == 4 || B == 8 || B == 16 || B == 32 || B == 64,
                 "block of 4, 8, 16, 32 or 64");
   using Raw = Sm90Raw<1, B, B>;
@@ -406,7 +428,7 @@ struct Emi8Sm90 : Sm90Raw<1, B, B> {
     constexpr int kN = Raw::kN, C = 8 / DWG;    // chunks of 8 rows a thread
     constexpr int R = B < 8 ? B : 8;            // rows under one scale
     const int col = t % kN, c0 = (t / kN) * C;
-    const int sh = 8 - this->mw, emask = (1 << sh) - 1;
+    [[maybe_unused]] const int sh = 8 - this->mw, emask = (1 << sh) - 1;
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       const int c = c0 + i;
@@ -414,15 +436,28 @@ struct Emi8Sm90 : Sm90Raw<1, B, B> {
 #pragma unroll
       for (int h = 0; h < 8 / R; ++h)
         sc[h] = mxq::exp2_i32(this->scale_exp(raw, (8 * c + h * R) / B, col));
+      int code[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) code[j] = raw[(8 * c + j) * kN + col];
+      float v[8];
+      if constexpr (mxq::is_fp8<D>()) {
+        mxq::decode_fp8<D, 8>(code, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if constexpr (D == mxq::kEmi8) {
+            const float m = __int_as_float(0x4B400000 + (code[j] >> sh))
+                            - 12582912.f;
+            const float p = __int_as_float(((code[j] & emask) + 127) << 23);
+            v[j] = m * p;
+          } else {
+            v[j] = __int_as_float(0x4B400000 + code[j]) - 12582912.f;
+          }
+        }
+      }
       float w[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int code = raw[(8 * c + j) * kN + col];
-        const float m = __int_as_float(0x4B400000 + (code >> sh))
-                        - 12582912.f;
-        const float p = __int_as_float(((code & emask) + 127) << 23);
-        w[j] = m * p * sc[j / R];
-      }
+      for (int j = 0; j < 8; ++j) w[j] = v[j] * sc[j / R];
       mxq::sm90::store_b_chunk(
           b, col, c,
           make_uint4(mxq::sm90::pack_bf16(w[0], w[1]),
@@ -432,6 +467,13 @@ struct Emi8Sm90 : Sm90Raw<1, B, B> {
     }
   }
 };
+
+template <int B>
+using Emi8Sm90 = ByteSm90<mxq::kEmi8, B>;
+template <int B>
+using Int8Sm90 = ByteSm90<mxq::kInt8, B>;
+template <int D, int B>
+using Fp8Sm90 = ByteSm90<D, B>;
 
 // sb4 and sb2: F sign-extended integer codes of 8 / F bits a byte (F = 2,
 // 4); K row j of a block sits in field j / R of packed row j % R, R = B / F
@@ -517,6 +559,12 @@ using Sb4Sm90 = SubbyteSm90<2, B>;
 template <int B>
 using Sb2Sm90 = SubbyteSm90<4, B>;
 
+// Named for a decode that has no sm90 decoder: using it fails to compile.
+template <int D>
+struct NoSm90Dec {
+  static_assert(D < 0, "no sm90 decoder for this decode");
+};
+
 template <int D, int B>
 using Sm90Dec = std::conditional_t<
     D == mxq::kPf6, Pf6Sm90<B>,
@@ -526,8 +574,15 @@ using Sm90Dec = std::conditional_t<
             D == mxq::kEmi8, Emi8Sm90<B>,
             std::conditional_t<
                 D == mxq::kSb4, Sb4Sm90<B>,
-                std::conditional_t<D == mxq::kSb2, Sb2Sm90<B>,
-                                   Fp16Sm90<B>>>>>>;
+                std::conditional_t<
+                    D == mxq::kSb2, Sb2Sm90<B>,
+                    std::conditional_t<
+                        D == mxq::kFp16, Fp16Sm90<B>,
+                        std::conditional_t<
+                            D == mxq::kInt8, Int8Sm90<B>,
+                            std::conditional_t<mxq::is_fp8<D>(),
+                                               Fp8Sm90<D, B>,
+                                               NoSm90Dec<D>>>>>>>>>;
 
 // grid: M tiles x N tiles of 256 x 128 (gemm_sm90.cuh); x (M, K) bf16 with
 // K % 8 == 0 through xmap.
@@ -540,9 +595,10 @@ gemm_dq_sm90(const __grid_constant__ CUtensorMap xmap,
              void* out, int M, int K, int N, int NB, int mw, int ebits,
              int fold, int out_bf16, int tma) {
   static_assert(D == mxq::kPf6 || D == mxq::kPf4 || D == mxq::kFp16
-                    || D == mxq::kEmi8 || D == mxq::kSb4 || D == mxq::kSb2,
-                "the sm90 mainloop decodes pf6, pf4, fp16, emi8, sb4 and "
-                "sb2");
+                    || D == mxq::kEmi8 || D == mxq::kSb4 || D == mxq::kSb2
+                    || D == mxq::kInt8 || mxq::is_fp8<D>(),
+                "the sm90 mainloop decodes pf6, pf4, fp16, emi8, sb4, sb2, "
+                "int8 and float8");
   using Dec = Sm90Dec<D, B>;
   Dec dec{{codes, se, &codes_map, &se_map, N, NB, mw, ebits, fold,
            tma != 0}};
@@ -575,17 +631,105 @@ int launch_sm90(const void* x, const int8_t* codes, const int8_t* se,
                                       tma);
 }
 
+// ---------------------------------------------------------------------------
+// Test hook: the B tile that a decode writes
+// ---------------------------------------------------------------------------
+// bits (Kp, N): the bf16 weight that the decode of a GEMM writes into its B
+// tile, as 16-bit patterns, K step by K step, one block a step and 128
+// columns; so two decoders can be held to each other where a product with
+// x cannot show them (x = I turns an inf or NaN weight into a NaN column).
+template <int D>
+__global__ void __launch_bounds__(mxq::kGemmThreads)
+b_tile_dq(const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
+          uint16_t* bits, int N, int Kp, int B, int mw, int ebits,
+          int fold) {
+  __shared__ __align__(128)
+      __nv_bfloat16 Bs[mxq::kGemmBK][mxq::kGemmBN + mxq::kGemmPad];
+  const int k0 = blockIdx.y * mxq::kGemmBK, n0 = blockIdx.x * mxq::kGemmBN;
+  const TileDec<D> decode{codes, se, N, Kp, B, mw, ebits, fold, n0};
+  decode(Bs, k0);
+  __syncthreads();
+  for (int i = threadIdx.x; i < mxq::kGemmBK * mxq::kGemmBN;
+       i += mxq::kGemmThreads) {
+    const int k = i / mxq::kGemmBN, n = i % mxq::kGemmBN;
+    if (k0 + k < Kp && n0 + n < N)
+      bits[static_cast<size_t>(k0 + k) * N + n0 + n] =
+          __bfloat16_as_ushort(Bs[k][n]);
+  }
+}
+
+template <int D, int B>
+__global__ void __launch_bounds__(128 * Sm90Dec<D, B>::kDwg)
+b_tile_sm90(const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
+            uint16_t* bits, int N, int NB, int mw, int ebits, int fold) {
+  using Dec = Sm90Dec<D, B>;
+  constexpr int kBK = mxq::sm90::kBK, kBN = mxq::sm90::kBN;
+  __shared__ __align__(128) int8_t raw[mxq::sm90::raw_pad(Dec::kRawBytes)];
+  __shared__ __align__(128) uint8_t b[mxq::sm90::kBBytes];
+  const Dec dec{{codes, se, nullptr, nullptr, N, NB, mw, ebits, fold,
+                 false}};
+  const int k0 = blockIdx.y * kBK, n0 = blockIdx.x * kBN, t = threadIdx.x;
+  dec.template copy<Dec::kDwg>(raw, k0, n0, t);
+  __syncthreads();
+  dec.template decode<Dec::kDwg>(raw, b, t);
+  __syncthreads();
+  for (int i = t; i < kBK * kBN; i += 128 * Dec::kDwg) {
+    const int k = i / kBN, n = i % kBN;
+    if (k0 + k < NB * B && n0 + n < N)
+      bits[static_cast<size_t>(k0 + k) * N + n0 + n] =
+          *reinterpret_cast<const uint16_t*>(
+              b + n * 128 + (((k >> 3) ^ (n & 7)) << 4) + (k & 7) * 2);
+  }
+}
+
 }  // namespace
+
+// Every (decode, block) that gemm_dq_sm90 is compiled for, as
+// MXQ_SM90(D, B);
+#define MXQ_SM90_KERNELS(MXQ_SM90)                                          \
+  MXQ_SM90(mxq::kPf6, 16); MXQ_SM90(mxq::kPf6, 32); MXQ_SM90(mxq::kPf6, 64); \
+  MXQ_SM90(mxq::kPf4, 16); MXQ_SM90(mxq::kPf4, 32); MXQ_SM90(mxq::kPf4, 64); \
+  MXQ_SM90(mxq::kFp16, 8); MXQ_SM90(mxq::kFp16, 16);                        \
+  MXQ_SM90(mxq::kFp16, 32); MXQ_SM90(mxq::kFp16, 64);                       \
+  MXQ_SM90(mxq::kEmi8, 4); MXQ_SM90(mxq::kEmi8, 8);                         \
+  MXQ_SM90(mxq::kEmi8, 16); MXQ_SM90(mxq::kEmi8, 32);                       \
+  MXQ_SM90(mxq::kEmi8, 64);                                                \
+  MXQ_SM90(mxq::kSb4, 2); MXQ_SM90(mxq::kSb4, 4); MXQ_SM90(mxq::kSb4, 8);    \
+  MXQ_SM90(mxq::kSb4, 16); MXQ_SM90(mxq::kSb4, 32);                         \
+  MXQ_SM90(mxq::kSb4, 64);                                                 \
+  MXQ_SM90(mxq::kSb2, 4); MXQ_SM90(mxq::kSb2, 8); MXQ_SM90(mxq::kSb2, 16);  \
+  MXQ_SM90(mxq::kSb2, 32); MXQ_SM90(mxq::kSb2, 64);                         \
+  MXQ_SM90(mxq::kInt8, 4); MXQ_SM90(mxq::kInt8, 8);                         \
+  MXQ_SM90(mxq::kInt8, 16); MXQ_SM90(mxq::kInt8, 32);                       \
+  MXQ_SM90(mxq::kInt8, 64);                                                \
+  MXQ_SM90(mxq::kFp8E4m3, 4); MXQ_SM90(mxq::kFp8E4m3, 8);                   \
+  MXQ_SM90(mxq::kFp8E4m3, 16); MXQ_SM90(mxq::kFp8E4m3, 32);                 \
+  MXQ_SM90(mxq::kFp8E4m3, 64);                                             \
+  MXQ_SM90(mxq::kFp8E5m2, 4); MXQ_SM90(mxq::kFp8E5m2, 8);                   \
+  MXQ_SM90(mxq::kFp8E5m2, 16); MXQ_SM90(mxq::kFp8E5m2, 32);                 \
+  MXQ_SM90(mxq::kFp8E5m2, 64)
+// Every decode that gemm_dq is compiled for, as MXQ_GEMM(D) in a switch.
+#define MXQ_GEMM_DECODES(MXQ_GEMM)                                         \
+  case mxq::kEmi8: MXQ_GEMM(mxq::kEmi8); break;                            \
+  case mxq::kInt8: MXQ_GEMM(mxq::kInt8); break;                            \
+  case mxq::kSb4: MXQ_GEMM(mxq::kSb4); break;                              \
+  case mxq::kSb2: MXQ_GEMM(mxq::kSb2); break;                              \
+  case mxq::kPf4: MXQ_GEMM(mxq::kPf4); break;                              \
+  case mxq::kPf6: MXQ_GEMM(mxq::kPf6); break;                              \
+  case mxq::kBf16: MXQ_GEMM(mxq::kBf16); break;                            \
+  case mxq::kFp16: MXQ_GEMM(mxq::kFp16); break;                            \
+  case mxq::kFp8E4m3: MXQ_GEMM(mxq::kFp8E4m3); break;                      \
+  case mxq::kFp8E5m2: MXQ_GEMM(mxq::kFp8E5m2); break
 
 // x: (M, K) bf16; codes: (NB, rows, N) in the transport's container, with
 // Kp = NB * B >= K; se: (NB, N) int8; out: (M, N) bf16 or f32; decode: an
 // mxq::Decode; sm90: the route that dequant_matmul.py::gemm_route chose,
 // 1 for gemm_dq_sm90 (pf6 and pf4 at B = 16, 32, 64; fp16 at B = 8, 16,
-// 32, 64; emi8 at B = 4, 8, 16, 32, 64; sb4 at B = 2 to 64; sb2 at B = 4
-// to 64; x with K % 8 == 0, 16-byte aligned), 0 for gemm_dq (every decode,
-// any B). Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for an unknown decode or an sm90 decode and block
-// with no kernel).
+// 32, 64; emi8, int8 and float8 at B = 4, 8, 16, 32, 64; sb4 at B = 2 to
+// 64; sb2 at B = 4 to 64; x with K % 8 == 0, 16-byte aligned), 0 for
+// gemm_dq (every decode, any B). Returns the cudaError_t of the launch (0
+// on success; cudaErrorInvalidValue for an unknown decode or an sm90
+// decode and block with no kernel).
 extern "C" int dequant_matmul(const void* x, const void* codes,
                               const void* se, void* out, int M, int K, int N,
                               int Kp, int B, int decode, int mw, int ebits,
@@ -601,18 +745,7 @@ extern "C" int dequant_matmul(const void* x, const void* codes,
   if (decode == D && B == BS)                                              \
   return launch_sm90<D, BS>(x, cp, sp, out, M, K, N, Kp / B, mw, ebits,    \
                             fold, out_bf16, st)
-    MXQ_SM90(mxq::kPf6, 16); MXQ_SM90(mxq::kPf6, 32); MXQ_SM90(mxq::kPf6, 64);
-    MXQ_SM90(mxq::kPf4, 16); MXQ_SM90(mxq::kPf4, 32); MXQ_SM90(mxq::kPf4, 64);
-    MXQ_SM90(mxq::kFp16, 8); MXQ_SM90(mxq::kFp16, 16);
-    MXQ_SM90(mxq::kFp16, 32); MXQ_SM90(mxq::kFp16, 64);
-    MXQ_SM90(mxq::kEmi8, 4); MXQ_SM90(mxq::kEmi8, 8);
-    MXQ_SM90(mxq::kEmi8, 16); MXQ_SM90(mxq::kEmi8, 32);
-    MXQ_SM90(mxq::kEmi8, 64);
-    MXQ_SM90(mxq::kSb4, 2); MXQ_SM90(mxq::kSb4, 4); MXQ_SM90(mxq::kSb4, 8);
-    MXQ_SM90(mxq::kSb4, 16); MXQ_SM90(mxq::kSb4, 32);
-    MXQ_SM90(mxq::kSb4, 64);
-    MXQ_SM90(mxq::kSb2, 4); MXQ_SM90(mxq::kSb2, 8); MXQ_SM90(mxq::kSb2, 16);
-    MXQ_SM90(mxq::kSb2, 32); MXQ_SM90(mxq::kSb2, 64);
+    MXQ_SM90_KERNELS(MXQ_SM90);
 #undef MXQ_SM90
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -621,16 +754,42 @@ extern "C" int dequant_matmul(const void* x, const void* codes,
                                                  Kp, B, mw, ebits, fold,  \
                                                  out_bf16)
   switch (decode) {
-    case mxq::kEmi8: MXQ_GEMM(mxq::kEmi8); break;
-    case mxq::kInt8: MXQ_GEMM(mxq::kInt8); break;
-    case mxq::kSb4: MXQ_GEMM(mxq::kSb4); break;
-    case mxq::kSb2: MXQ_GEMM(mxq::kSb2); break;
-    case mxq::kPf4: MXQ_GEMM(mxq::kPf4); break;
-    case mxq::kPf6: MXQ_GEMM(mxq::kPf6); break;
-    case mxq::kBf16: MXQ_GEMM(mxq::kBf16); break;
-    case mxq::kFp16: MXQ_GEMM(mxq::kFp16); break;
-    case mxq::kFp8E4m3: MXQ_GEMM(mxq::kFp8E4m3); break;
-    case mxq::kFp8E5m2: MXQ_GEMM(mxq::kFp8E5m2); break;
+    MXQ_GEMM_DECODES(MXQ_GEMM);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MXQ_GEMM
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The test hook's entry: bits (Kp, N) uint16 from the decode of the GEMM
+// that sm90 names (1: gemm_dq_sm90's decoder, 0: gemm_dq's), on the
+// operands of dequant_matmul. Returns the cudaError_t of the launch.
+extern "C" int dequant_b_tile(const void* codes, const void* se, void* bits,
+                              int N, int Kp, int B, int decode, int mw,
+                              int ebits, int fold, int sm90, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* cp = static_cast<const int8_t*>(codes);
+  const auto* sp = static_cast<const int8_t*>(se);
+  auto* out = static_cast<uint16_t*>(bits);
+  const int n_tiles = (N + mxq::kGemmBN - 1) / mxq::kGemmBN;
+  if (sm90) {
+    const dim3 grid(n_tiles, (Kp + mxq::sm90::kBK - 1) / mxq::sm90::kBK);
+#define MXQ_SM90(D, BS)                                                    \
+  if (decode == D && B == BS) {                                            \
+    b_tile_sm90<D, BS><<<grid, 128 * Sm90Dec<D, BS>::kDwg, 0, st>>>(       \
+        cp, sp, out, N, Kp / B, mw, ebits, fold);                          \
+    return static_cast<int>(cudaGetLastError());                           \
+  }
+    MXQ_SM90_KERNELS(MXQ_SM90);
+#undef MXQ_SM90
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n_tiles, (Kp + mxq::kGemmBK - 1) / mxq::kGemmBK);
+#define MXQ_GEMM(D)                                                      \
+  b_tile_dq<D><<<grid, mxq::kGemmThreads, 0, st>>>(cp, sp, out, N, Kp, B, \
+                                                   mw, ebits, fold)
+  switch (decode) {
+    MXQ_GEMM_DECODES(MXQ_GEMM);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MXQ_GEMM

@@ -4,17 +4,18 @@
 //
 // It serves the GEMMs of three TPU kernels' paths:
 // - microscopiq_tpu/ops/pallas/dequant_matmul.py::_dq_matmul_kernel above
-//   64 tokens: emi8/emi8m, and the pf6, pf4, sb4 and sb2 transports and
-//   the fp16 container (which the JAX package sends to XLA's
-//   dequantize-then-dot), at every MX block that divides the 64-deep K
-//   step and whose ring fits: dequant_matmul.cu's gemm_dq_sm90;
+//   64 tokens: emi8/emi8m, the int8 container and the float8 containers
+//   (serving-layout and 2-D native2d codes), and the pf6, pf4, sb4 and sb2
+//   transports and the fp16 container (which the JAX package sends to
+//   XLA's dequantize-then-dot), at every MX block that divides the 64-deep
+//   K step and whose ring fits: dequant_matmul.cu's gemm_dq_sm90;
 // - ::_dq_matmul_outlier_kernel, the side-band PackedMXOutlier from 256
 //   tokens on (JAX: XLA), at blocks of 8 to 64: outlier_matmul.cu's
 //   outlier_gemm_sm90;
 // - ::_nb_kernel, the compact PackedOutlierNB from 256 tokens on (JAX:
 //   XLA), up to 16 slots: nb_matmul.cu's nb_gemm_sm90.
-// Every other GEMM (the int8, bf16 and float8 containers), and these
-// transports at other blocks, stay on common.cuh's gemm_tile.
+// The bf16 container's GEMM, and these transports at other blocks, stay on
+// common.cuh's gemm_tile.
 //
 // What bounds it on the H100: operations. At M = 1024 each weight byte
 // feeds ~1000 flops, far above the ~295 flop/byte balance point, so the

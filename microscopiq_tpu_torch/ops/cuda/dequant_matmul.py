@@ -6,11 +6,11 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 ``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
-the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, sb4, sb2, the fp16
-container and emi8/emi8m on the wgmma + TMA mainloop of
+the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, sb4, sb2, the fp16,
+int8 and float8 containers and emi8/emi8m on the wgmma + TMA mainloop of
 ``csrc/gemm_sm90.cuh`` at the blocks that :func:`gemm_route` gives them,
-whose host-side plan is :func:`sm90_plan`; their other blocks and the
-int8, bf16 and float8 containers on ``csrc/common.cuh``'s ``gemm_tile``).
+whose host-side plan is :func:`sm90_plan`; their other blocks and the bf16
+container on ``csrc/common.cuh``'s ``gemm_tile``).
 Both
 take every transport that the TPU kernels decode: emi8 and emi8m, the int8
 container (pre-blocked or 2-D, which reaches the serving layout by a view),
@@ -64,10 +64,14 @@ NB_BLOCK = 16                     # the compact NB transport's one block
 # the GEMMs with a decoder on that mainloop -> the MX blocks it is compiled
 # for (those that divide the 64-deep K step and whose ring fits; pf6 at 16
 # is one that no packer makes); "fp16" is the fp16 container, "emi8" emi8
-# and emi8m, "sideband" the PackedMXOutlier GEMM and "nb" the compact
-# PackedOutlierNB GEMM (block 16 only) of outlier_matmul.py
+# and emi8m, "native" the int8 container, "fp8_e4m3" and "fp8_e5m2" the
+# float8 containers, "sideband" the PackedMXOutlier GEMM and "nb" the
+# compact PackedOutlierNB GEMM (block 16 only) of outlier_matmul.py
+_BYTE_BLOCKS = (4, 8, 16, 32, 64)
 SM90_BLOCKS = {"pf6": (16, 32, 64), "pf4": (16, 32, 64),
-               "fp16": (8, 16, 32, 64), "emi8": (4, 8, 16, 32, 64),
+               "fp16": (8, 16, 32, 64), "emi8": _BYTE_BLOCKS,
+               "native": _BYTE_BLOCKS, "fp8_e4m3": _BYTE_BLOCKS,
+               "fp8_e5m2": _BYTE_BLOCKS,
                "sb4": (2, 4, 8, 16, 32, 64), "sb2": (4, 8, 16, 32, 64),
                "sideband": (8, 16, 32, 64), "nb": (NB_BLOCK,)}
 MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
@@ -76,7 +80,8 @@ NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
 # after. dequant_matmul_<decode> counts the GEMM that gemm_route gives the
-# default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16 and emi8), and
+# default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16, emi8, the int8
+# container and float8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
 launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
@@ -98,9 +103,9 @@ def _sm90_ring(kind: str, block: int, budget: int):
     """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
     for ``kind`` at ``block`` (and ``budget`` slots), mirroring its
     decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``Emi8Sm90``,
-    ``Sb4Sm90``, ``Sb2Sm90``, ``SidebandSm90``, ``NbSm90``); None where no
-    such kernel is compiled
-    or its ring would not fit. Raises ValueError for a budget that no
+    ``Int8Sm90``, ``Fp8Sm90``, ``Sb4Sm90``, ``Sb2Sm90``, ``SidebandSm90``,
+    ``NbSm90``); None where no such kernel is compiled or its ring would
+    not fit. Raises ValueError for a budget that no
     kernel takes."""
     if kind == "sideband" and not 0 <= budget <= MAX_OUTLIER_BUDGET:
         raise ValueError(f"budget {budget} > {MAX_OUTLIER_BUDGET}")
@@ -120,7 +125,7 @@ def _sm90_ring(kind: str, block: int, budget: int):
         fits = _ring_bytes(4, raw, 3) <= SM90_MAX_SMEM
         return (slots, 4, 3, raw) if fits else None
 
-    if kind == "emi8":                    # one byte a K row
+    if kind in ("emi8", "native", "fp8_e4m3", "fp8_e5m2"):   # a byte a row
         return four_stages(0, (BK + nblk) * BN)
     if kind == "nb":
         # the 8 N-blocks of a tile, 64 K columns: 32 code rows, se, seo,
@@ -146,9 +151,10 @@ def sm90_plan(kind: str, K: int, N: int, block: int,
               budget: int = 0) -> dict:
     """Host-side plan of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) for a
     ``"pf6"``, ``"pf4"``, ``"sb4"``, ``"sb2"``, ``"fp16"`` (container),
-    ``"emi8"`` (emi8, emi8m), ``"sideband"`` or ``"nb"`` weight of K rows and N columns (output
-    columns) in blocks of ``block`` with ``budget`` outlier slots,
-    mirroring the kernels' ``Ring`` and decoder sizes: the tile, the ring's
+    ``"emi8"`` (emi8, emi8m), ``"native"`` (the int8 container),
+    ``"fp8_e4m3"``, ``"fp8_e5m2"`` (float8 containers), ``"sideband"`` or
+    ``"nb"`` weight of K rows and N columns (output columns) in blocks of
+    ``block`` with ``budget`` outlier slots, mirroring the kernels' ``Ring`` and decoder sizes: the tile, the ring's
     stages and raw buffers, the outlier slots read, one step's raw weight
     bytes, the dynamic shared memory, whether the raw operands come by TMA
     (rows of a multiple of 16 bytes: N % 16 == 0, for the (N, K) NB weight
@@ -180,11 +186,13 @@ def gemm_route(kind: str, block: int, budget: int = 0) -> str:
     for pf6 and pf4 at blocks 16, 32 and 64, sb4 at 2, 4, 8, 16, 32 and
     64, sb2 at 4, 8, 16, 32 and 64, the fp16 container and the side-band
     format at 8, 16, 32 and 64 (not the side-band format at 8 with more
-    than 4 slots, whose ring does not fit), emi8/emi8m at 4, 8, 16, 32 and
-    64, and the compact NB format (block 16) with up to 16 slots; else
-    ``"tile"``, common.cuh's ``gemm_tile``, which takes every block and
-    budget, and every other decode (the int8, bf16 and float8
-    containers). Chosen from the weight alone, before the launch.
+    than 4 slots, whose ring does not fit), emi8/emi8m, the int8
+    container (``"native"``) and the float8 containers (``"fp8_e4m3"``,
+    ``"fp8_e5m2"``) at 4, 8, 16, 32 and 64, and the compact NB format
+    (block 16) with up to 16 slots; else ``"tile"``, common.cuh's
+    ``gemm_tile``, which takes every block and budget, and every other
+    decode (the bf16 container). Chosen from the weight alone, before the
+    launch.
     Raises ValueError for a side-band budget above 8."""
     return "sm90" if _sm90_ring(kind, block, budget) is not None else "tile"
 
@@ -219,7 +227,9 @@ _ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 11
             "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 11
                                + [_ptr]),
             "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 9
-                                + [_ptr])}
+                                + [_ptr]),
+            "dequant_b_tile": ("dequant_matmul", [_ptr] * 3 + [_int] * 8
+                               + [_ptr])}
 
 
 def _kernel(name: str):
@@ -373,6 +383,32 @@ def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
     build.check(err, counter)
     launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))
+
+
+def decoded_b_tile(w: pk.PackedMX, route: str) -> torch.Tensor:
+    """The bf16 weight (K, N) that the decode of the GEMM on ``route``
+    (``"sm90"`` or ``"tile"``) writes into its B tile, as int16 bit
+    patterns: a test hook that holds two decoders to each other bit for
+    bit, NaN and inf codes included, where a product with x cannot show
+    them (x = I turns an inf weight into a NaN column). No model path calls
+    it, and it counts no launch. Rows 0..K-1; on the CPU the twin's
+    dequantized bf16 weight."""
+    if w.codes.device.type == "cpu":
+        return pk.dequantize_mx(w, dtype=torch.bfloat16).view(torch.int16)
+    x = torch.empty((1, w.orig_dim), device=w.codes.device)
+    _, ww, decode, fold, mw, ebits = _operands(x, w, torch.float32)
+    if route == "sm90" and gemm_route(decode, ww.block_size) != "sm90":
+        raise ValueError(f"no sm90 {decode} GEMM takes block "
+                         f"{ww.block_size}")
+    NB, _, N = ww.codes.shape
+    bits = torch.empty((NB * ww.block_size, N), dtype=torch.int16,
+                       device=x.device)
+    err = _kernel("dequant_b_tile")(
+        ww.codes.data_ptr(), ww.scale_exp.data_ptr(), bits.data_ptr(), N,
+        NB * ww.block_size, ww.block_size, _DECODES[decode], mw, ebits, fold,
+        int(route == "sm90"), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"dequant_b_tile_{decode}")
+    return bits[:w.orig_dim]
 
 
 def dequant_matmul(x: torch.Tensor, w: pk.PackedMX,

@@ -16,8 +16,7 @@ Tensors on a CUDA device go to the kernel or raise: there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +30,7 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_REP = 16
 MAX_SMEM_BYTES = 227 * 1024
+_WARPS = 4                        # kWarps: a block of 128 threads
 # one chunk per block up to 512 / KVH chunks: at the Llama-3-8B shape (KVH =
 # 8, C = 51) that is 51 * 8 * B blocks
 _TARGET_SPLITS_X_KVH = 512
@@ -49,13 +49,56 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _smem_bytes(rep: int, hd: int, gap: int, Gh: int, rank: int) -> int:
-    """Shared memory of one kernel block, as the kernel lays it out."""
-    fn = build.load("quant_attention").quant_attention_smem_bytes
-    fn.argtypes = [_int] * 5
-    fn.restype = _int
-    return fn(rep, hd, gap, Gh, rank)
+def smem_bytes(rep: int, hd: int, gap: int, Gh: int, rank: int) -> int:
+    """Shared memory of one kernel block, in bytes: ``Smem`` of
+    ``csrc/quant_attention.cu`` (f32 arrays, each on a 16-byte boundary),
+    mirrored here so that the route is chosen on any device; the card tests
+    hold it to the kernel's ``quant_attention_smem_bytes``."""
+    up = lambda n: (n + 3) & ~3                   # noqa: E731
+    krep = next((b for b in (1, 2, 4, 8) if rep <= b), 16)   # rep_bucket
+    k = up(rep * hd)                              # after the query rows
+    p = up(k + max(gap * (hd + 1), _WARPS * rep * hd))
+    pt = up(p + rep * gap)
+    vsm = up(pt + gap * krep)
+    lk = up(vsm + 2 * gap * Gh)
+    lv = up(lk + rank * gap)
+    pl = up(lv + rank * gap)
+    m = up(pl + rep * rank)
+    return (m + 3 * rep) * 4                      # m, l and the rescales
+
+
+def _geometry_fault(hd: int, rep: int, gap: int, bits: int, Gh: int,
+                    rank: int) -> Optional[str]:
+    """Why the kernel does not take this geometry, or None."""
+    if hd % 32 or not 32 <= hd <= MAX_HEAD_DIM:
+        return f"head_dim {hd} is not a multiple of 32 up to {MAX_HEAD_DIM}"
+    max_rep = MAX_REP if hd <= 128 else MAX_REP // 2
+    if rep > max_rep:
+        return (f"{rep} query heads per KV head exceed {max_rep} at "
+                f"head_dim {hd}")
+    if bits not in _BITS_OF_PER.values() or gap % _per(bits):
+        return f"bits {bits} with gap {gap}"
+    if Gh < 1 or hd % Gh:
+        return f"{Gh} V groups do not divide head_dim {hd}"
+    smem = smem_bytes(rep, hd, gap, Gh, rank)
+    if smem > MAX_SMEM_BYTES:
+        return (f"gap {gap} x head_dim {hd} needs {smem} bytes of shared "
+                f"memory, over {MAX_SMEM_BYTES}")
+    return None
+
+
+def decode_route(hd: int, rep: int, gap: int, bits: int, v_group: int,
+                 rank: int = 0) -> str:
+    """The decode attention of a quantized KV cache of this geometry:
+    ``"fused"``, the kernel (:func:`quant_attention_decode`), where it
+    takes the head_dim ``hd``, ``rep`` query heads per KV head, the
+    cache's gap, bits, V group and low-rank rank; else ``"update"``,
+    ``cache.update`` and the model's own attention. Chosen from the config
+    and shapes alone, before the launch, the same on every device; the
+    kernel's operand checks share its limits."""
+    Gh = hd // min(v_group, hd)
+    fault = _geometry_fault(hd, rep, gap, bits, Gh, rank)
+    return "fused" if fault is None else "update"
 
 
 def chunk_splits(C: int, KVH: int) -> Tuple[int, int]:
@@ -113,15 +156,11 @@ def _check_operands(q, kq, kmn, ksc, vq, vmn, vsc, nfull, gap, bits,
     B, KVH, rep, hd = q.shape
     if q.dtype != torch.bfloat16:
         raise ValueError(f"q must be bf16, got {q.dtype}")
-    if hd % 32 or not 32 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} is not a multiple of 32 up to "
-                         f"{MAX_HEAD_DIM}")
-    max_rep = MAX_REP if hd <= 128 else MAX_REP // 2
-    if rep > max_rep:
-        raise ValueError(f"{rep} query heads per KV head exceed {max_rep} "
-                         f"at head_dim {hd}")
-    if bits not in (2, 4, 8) or gap % _per(bits):
-        raise ValueError(f"bits {bits} with gap {gap}")
+    Gh = vsc.shape[-1]
+    rank = 0 if lowrank is None else lowrank[0].shape[-2]
+    fault = _geometry_fault(hd, rep, gap, bits, Gh, rank)
+    if fault is not None:
+        raise ValueError(fault)
     C = kq.shape[2]
     codes = (B, KVH, C, gap // _per(bits), hd)
     for name, t in (("kq", kq), ("vq", vq)):
@@ -132,12 +171,11 @@ def _check_operands(q, kq, kmn, ksc, vq, vmn, vsc, nfull, gap, bits,
         if t.dtype != torch.float32 or tuple(t.shape) != (B, KVH, C, hd):
             raise ValueError(f"{name} must be f32 {(B, KVH, C, hd)} (one K "
                              f"group per chunk), got {tuple(t.shape)}")
-    Gh = vsc.shape[-1]
     for name, t in (("v_mn", vmn), ("v_sc", vsc)):
         if (t.dtype != torch.float32
-                or tuple(t.shape) != (B, KVH, C, gap, Gh) or hd % Gh):
-            raise ValueError(f"{name} must be f32 (B, KVH, C, gap, Gh) with "
-                             f"Gh dividing hd, got {tuple(t.shape)}")
+                or tuple(t.shape) != (B, KVH, C, gap, Gh)):
+            raise ValueError(f"{name} must be f32 (B, KVH, C, gap, Gh), got "
+                             f"{tuple(t.shape)}")
     if nfull.dtype != torch.int32 or tuple(nfull.shape) != (B,):
         raise ValueError("nfull must be a (B,) int32 tensor")
     # the kernel loads codes as 4-byte words and K scales as 16-byte vectors
@@ -145,11 +183,6 @@ def _check_operands(q, kq, kmn, ksc, vq, vmn, vsc, nfull, gap, bits,
             or ksc.data_ptr() % 16:
         raise ValueError("kq, vq must be 4-byte and k_mn, k_sc 16-byte "
                          "aligned")
-    rank = 0 if lowrank is None else lowrank[0].shape[-2]
-    smem = _smem_bytes(rep, hd, gap, Gh, rank)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"gap {gap} x head_dim {hd} needs {smem} bytes of "
-                         f"shared memory, over {MAX_SMEM_BYTES}")
     if lowrank is None:
         return 0, 0
     kp, kqb, vp, vqb = lowrank

@@ -2,8 +2,9 @@
 
     python -m microscopiq_tpu_torch.scripts.shipped_digests
 
-Packs a seeded (512, 384) weight in each decode that ``csrc/common.cuh``
-had before the float8 decodes joined it, and in the compact NB format
+Packs a seeded (512, 384) weight in each decode of ``csrc/common.cuh``
+(the float8 containers as fp8_e4m3, fp8_e5m2 and fp6 codes in
+``float8_e4m3fn``), and in the compact NB format
 (int2 + fp4, block 16, budget 2), runs the GEMV (M = 8) and the GEMM
 (M = 300: ``dequant_gemm``, ``dequant_gemm_nb``) on seeded x, and prints
 one JSON object: {decode: {"gemv": sha256, "gemm": sha256}} (the first 16
@@ -12,12 +13,12 @@ into the older one) and compare the lines: equal lines show that an edit of
 the shared decode left every shipped decode's outputs bit for bit as they
 were. The digests depend on the build, so they are compared, never pinned.
 
-The GEMMs digested here run on two loops: the sb4, sb2, pf4, pf6, fp16 and
-emi8 lines' (and the NB line's) on the wgmma + TMA mainloop of
-``csrc/gemm_sm90.cuh`` at these blocks (``dequant_matmul.gemm_route``), the
-int8-container and bf16 lines' on ``csrc/common.cuh``'s ``gemm_tile``. A
-line that stays equal across a move from one loop to the other shows the
-new loop's B tile and K order to be the old one's.
+The GEMMs digested here run on two loops: every line's but bf16's (the NB
+line's too) on the wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` at these
+blocks (``dequant_matmul.gemm_route``), the bf16 line's on
+``csrc/common.cuh``'s ``gemm_tile``. A line that stays equal across a move
+from one loop to the other shows the new loop's B tile and K order to be
+the old one's.
 """
 
 from __future__ import annotations
@@ -36,14 +37,15 @@ from ..ops.cuda import dequant_matmul as dm
 from ..ops.cuda import outlier_matmul as om
 from ..ops.outlier import quantize_mx_outlier_hessian_decisions
 
-# (format, transport, block, weight scale): the decodes before float8; the
-# bfloat16 weights are N(0, 64) so that no block exponent clamps at -127
+# (format, transport, block, weight scale); the bfloat16 weights are
+# N(0, 64) so that no block exponent clamps at -127
 DECODES = (("int4", "sb4", 32, 1.0), ("int2", "sb2", 16, 1.0),
            ("int8", "native", 32, 1.0), ("int2", "native", 32, 1.0),
            ("fp4_e2m1", "pf4", 32, 1.0), ("fp6_e3m2", "pf6", 32, 1.0),
            ("fp6_e2m3", "pf6", 32, 1.0), ("bfloat16", "native", 32, 8.0),
            ("fp16", "native", 16, 1.0), ("fp6_e3m2", "emi8", 16, 1.0),
-           ("fp6_e3m2", "emi8", 32, 1.0))
+           ("fp6_e3m2", "emi8", 32, 1.0), ("fp8_e4m3", "native", 32, 1.0),
+           ("fp8_e5m2", "native", 32, 1.0), ("fp6_e3m2", "native", 32, 1.0))
 
 
 def _case(fmt: str, transport: str, bs: int, scale: float, dev):

@@ -235,12 +235,14 @@ def test_native2d_codes_go_to_the_kernel_by_a_view(cuda, M):
 
 @pytest.mark.parametrize("fmt,decode", [("fp8_e4m3", "fp8_e4m3"),
                                         ("fp8_e5m2", "fp8_e5m2"),
-                                        ("fp6_e3m2", "fp8_e4m3")])
+                                        ("fp6_e3m2", "fp8_e4m3"),
+                                        ("int8", "native")])
 @pytest.mark.parametrize("M", [4, 300])
 def test_native2d_float8_codes_go_to_the_kernel_by_a_view(cuda, fmt, decode,
                                                          M):
-    """2-D float8 codes (the TPU kernel's native2d branch) reach the
-    serving-layout kernels by a view, as 2-D int8 codes do."""
+    """2-D float8 and int8 codes (the TPU kernel's native2d branch) reach
+    the serving-layout kernels by a view; above 64 rows the GEMM on the
+    sm90 loop (block 32), none on gemm_tile."""
     w = _packed_as(200, 130, fmt, "native", 32, 1.0, M, cuda, serving=False)
     assert w.codes.ndim == 2
     x = _x(M, 200, 7, cuda)
@@ -248,6 +250,8 @@ def test_native2d_float8_codes_go_to_the_kernel_by_a_view(cuda, fmt, decode,
     got = dm.dequant_matmul(x, w)
     kind = "gemv" if M <= 64 else "matmul"
     assert dm.launch_counts[f"dequant_{kind}_{decode}"] == 1
+    assert sum(dm.launch_counts.values()) == 1
+    assert dm.gemm_route(decode, 32) == "sm90"
     assert torch.equal(got, dm.dequant_matmul(x, tpk.to_serving_layout(w)))
     assert _rel(got, dm.dequant_matmul_reference(x, w)) < (
         1e-5 if M <= 64 else 2e-3)
@@ -448,6 +452,73 @@ def test_quant_attention_wrapper_checks_operands(cuda):
         call(ops[:2] + [ops[2][:, :, :, None].expand(-1, -1, -1, 2, -1)
                         .contiguous()] + ops[3:])
 
+
+
+def test_quant_attention_smem_mirror_is_the_kernel_s(cuda):
+    """decode_route's shared-memory count is the kernel's own
+    (quant_attention_smem_bytes) at every geometry it may be asked."""
+    from microscopiq_tpu_torch.ops.cuda import build
+
+    fn = build.load("quant_attention").quant_attention_smem_bytes
+    for rep in range(1, 17):
+        for hd in range(32, 257, 32):
+            for gap in (8, 64, 256, 1024):
+                for Gh in (1, hd // 8):
+                    for rank in (0, 1, 4):
+                        assert qa.smem_bytes(rep, hd, gap, Gh, rank) == fn(
+                            rep, hd, gap, Gh, rank), (rep, hd, gap, Gh, rank)
+
+
+def _tiny_tree(cfg, seed, device):
+    """Unfused float32 weights, kernels N(0, 1/K) so that greedy logits
+    are well apart."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    k = lambda K, N: {"kernel": torch.randn(  # noqa: E731
+        (K, N), generator=g, device=device) / K ** 0.5}
+    one = lambda: {"scale": torch.ones(D, device=device)}   # noqa: E731
+    m = {"embed_tokens": torch.randn((V, D), generator=g, device=device)}
+    for i in range(cfg.num_hidden_layers):
+        m[f"layers_{i}"] = {
+            "self_attn": {"q_proj": k(D, H * hd), "k_proj": k(D, KVH * hd),
+                          "v_proj": k(D, KVH * hd), "o_proj": k(H * hd, D)},
+            "mlp": {"gate_proj": k(D, I), "up_proj": k(D, I),
+                    "down_proj": k(I, D)},
+            "input_layernorm": one(), "post_attention_layernorm": one()}
+    m["norm"] = one()
+    return {"model": m, "lm_head": k(D, V)}
+
+
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_tiny_quant_cache_decodes_on_its_route(cuda, hidden):
+    """LlamaConfig.tiny (head_dim 16), whose geometry the kernel does not
+    take, decodes over the quantized cache through cache.update; at
+    hidden 128 (head_dim 32) through the fused kernel. The greedy tokens
+    equal use_kernels=False's."""
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=hidden, dtype=torch.float32)
+    qcfg = QuantKVConfig(bits=4, gap=8, v_group=8)
+    route = qa.decode_route(cfg.head_dim, 2, qcfg.gap, qcfg.bits,
+                            qcfg.v_group, qcfg.rank)
+    assert route == {64: "update", 128: "fused"}[hidden]
+    tree = _tiny_tree(cfg, 3, cuda)
+    prompts = np.random.default_rng(62).integers(0, 256, (3, 10))
+    qa.reset_launch_counts()
+    got = generate(LlamaForCausalLM(cfg, device="cuda").load_params(tree),
+                   prompts, 24, cache_kind="quant", quant_cfg=qcfg)
+    # one launch a layer and decode step on the fused route
+    assert qa.launch_counts["quant_attention"] == (
+        2 * 23 if route == "fused" else 0)
+    want = generate(LlamaForCausalLM(cfg, use_kernels=False,
+                                     device="cuda").load_params(tree),
+                    prompts, 24, cache_kind="quant", quant_cfg=qcfg)
+    assert got.shape == (3, 24)
+    np.testing.assert_array_equal(got, want)
 
 # ---------------------------------------------------------------------------
 # outlier formats: compact NB, side-band, emi8m through the GEMV and GEMM
@@ -809,9 +880,10 @@ def test_exp_gemv_wrappers_check_operands(gemv_setup):
 
 
 # ---------------------------------------------------------------------------
-# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, sb4, sb2, the fp16
-# container, emi8/emi8m, the side-band and the compact NB format, and the
-# gemm_tile kernels that take their other blocks and budgets
+# the wgmma + TMA GEMMs (csrc/gemm_sm90.cuh): pf6, pf4, sb4, sb2, the fp16,
+# int8 and float8 containers, emi8/emi8m, the side-band and the compact NB
+# format, and the gemm_tile kernels that take their other blocks and
+# budgets
 # ---------------------------------------------------------------------------
 LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096),
              "gate_up": (4096, 28672), "down": (14336, 4096),
@@ -819,7 +891,11 @@ LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096),
 # kind -> (format, transport) of the GEMMs of dequant_matmul.cu
 SM90_DQ = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
            "fp16": ("fp16", "native"), "emi8": ("fp6_e3m2", "emi8"),
-           "sb4": ("int4", "sb4"), "sb2": ("int2", "sb2")}
+           "sb4": ("int4", "sb4"), "sb2": ("int2", "sb2"),
+           "int8": ("int8", "native"), "fp8_e4m3": ("fp8_e4m3", "native"),
+           "fp8_e5m2": ("fp8_e5m2", "native")}
+# the sm90 plans' names of the kinds whose decode is named otherwise
+SM90_KIND = {"emi8m": "emi8", "int8": "native"}
 
 
 def _sideband_dense(w):
@@ -1020,6 +1096,87 @@ def test_sm90_emi8_b_tile_is_gemm_tile_s_on_every_byte(cuda, monkeypatch,
     assert torch.equal(got.cpu(), tile.cpu())
 
 
+
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+@pytest.mark.parametrize("kind", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_sm90_int8_and_float8_gemm_at_llama_shapes(cuda, kind, lin):
+    """The int8 container (the int8 arm's weight) and both float8
+    containers at block 32, on the sm90 loop's counter, within 2e-3 of the
+    twin."""
+    K, N = LLAMA3_8B[lin]
+    w, fn, ref, _ = _sm90_weight(kind, K, N, 21, cuda, dense=False)
+    decode = dm.sad_decode_params(w)[0]
+    x = _x(1024, K, 22, cuda)
+    dm.reset_launch_counts()
+    got = fn(x, w)
+    want = ref(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{decode}"] == 1
+    assert sum(dm.launch_counts.values()) == 1
+    assert _rel(got, want) < 2e-3
+
+
+# int8 and float8: (format, code dtype, scale fold)
+BYTE_KINDS = {"int8": ("int8", torch.int8, 6),
+              "fp8_e4m3": ("fp8_e4m3", torch.float8_e4m3fn, 0),
+              "fp8_e5m2": ("fp8_e5m2", torch.float8_e5m2, 0)}
+
+
+@pytest.mark.parametrize("block", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("kind", sorted(BYTE_KINDS))
+def test_sm90_int8_and_float8_b_tile_is_gemm_tile_s_on_every_byte(
+        cuda, monkeypatch, kind, block):
+    """A weight that holds every one of the 256 bytes in every column,
+    under block exponents at both ends of the int8 range (-128 to -120,
+    where the scale clamps at 2^-126, and 118 to 127): the sm90 decoder's
+    B tile is gemm_tile's as 16-bit patterns, NaN and inf codes and
+    overflows included (dm.decoded_b_tile); and through x = I, with the
+    codes whose value is no finite f32 at their block's scale set to 0
+    (x = I would turn them into NaN columns), the sm90 GEMM's output is
+    gemm_tile's bit for bit."""
+    fmt, dtype, fold = BYTE_KINDS[kind]
+    assert dm.scale_fold(fmt) == fold
+    K, N = 256, 128
+    exps = torch.tensor(list(range(-128, -119)) + list(range(118, 128)))
+    kk = torch.arange(K)[:, None]
+    nn = torch.arange(N)[None, :]
+    c = ((kk + 7 * nn) % 256 - 128).to(torch.int8)
+    se = exps[(torch.arange(K // block)[:, None] + nn) % len(exps)]
+    s = (se.repeat_interleave(block, 0) - fold).clamp(-126, 127).double()
+
+    def weight(codes):
+        return tpk.to_serving_layout(tpk.PackedMX(
+            codes=codes.view(dtype).to(cuda),
+            scale_exp=se.to(torch.int8).to(cuda), elem_format=fmt,
+            block_size=block, scale_bits=8, orig_dim=K, axis=0,
+            transport="native"))
+
+    w = weight(c)
+    decode = dm.sad_decode_params(w)[0]
+    assert dm.gemm_route(decode, block) == "sm90"
+    sm90 = dm.decoded_b_tile(w, "sm90")
+    tile = dm.decoded_b_tile(w, "tile")
+    torch.cuda.synchronize()
+    assert sm90.shape == (K, N) and torch.equal(sm90.cpu(), tile.cpu())
+    # values under the clamped 2^-126 scale; float8's NaN codes
+    v = tile.cpu().view(torch.bfloat16).float()
+    assert ((v != 0) & (v.abs() < 2.0 ** -118)).any()
+    assert kind == "int8" or v.isnan().any()
+    val = c.view(dtype).double() * torch.exp2(s)
+    finite = val.isfinite() & (val.abs() < 2.0 ** 128)
+    w = weight(torch.where(finite, c, 0))
+    x = torch.eye(K, device=cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{decode}"] == 1
+    monkeypatch.setattr(dm, "gemm_route", lambda *a, **k: "tile")
+    ref = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_matmul_{decode}_tile"] == 1
+    assert ref.isfinite().all() and (ref.abs() >= 2.0 ** 120).any()
+    assert torch.equal(got.cpu(), ref.cpu())
+
 # sb4 and sb2: (format, codes a byte, bits a code, scale fold)
 SUBBYTE = {"sb4": ("int4", 2, 4, 2), "sb2": ("int2", 4, 2, 0)}
 
@@ -1082,7 +1239,8 @@ def _sideband_shared_rows(K, N, seed, device, block=16):
 @pytest.mark.parametrize("N", [384, 130])
 @pytest.mark.parametrize("K", [256, 512])
 @pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
-                                  "emi8m", "nb", "sb4", "sb2"])
+                                  "emi8m", "nb", "sb4", "sb2", "int8",
+                                  "fp8_e4m3", "fp8_e5m2"])
 def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
     """x = I: every output row is one row of the decoded B tile (products
     with 1 and 0 are exact in f32), so the GEMM's f32 output is the twin's
@@ -1101,12 +1259,13 @@ def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
 
 
 @pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
-                                  "emi8m", "nb", "sb4", "sb2"])
+                                  "emi8m", "nb", "sb4", "sb2", "int8",
+                                  "fp8_e4m3", "fp8_e5m2"])
 def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
     K, N, M = 203, 384, 300
     block = 16 if kind in ("sideband", "nb", "emi8m") else 32
     w, fn, ref, _ = _sm90_weight(kind, K, N, 3, cuda, block=block)
-    plan = dm.sm90_plan("emi8" if kind == "emi8m" else kind, K, N, block,
+    plan = dm.sm90_plan(SM90_KIND.get(kind, kind), K, N, block,
                         4 if kind in ("sideband", "nb") else 0)
     assert plan["pad_x"] and plan["k_x"] == 208
     for out_dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 2 ** -8)):
@@ -1117,9 +1276,10 @@ def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
 
 
 # every block the JAX packers take for these formats, on its route: the
-# sm90 kernel where the block divides the K step (pf4 48, pf6 128, fp16 48,
-# emi8 48, sb4 48, sb2 48 and the side-band format at 48, or at 8 with 8
-# slots: gemm_tile); the NB format at its largest budget
+# sm90 kernel where the block divides the K step and its ring fits (pf4 48,
+# pf6 128, fp16 48, emi8 48, sb4 48, sb2 48, int8 and float8 at 2 and 48,
+# and the side-band format at 48, or at 8 with 8 slots: gemm_tile); the NB
+# format at its largest budget
 SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
                     ("pf4", 48, 0), ("pf6", 64, 0), ("pf6", 128, 0),
                     ("fp16", 8, 0), ("fp16", 64, 0), ("fp16", 48, 0),
@@ -1129,7 +1289,12 @@ SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
                     ("emi8", 64, 0), ("emi8", 48, 0), ("nb", 16, 16),
                     ("sb4", 2, 0), ("sb4", 8, 0), ("sb4", 64, 0),
                     ("sb4", 48, 0), ("sb2", 4, 0), ("sb2", 64, 0),
-                    ("sb2", 48, 0)]
+                    ("sb2", 48, 0), ("int8", 8, 0), ("int8", 64, 0),
+                    ("int8", 2, 0), ("int8", 48, 0), ("fp8_e4m3", 8, 0),
+                    ("fp8_e4m3", 64, 0), ("fp8_e4m3", 2, 0),
+                    ("fp8_e4m3", 48, 0), ("fp8_e5m2", 8, 0),
+                    ("fp8_e5m2", 64, 0), ("fp8_e5m2", 2, 0),
+                    ("fp8_e5m2", 48, 0)]
 
 
 @pytest.mark.parametrize("kind,block,budget", SM90_BLOCK_CASES)
@@ -1145,7 +1310,8 @@ def test_sm90_every_packer_block_runs_its_route(cuda, kind, block, budget):
     elif kind == "nb":
         counter, counts = om.nb_gemm_counter(budget), om.launch_counts
     else:
-        counter, counts = dm.gemm_counter(kind, block), dm.launch_counts
+        counter = dm.gemm_counter(dm.sad_decode_params(w)[0], block)
+        counts = dm.launch_counts
     x = _x(M, K, 5, cuda)
     dm.reset_launch_counts()
     om.reset_launch_counts()
@@ -1184,7 +1350,8 @@ def test_sm90_kernels_do_not_spill(cuda):
     sources = ("dequant_matmul", "outlier_matmul", "nb_matmul")
     build.build_all(sources)
     lines = [ln for ln in build.ptxas_report(sources) if "_sm90" in ln]
-    assert sum("gemm_dq_sm90" in ln for ln in lines) == 26
+    assert sum("gemm_dq_sm90" in ln for ln in lines) == 41
+    assert sum("b_tile_sm90" in ln for ln in lines) == 41
     assert sum("outlier_gemm_sm90" in ln for ln in lines) == 15
     assert sum("nb_gemm_sm90" in ln for ln in lines) == 5
     for ln in lines:

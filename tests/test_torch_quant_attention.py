@@ -197,3 +197,46 @@ def test_residual_attention_rows_do_not_depend_on_batch():
         for x, y in zip(one, full):
             assert torch.equal(x[0], y[b])
     assert not full[0][0].any() and not full[2][0].any()
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 256, 288])
+@pytest.mark.parametrize("rep", range(1, 18))
+def test_decode_route_takes_the_kernel_s_geometries(hd, rep):
+    """The fused decode runs where the kernel takes the geometry: head_dim
+    a multiple of 32 up to 256, up to 16 query heads per KV head (8 above
+    head_dim 128) and a block's shared memory within 227 KB, which grows
+    with the gap until it passes; everywhere else cache.update."""
+    fits = hd % 32 == 0 and 32 <= hd <= 256 and rep <= (
+        16 if hd <= 128 else 8)
+    last = 0
+    for gap in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+        for bits, v_group, rank in ((4, 8, 0), (2, 128, 2), (8, 32, 1)):
+            Gh = hd // min(v_group, hd)
+            smem = qa.smem_bytes(rep, hd, gap, Gh, rank)
+            want = fits and smem <= qa.MAX_SMEM_BYTES == 227 * 1024
+            assert qa.decode_route(hd, rep, gap, bits, v_group, rank) == (
+                "fused" if want else "update")
+        assert smem > last
+        last = smem
+    if fits:                       # a short gap fits, the longest does not
+        assert qa.decode_route(hd, rep, 8, 4, 8) == "fused"
+        assert qa.decode_route(hd, rep, 4096, 4, 8) == "update"
+
+
+def test_decode_route_refuses_bits_and_gaps_the_kernel_does_not_pack():
+    assert qa.decode_route(128, 4, 64, 4, 128) == "fused"
+    assert qa.decode_route(128, 4, 64, 3, 128) == "update"
+    assert qa.decode_route(128, 4, 6, 2, 128) == "update"   # gap % 4
+    assert qa.decode_route(128, 4, 6, 4, 128) == "fused"
+
+
+def test_smem_bytes_is_the_kernel_s_layout():
+    """Smem of csrc/quant_attention.cu at the Llama-3-8B decode (head_dim
+    128, 4 query heads per KV head, gap 64, per-token V scales), by hand
+    in floats: q 512, keys 64 x 129 (over the 4 x 4 x 128 reduction), 256
+    logits, 64 x 4 probabilities, 2 x 64 V scales, 3 x 4 running values;
+    with rank 2, 2 x 64 low-rank q values each for K and V and 4 x 2
+    products more."""
+    assert qa.smem_bytes(4, 128, 64, 1, 0) == 4 * (
+        512 + 64 * 129 + 256 + 256 + 128 + 12) == 37680
+    assert qa.smem_bytes(4, 128, 64, 1, 2) == 37680 + 4 * (256 + 8)

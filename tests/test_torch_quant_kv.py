@@ -26,13 +26,17 @@ import torch
 
 from microscopiq_tpu.eval.generate import generate as j_generate
 from microscopiq_tpu.kv import cache as jc
+from microscopiq_tpu.models import LlamaConfig as JConfig
+from microscopiq_tpu.models import LlamaForCausalLM as JModel
+from microscopiq_tpu.nn import fuse_projections as j_fuse
 from microscopiq_tpu.serve.engine import BatchEngine as JEngine
 from microscopiq_tpu_torch.convert import params_from_jax, quant_state_from_jax
 from microscopiq_tpu_torch.eval.generate import generate
 from microscopiq_tpu_torch.kv import cache as tc
-from microscopiq_tpu_torch.models import LlamaForCausalLM
+from microscopiq_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from microscopiq_tpu_torch.models import llama as tllama
 from microscopiq_tpu_torch.serve.engine import BatchEngine
-from test_torch_llama import jax_to_numpy, model_pair
+from test_torch_llama import jax_to_numpy, jax_tree, model_pair, numpy_tree
 
 B, KVH, HD, GAP = 2, 2, 16, 8
 
@@ -476,3 +480,41 @@ def test_engine_quant_checks_max_len(models):
     with pytest.raises(ValueError, match="multiple of the quantization gap"):
         BatchEngine(tm, max_len=100, prompt_buckets=(32,),
                     cache_kind="quant", device="cpu")
+
+
+@pytest.mark.parametrize("hidden", [64, 128])
+def test_fused_decode_where_the_kernel_takes_the_geometry(monkeypatch,
+                                                          hidden):
+    """A 2-layer model of head_dim 16 (``tiny``) or 32 (hidden 128, 4
+    heads, 2 KV heads) over the quantized cache: the decode takes the fused
+    branch exactly where decode_route accepts the geometry (head_dim 32,
+    not 16), and the greedy tokens equal use_kernels=False (cache.update)
+    and JAX's, whose gate sends both head_dims to cache.update."""
+    jcfg = JConfig.tiny(hidden_size=hidden, fused_projections=True)
+    params = j_fuse(jax_tree(numpy_tree(jcfg, 5), jnp.float32, True))
+    tree = params_from_jax(jax_to_numpy(params), device="cpu")
+    tcfg = LlamaConfig.tiny(hidden_size=hidden, dtype=torch.float32,
+                            fused_projections=True)
+    kern = LlamaForCausalLM(tcfg, device="cpu").load_params(tree)
+    plain = LlamaForCausalLM(tcfg, use_kernels=False, device="cpu"
+                             ).load_params(tree)
+    jq, tq = _cfgs(**QCFG)
+    hd, rep = tcfg.head_dim, 2
+    route = tllama.decode_route(hd, rep, tq.gap, tq.bits, tq.v_group,
+                                tq.rank)
+    assert (hd, route) == ({64: 16, 128: 32}[hidden],
+                           {64: "update", 128: "fused"}[hidden])
+    calls = []
+    fused = tllama.quant_attention_decode
+    monkeypatch.setattr(tllama, "quant_attention_decode",
+                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    prompts = np.random.default_rng(62).integers(0, 256, (3, 10))
+    got = generate(kern, prompts, 24, cache_kind="quant", quant_cfg=tq)
+    # one fused call a layer and decode step (the first token comes from
+    # the prefill)
+    assert len(calls) == (2 * 23 if route == "fused" else 0)
+    np.testing.assert_array_equal(
+        got, generate(plain, prompts, 24, cache_kind="quant", quant_cfg=tq))
+    want = j_generate(JModel(jcfg, use_pallas=False), {"params": params},
+                      prompts, 24, cache_kind="quant", quant_cfg=jq)
+    np.testing.assert_array_equal(got, want)

@@ -1,6 +1,6 @@
 """The host side of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) that the
-pf6, pf4, sb4, sb2, fp16-container, emi8/emi8m, side-band and compact-NB
-GEMMs run on: its plan (tile,
+pf6, pf4, sb4, sb2, fp16-container, emi8/emi8m, int8-container, float8,
+side-band and compact-NB GEMMs run on: its plan (tile,
 stages, shared memory, padding of x) at every Llama-3-8B shape and every
 block it is compiled for; the routing of every block that the JAX packers
 take to a hand-written kernel (the sm90 loop or ``gemm_tile``); and the
@@ -62,7 +62,9 @@ NEW_PLANS = ([("pf4", 0, b) for b in (16, 32, 64)]
              + [("emi8", 0, b) for b in (4, 8, 16, 32, 64)]
              + [("nb", s, 16) for s in (0, 1, 2, 4, 8, 16)]
              + [("sb4", 0, b) for b in (2, 4, 8, 16, 32, 64)]
-             + [("sb2", 0, b) for b in (4, 8, 16, 32, 64)])
+             + [("sb2", 0, b) for b in (4, 8, 16, 32, 64)]
+             + [(k, 0, b) for k in ("native", "fp8_e4m3", "fp8_e5m2")
+                for b in (4, 8, 16, 32, 64)])
 
 
 @pytest.mark.parametrize("kind,budget,block", NEW_PLANS)
@@ -78,6 +80,8 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
     nblk = 64 // block
     raw = {"pf6": (48 + nblk) * 128, "pf4": (32 + nblk) * 128,
            "fp16": (128 + nblk) * 128, "emi8": (64 + nblk) * 128,
+           "native": (64 + nblk) * 128, "fp8_e4m3": (64 + nblk) * 128,
+           "fp8_e5m2": (64 + nblk) * 128,
            "sb4": (32 + nblk) * 128, "sb2": (16 + nblk) * 128,
            # 32 code rows, se, seo and 8 rows a slot of the slot class, 64
            # K columns each
@@ -86,13 +90,15 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
         assert plan["raw_bytes"] == raw
     if kind == "fp16":            # 16 KB of codes a step: 3 stages, 3 buffers
         assert (plan["stages"], plan["raw_buffers"]) == (3, 3)
-    if kind in ("emi8", "nb", "sb4", "sb2"):   # pf6's ring: 4 stages, 3
+    if kind in ("emi8", "nb", "sb4", "sb2", "native", "fp8_e4m3",
+                "fp8_e5m2"):                   # pf6's ring: 4 stages, 3
         assert (plan["stages"], plan["raw_buffers"]) == (4, 3)
 
 
 # (sm90_plan arguments) that no sm90 kernel takes: the blocks that do not
 # divide the 64-deep K step (sb4 48 and 128, sb2 12 and 48 among them), pf6
-# below 16, emi8 at block 2 (a 12 KB raw step leaves no 4-stage ring), the
+# below 16, emi8, int8 and float8 at block 2 (a 12 KB raw step leaves no
+# 4-stage ring), the
 # side-band format at block 8 with 8 slots and the NB format above 16
 # slots (gemm_tile takes them), and a side-band budget above 8 (nothing
 # does)
@@ -104,7 +110,10 @@ REFUSED = [("pf6", 256, 128, 8), ("pf6", 256, 128, 128),
            ("emi8", 256, 128, 2), ("emi8", 256, 128, 128),
            ("nb", 256, 128, 16, 17), ("nb", 256, 128, 32, 2),
            ("sb4", 256, 128, 48), ("sb4", 256, 128, 128),
-           ("sb2", 256, 128, 12), ("sb2", 256, 128, 48)]
+           ("sb2", 256, 128, 12), ("sb2", 256, 128, 48),
+           ("native", 256, 128, 2), ("native", 256, 128, 48),
+           ("fp8_e4m3", 256, 128, 2), ("fp8_e4m3", 256, 128, 128),
+           ("fp8_e5m2", 256, 128, 2), ("fp8_e5m2", 256, 128, 48)]
 
 
 @pytest.mark.parametrize("args", REFUSED, ids=lambda a: "-".join(map(str, a)))
@@ -137,7 +146,7 @@ def test_plan_mirrors_the_kernel_sources():
                                "B == 16 || B == 32 || B == 64"),
                               ("Fp16Sm90", "kStages = 3, kRawBufs = 3",
                                "B == 8 || B == 16 || B == 32 || B == 64"),
-                              ("Emi8Sm90", "kStages = 4, kRawBufs = 3",
+                              ("ByteSm90", "kStages = 4, kRawBufs = 3",
                                "B == 4 || B == 8 || B == 16 || B == 32 "
                                "|| B == 64"),
                               ("SubbyteSm90", "kStages = 4, kRawBufs = 3",
@@ -155,7 +164,9 @@ def test_plan_mirrors_the_kernel_sources():
         if kind in ("sideband", "nb"):
             continue
         decode = {"pf6": "kPf6", "pf4": "kPf4", "fp16": "kFp16",
-                  "emi8": "kEmi8", "sb4": "kSb4", "sb2": "kSb2"}[kind]
+                  "emi8": "kEmi8", "sb4": "kSb4", "sb2": "kSb2",
+                  "native": "kInt8", "fp8_e4m3": "kFp8E4m3",
+                  "fp8_e5m2": "kFp8E5m2"}[kind]
         assert [b for b in (2, 4, 8, 16, 32, 48, 64, 128)
                 if f"MXQ_SM90(mxq::{decode}, {b})" in dq] == list(blocks)
     # sb4 and sb2 are SubbyteSm90 with 2 and 4 fields a byte
@@ -163,6 +174,18 @@ def test_plan_mirrors_the_kernel_sources():
     assert "using Sb2Sm90 = SubbyteSm90<4, B>;" in dq
     assert "D == mxq::kSb4, Sb4Sm90<B>," in dq
     assert "D == mxq::kSb2, Sb2Sm90<B>," in dq
+    # emi8, int8 and float8 are ByteSm90, each decode named in the chain,
+    # whose fallback does not compile
+    for alias in ("using Emi8Sm90 = ByteSm90<mxq::kEmi8, B>;",
+                  "using Int8Sm90 = ByteSm90<mxq::kInt8, B>;",
+                  "using Fp8Sm90 = ByteSm90<D, B>;",
+                  "D == mxq::kEmi8, Emi8Sm90<B>,",
+                  "D == mxq::kInt8, Int8Sm90<B>,",
+                  "mxq::is_fp8<D>(),\n", "Fp8Sm90<D, B>,\n",
+                  "NoSm90Dec<D>>>>>>>>>;",
+                  'static_assert(D < 0, "no sm90 decoder for this decode");',
+                  "|| D == mxq::kInt8 || mxq::is_fp8<D>(),"):
+        assert alias in dq, alias
     nb = (CSRC / "nb_matmul.cu").read_text()
     body = nb[nb.index("struct NbSm90 "):]
     body = body[:body.index("\n};\n")]
@@ -192,6 +215,9 @@ ROUTED = {"pf6": ("fp6_e3m2", "pf6"), "pf4": ("fp4_e2m1", "pf4"),
           "sb4": ("int4", "sb4"), "sb2": ("int2", "sb2"),
           "emi8": ("fp6_e3m2", "emi8"),
           "emi8_fp4": ("fp4_e2m1", "emi8"), "emi8m": None,
+          "int8": ("int8", "native"), "fp8_e4m3": ("fp8_e4m3", "native"),
+          "fp8_e5m2": ("fp8_e5m2", "native"),
+          "fp6_native": ("fp6_e3m2", "native"),
           "sideband": None, "sideband8": None}
 
 
@@ -248,7 +274,8 @@ def test_gemm_route_names_a_kernel_for_every_block_the_packers_take(
             dm.sm90_plan("sideband", 4096, 4096, block, budget)
         want = block in (8, 16, 32, 64) and (block, budget) != (8, 8)
     else:
-        decode = {"emi8_fp4": "emi8", "emi8m": "emi8"}.get(name, name)
+        decode = {"emi8_fp4": "emi8", "emi8m": "emi8", "int8": "native",
+                  "fp6_native": "fp8_e4m3"}.get(name, name)
         route = dm.gemm_route(decode, block)
         assert dm.gemm_counter(decode, block) in dm.launch_counts
         if route == "sm90":
@@ -338,16 +365,21 @@ def test_k8_padding_leaves_the_sideband_reference_unchanged():
     ("fp6_e3m2", "emi8", 8), ("fp4_e2m1", "emi8", 16),
     ("fp6_e2m3", "emi8", 64), ("int4", "sb4", 2), ("int4", "sb4", 8),
     ("int4", "sb4", 32), ("int4", "sb4", 64), ("int2", "sb2", 4),
-    ("int2", "sb2", 16), ("int2", "sb2", 64)])
+    ("int2", "sb2", 16), ("int2", "sb2", 64), ("int8", "native", 4),
+    ("int8", "native", 32), ("int2", "native", 64),
+    ("fp8_e4m3", "native", 8), ("fp8_e4m3", "native", 64),
+    ("fp6_e3m2", "native", 32), ("fp8_e5m2", "native", 4),
+    ("fp8_e5m2", "native", 16)])
 def test_k8_padding_leaves_the_sm90_references_unchanged(fmt, transport,
                                                          block):
     K, N, M = 203, 96, 5
     rng = np.random.default_rng(block + len(fmt))
     W = (rng.standard_normal((K, N))
          * np.exp(rng.uniform(-2, 2, (1, N)))).astype(np.float32)
-    if fmt == "fp16":
-        # fp16 codes keep 11 bits: small integers times a power of two a
-        # column keep every f32 sum exact, as pf4's and pf6's coarse codes
+    if transport == "native":
+        # fp16 codes keep 11 bits, int8 and float8 codes span wide
+        # exponents a block: small integers times a power of two a column
+        # keep every f32 sum exact, as pf4's and pf6's coarse codes
         W = (rng.integers(-16, 17, (K, N))
              * 2.0 ** rng.integers(-3, 3, (1, N))).astype(np.float32)
     j = jpk.to_serving_layout(jpk.pack_mx(jnp.asarray(W), 8, fmt, block,
