@@ -23,10 +23,15 @@ the package is missing. Phases, each of which raises on failure:
 4. the main path: Llama-3-8B architecture at full width and 32 layers,
    seeded random weights packed on the card (MX-FP6 emi8, block 32, lm_head
    included, fused projections), a ``last_only`` prefill of 8 x 128 tokens
-   and 32 greedy decode steps, with launch counts held to what the path
-   implies; a dense bf16 arm at the same depth for the ratio; and a 2-layer
-   full-width model through the kernels against the same model through the
-   plain versions;
+   and 32 greedy decode steps, the first eager and the rest replayed from a
+   CUDA graph (``DenseDecodeStep``, as ``generate`` runs them), held bit for
+   bit (tokens, last logits, launches) to an eager run of the same prompt
+   (``graph_vs_eager``, one line per dense arm of every main path), with
+   launch counts held to what the path implies (the captured step's counts
+   times the replays); a dense bf16 arm at the same depth for the ratio;
+   ``decode_profile``: the device-busy share of the replayed steps; and a
+   2-layer full-width model through the kernels against the same model
+   through the plain versions;
 5. a ``BatchEngine`` (dense slots, buckets 32/64/128) answering six requests
    of mixed lengths, one admitted mid-flight, compared token by token with
    single-sequence decode;
@@ -53,7 +58,8 @@ the package is missing. Phases, each of which raises on failure:
     inliers, fp4 outliers, block 16, 2-sigma rule) on N(0, 0.02) weights
     with 3% of the elements scaled by 10, at every Llama-3-8B shape: the
     compact NB (budget 2) and side-band (budget 4) GEMVs at M = 1, 8, 64,
-    200 and their GEMMs at M = 256, 1024, and the merged emi8m stream
+    255 (the side-band one with its HBM rate, plan and occupancy) and their
+    GEMMs at M = 256, 1024, and the merged emi8m stream
     through the GEMV (M = 1, 8, 64) and the GEMM (M = 128, 1024), each
     against its plain version, timed beside the bound, the plain version
     and ``torch.matmul`` on the dequantized bf16 weight;
@@ -63,7 +69,8 @@ the package is missing. Phases, each of which raises on failure:
     path's prefill and decode and exact launch counts, each timed
     interleaved with the MX-FP6 model; ``outlier_engine``: a dense-slot
     ``BatchEngine`` over the NB model, each request token-identical to
-    single-sequence decode; ``outlier_decode_profile`` of the NB arm;
+    single-sequence decode; ``outlier_decode_profile`` of the NB and
+    side-band arms;
 12. ``outlier_two_layer_logits``: per transport, a 2-layer full-width
     model, 4 x 120-token prompt (a GEMM prefill) and 8 decode steps,
     through the kernels against the plain versions;
@@ -132,11 +139,18 @@ it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py --gemm-times
 
 times only the pf6, side-band, pf4, fp16-container, emi8, emi8m,
-compact-NB, sb4, sb2, int8-container, fp8_e4m3 and fp8_e5m2 GEMMs (and
-``torch.matmul`` on a bf16 weight) at
+compact-NB, sb4, sb2, int8-container, fp8_e4m3, fp8_e5m2 and
+bf16-container GEMMs (and ``torch.matmul`` on a bf16 weight) at
 M = 1024 at every Llama-3-8B shape on seeded operands and prints them as
 one JSON line (``sm90_gemm_times``), to compare two checkouts on one
 card.
+
+    python3 chip_smoke.py --gemv-times
+
+times only the side-band GEMV at the side-band arm's decode shapes (q, k,
+v, o, gate, up, down, lm_head) and M = 1, 8, 64, 255, beside its bound and
+``torch.matmul``, and prints them as one JSON line
+(``sideband_gemv_times``), to compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -343,16 +357,29 @@ def kernel_phase(card: str):
 
 def prefill_decode(model, ids, steps: int, max_len: int,
                    decode_ctx=contextlib.nullcontext, quant_cfg=None,
-                   feed=None):
+                   feed=None, graph=None, info=None):
     """bench.py's main path: last_only prefill, then greedy decode steps,
     over a dense bf16 KV cache or, with ``quant_cfg``, a quantized one.
     ``feed`` (B, steps) replaces the greedy tokens fed to the decode steps.
+
+    Over the dense cache the decode runs as ``generate`` runs it
+    (``DenseDecodeStep``): the first step eagerly (the warm-up that builds
+    the kernels; its token is kept), then the step captured in a CUDA graph
+    and replayed for every later step; ``graph=False`` runs every step
+    eagerly. The quantized cache's steps are eager. ``decode_ctx`` wraps,
+    and the host clock times, the replays (with the graph) or every step:
+    ``decode_s`` is that window's time a step times ``steps``; ``info``, a
+    dict, receives ``graph`` and ``timed_steps``. The kernel wrappers count
+    their launches when they launch, at the eager steps and at the capture,
+    never at a replay: the decode's launches are the eager step's plus the
+    captured step's times the replays.
 
     Returns (decoded tokens, ttft_s, decode_s, last logits, kernel launches
     of the prefill, kernel launches of the decode steps, final cache state,
     logits of every step)."""
     import torch
 
+    from microscopiq_tpu_torch.eval.generate import DenseDecodeStep
     from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
                                                 QuantizedDecodeCache,
                                                 init_dense_cache,
@@ -362,7 +389,11 @@ def prefill_decode(model, ids, steps: int, max_len: int,
     B, S0 = ids.shape
     dims = (cfg.num_hidden_layers, B, max_len, cfg.num_key_value_heads,
             cfg.head_dim)
-    if quant_cfg is None:
+    dense = quant_cfg is None
+    graph = dense if graph is None else graph
+    if graph and not dense:
+        raise ValueError("the quantized cache's decode is not captured")
+    if dense:
         state = init_dense_cache(*dims, device="cuda")
         wrap = DenseDecodeCache
     else:
@@ -382,37 +413,94 @@ def prefill_decode(model, ids, steps: int, max_len: int,
         at_prefill = launches()
         all_logits.append(logits)
         toks = []
-        with decode_ctx():
-            t0 = time.perf_counter()
-            for i in range(steps):
-                if feed is not None:
-                    tok = feed[:, i]
+        step = DenseDecodeStep(model, state, tok) if dense else None
+
+        def one(i):
+            nonlocal tok, state, logits
+            if feed is not None:
+                tok = feed[:, i]
+            if step is None:
                 cache = wrap(state)
                 p = torch.full((B, 1), state.length, device="cuda")
                 logits = model(tok[:, None], positions=p, cache=cache)
                 tok = torch.argmax(logits[:, -1], dim=-1)
                 state = cache.finalize()
-                toks.append(tok)
+            else:
                 if feed is not None:
-                    all_logits.append(logits)
+                    step.tok.copy_(tok)
+                tok = (step.replay() if graph and i > 0
+                       else step.eager()).clone()
+                logits = step.logits
+            toks.append(tok)
+            if feed is not None:
+                all_logits.append(logits.clone())
+
+        lead = 0
+        captured = None
+        if graph and steps > 1:
+            one(0)                              # the warm-up: a real step
+            warm = launches()
+            step.capture()
+            captured = {k: v - warm[k] for k, v in launches().items()}
+            lead = 1
+        with decode_ctx():
+            t0 = time.perf_counter()
+            for i in range(lead, steps):
+                one(i)
             torch.cuda.synchronize()
             dec = time.perf_counter() - t0
-    in_decode = {k: v - at_prefill[k] for k, v in launches().items()}
+        timed = steps - lead
+        dec = dec / timed * steps if timed else 0.0
+        logits = logits.clone()
+    if captured is None:
+        in_decode = {k: v - at_prefill[k] for k, v in launches().items()}
+    else:
+        in_decode = {k: warm[k] - at_prefill[k] + n * (steps - 1)
+                     for k, n in captured.items()}
+    if info is not None:
+        info.update(graph=captured is not None, timed_steps=timed)
+    del step
     return (torch.stack(toks, 1), ttft, dec, logits, at_prefill, in_decode,
             state, all_logits)
+
+
+def graph_vs_eager(model, ids, steps: int, max_len: int, arm: str,
+                   graph_run, card: str) -> float:
+    """The dense decode run eagerly, in this process and on the prompt of
+    ``graph_run`` (a graph run's prefill_decode result): its tokens and
+    last logits must equal the graph run's bit for bit, and its decode
+    launches the graph run's (the warm-up step's plus the captured step's
+    times the replays). Logs one line; returns the eager ms/step."""
+    import torch
+
+    eager = prefill_decode(model, ids, steps, max_len, graph=False)
+    same = dict(tokens_identical=bool(torch.equal(eager[0], graph_run[0])),
+                logits_identical=bool(torch.equal(eager[3], graph_run[3])),
+                launches_equal=eager[5] == graph_run[5])
+    ms = eager[2] / steps * 1e3
+    log(phase="graph_vs_eager", arm=arm, steps=steps, **same,
+        eager_decode_ms_per_step=ms,
+        graph_decode_ms_per_step=graph_run[2] / steps * 1e3,
+        launches_decode={k: v for k, v in graph_run[5].items() if v},
+        card=card)
+    if not all(same.values()):
+        raise AssertionError(f"{arm}: graph and eager decode differ: {same}")
+    return ms
 
 
 def decode_device_profile(model, ids, max_len: int, step_ms: float,
                           steps: int = 8, quant_cfg=None):
     """Device time of decode steps: the union of the CUDA kernels'
-    intervals in a torch.profiler window over ``steps`` decode steps, its
-    share of the window's wall time (which the profiler inflates) and of
-    ``step_ms``, the unprofiled step time, and the kernels that take most
-    device time. None where the profiler records no device activity."""
+    intervals in a torch.profiler window over the timed decode steps (the
+    graph's replays over the dense cache, ``steps - 1`` of them; every
+    step over the quantized one), its share of the window's wall time
+    (which the profiler inflates) and of ``step_ms``, the unprofiled step
+    time, and the kernels that take most device time. None where the
+    profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    box = {}
+    box, info = {}, {}
 
     @contextlib.contextmanager
     def window():
@@ -422,7 +510,7 @@ def decode_device_profile(model, ids, max_len: int, step_ms: float,
         box["prof"] = prof
 
     dec = prefill_decode(model, ids, steps, max_len, decode_ctx=window,
-                         quant_cfg=quant_cfg)[2]
+                         quant_cfg=quant_cfg, info=info)[2]
     prof = box["prof"]
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -434,18 +522,20 @@ def decode_device_profile(model, ids, max_len: int, step_ms: float,
         if b > end:
             busy += b - max(a, end)
             end = b
+    n = info["timed_steps"]
     per_kernel = sorted(
         ((e.key, getattr(e, "self_device_time_total", 0.0))
          for e in prof.key_averages()
          if getattr(e, "self_device_time_total", 0.0) > 0),
         key=lambda kv: -kv[1])
-    busy_ms = busy / 1e3 / steps
-    return dict(steps=steps, profiled_wall_ms_per_step=dec / steps * 1e3,
+    busy_ms = busy / 1e3 / n
+    wall_ms = dec / steps * 1e3
+    return dict(steps=n, graph=info["graph"], profiled_wall_ms_per_step=wall_ms,
                 device_busy_ms_per_step=busy_ms,
-                busy_share_of_profiled_wall=busy / 1e6 / dec,
+                busy_share_of_profiled_wall=busy_ms / wall_ms,
                 busy_share_of_unprofiled_step=busy_ms / step_ms,
                 top_kernels_ms_per_step=[
-                    (k[:60], t / 1e3 / steps) for k, t in per_kernel[:8]])
+                    (k[:60], t / 1e3 / n) for k, t in per_kernel[:8]])
 
 
 def build(packed, layers=32, seed=0, use_kernels=True, tree=None):
@@ -494,8 +584,8 @@ def model_phase(card: str):
 
     # the main path's run: counts zeroed just before, read just after
     reset_counts()
-    toks, ttft, dec, last, pre_counts, dec_counts, *_ = prefill_decode(
-        packed, ids, STEPS, max_len)
+    main = prefill_decode(packed, ids, STEPS, max_len)
+    toks, ttft, dec, last, pre_counts, dec_counts, *_ = main
     peak = torch.cuda.max_memory_allocated()
     want_pre = want_counts(dequant_matmul_emi8=4 * L, dequant_gemv_emi8=1)
     want_dec = want_counts(dequant_gemv_emi8=STEPS * (4 * L + 1))
@@ -507,10 +597,15 @@ def model_phase(card: str):
         raise AssertionError("non-finite logits on the main path")
     if not ((toks >= 0) & (toks < packed.cfg.vocab_size)).all():
         raise AssertionError("token ids out of range")
+    eager_ms = graph_vs_eager(packed, ids, STEPS, max_len, "mxfp6", main,
+                              card)
 
     # dense bf16 arm at the same depth, interleaved with the packed arm
     dense, _ = build(False, seed=0)
     prefill_decode(dense, ids, 2, max_len)
+    dense_eager_ms = graph_vs_eager(
+        dense, ids, STEPS, max_len, "bf16",
+        prefill_decode(dense, ids, STEPS, max_len), card)
     best = {"packed": (ttft, dec), "dense": (9e9, 9e9)}
     for _ in range(2):
         for tag, m in (("dense", dense), ("packed", packed)):
@@ -520,12 +615,14 @@ def model_phase(card: str):
     torch.cuda.empty_cache()
     tps = B * STEPS / best["packed"][1]
     tps_dense = B * STEPS / best["dense"][1]
-    path = dict(layers=L, batch=B, prompt=S0, steps=STEPS,
+    path = dict(layers=L, batch=B, prompt=S0, steps=STEPS, graph=True,
                 decode_tokens_per_s=tps,
                 decode_ms_per_step=best["packed"][1] / STEPS * 1e3,
+                eager_decode_ms_per_step=eager_ms,
                 ttft_ms=best["packed"][0] * 1e3,
                 dense_decode_tokens_per_s=tps_dense,
                 dense_decode_ms_per_step=best["dense"][1] / STEPS * 1e3,
+                dense_eager_decode_ms_per_step=dense_eager_ms,
                 dense_ttft_ms=best["dense"][0] * 1e3,
                 packed_vs_dense_decode=tps / tps_dense,
                 packed_weight_gb=weight_bytes / 1e9,
@@ -797,12 +894,12 @@ QKV_CFG = dict(bits=4, gap=64, v_group=128)
 
 
 def kv_bytes(state) -> int:
-    """Device bytes of a KV-cache state's buffers (length and offset left
-    out)."""
+    """Device bytes of a KV-cache state's buffers (length, its host mirror
+    and offset left out)."""
     total = 0
     for f in dataclasses.fields(state):
         t = getattr(state, f.name)
-        if f.name not in ("length", "offset") and t is not None:
+        if f.name not in ("length", "offset") and hasattr(t, "numel"):
             total += t.numel() * t.element_size()
     return total
 
@@ -848,7 +945,7 @@ def quant_kv_main_path(packed, card: str):
     del state
 
     best = {"quant": (ttft, dec), "dense": (9e9, 9e9)}
-    dense_bytes = 0
+    dense_bytes, dense_eager_ms = 0, None
     for arm in ("dense", "quant", "dense", "quant", "dense"):
         torch.cuda.reset_peak_memory_stats()
         out = prefill_decode(packed, ids, STEPS, max_len,
@@ -857,15 +954,19 @@ def quant_kv_main_path(packed, card: str):
         best[arm] = (min(best[arm][0], out[1]), min(best[arm][1], out[2]))
         if arm == "dense":
             dense_bytes = kv_bytes(out[6])
+            if dense_eager_ms is None:
+                dense_eager_ms = graph_vs_eager(packed, ids, STEPS, max_len,
+                                                "quant_kv_dense", out, card)
         del out
     tps = {a: B * STEPS / best[a][1] for a in best}
     path = dict(layers=L, batch=B, prompt=S0, steps=STEPS, max_len=max_len,
-                quant_cfg=QKV_CFG,
+                quant_cfg=QKV_CFG, graph=False, dense_graph=True,
                 decode_tokens_per_s=tps["quant"],
                 decode_ms_per_step=best["quant"][1] / STEPS * 1e3,
                 ttft_ms=best["quant"][0] * 1e3,
                 dense_decode_tokens_per_s=tps["dense"],
                 dense_decode_ms_per_step=best["dense"][1] / STEPS * 1e3,
+                dense_eager_decode_ms_per_step=dense_eager_ms,
                 dense_ttft_ms=best["dense"][0] * 1e3,
                 quant_vs_dense_decode=tps["quant"] / tps["dense"],
                 quant_kv_bytes=quant_bytes, dense_kv_bytes=dense_bytes,
@@ -981,7 +1082,7 @@ OUTLIER_ARMS = {
     "sideband": (dict(outlier_transport="sideband",
                       outlier_budget=SIDEBAND_BUDGET), False),
     "emi8m": (dict(outlier_budget=SIDEBAND_BUDGET), True)}
-OUTLIER_M = (1, 8, 64, 200)
+OUTLIER_M = (1, 8, 64, 255)
 OUTLIER_GEMM_M = (256, 1024)
 # outlier GEMVs vs plain: exact weights and products, f32 sums in another
 # order -> the GEMV's 1e-5 (no tensor cores); the outlier GEMMs feed the
@@ -1186,6 +1287,8 @@ def outlier_kernel_phase(card: str):
                            bound_by="bytes" if t_bytes >= t_ops
                            else "operations",
                            plain_ms=plain_ms, library_ms=lib_ms, card=card)
+                if kname == "dequant_gemv_outlier":
+                    row.update(sideband_gemv_stats(p, M, K, N, ms))
                 rows.append(row)
                 log(phase="outlier_kernels_vs_plain", **row)
                 del x, got, ref
@@ -1193,6 +1296,28 @@ def outlier_kernel_phase(card: str):
         del nb, sb, em, arms, nb_dense, sb_dense
         torch.cuda.empty_cache()
     return rows
+
+
+def sideband_gemv_stats(w, M: int, K: int, N: int, ms: float) -> dict:
+    """The side-band GEMV's achieved HBM rate (the bytes its bound counts:
+    weight, x, f32 out, over its time), its plan (ring, split, tiles) and
+    its occupancy: CTAs an SM by the card's occupancy query, 12 warps each
+    (9 of them working), of the SM's 64."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    plan = om.outlier_gemv_plan(N, w.inlier.codes.shape[0],
+                                w.inlier.block_size, w.budget, M)
+    ctas = om.outlier_gemv_occupancy(
+        M, w.inlier.codes.dtype != torch.int8, plan["smem_bytes"])
+    nbytes = w.nbytes() + M * K * 2 + M * N * 4
+    return dict(hbm_GBps=nbytes / ms / 1e6,
+                hbm_share=nbytes / ms / 1e-3 / HBM_BYTES_PER_S,
+                ctas_per_sm=ctas, occupancy=ctas * 12 / 64,
+                ring_bytes=plan["stages"] * plan["stage_bytes"],
+                stages=plan["stages"], ksplit=plan["ksplit"],
+                tiles=plan["tiles"], smem_bytes=plan["smem_bytes"])
 
 
 def _clone_packed(p):
@@ -1214,8 +1339,9 @@ def outlier_main_path(card: str):
     tokens and 32 greedy decode steps, launch counts held exactly. Host
     time sets the decode step and drifts between calls, so after its main
     run each arm is timed interleaved with the slice-1 MX-FP6 model (built
-    for the window, then freed). The NB model also serves the engine phase
-    and a profile of its decode steps. Returns {arm: counts}."""
+    for the window, then freed). The NB model also serves the engine phase;
+    the NB and side-band models' decode steps are profiled. Returns {arm:
+    counts}."""
     import torch
 
     L, B, S0, STEPS = 32, 8, 128, 32
@@ -1235,8 +1361,8 @@ def outlier_main_path(card: str):
         torch.cuda.reset_peak_memory_stats()
         # the main path's run: counts zeroed just before, read just after
         reset_counts()
-        toks, ttft, dec, last, pre, dcounts, *_ = prefill_decode(
-            model, ids, STEPS, max_len)
+        main = prefill_decode(model, ids, STEPS, max_len)
+        toks, ttft, dec, last, pre, dcounts, *_ = main
         peak = torch.cuda.max_memory_allocated()
         n = per_layer[arm] * L + 1
         if arm == "nb":
@@ -1258,7 +1384,9 @@ def outlier_main_path(card: str):
             raise AssertionError(f"non-finite logits on the {arm} arm")
         if not ((toks >= 0) & (toks < model.cfg.vocab_size)).all():
             raise AssertionError(f"token ids out of range on the {arm} arm")
-        del toks, last
+        eager_ms = graph_vs_eager(model, ids, STEPS, max_len, arm, main,
+                                  card)
+        del toks, last, main
         mxfp6 = build(True)[0]
         prefill_decode(mxfp6, ids, 2, max_len)
         best = {arm: (ttft, dec), "mxfp6": (9e9, 9e9)}
@@ -1271,9 +1399,10 @@ def outlier_main_path(card: str):
         torch.cuda.empty_cache()
         ms = {k: v[1] / STEPS * 1e3 for k, v in best.items()}
         log(phase="outlier_main_path", arm=arm, layers=L, batch=B,
-            prompt=S0, steps=STEPS,
+            prompt=S0, steps=STEPS, graph=True,
             decode_tokens_per_s=B * STEPS / best[arm][1],
-            decode_ms_per_step=ms[arm], ttft_ms=best[arm][0] * 1e3,
+            decode_ms_per_step=ms[arm], eager_decode_ms_per_step=eager_ms,
+            ttft_ms=best[arm][0] * 1e3,
             mxfp6_decode_ms_per_step=ms["mxfp6"],
             mxfp6_ttft_ms=best["mxfp6"][0] * 1e3,
             vs_mxfp6_decode=ms["mxfp6"] / ms[arm],
@@ -1283,6 +1412,7 @@ def outlier_main_path(card: str):
         out[arm] = {"prefill": pre, "decode": dcounts}
         if arm == "nb":
             outlier_engine_phase(model, card)
+        if arm in ("nb", "sideband"):
             prof = decode_device_profile(model, ids, max_len, ms[arm])
             log(phase="outlier_decode_profile", arm=arm,
                 profile=prof if prof else "not measured", card=card)
@@ -1337,9 +1467,11 @@ def outlier_two_layer_phase(card: str):
         feed = torch.cat([torch.argmax(first[0][:, -1], -1)[:, None],
                           toks[:, :-1]], 1)
         reset_counts()
-        got = prefill_decode(two_k, ids, STEPS, max_len, feed=feed)[7]
-        counts = launches()
-        want = prefill_decode(two_p, ids, STEPS, max_len, feed=feed)[7]
+        got = prefill_decode(two_k, ids, STEPS, max_len, feed=feed)
+        counts = {k: got[4][k] + got[5][k] for k in got[4]}
+        got = got[7]
+        want = prefill_decode(two_p, ids, STEPS, max_len, feed=feed,
+                              graph=False)[7]
         per_layer = {"nb": 4, "sideband": 7, "emi8m": 4}[arm]
         gemv, gemm = {"nb": ("dequant_gemv_nb", "dequant_gemm_nb"),
                       "sideband": ("dequant_gemv_outlier",
@@ -1613,8 +1745,8 @@ def int_main_path(card: str):
         torch.cuda.reset_peak_memory_stats()
         # the main path's run: counts zeroed just before, read just after
         reset_counts()
-        toks, ttft, dec, last, pre, dcounts, *_ = prefill_decode(
-            model, ids, STEPS, max_len)
+        main = prefill_decode(model, ids, STEPS, max_len)
+        toks, ttft, dec, last, pre, dcounts, *_ = main
         peak = torch.cuda.max_memory_allocated()
         gemm = dm.gemm_counter(transport, INT_CASES[case][2])
         if gemm != f"dequant_matmul_{transport}":
@@ -1632,7 +1764,9 @@ def int_main_path(card: str):
             raise AssertionError(f"non-finite logits on the {arm} arm")
         if not ((toks >= 0) & (toks < model.cfg.vocab_size)).all():
             raise AssertionError(f"token ids out of range on the {arm} arm")
-        del toks, last
+        eager_ms = graph_vs_eager(model, ids, STEPS, max_len, arm, main,
+                                  card)
+        del toks, last, main
         mxfp6 = build(True)[0]
         prefill_decode(mxfp6, ids, 2, max_len)
         best = {arm: (ttft, dec), "mxfp6": (9e9, 9e9)}
@@ -1645,9 +1779,10 @@ def int_main_path(card: str):
         torch.cuda.empty_cache()
         ms = {k: v[1] / STEPS * 1e3 for k, v in best.items()}
         log(phase="int_main_path", arm=arm, format=fmt, transport=transport,
-            layers=L, batch=B, prompt=S0, steps=STEPS,
+            layers=L, batch=B, prompt=S0, steps=STEPS, graph=True,
             decode_tokens_per_s=B * STEPS / best[arm][1],
-            decode_ms_per_step=ms[arm], ttft_ms=best[arm][0] * 1e3,
+            decode_ms_per_step=ms[arm], eager_decode_ms_per_step=eager_ms,
+            ttft_ms=best[arm][0] * 1e3,
             mxfp6_decode_ms_per_step=ms["mxfp6"],
             mxfp6_ttft_ms=best["mxfp6"][0] * 1e3,
             vs_mxfp6_decode=ms["mxfp6"] / ms[arm],
@@ -1716,9 +1851,11 @@ def int_two_layer_phase(card: str):
         feed = torch.cat([torch.argmax(first[0][:, -1], -1)[:, None],
                           toks[:, :-1]], 1)
         reset_counts()
-        got = prefill_decode(two_k, ids, STEPS, max_len, feed=feed)[7]
-        counts = launches()
-        want = prefill_decode(two_p, ids, STEPS, max_len, feed=feed)[7]
+        got = prefill_decode(two_k, ids, STEPS, max_len, feed=feed)
+        counts = {k: got[4][k] + got[5][k] for k in got[4]}
+        got = got[7]
+        want = prefill_decode(two_p, ids, STEPS, max_len, feed=feed,
+                              graph=False)[7]
         d = dm.sad_decode_params(two_k.lm_head.kernel)[0]
         wc = want_counts(**{f"dequant_matmul_{d}": 2 * 4,
                             f"dequant_gemv_{d}": 1 + (2 * 4 + 1) * STEPS})
@@ -2208,9 +2345,9 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                       f"{fmt[0]} {fmt[1]} block {fmt[2]}",
                 "shapes": [[r[k] for k in short] for r in mine],
                 "shape_keys": list(short)})
-            if kind == "matmul" and decode in ("pf6", "pf4", "fp16", "sb4",
-                                               "sb2", "native", "fp8_e4m3",
-                                               "fp8_e5m2"):
+            if kind == "matmul" and decode in ("pf6", "pf4", "fp16", "bf16",
+                                               "sb4", "sb2", "native",
+                                               "fp8_e4m3", "fp8_e5m2"):
                 out[-1]["mainloop"] = SM90_SOURCE
                 out[-1]["blocks"] = _route_rows(rrows, name)
                 out[-1]["block_keys"] = list(ROUTE_KEYS)
@@ -2386,9 +2523,9 @@ def sm90_gemm_times() -> list:
     32), emi8 (MX-FP6 fp6_e3m2, block 32, the main path's), emi8m (block
     16, the emi8m arm's merged stream of a side-band weight), compact NB
     (budget 2, the NB arm's), sb4 (int4, block 32, the int4 arm's), sb2
-    (int2, block 16), int8-container (int8, block 32, the int8 arm's) and
-    float8 (fp8_e4m3, fp8_e5m2, block 32) GEMMs at M = 1024 at every
-    Llama-3-8B shape,
+    (int2, block 16), int8-container (int8, block 32, the int8 arm's),
+    float8 (fp8_e4m3, fp8_e5m2, block 32) and bf16-container (block 32)
+    GEMMs at M = 1024 at every Llama-3-8B shape,
     beside torch.matmul on a bf16 weight of the same shape, CUDA events
     over L2-cold operand copies, on weights and x made from fixed seeds:
     two checkouts time the same operands. ``python3 chip_smoke.py
@@ -2408,7 +2545,7 @@ def sm90_gemm_times() -> list:
                         dtype=torch.bfloat16)
         for kind in ("pf6", "sideband", "pf4", "fp16", "torch_matmul",
                      "emi8", "emi8m", "nb", "sb4", "sb2", "int8",
-                     "fp8_e4m3", "fp8_e5m2"):
+                     "fp8_e4m3", "fp8_e5m2", "bf16"):
             if kind in ("sideband", "emi8m"):
                 p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8,
                                        "int2", "fp4_e2m1", std_dev=2.0,
@@ -2433,7 +2570,8 @@ def sm90_gemm_times() -> list:
                 fn = lambda x, w, _: torch.matmul(x, w)   # noqa: E731
             else:
                 case = {"pf6": "fp6_pf6", "pf4": "fp4_pf4",
-                        "fp16": "fp16_container", "sb4": "int4_sb4",
+                        "fp16": "fp16_container", "bf16": "bf16_container",
+                        "sb4": "int4_sb4",
                         "sb2": "int2_sb2", "int8": "int8_native",
                         "fp8_e4m3": "fp8_e4m3_native",
                         "fp8_e5m2": "fp8_e5m2_native"}[kind]
@@ -2450,6 +2588,61 @@ def sm90_gemm_times() -> list:
                              ms=ms, bound_ms=bound, bound_by=by))
             del ps, p
             torch.cuda.empty_cache()
+    return rows
+
+
+# the side-band arm's decode linears (unfused, as nn.pack_params leaves the
+# side-band format): q, k, v, o, gate, up, down a layer, and the lm_head
+SIDEBAND_ARM_SHAPES = (("q", 4096, 4096, 32), ("k", 4096, 1024, 32),
+                       ("v", 4096, 1024, 32), ("o", 4096, 4096, 32),
+                       ("gate", 4096, 14336, 32), ("up", 4096, 14336, 32),
+                       ("down", 14336, 4096, 32), ("lm_head", 4096, 128256, 1))
+SIDEBAND_GEMV_M = (1, 8, 64, 255)
+
+
+def sideband_gemv_times() -> list:
+    """The side-band GEMV (int2 + fp4 outliers, block 16, budget 4) at the
+    side-band arm's decode shapes and M = 1, 8, 64, 255, beside its byte
+    bound and torch.matmul on the dequantized bf16 weight, CUDA events over
+    L2-cold operand copies, on weights and x made from fixed seeds: two
+    checkouts time the same operands. Each row carries the launches a
+    32-layer decode step makes at that shape (``per_step``), so that two
+    checkouts' rows give the GEMV device time of a step. ``python3
+    chip_smoke.py --gemv-times`` prints them as one JSON line; run it in
+    two checkouts in one call (this script copied into the other one)."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    gen = torch.Generator(device="cuda").manual_seed(909)
+    rows = []
+    for lin, K, N, per_step in SIDEBAND_ARM_SHAPES:
+        p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8, "int2",
+                               "fp4_e2m1", std_dev=2.0, block_size=16,
+                               outlier_budget=SIDEBAND_BUDGET, axis=0)
+        dense = pk.dequantize_mx_outlier(p, torch.bfloat16)
+        nc, nd = copies_for(p.nbytes()), copies_for(dense.numel() * 2)
+        ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+        ds = [dense] + [dense.clone() for _ in range(nd - 1)]
+        for M in SIDEBAND_GEMV_M:
+            x = torch.randn((M, K), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            got = om.dequant_gemv_outlier(x, p, torch.float32)
+            ref = om.dequant_matmul_outlier_reference(x, p, torch.float32)
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if not (np.isfinite(rel) and rel < OUTLIER_REL_TOL):
+                raise AssertionError(f"side-band GEMV {lin} M={M}: rel err "
+                                     f"{rel}")
+            ms = cuda_ms(lambda i: om.dequant_gemv_outlier(
+                x, ps[i], torch.float32), nc)
+            lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
+            nbytes = p.nbytes() + M * K * 2 + M * N * 4
+            rows.append(dict(linear=lin, K=K, N=N, M=M, per_step=per_step,
+                             ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             library_ms=lib_ms, rel_err=rel))
+        del ps, ds, p, dense
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2470,6 +2663,8 @@ ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
                ("pf4", "fp4_e2m1", 16, 0), ("pf4", "fp4_e2m1", 64, 0),
                ("pf4", "fp4_e2m1", 48, 0), ("fp16", "fp16", 8, 0),
                ("fp16", "fp16", 64, 0), ("fp16", "fp16", 48, 0),
+               ("bf16", "bfloat16", 8, 0), ("bf16", "bfloat16", 64, 0),
+               ("bf16", "bfloat16", 48, 0),
                ("sideband", "int2", 8, 4), ("sideband", "int2", 64, 4),
                ("sideband", "int2", 48, 4), ("sideband", "int2", 8, 8),
                ("emi8", "fp6_e3m2", 8, 0), ("emi8", "fp6_e3m2", 64, 0),
@@ -2486,6 +2681,7 @@ ROUTE_CASES += tuple((kind, fmt, block, 0)
 ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_pf4_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_fp16_tile": ("dequant_matmul.cu", 71),
+                 "dequant_matmul_bf16_tile": ("dequant_matmul.cu", 71),
                  "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111),
                  "dequant_matmul_emi8_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_sb4_tile": ("dequant_matmul.cu", 71),
@@ -2532,8 +2728,9 @@ def route_phase(card: str):
             dense = pk.dequantize_mx_outlier(p, dtype=torch.bfloat16)
             name = om.gemm_counter(block, budget)
         else:
-            transport = ("native" if kind in ("fp16", "native", "fp8_e4m3",
-                                              "fp8_e5m2") else kind)
+            transport = ("native" if kind in ("fp16", "bf16", "native",
+                                              "fp8_e4m3", "fp8_e5m2")
+                         else kind)
             p = pk.to_serving_layout(pk.pack_mx(
                 int_weight(fmt, (K, N), gen).float(), 8, fmt, block, axis=0,
                 transport=transport))
@@ -2593,15 +2790,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv not in ([], ["--gemm-times"]):
-        print("usage: chip_smoke.py [--gemm-times]", file=sys.stderr)
+    if argv not in ([], ["--gemm-times"], ["--gemv-times"]):
+        print("usage: chip_smoke.py [--gemm-times | --gemv-times]",
+              file=sys.stderr)
         return 2
     from microscopiq_tpu_torch.ops.cuda import build
 
     if argv:
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_line()
-        log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
+        if argv == ["--gemm-times"]:
+            log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
+        else:
+            log(phase="sideband_gemv_times", rows=sideband_gemv_times(),
+                card=card)
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False      # plain twins: f32

@@ -8,6 +8,14 @@ pad slots never attend, real positions are ``slot - offset[b]``, and rows
 that hit EOS emit ``pad_token_id`` after it. Temperature sampling is ROADMAP
 queue 1 item 7.
 
+Over the dense cache a decode step is :class:`DenseDecodeStep`: on a CUDA
+model its first call runs eagerly (it builds the kernels and its token is
+kept), its second captures the step in a CUDA graph and every call from
+then on replays it, so that the host launches one graph a token instead of
+every kernel of the step; on the CPU each call runs the step eagerly. The
+prefill stays eager (one call, with M = B x S rows on the GEMMs), and so do
+the steps over the quantized cache, whose fold step branches on the host.
+
 This is the single-sequence reference the serving engine is checked
 against, and the prefill + decode loop ``chip_smoke.py`` times.
 """
@@ -20,7 +28,8 @@ import numpy as np
 import torch
 
 from ..kv.cache import (DenseDecodeCache, QuantizedDecodeCache,
-                        QuantKVConfig, init_dense_cache, init_quant_cache)
+                        QuantKVConfig, check_dense_room, init_dense_cache,
+                        init_quant_cache)
 
 
 def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
@@ -36,6 +45,75 @@ def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
                                  device=device)
         return state, lambda st: QuantizedDecodeCache(st, quant_cfg)
     raise ValueError(f"unknown cache_kind {kind!r}")
+
+
+class DenseDecodeStep:
+    """One greedy decode step over a dense cache, on static buffers.
+
+    ``tok`` (B,) holds the token fed to the step and, after it, the greedy
+    token out; ``logits`` the step's (B, 1, vocab) logits; the positions
+    (``length - offset``), the forward pass, the argmax and the cache
+    length's advance all belong to the step. :meth:`eager` runs it;
+    :meth:`capture` records it in a CUDA graph (running nothing) and
+    :meth:`replay` replays that graph; calling the object does what
+    ``generate`` needs: on the CPU every call is eager, on a CUDA device
+    the first call is eager (the warm-up that builds the kernels, a real
+    step whose token is kept), the second captures and replays, and every
+    later call replays. A failed capture or replay raises: there is no
+    eager fallback. The overflow check reads the cache's host mirror of
+    its length before each step, eager or replayed.
+    """
+
+    def __init__(self, model, state, tok: torch.Tensor):
+        self.model = model
+        self.state = state
+        self.tok = tok.detach().clone()
+        self.logits = None
+        self.graph = None
+        self._calls = 0
+
+    def _step(self) -> torch.Tensor:
+        st = self.state
+        cache = DenseDecodeCache(st)
+        pos = (st.length - st.offset)[:, None]
+        logits = self.model(self.tok[:, None], positions=pos, cache=cache)
+        cache.finalize()
+        self.tok.copy_(torch.argmax(logits[:, -1], dim=-1))
+        return logits
+
+    def eager(self) -> torch.Tensor:
+        """Run one step now; returns ``tok``."""
+        self.logits = self._step()
+        return self.tok
+
+    def capture(self) -> None:
+        """Record one step in a CUDA graph on a side stream. Nothing runs:
+        the device length stays, and the host mirror, which the recording
+        advanced, is put back."""
+        dev = self.tok.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        host = self.state.host_length
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            self.logits = self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.state.host_length = host
+
+    def replay(self) -> torch.Tensor:
+        """Replay the captured step; returns ``tok``."""
+        check_dense_room(self.state, 1)
+        self.graph.replay()
+        self.state.host_length += 1
+        return self.tok
+
+    def __call__(self) -> torch.Tensor:
+        self._calls += 1
+        if self.tok.device.type != "cuda" or self._calls == 1:
+            return self.eager()
+        if self.graph is None:
+            self.capture()
+        return self.replay()
 
 
 def pad_prompts(prompts: Sequence[Sequence[int]], pad_token_id: int = 0):
@@ -101,13 +179,18 @@ def generate(model, prompt_ids, max_new_tokens: int,
         return out_t
 
     out = [host_tok(tok)]
+    step = DenseDecodeStep(model, state, tok) if cache_kind == "dense" \
+        else None
     for _ in range(max_new_tokens - 1):
         if finished.all():
             break
-        cache = wrap(state)
-        pos = (state.length - offset)[:, None]
-        logits = model(tok[:, None], positions=pos, cache=cache)
-        state = cache.finalize()
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        if step is not None:
+            tok = step()
+        else:
+            cache = wrap(state)
+            pos = (state.length - offset)[:, None]
+            logits = model(tok[:, None], positions=pos, cache=cache)
+            state = cache.finalize()
+            tok = torch.argmax(logits[:, -1], dim=-1)
         out.append(host_tok(tok))
     return np.stack(out, axis=1)

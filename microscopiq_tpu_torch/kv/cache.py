@@ -13,9 +13,11 @@ the preallocated buffers: PyTorch runs eagerly and a copy of the whole cache
 per token would double its traffic. ``finalize`` still returns the state to
 carry to the next step. Where JAX quantizes every decode step and predicates
 the write (``lax.cond``, ``jnp.where``), the port quantizes only on the steps
-where a chunk folds; the stored values are the same. The shared cache knows
-its ``length`` on the host; the slot cache reads once per step, on the host,
-whether any slot folds.
+where a chunk folds; the stored values are the same. The dense cache keeps
+its ``length`` on the device (a CUDA graph of a decode step replays with
+it), with a host mirror for the overflow check; the shared quantized cache
+knows its ``length`` on the host; the slot cache reads once per step, on
+the host, whether any slot folds.
 """
 
 from __future__ import annotations
@@ -37,10 +39,16 @@ _OVERFLOW_MSG = "cache holds {cap} chunks; a write at chunk {at} overflows it"
 class DenseKVState:
     k: torch.Tensor                 # (L, B, S_max, KVH, hd)
     v: torch.Tensor
-    length: int                     # tokens written so far (all rows)
+    # tokens written so far (all rows): a 0-d int32 tensor on the cache's
+    # device, as JAX's traced length, so that a step captured in a CUDA
+    # graph writes at the slot its replay finds; it advances in place
+    length: torch.Tensor
     # per-row left-pad count (B,): slot s of row b holds the token at real
     # position s - offset[b]; slots < offset[b] are pads and never attended
     offset: Optional[torch.Tensor] = None
+    # the host's mirror of ``length``, advanced by the same counts: the
+    # overflow check reads it, never the device tensor
+    host_length: int = 0
 
 
 def init_dense_cache(n_layers, batch, max_len, kv_heads, head_dim,
@@ -51,8 +59,9 @@ def init_dense_cache(n_layers, batch, max_len, kv_heads, head_dim,
     if offset is None:
         offset = torch.zeros((batch,), dtype=torch.int32, device=dev)
     return DenseKVState(torch.zeros(shape, dtype=dtype, device=dev),
-                        torch.zeros(shape, dtype=dtype, device=dev), 0,
-                        offset.to(dev))
+                        torch.zeros(shape, dtype=dtype, device=dev),
+                        torch.zeros((), dtype=torch.int32, device=dev),
+                        offset.to(dev), 0)
 
 
 def _offset_of(st, batch: int, device) -> torch.Tensor:
@@ -62,25 +71,38 @@ def _offset_of(st, batch: int, device) -> torch.Tensor:
     return off
 
 
+def check_dense_room(state: DenseKVState, S: int) -> None:
+    """Raise ValueError when S more tokens would overflow the dense store,
+    from the host mirror of the length."""
+    S_max = state.k.shape[2]
+    if state.host_length + S > S_max:
+        raise ValueError(f"cache holds {S_max} slots; {state.host_length} "
+                         f"used, {S} more requested")
+
+
 class DenseDecodeCache:
-    """Full-precision cache; every row appends at the same slot."""
+    """Full-precision cache; every row appends at the same slot.
+
+    ``update`` writes at the device length and reads nothing on the host
+    but the length's mirror, so a step through it can be captured in a
+    CUDA graph; ``finalize`` advances the length (device and mirror) once
+    per step, in place, by the tokens the step wrote.
+    """
 
     def __init__(self, state: DenseKVState):
         self.state = state
-        self._new_len = state.length
+        self._written = 0
 
     def update(self, layer_idx: int, k, v, positions, mask):
         st = self.state
         B, S, KVH, hd = k.shape
-        L0 = st.length
         S_max = st.k.shape[2]
-        if L0 + S > S_max:
-            raise ValueError(f"cache holds {S_max} slots; {L0} used, "
-                             f"{S} more requested")
-        st.k[layer_idx, :, L0:L0 + S] = k.to(st.k.dtype)
-        st.v[layer_idx, :, L0:L0 + S] = v.to(st.v.dtype)
-        new_len = L0 + S
-        self._new_len = new_len
+        check_dense_room(st, S)
+        idx = st.length.long() + torch.arange(S, device=k.device)
+        st.k[layer_idx].index_copy_(1, idx, k.to(st.k.dtype))
+        st.v[layer_idx].index_copy_(1, idx, v.to(st.v.dtype))
+        self._written = S
+        new_len = st.length + S
         slots = torch.arange(S_max, device=k.device)
         # real position of key slot s in row b is s - offset[b]; pads
         # (negative real position) never attend
@@ -91,8 +113,12 @@ class DenseDecodeCache:
         return st.k[layer_idx], st.v[layer_idx], mask[:, None, :, :]
 
     def finalize(self) -> DenseKVState:
-        return DenseKVState(self.state.k, self.state.v, self._new_len,
-                            self.state.offset)
+        st = self.state
+        if self._written:
+            st.length.add_(self._written)
+            st.host_length += self._written
+            self._written = 0
+        return st
 
 
 # ---------------------------------------------------------------------------

@@ -37,13 +37,13 @@
 //   in-range elements. 16-byte vector loads are used when N % 16 == 0 and
 //   K % 8 == 0, element loads otherwise.
 //
-// The pf6, pf4, sb4 and sb2 transports, the fp16 container, emi8 / emi8m,
-// the int8 container and the float8 containers run on gemm_sm90.cuh's
-// wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX block that
-// divides its 64-deep K step and whose ring fits (pf6: 16, 32, 64; pf4: 16,
-// 32, 64; sb4: 2 to 64; sb2: 4 to 64; fp16: 8, 16, 32, 64; emi8, int8 and
-// float8: 4, 8, 16, 32, 64); other blocks (48, 96, 128, ...) take gemm_dq's
-// tile loop, as does the bf16 container. dequant_matmul.py::gemm_route
+// The pf6, pf4, sb4 and sb2 transports, the fp16 and bf16 containers,
+// emi8 / emi8m, the int8 container and the float8 containers run on
+// gemm_sm90.cuh's wgmma + TMA mainloop instead (gemm_dq_sm90), at every MX
+// block that divides its 64-deep K step and whose ring fits (pf6: 16, 32,
+// 64; pf4: 16, 32, 64; sb4: 2 to 64; sb2: 4 to 64; fp16 and bf16: 8, 16,
+// 32, 64; emi8, int8 and float8: 4, 8, 16, 32, 64); other blocks (48, 96,
+// 128, ...) take gemm_dq's tile loop. dequant_matmul.py::gemm_route
 // chooses by block size before the launch
 // and passes the choice here. Each decoder reads the TMA-loaded raw copy of
 // a step's packed rows and exponents in shared memory and writes the bf16
@@ -58,6 +58,8 @@
 //   at most 2 significant bits times a power of two, exact in bf16;
 // - fp16: 32 of the step's 64 K rows of a column a thread, each code
 //   rounded to bf16 and then scaled, decode_half<kFp16>'s order;
+// - bf16: the same share, each code's value times 2^(se - fold) in f32 and
+//   rounded once to bf16, as gemm_dq computes it;
 // - emi8, int8 and float8: the same share, each byte's value (emi8's m̂
 //   and 2^e' formed as f32 bits, int8's code, float8's pair convert) times
 //   2^(se - fold) as gemm_dq multiplies it;
@@ -130,7 +132,8 @@ gemm_dq(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
 
 
 // ---------------------------------------------------------------------------
-// pf6, pf4, fp16, emi8, sb4 and sb2 on the sm90 mainloop
+// pf6, pf4, fp16, bf16, emi8, sb4, sb2, int8 and float8 on the sm90
+// mainloop
 // ---------------------------------------------------------------------------
 // The raw operands of a 64-row step that the decoders here read: the ROWS
 // packed rows of each of its 64/B blocks (CB-byte codes), then one exponent
@@ -394,6 +397,46 @@ struct Fp16Sm90 : Sm90Raw<2, B, B> {
   }
 };
 
+// The bf16 container: Fp16Sm90's ring and share (a decode thread owns
+// 64 / DWG of a step's K rows in one column, 8 at a time) with no convert.
+// Each code's value (its 16 bits as the high half of an f32,
+// decode_half<kBf16>) is multiplied by the clamped 2^(se - fold) in f32
+// and rounded once to bf16, as gemm_dq computes it, so the B tile is
+// gemm_tile's bit for bit. No fast path skips that multiply: a bf16 code
+// can be as small as 2^-133, so its product with 2^s can fall below 2^-126,
+// where the f32 product and its bf16 rounding each round (Fp16Sm90's
+// s >= -102 argument rests on every fp16 value being at least 2^-24).
+// The multiply and one paired convert are also all the decode costs.
+template <int B>
+struct Bf16Sm90 : Sm90Raw<2, B, B> {
+  static_assert(B == 8 || B == 16 || B == 32 || B == 64,
+                "block of 8, 16, 32 or 64");
+  using Raw = Sm90Raw<2, B, B>;
+  static constexpr int kStages = 3, kRawBufs = 3, kDwg = 2;
+
+  template <int DWG>
+  __device__ __forceinline__ void decode(const int8_t* raw, uint8_t* b,
+                                         int t) const {
+    constexpr int kN = Raw::kN, C = 8 / DWG;    // chunks of 8 rows a thread
+    const uint16_t* w = reinterpret_cast<const uint16_t*>(raw);
+    const int col = t % kN, c0 = (t / kN) * C;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      const int c = c0 + i;
+      const float sc = mxq::exp2_i32(this->scale_exp(raw, 8 * c / B, col));
+      uint32_t u[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t lo = w[(8 * c + 2 * j) * kN + col];
+        const uint32_t hi = w[(8 * c + 2 * j + 1) * kN + col];
+        u[j] = mxq::sm90::pack_bf16(__uint_as_float(lo << 16) * sc,
+                                    __uint_as_float(hi << 16) * sc);
+      }
+      mxq::sm90::store_b_chunk(b, col, c, make_uint4(u[0], u[1], u[2], u[3]));
+    }
+  }
+};
+
 // The one-byte decodes: emi8 and emi8m, the int8 container and the float8
 // containers (fp8_e4m3, fp8_e5m2; fp6 and fp4 codes in float8_e4m3fn). A
 // decode thread owns 64 / DWG of a step's K rows in one column, 8 at a time
@@ -579,10 +622,12 @@ using Sm90Dec = std::conditional_t<
                     std::conditional_t<
                         D == mxq::kFp16, Fp16Sm90<B>,
                         std::conditional_t<
-                            D == mxq::kInt8, Int8Sm90<B>,
-                            std::conditional_t<mxq::is_fp8<D>(),
-                                               Fp8Sm90<D, B>,
-                                               NoSm90Dec<D>>>>>>>>>;
+                            D == mxq::kBf16, Bf16Sm90<B>,
+                            std::conditional_t<
+                                D == mxq::kInt8, Int8Sm90<B>,
+                                std::conditional_t<mxq::is_fp8<D>(),
+                                                   Fp8Sm90<D, B>,
+                                                   NoSm90Dec<D>>>>>>>>>>;
 
 // grid: M tiles x N tiles of 256 x 128 (gemm_sm90.cuh); x (M, K) bf16 with
 // K % 8 == 0 through xmap.
@@ -595,10 +640,10 @@ gemm_dq_sm90(const __grid_constant__ CUtensorMap xmap,
              void* out, int M, int K, int N, int NB, int mw, int ebits,
              int fold, int out_bf16, int tma) {
   static_assert(D == mxq::kPf6 || D == mxq::kPf4 || D == mxq::kFp16
-                    || D == mxq::kEmi8 || D == mxq::kSb4 || D == mxq::kSb2
-                    || D == mxq::kInt8 || mxq::is_fp8<D>(),
-                "the sm90 mainloop decodes pf6, pf4, fp16, emi8, sb4, sb2, "
-                "int8 and float8");
+                    || D == mxq::kBf16 || D == mxq::kEmi8 || D == mxq::kSb4
+                    || D == mxq::kSb2 || D == mxq::kInt8 || mxq::is_fp8<D>(),
+                "the sm90 mainloop decodes pf6, pf4, fp16, bf16, emi8, sb4, "
+                "sb2, int8 and float8");
   using Dec = Sm90Dec<D, B>;
   Dec dec{{codes, se, &codes_map, &se_map, N, NB, mw, ebits, fold,
            tma != 0}};
@@ -691,6 +736,8 @@ b_tile_sm90(const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
   MXQ_SM90(mxq::kPf4, 16); MXQ_SM90(mxq::kPf4, 32); MXQ_SM90(mxq::kPf4, 64); \
   MXQ_SM90(mxq::kFp16, 8); MXQ_SM90(mxq::kFp16, 16);                        \
   MXQ_SM90(mxq::kFp16, 32); MXQ_SM90(mxq::kFp16, 64);                       \
+  MXQ_SM90(mxq::kBf16, 8); MXQ_SM90(mxq::kBf16, 16);                        \
+  MXQ_SM90(mxq::kBf16, 32); MXQ_SM90(mxq::kBf16, 64);                       \
   MXQ_SM90(mxq::kEmi8, 4); MXQ_SM90(mxq::kEmi8, 8);                         \
   MXQ_SM90(mxq::kEmi8, 16); MXQ_SM90(mxq::kEmi8, 32);                       \
   MXQ_SM90(mxq::kEmi8, 64);                                                \
@@ -724,8 +771,8 @@ b_tile_sm90(const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
 // x: (M, K) bf16; codes: (NB, rows, N) in the transport's container, with
 // Kp = NB * B >= K; se: (NB, N) int8; out: (M, N) bf16 or f32; decode: an
 // mxq::Decode; sm90: the route that dequant_matmul.py::gemm_route chose,
-// 1 for gemm_dq_sm90 (pf6 and pf4 at B = 16, 32, 64; fp16 at B = 8, 16,
-// 32, 64; emi8, int8 and float8 at B = 4, 8, 16, 32, 64; sb4 at B = 2 to
+// 1 for gemm_dq_sm90 (pf6 and pf4 at B = 16, 32, 64; fp16 and bf16 at
+// B = 8, 16, 32, 64; emi8, int8 and float8 at B = 4, 8, 16, 32, 64; sb4 at B = 2 to
 // 64; sb2 at B = 4 to 64; x with K % 8 == 0, 16-byte aligned), 0 for
 // gemm_dq (every decode, any B). Returns the cudaError_t of the launch (0
 // on success; cudaErrorInvalidValue for an unknown decode or an sm90

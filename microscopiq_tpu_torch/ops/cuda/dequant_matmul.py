@@ -7,10 +7,10 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
 the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, sb4, sb2, the fp16,
-int8 and float8 containers and emi8/emi8m on the wgmma + TMA mainloop of
-``csrc/gemm_sm90.cuh`` at the blocks that :func:`gemm_route` gives them,
-whose host-side plan is :func:`sm90_plan`; their other blocks and the bf16
-container on ``csrc/common.cuh``'s ``gemm_tile``).
+bf16, int8 and float8 containers and emi8/emi8m on the wgmma + TMA
+mainloop of ``csrc/gemm_sm90.cuh`` at the blocks that :func:`gemm_route`
+gives them, whose host-side plan is :func:`sm90_plan`; their other blocks
+on ``csrc/common.cuh``'s ``gemm_tile``).
 Both
 take every transport that the TPU kernels decode: emi8 and emi8m, the int8
 container (pre-blocked or 2-D, which reaches the serving layout by a view),
@@ -63,13 +63,14 @@ _SM90_STAGE_BYTES = (SM90_TILE[0] + SM90_TILE[1]) * SM90_TILE[2] * 2
 NB_BLOCK = 16                     # the compact NB transport's one block
 # the GEMMs with a decoder on that mainloop -> the MX blocks it is compiled
 # for (those that divide the 64-deep K step and whose ring fits; pf6 at 16
-# is one that no packer makes); "fp16" is the fp16 container, "emi8" emi8
-# and emi8m, "native" the int8 container, "fp8_e4m3" and "fp8_e5m2" the
+# is one that no packer makes); "fp16" and "bf16" are the 16-bit
+# containers, "emi8" emi8 and emi8m, "native" the int8 container, "fp8_e4m3" and "fp8_e5m2" the
 # float8 containers, "sideband" the PackedMXOutlier GEMM and "nb" the
 # compact PackedOutlierNB GEMM (block 16 only) of outlier_matmul.py
 _BYTE_BLOCKS = (4, 8, 16, 32, 64)
 SM90_BLOCKS = {"pf6": (16, 32, 64), "pf4": (16, 32, 64),
-               "fp16": (8, 16, 32, 64), "emi8": _BYTE_BLOCKS,
+               "fp16": (8, 16, 32, 64), "bf16": (8, 16, 32, 64),
+               "emi8": _BYTE_BLOCKS,
                "native": _BYTE_BLOCKS, "fp8_e4m3": _BYTE_BLOCKS,
                "fp8_e5m2": _BYTE_BLOCKS,
                "sb4": (2, 4, 8, 16, 32, 64), "sb2": (4, 8, 16, 32, 64),
@@ -80,8 +81,8 @@ NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
 # after. dequant_matmul_<decode> counts the GEMM that gemm_route gives the
-# default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16, emi8, the int8
-# container and float8), and
+# default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16, bf16, emi8,
+# the int8 container and float8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
 launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
@@ -102,7 +103,8 @@ def _ring_bytes(stages: int, raw: int, raw_bufs: int) -> int:
 def _sm90_ring(kind: str, block: int, budget: int):
     """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
     for ``kind`` at ``block`` (and ``budget`` slots), mirroring its
-    decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``Emi8Sm90``,
+    decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``Bf16Sm90``,
+    ``Emi8Sm90``,
     ``Int8Sm90``, ``Fp8Sm90``, ``Sb4Sm90``, ``Sb2Sm90``, ``SidebandSm90``,
     ``NbSm90``); None where no such kernel is compiled or its ring would
     not fit. Raises ValueError for a budget that no
@@ -119,7 +121,7 @@ def _sm90_ring(kind: str, block: int, budget: int):
         return 0, 4, 3, (BK // 2 + nblk) * BN
     if kind == "sb2":                     # B/4 packed rows a block
         return 0, 4, 3, (BK // 4 + nblk) * BN
-    if kind == "fp16":                    # 2-byte codes
+    if kind in ("fp16", "bf16"):          # 2-byte codes
         return 0, 3, 3, (2 * BK + nblk) * BN
     def four_stages(slots, raw):          # pf6's ring, where it fits
         fits = _ring_bytes(4, raw, 3) <= SM90_MAX_SMEM
@@ -150,7 +152,8 @@ def _sm90_ring(kind: str, block: int, budget: int):
 def sm90_plan(kind: str, K: int, N: int, block: int,
               budget: int = 0) -> dict:
     """Host-side plan of the wgmma + TMA GEMM (``csrc/gemm_sm90.cuh``) for a
-    ``"pf6"``, ``"pf4"``, ``"sb4"``, ``"sb2"``, ``"fp16"`` (container),
+    ``"pf6"``, ``"pf4"``, ``"sb4"``, ``"sb2"``, ``"fp16"``, ``"bf16"``
+    (containers),
     ``"emi8"`` (emi8, emi8m), ``"native"`` (the int8 container),
     ``"fp8_e4m3"``, ``"fp8_e5m2"`` (float8 containers), ``"sideband"`` or
     ``"nb"`` weight of K rows and N columns (output columns) in blocks of
@@ -184,15 +187,15 @@ def gemm_route(kind: str, block: int, budget: int = 0) -> str:
     blocks of ``block`` (``budget`` outlier slots for ``"sideband"`` and
     ``"nb"``): ``"sm90"``, the wgmma + TMA mainloop (:func:`sm90_plan`),
     for pf6 and pf4 at blocks 16, 32 and 64, sb4 at 2, 4, 8, 16, 32 and
-    64, sb2 at 4, 8, 16, 32 and 64, the fp16 container and the side-band
-    format at 8, 16, 32 and 64 (not the side-band format at 8 with more
-    than 4 slots, whose ring does not fit), emi8/emi8m, the int8
+    64, sb2 at 4, 8, 16, 32 and 64, the fp16 and bf16 containers and the
+    side-band format at 8, 16, 32 and 64 (not the side-band format at 8
+    with more than 4 slots, whose ring does not fit), emi8/emi8m, the int8
     container (``"native"``) and the float8 containers (``"fp8_e4m3"``,
     ``"fp8_e5m2"``) at 4, 8, 16, 32 and 64, and the compact NB format
     (block 16) with up to 16 slots; else ``"tile"``, common.cuh's
-    ``gemm_tile``, which takes every block and budget, and every other
-    decode (the bf16 container). Chosen from the weight alone, before the
-    launch.
+    ``gemm_tile``, which takes every block and budget. Every decode of
+    ``_DECODES`` has an sm90 kernel; ``gemm_tile`` serves only the other
+    blocks. Chosen from the weight alone, before the launch.
     Raises ValueError for a side-band budget above 8."""
     return "sm90" if _sm90_ring(kind, block, budget) is not None else "tile"
 

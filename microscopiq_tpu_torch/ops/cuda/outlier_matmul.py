@@ -17,8 +17,9 @@ Counterpart of the outlier parts of
   that ``dequant_matmul.gemm_route`` gives it, else on ``gemm_tile``.
 
 Each format has two kernels: a K-split GEMV for fewer than ``GEMM_FROM_M``
-rows and a tensor-core GEMM that decodes the weight tile in shared memory
-from ``GEMM_FROM_M`` rows on, the token count at which the JAX ``QLinear``
+rows (the side-band one a persistent TMA stream, planned by
+:func:`outlier_gemv_plan`) and a tensor-core GEMM that decodes the weight
+tile in shared memory from ``GEMM_FROM_M`` rows on, the token count at which the JAX ``QLinear``
 leaves these formats to XLA. Tensors on the CPU go to the twin. Tensors on a
 CUDA device go to a kernel or raise; a weight on another device than x
 raises.
@@ -35,13 +36,25 @@ from .. import packing as pk
 from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
 from . import operands as op
-from .dequant_matmul import (MAX_OUTLIER_BUDGET, NB_BLOCK, gemm_route,
-                             gemv_ksplit, sm90_plan, sm90_x)
+from .dequant_matmul import (MAX_OUTLIER_BUDGET, NB_BLOCK, SM90_MAX_SMEM,
+                             gemm_route, sm90_plan, sm90_x)
 from .dequant_matmul import scale_fold as _scale_fold
 
 GEMM_FROM_M = 256                 # rows from which the GEMMs take over
 NB_THREADS = 128                  # kThreads in nb_matmul.cu
 _TARGET_BLOCKS = 8 * 132          # ~8 blocks per SM of an H100
+# the side-band GEMV (outlier_matmul.cu, namespace gemv): columns a tile,
+# row groups, the shared-memory slack and barrier bytes, K rows a stage at
+# least, K rows of x a split at most, the SMs of an H100 (one CTA each),
+# tiles an SM to aim for, and the ring's depth at most
+GEMV_TN = 128
+_GEMV_ROW_GROUPS = 32
+_GEMV_FIXED_SMEM = 128 + 256
+_GEMV_STAGE_ROWS = 128
+_GEMV_SPLIT_ROWS = 1024
+GEMV_SMS = 132
+_GEMV_TILES_PER_SM = 4
+_GEMV_MAX_STAGES = 8
 
 # launches per kernel wrapper, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
@@ -58,7 +71,8 @@ _ENTRIES = {
     "dequant_gemv_nb": ("nb_matmul", [_ptr] * 7 + [_int] * 9 + [_ptr]),
     "dequant_gemm_nb": ("nb_matmul", [_ptr] * 6 + [_int] * 9 + [_ptr]),
     "dequant_gemv_outlier": ("outlier_matmul",
-                             [_ptr] * 8 + [_int] * 11 + [_ptr]),
+                             [_ptr] * 8 + [_int] * 17 + [_ptr]),
+    "outlier_gemv_occupancy": ("outlier_matmul", [_int] * 3 + [_ptr]),
     "dequant_gemm_outlier": ("outlier_matmul",
                              [_ptr] * 7 + [_int] * 11 + [_ptr])}
 
@@ -251,10 +265,96 @@ def _view8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int8) if t.dtype != torch.int8 else t
 
 
+def gemv_rows_per_tile(M: int) -> int:
+    """Rows of x that one tile of the side-band GEMV sums (its template
+    MT): 8, 4, 2 or 1."""
+    return 8 if M >= 8 else 4 if M >= 4 else 2 if M >= 2 else 1
+
+
+def outlier_gemv_plan(N: int, K: int, B: int, budget: int, M: int) -> dict:
+    """Host-side plan of the side-band GEMV (``outlier_matmul.cu``'s
+    ``gemv::sideband_gemv``) for a (K, N) weight in blocks of ``B`` with
+    ``budget`` slots and M rows of x, mirroring the kernel's layout:
+
+    - ``stage_blocks`` (sb): K-blocks a ring stage holds, the least power
+      of two giving 128 K rows (at most 32, fewer where two stages would
+      not fit), and ``rows_per_group``: rows of a block that each of the
+      32 / sb row groups of a stage sums;
+    - ``ksplit`` and ``split_blocks``: the K split, whole stages, enough
+      splits for ~4 tiles an SM (132 SMs) and at most 1024 K rows of x a
+      split; they, the stage size and the row groups never depend on M
+      (the stage size is chosen as if x had 8 rows), so neither does the
+      order of a row's sums;
+    - ``stage_bytes`` (codes, se, seo, outlier codes, int32 positions of
+      sb blocks, 128 columns), ``stages`` (2-8, as many as fit beside x and
+      the reduction in 227 KB), ``smem_bytes`` (what the kernel checks);
+    - ``rows_per_tile`` (MT), ``m_groups``, ``col_tiles``, ``tiles`` and
+      ``ctas`` (one an SM, persistent); ``tma``: TMA and bulk copies (N a
+      multiple of 16, a stage's rows within a 256-row box), else plain
+      copies.
+
+    Raises ValueError for a budget above 8."""
+    if not 0 <= budget <= MAX_OUTLIER_BUDGET:
+        raise ValueError(f"budget {budget} > {MAX_OUTLIER_BUDGET}")
+    mt = gemv_rows_per_tile(M)
+    NB = -(-K // B)
+    col_tiles = -(-N // GEMV_TN)
+    sb = 1
+    while sb * B < _GEMV_STAGE_ROWS and sb < _GEMV_ROW_GROUPS:
+        sb *= 2
+    while True:
+        stages_total = -(-NB // sb)
+        per_split = max(1, _GEMV_SPLIT_ROWS // (sb * B))
+        want = -(-GEMV_SMS * _GEMV_TILES_PER_SM // col_tiles)
+        ksplit = min(stages_total, max(-(-stages_total // per_split), want))
+        sps = -(-stages_total // ksplit)
+        ksplit = -(-stages_total // sps)
+        nbps = sps * sb
+        stage_bytes = GEMV_TN * (sb * B + 2 * sb + 5 * sb * budget)
+
+        def stages_at(rows):              # the ring beside x and the sums
+            x_pad = -(-rows * nbps * B * 4 // 128) * 128
+            fixed = _GEMV_FIXED_SMEM + x_pad + 10 * rows * GEMV_TN * 4
+            return fixed, min(_GEMV_MAX_STAGES,
+                              (SM90_MAX_SMEM - fixed) // stage_bytes)
+
+        # the stage size is chosen at 8 rows of x, so that it (and with it
+        # the order of a row's sums) does not depend on M
+        if stages_at(8)[1] >= 2 or sb == 1:
+            break
+        sb //= 2
+    fixed, stages = stages_at(mt)
+    if stages < 2:
+        raise ValueError(f"no side-band GEMV ring fits block {B} with "
+                         f"{budget} slots")
+    groups = _GEMV_ROW_GROUPS // sb
+    m_groups = -(-M // mt)
+    tiles = m_groups * col_tiles * ksplit
+    return {"rows_per_tile": mt, "stage_blocks": sb,
+            "rows_per_group": -(-B // groups), "ksplit": ksplit,
+            "split_blocks": nbps, "stage_bytes": stage_bytes,
+            "stages": stages, "smem_bytes": fixed + stages * stage_bytes,
+            "m_groups": m_groups, "col_tiles": col_tiles, "tiles": tiles,
+            "ctas": min(tiles, GEMV_SMS),
+            "tma": N % 16 == 0 and sb * B <= 256}
+
+
+def outlier_gemv_occupancy(M: int, codes_fp8: bool, smem: int) -> int:
+    """CTAs of the side-band GEMV that one SM holds at once (the card's
+    occupancy query) for M rows and ``smem`` bytes of shared memory; each
+    has 12 warps (8 consumers, a copying warpgroup)."""
+    blocks = ctypes.c_int(0)
+    err = _kernel("outlier_gemv_occupancy")(M, int(codes_fp8), smem,
+                                            ctypes.addressof(blocks))
+    build.check(err, "outlier_gemv_occupancy")
+    return blocks.value
+
+
 def dequant_gemv_outlier(x: torch.Tensor, w: PackedMXOutlier,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The side-band GEMV kernel (any M; the dispatch sends it
-    M < GEMM_FROM_M). x is rounded to bf16 first, as the TPU kernel does."""
+    M < GEMM_FROM_M), on the plan of :func:`outlier_gemv_plan`. x is
+    rounded to bf16 first, as the TPU kernel does."""
     if op.on_cpu(x, _sideband_tensors(w)):
         return dequant_matmul_outlier_reference(x, w, out_dtype)
     inl = w.inlier
@@ -265,14 +365,17 @@ def dequant_gemv_outlier(x: torch.Tensor, w: PackedMXOutlier,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    ksplit, _ = gemv_ksplit(N, Kp // B)
-    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+    plan = outlier_gemv_plan(N, Kp, B, w.budget, M)
+    ws = torch.empty((plan["ksplit"], M, N), dtype=torch.float32,
+                     device=x.device)
     err = _kernel("dequant_gemv_outlier")(
         x2.data_ptr(), _view8(inl.codes).data_ptr(),
         inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),
         _view8(w.out_codes).data_ptr(), w.out_pos.data_ptr(), ws.data_ptr(),
         out.data_ptr(), M, K, N, Kp // B, B, w.budget,
-        _scale_fold(inl.elem_format), codes_fp8, oc_fp8, ksplit,
+        _scale_fold(inl.elem_format), codes_fp8, oc_fp8, plan["ksplit"],
+        plan["split_blocks"], plan["stage_blocks"], plan["rows_per_group"],
+        plan["stages"], plan["ctas"], plan["smem_bytes"],
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dequant_gemv_outlier")

@@ -4,21 +4,23 @@
 
 Packs a seeded (512, 384) weight in each decode of ``csrc/common.cuh``
 (the float8 containers as fp8_e4m3, fp8_e5m2 and fp6 codes in
-``float8_e4m3fn``), and in the compact NB format
-(int2 + fp4, block 16, budget 2), runs the GEMV (M = 8) and the GEMM
-(M = 300: ``dequant_gemm``, ``dequant_gemm_nb``) on seeded x, and prints
+``float8_e4m3fn``), in the compact NB format (int2 + fp4, block 16, budget
+2) and in the side-band format (int2 + fp4, block 16, budget 4), runs the
+GEMV (M = 8) and the GEMM (M = 300: ``dequant_gemm``, ``dequant_gemm_nb``,
+``dequant_gemm_outlier``) on seeded x, and prints
 one JSON object: {decode: {"gemv": sha256, "gemm": sha256}} (the first 16
 hex digits of the f32 outputs' bytes). Run it in two checkouts on one card (this file copied
 into the older one) and compare the lines: equal lines show that an edit of
 the shared decode left every shipped decode's outputs bit for bit as they
 were. The digests depend on the build, so they are compared, never pinned.
 
-The GEMMs digested here run on two loops: every line's but bf16's (the NB
-line's too) on the wgmma + TMA mainloop of ``csrc/gemm_sm90.cuh`` at these
-blocks (``dequant_matmul.gemm_route``), the bf16 line's on
-``csrc/common.cuh``'s ``gemm_tile``. A line that stays equal across a move
-from one loop to the other shows the new loop's B tile and K order to be
-the old one's.
+Every GEMM digested here runs on the wgmma + TMA mainloop of
+``csrc/gemm_sm90.cuh`` at these blocks (``dequant_matmul.gemm_route``); the
+bf16 line's ran on ``csrc/common.cuh``'s ``gemm_tile`` before. A line that
+stays equal across a move from one loop to the other shows the new loop's
+B tile and K order to be the old one's. A GEMV redesigned with another
+order of its f32 sums changes its line: that line is held to the twin
+instead.
 """
 
 from __future__ import annotations
@@ -77,6 +79,25 @@ def _nb_case(dev):
     return p, x.to(dev)
 
 
+def _sideband_case(dev):
+    """A side-band weight (int2 inliers, fp4 outliers, block 16, budget 4,
+    made on the CPU) and x, moved to ``dev``."""
+    rng = np.random.default_rng(4)
+    W = (rng.standard_normal((512, 384)) * 0.02).astype(np.float32)
+    W[rng.random(W.shape) < 0.03] *= 10.0
+    p = pk.pack_mx_outlier(torch.from_numpy(W), 8, 8, "int2", "fp4_e2m1",
+                           std_dev=2.0, block_size=16, outlier_budget=4,
+                           axis=0)
+    p = dataclasses.replace(
+        p, inlier=dataclasses.replace(p.inlier,
+                                      codes=p.inlier.codes.to(dev),
+                                      scale_exp=p.inlier.scale_exp.to(dev)),
+        **{f: getattr(p, f).to(dev) for f in ("out_codes", "out_pos",
+                                             "out_scale_exp")})
+    x = torch.from_numpy(rng.standard_normal((300, 512)).astype(np.float32))
+    return p, x.to(dev)
+
+
 def _digest(y: torch.Tensor) -> str:
     return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
 
@@ -95,6 +116,11 @@ def digests(device="cuda") -> dict:
         kind: _digest(fn(x[:m], p))
         for kind, fn, m in (("gemv", om.dequant_gemv_nb, 8),
                             ("gemm", om.dequant_gemm_nb, 300))}
+    p, x = _sideband_case(dev)
+    out["int2_fp4_sideband_b16"] = {
+        kind: _digest(fn(x[:m], p))
+        for kind, fn, m in (("gemv", om.dequant_gemv_outlier, 8),
+                            ("gemm", om.dequant_gemm_outlier, 300))}
     return out
 
 

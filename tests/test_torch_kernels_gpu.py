@@ -19,7 +19,10 @@ the prefill-GEMM experiments 2e-3 against the f32 plain output (2^-8 with
 a bf16 output, its rounding), at a small shape and at the scripts' own
 (gate_up, M = 1024); the decode-GEMV experiments 1e-5 (GEMVs: exact
 products, f32 sums in another order), each against its own plain version,
-the decode variants i16, ebf8 and f32dot bit-equal to i32.
+the decode variants i16, ebf8 and f32dot bit-equal to i32; the side-band
+GEMV (a persistent TMA stream whose slots are added as corrections) 1e-5;
+the bf16-container GEMM's B tile gemm_tile's bit for bit; a dense decode
+replayed from a CUDA graph bit-identical to the eager one.
 """
 
 import dataclasses
@@ -623,9 +626,13 @@ def test_outlier_kernels_rows_do_not_depend_on_batch(cuda):
     for gemv, gemm, w in ((om.dequant_gemv_nb, om.dequant_gemm_nb,
                            _nb(4096, 1024, 2, 2, cuda)),
                           (om.dequant_gemv_outlier, om.dequant_gemm_outlier,
-                           _sideband(4096, 1024, 4, 2, cuda))):
-        full = gemv(x[:130], w)
-        for lo, hi in ((0, 1), (3, 8), (8, 72), (1, 130)):
+                           _sideband(4096, 1024, 4, 2, cuda)),
+                          (om.dequant_gemv_outlier, om.dequant_gemm_outlier,
+                           _sideband(4096, 1040, 8, 3, cuda, "fp6_e3m2",
+                                     "fp8_e4m3", block=32))):
+        full = gemv(x[:255], w)
+        for lo, hi in ((0, 1), (3, 8), (8, 72), (1, 130), (0, 7), (5, 6),
+                       (100, 255), (0, 255)):
             assert torch.equal(gemv(x[lo:hi], w), full[lo:hi])
         full = gemm(x, w)
         for lo, hi in ((0, 1), (3, 130), (128, 400)):
@@ -662,6 +669,74 @@ def test_int_outlier_format_follows_the_tpu_kernel(cuda):
         want = x.to(torch.bfloat16).float() @ _no_fold_dense(w).float()
         assert _rel(got, want) < _outlier_kernel(M, "outlier")[1]
         assert _rel(got, om.dequant_matmul_outlier_reference(x, w)) > 0.5
+
+
+# the side-band GEMV: (inlier format, outlier format) of its int8 and
+# float8 code containers
+GEMV_CODES = {"int": ("int2", "fp4_e2m1"), "fp8": ("fp6_e3m2", "fp8_e4m3")}
+
+
+@pytest.mark.parametrize("codes", sorted(GEMV_CODES))
+@pytest.mark.parametrize("budget", [1, 2, 4, 8])
+@pytest.mark.parametrize("block", [8, 16, 32, 48, 64])
+def test_sideband_gemv_matches_twin(cuda, block, budget, codes):
+    """The GEMV against the twin within 1e-5 of max |twin| at M = 1, 7, 8,
+    64 and 255, at N = 1040 (TMA copies; a last tile of 16 columns) and
+    N = 200 (no multiple of 16: plain copies), K = 520 (ragged in the last
+    block); one launch a call, on the plan of outlier_gemv_plan."""
+    ifmt, ofmt = GEMV_CODES[codes]
+    for N in (1040, 200):
+        w = _sideband(520, N, budget, block + budget, cuda, ifmt, ofmt,
+                      block=block)
+        assert w.inlier.codes.dtype == (torch.int8 if codes == "int"
+                                        else torch.float8_e4m3fn)
+        for M in (1, 7, 8, 64, 255):
+            x = _x(M, 520, M, cuda)
+            om.reset_launch_counts()
+            got = om.dequant_matmul_outlier(x, w)
+            want = om.dequant_matmul_outlier_reference(x, w)
+            torch.cuda.synchronize()
+            assert om.launch_counts["dequant_gemv_outlier"] == 1
+            assert sum(om.launch_counts.values()) == 1
+            assert got.shape == (M, N)
+            assert _rel(got, want) < 1e-5, (N, M)
+
+
+@pytest.mark.parametrize("codes", sorted(GEMV_CODES))
+def test_sideband_gemv_rows_named_twice(cuda, codes):
+    """Slots naming a row another slot of the column names (the packers
+    make distinct positions; the format allows repeats): the row's weight
+    is the inlier and both slots in slot order, rounded once, as the twin
+    adds them, M = 1, 8 and 64."""
+    ifmt, ofmt = GEMV_CODES[codes]
+    w = _sideband(512, 384, 4, 9, cuda, ifmt, ofmt)
+    pos = w.out_pos.clone()
+    pos[..., 1] = torch.where(pos[..., 0] >= 0, pos[..., 0], pos[..., 1])
+    pos[..., 3] = torch.where(pos[..., 2] >= 0, pos[..., 2], pos[..., 3])
+    w = dataclasses.replace(w, out_pos=pos.contiguous())
+    for M in (1, 8, 64):
+        x = _x(M, 512, M, cuda)
+        got = om.dequant_gemv_outlier(x, w)
+        want = om.dequant_matmul_outlier_reference(x, w)
+        torch.cuda.synchronize()
+        assert _rel(got, want) < 1e-5, M
+
+
+@pytest.mark.parametrize("lin", ["down", "gate_up", "lm_head", "o", "qkv"])
+def test_sideband_gemv_at_llama_shapes(cuda, lin):
+    """Block 16, 4 slots (the side-band arm's weight) at M = 8 and 1 at
+    every Llama-3-8B shape; one CTA an SM (the occupancy the plan
+    assumes)."""
+    K, N = LLAMA3_8B[lin]
+    w = _sideband(K, N, 4, 5, cuda)
+    for M in (8, 1):
+        x = _x(M, K, 6, cuda)
+        got = om.dequant_gemv_outlier(x, w)
+        want = om.dequant_matmul_outlier_reference(x, w)
+        torch.cuda.synchronize()
+        assert _rel(got, want) < 1e-5
+        plan = om.outlier_gemv_plan(N, K, 16, 4, M)
+        assert om.outlier_gemv_occupancy(M, False, plan["smem_bytes"]) == 1
 
 
 @pytest.mark.parametrize("M", [1, 8, 64, 128, 300])
@@ -1177,6 +1252,75 @@ def test_sm90_int8_and_float8_b_tile_is_gemm_tile_s_on_every_byte(
     assert ref.isfinite().all() and (ref.abs() >= 2.0 ** 120).any()
     assert torch.equal(got.cpu(), ref.cpu())
 
+@pytest.mark.parametrize("lin", sorted(LLAMA3_8B))
+def test_sm90_bf16_gemm_at_llama_shapes(cuda, lin):
+    """The bf16 container at block 32 on the sm90 loop's counter (no
+    gemm_tile launch), within 2e-3 of the twin."""
+    K, N = LLAMA3_8B[lin]
+    w = _packed_as(K, N, "bfloat16", "native", 32, 64.0, 23, cuda)
+    assert dm.sad_decode_params(w)[0] == "bf16"
+    assert dm.gemm_route("bf16", 32) == "sm90"
+    x = _x(1024, K, 24, cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_gemm(x, w)
+    want = dm.dequant_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["dequant_matmul_bf16"] == 1
+    assert sum(dm.launch_counts.values()) == 1
+    assert _rel(got, want) < 2e-3
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 64])
+def test_sm90_bf16_b_tile_is_gemm_tile_s_on_every_code(cuda, monkeypatch,
+                                                        block):
+    """A (512, 128) bf16-container weight that holds all 65536 bf16 bit
+    patterns, under block exponents at both ends of the int8 range (-128
+    to -120, where the scale clamps at 2^-126 and products fall to f32 and
+    bf16 subnormals, and 118 to 127): the sm90 decoder's B tile is
+    gemm_tile's as 16-bit patterns, NaN, inf, subnormal codes and
+    overflows included (dm.decoded_b_tile); and through x = I, with the
+    codes whose value is no finite f32 at their block's scale set to 0,
+    the sm90 GEMM's output is gemm_tile's bit for bit."""
+    K, N = 512, 128
+    exps = torch.tensor(list(range(-128, -119)) + list(range(118, 128)))
+    c = torch.arange(K * N, dtype=torch.int32).reshape(K, N)
+    c = ((c + 32768) % 65536 - 32768).to(torch.int16)
+    nn = torch.arange(N)[None, :]
+    se = exps[(torch.arange(K // block)[:, None] + nn) % len(exps)]
+    s = se.repeat_interleave(block, 0).clamp(-126, 127).double()
+
+    def weight(codes):
+        return tpk.to_serving_layout(tpk.PackedMX(
+            codes=codes.view(torch.bfloat16).to(cuda),
+            scale_exp=se.to(torch.int8).to(cuda), elem_format="bfloat16",
+            block_size=block, scale_bits=8, orig_dim=K, axis=0,
+            transport="native"))
+
+    w = weight(c)
+    assert dm.sad_decode_params(w)[0] == "bf16"
+    assert dm.gemm_route("bf16", block) == "sm90"
+    sm90 = dm.decoded_b_tile(w, "sm90")
+    tile = dm.decoded_b_tile(w, "tile")
+    torch.cuda.synchronize()
+    assert sm90.shape == (K, N) and torch.equal(sm90.cpu(), tile.cpu())
+    v = tile.cpu().view(torch.bfloat16).float()
+    assert ((v != 0) & (v.abs() < 2.0 ** -126)).any()      # subnormals
+    assert v.isnan().any() and v.isinf().any()
+    val = c.view(torch.bfloat16).double() * torch.exp2(s)
+    finite = val.isfinite() & (val.abs() < 2.0 ** 128)
+    w = weight(torch.where(finite, c, torch.zeros_like(c)))
+    x = torch.eye(K, device=cuda)
+    dm.reset_launch_counts()
+    got = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["dequant_matmul_bf16"] == 1
+    monkeypatch.setattr(dm, "gemm_route", lambda *a, **k: "tile")
+    ref = dm.dequant_gemm(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["dequant_matmul_bf16_tile"] == 1
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
 # sb4 and sb2: (format, codes a byte, bits a code, scale fold)
 SUBBYTE = {"sb4": ("int4", 2, 4, 2), "sb2": ("int2", 4, 2, 0)}
 
@@ -1344,15 +1488,57 @@ def test_sm90_nb_budget_above_16_takes_gemm_tile(cuda):
     assert torch.equal(eye.cpu(), dense.float().cpu())
 
 
+@pytest.mark.parametrize("arm", ["mxfp6", "int4", "nb", "sideband"])
+def test_graph_decode_is_bit_identical_to_eager(cuda, arm):
+    """2 layers of Llama-3-8B at full width (chip_smoke's models: MX-FP6
+    emi8, int4 sb4, the compact NB and the side-band formats), B = 8, a
+    64-token prompt, 8 greedy steps over the dense cache: the decode
+    replayed from a CUDA graph (DenseDecodeStep, as generate and the main
+    paths run it) gives the eager loop's tokens and last logits bit for
+    bit, and its launches (the warm-up step's plus the captured step's
+    times the replays) equal the eager loop's; generate's tokens are the
+    same."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from microscopiq_tpu_torch.eval.generate import generate
+
+    model = {"mxfp6": lambda: cs.build(True, layers=2, seed=3),
+             "int4": lambda: cs.int_model("int4_sb4", 2, seed=3),
+             "nb": lambda: cs.outlier_model("nb", 2, seed=3),
+             "sideband": lambda: cs.outlier_model("sideband", 2, seed=3)
+             }[arm]()[0]
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (8, 64)), device=cuda)
+    info = {}
+    cs.reset_counts()
+    graph = cs.prefill_decode(model, ids, 8, 80, info=info)
+    eager = cs.prefill_decode(model, ids, 8, 80, graph=False)
+    torch.cuda.synchronize()
+    assert info == {"graph": True, "timed_steps": 7}
+    assert torch.equal(graph[0], eager[0])
+    assert torch.equal(graph[3], eager[3])
+    assert graph[5] == eager[5] and sum(graph[5].values()) > 0
+    assert int(graph[6].length) == graph[6].host_length == 72
+    got = generate(model, ids.cpu().numpy(), 9, max_len=80)
+    want = torch.cat([graph[7][0][:, -1].argmax(-1)[:, None], graph[0]], 1)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
 def test_sm90_kernels_do_not_spill(cuda):
     from microscopiq_tpu_torch.ops.cuda import build
 
     sources = ("dequant_matmul", "outlier_matmul", "nb_matmul")
     build.build_all(sources)
     lines = [ln for ln in build.ptxas_report(sources) if "_sm90" in ln]
-    assert sum("gemm_dq_sm90" in ln for ln in lines) == 41
-    assert sum("b_tile_sm90" in ln for ln in lines) == 41
+    assert sum("gemm_dq_sm90" in ln for ln in lines) == 45
+    assert sum("b_tile_sm90" in ln for ln in lines) == 45
     assert sum("outlier_gemm_sm90" in ln for ln in lines) == 15
     assert sum("nb_gemm_sm90" in ln for ln in lines) == 5
-    for ln in lines:
+    gemv = [ln for ln in build.ptxas_report(("outlier_matmul",))
+            if "sideband_gemv" in ln]
+    assert len(gemv) == 16     # MT 1, 2, 4, 8; int8, float8; TMA, plain
+    for ln in lines + gemv:
         assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln

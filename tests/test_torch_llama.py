@@ -189,7 +189,7 @@ def test_cached_prefill_and_decode_match_jax():
     assert got.shape == (3, 1, 256)
     assert _rel(got.numpy(), want) < TOL["float32"]
     tst = tc.finalize()
-    assert tst.length == int(jst.length) == 10
+    assert int(tst.length) == int(jst.length) == 10
     tok = np.asarray(want).argmax(-1)
     for step in range(3):
         p = (10 + step - offset)[:, None]

@@ -55,7 +55,7 @@ def test_plan_fits_shared_memory_at_llama_shapes(lin, block, kind, budget):
 # (kind, budget, block) of every sm90 kernel beyond the blocks 16 and 32 of
 # pf6 and the side-band format
 NEW_PLANS = ([("pf4", 0, b) for b in (16, 32, 64)]
-             + [("fp16", 0, b) for b in (8, 16, 32, 64)]
+             + [(k, 0, b) for k in ("fp16", "bf16") for b in (8, 16, 32, 64)]
              + [("pf6", 0, 64)]
              + [("sideband", s, b) for b in (8, 64) for s in (0, 1, 2, 4, 8)
                 if (b, s) != (8, 8)]
@@ -79,7 +79,8 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
     assert plan["tma"] and plan["k_x"] == K and not plan["pad_x"]
     nblk = 64 // block
     raw = {"pf6": (48 + nblk) * 128, "pf4": (32 + nblk) * 128,
-           "fp16": (128 + nblk) * 128, "emi8": (64 + nblk) * 128,
+           "fp16": (128 + nblk) * 128, "bf16": (128 + nblk) * 128,
+           "emi8": (64 + nblk) * 128,
            "native": (64 + nblk) * 128, "fp8_e4m3": (64 + nblk) * 128,
            "fp8_e5m2": (64 + nblk) * 128,
            "sb4": (32 + nblk) * 128, "sb2": (16 + nblk) * 128,
@@ -88,7 +89,7 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
            "nb": (48 + 8 * plan["slots"]) * 64}.get(kind)
     if raw is not None:           # the decoder's raw copy of one step
         assert plan["raw_bytes"] == raw
-    if kind == "fp16":            # 16 KB of codes a step: 3 stages, 3 buffers
+    if kind in ("fp16", "bf16"):  # 16 KB of codes a step: 3 stages, 3 buffers
         assert (plan["stages"], plan["raw_buffers"]) == (3, 3)
     if kind in ("emi8", "nb", "sb4", "sb2", "native", "fp8_e4m3",
                 "fp8_e5m2"):                   # pf6's ring: 4 stages, 3
@@ -105,6 +106,7 @@ def test_plan_fits_shared_memory_at_every_sm90_block(lin, kind, budget,
 REFUSED = [("pf6", 256, 128, 8), ("pf6", 256, 128, 128),
            ("pf4", 256, 128, 48), ("pf4", 256, 128, 128),
            ("fp16", 256, 128, 48), ("fp16", 256, 128, 4),
+           ("bf16", 256, 128, 48), ("bf16", 256, 128, 4),
            ("sideband", 256, 128, 8, 8), ("sideband", 256, 128, 48, 4),
            ("sideband", 256, 128, 16, 9), ("emi8", 256, 128, 48),
            ("emi8", 256, 128, 2), ("emi8", 256, 128, 128),
@@ -146,6 +148,8 @@ def test_plan_mirrors_the_kernel_sources():
                                "B == 16 || B == 32 || B == 64"),
                               ("Fp16Sm90", "kStages = 3, kRawBufs = 3",
                                "B == 8 || B == 16 || B == 32 || B == 64"),
+                              ("Bf16Sm90", "kStages = 3, kRawBufs = 3",
+                               "B == 8 || B == 16 || B == 32 || B == 64"),
                               ("ByteSm90", "kStages = 4, kRawBufs = 3",
                                "B == 4 || B == 8 || B == 16 || B == 32 "
                                "|| B == 64"),
@@ -164,6 +168,7 @@ def test_plan_mirrors_the_kernel_sources():
         if kind in ("sideband", "nb"):
             continue
         decode = {"pf6": "kPf6", "pf4": "kPf4", "fp16": "kFp16",
+                  "bf16": "kBf16",
                   "emi8": "kEmi8", "sb4": "kSb4", "sb2": "kSb2",
                   "native": "kInt8", "fp8_e4m3": "kFp8E4m3",
                   "fp8_e5m2": "kFp8E5m2"}[kind]
@@ -182,7 +187,8 @@ def test_plan_mirrors_the_kernel_sources():
                   "D == mxq::kEmi8, Emi8Sm90<B>,",
                   "D == mxq::kInt8, Int8Sm90<B>,",
                   "mxq::is_fp8<D>(),\n", "Fp8Sm90<D, B>,\n",
-                  "NoSm90Dec<D>>>>>>>>>;",
+                  "D == mxq::kBf16, Bf16Sm90<B>,",
+                  "NoSm90Dec<D>>>>>>>>>>;",
                   'static_assert(D < 0, "no sm90 decoder for this decode");',
                   "|| D == mxq::kInt8 || mxq::is_fp8<D>(),"):
         assert alias in dq, alias
@@ -563,10 +569,24 @@ def test_shipped_digests_cover_the_nb_gemm():
     from microscopiq_tpu_torch.scripts import shipped_digests as sd
 
     got = sd.digests("cpu")
-    assert len(got) == len(sd.DECODES) + 1
+    assert len(got) == len(sd.DECODES) + 2       # the NB and side-band lines
     p, x = sd._nb_case(torch.device("cpu"))
     assert p.budget == 2 and tuple(x.shape) == (300, 512)
     want = sd._digest(om.dequant_matmul_nb_reference(x, p))
     assert got["int2_fp4_nb_b16"]["gemm"] == want
     assert got["int2_fp4_nb_b16"]["gemv"] == sd._digest(
         om.dequant_matmul_nb_reference(x[:8], p))
+
+
+def test_shipped_digests_cover_the_sideband_gemv():
+    """shipped_digests.py digests the side-band GEMV and GEMM (on the CPU
+    through the plain twin), so that two builds' can be compared on a
+    card."""
+    from microscopiq_tpu_torch.scripts import shipped_digests as sd
+
+    got = sd.digests("cpu")["int2_fp4_sideband_b16"]
+    p, x = sd._sideband_case(torch.device("cpu"))
+    assert p.budget == 4 and p.inlier.block_size == 16
+    assert got["gemm"] == sd._digest(om.dequant_matmul_outlier_reference(x, p))
+    assert got["gemv"] == sd._digest(
+        om.dequant_matmul_outlier_reference(x[:8], p))
