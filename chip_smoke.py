@@ -24,7 +24,7 @@ the package is missing. Phases, each of which raises on failure:
    seeded random weights packed on the card (MX-FP6 emi8, block 32, lm_head
    included, fused projections), a ``last_only`` prefill of 8 x 128 tokens
    and 32 greedy decode steps, the first eager and the rest replayed from a
-   CUDA graph (``DenseDecodeStep``, as ``generate`` runs them), held bit for
+   CUDA graph (``DecodeStep``, as ``generate`` runs them), held bit for
    bit (tokens, last logits, launches) to an eager run of the same prompt
    (``graph_vs_eager``, one line per dense arm of every main path), with
    launch counts held to what the path implies (the captured step's counts
@@ -147,10 +147,12 @@ card.
 
     python3 chip_smoke.py --gemv-times
 
-times only the side-band GEMV at the side-band arm's decode shapes (q, k,
-v, o, gate, up, down, lm_head) and M = 1, 8, 64, 255, beside its bound and
-``torch.matmul``, and prints them as one JSON line
-(``sideband_gemv_times``), to compare two checkouts on one card.
+times only the GEMVs: every decode of the dequant GEMV (M = 1, 8, 64) and
+the NB GEMV (M = 1, 8, 64, 255) at every Llama-3-8B shape, and the
+side-band GEMV at the side-band arm's decode shapes (q, k, v, o, gate, up,
+down, lm_head; M = 1, 8, 64, 255), each beside its bound, ``torch.matmul``
+and its HBM rate, and prints them as one JSON line (``gemv_times``), to
+compare two checkouts on one card.
 """
 
 from __future__ import annotations
@@ -347,6 +349,8 @@ def kernel_phase(card: str):
                            bound_by="bytes" if t_bytes >= t_ops
                            else "operations",
                            plain_ms=plain_ms, library_ms=lib_ms, card=card)
+                if kname == "dequant_gemv_emi8":
+                    row.update(gemv_stats(p, M, K, N, ms))
                 rows.append(row)
                 log(phase="kernel_vs_plain", **row)
                 del x, got, ref
@@ -357,43 +361,42 @@ def kernel_phase(card: str):
 
 def prefill_decode(model, ids, steps: int, max_len: int,
                    decode_ctx=contextlib.nullcontext, quant_cfg=None,
-                   feed=None, graph=None, info=None):
+                   feed=None, graph=True, info=None):
     """bench.py's main path: last_only prefill, then greedy decode steps,
     over a dense bf16 KV cache or, with ``quant_cfg``, a quantized one.
     ``feed`` (B, steps) replaces the greedy tokens fed to the decode steps.
 
-    Over the dense cache the decode runs as ``generate`` runs it
-    (``DenseDecodeStep``): the first step eagerly (the warm-up that builds
-    the kernels; its token is kept), then the step captured in a CUDA graph
-    and replayed for every later step; ``graph=False`` runs every step
-    eagerly. The quantized cache's steps are eager. ``decode_ctx`` wraps,
-    and the host clock times, the replays (with the graph) or every step:
+    The decode runs as ``generate`` runs it (``DecodeStep``): the first step
+    eagerly (the warm-up that builds the kernels; its token is kept), then
+    the step captured in CUDA graphs and replayed for every later step: one
+    graph over the dense cache; over the quantized cache the plain step's
+    and, where a later step folds a chunk, the fold step's (recorded before
+    the timed window, so that its replays fall inside it).
+    ``graph=False`` runs every step eagerly. ``decode_ctx`` wraps, and the
+    host clock times, the replays (with the graph) or every step:
     ``decode_s`` is that window's time a step times ``steps``; ``info``, a
-    dict, receives ``graph`` and ``timed_steps``. The kernel wrappers count
-    their launches when they launch, at the eager steps and at the capture,
-    never at a replay: the decode's launches are the eager step's plus the
-    captured step's times the replays.
+    dict, receives ``graph``, ``timed_steps`` and ``fold_replays``. The
+    kernel wrappers count their launches when they launch, at the eager
+    steps and at the captures, never at a replay: the decode's launches
+    are the eager step's plus each captured step's times its replays.
 
     Returns (decoded tokens, ttft_s, decode_s, last logits, kernel launches
     of the prefill, kernel launches of the decode steps, final cache state,
     logits of every step)."""
     import torch
 
-    from microscopiq_tpu_torch.eval.generate import DenseDecodeStep
+    from microscopiq_tpu_torch.eval.generate import DecodeStep
     from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
                                                 QuantizedDecodeCache,
                                                 init_dense_cache,
-                                                init_quant_cache)
+                                                init_quant_cache,
+                                                quant_fold_step)
 
     cfg = model.cfg
     B, S0 = ids.shape
     dims = (cfg.num_hidden_layers, B, max_len, cfg.num_key_value_heads,
             cfg.head_dim)
-    dense = quant_cfg is None
-    graph = dense if graph is None else graph
-    if graph and not dense:
-        raise ValueError("the quantized cache's decode is not captured")
-    if dense:
+    if quant_cfg is None:
         state = init_dense_cache(*dims, device="cuda")
         wrap = DenseDecodeCache
     else:
@@ -413,35 +416,30 @@ def prefill_decode(model, ids, steps: int, max_len: int,
         at_prefill = launches()
         all_logits.append(logits)
         toks = []
-        step = DenseDecodeStep(model, state, tok) if dense else None
+        step = DecodeStep(model, state, tok, quant_cfg)
 
         def one(i):
-            nonlocal tok, state, logits
             if feed is not None:
-                tok = feed[:, i]
-            if step is None:
-                cache = wrap(state)
-                p = torch.full((B, 1), state.length, device="cuda")
-                logits = model(tok[:, None], positions=p, cache=cache)
-                tok = torch.argmax(logits[:, -1], dim=-1)
-                state = cache.finalize()
-            else:
-                if feed is not None:
-                    step.tok.copy_(tok)
-                tok = (step.replay() if graph and i > 0
-                       else step.eager()).clone()
-                logits = step.logits
-            toks.append(tok)
+                step.tok.copy_(feed[:, i])
+            out = step.replay() if graph and i > 0 else step.eager()
+            toks.append(out.clone())
             if feed is not None:
-                all_logits.append(logits.clone())
+                all_logits.append(step.logits.clone())
 
-        lead = 0
-        captured = None
+        # the variant of each step after the first, from the host mirror
+        # (every step advances it by one)
+        folds = sum(quant_fold_step(quant_cfg, S0 + i) for i in
+                    range(1, steps)) if quant_cfg is not None else 0
+        lead, captured = 0, {}
         if graph and steps > 1:
             one(0)                              # the warm-up: a real step
             warm = launches()
-            step.capture()
-            captured = {k: v - warm[k] for k, v in launches().items()}
+            for variant, n in (("plain", steps - 1 - folds), ("fold", folds)):
+                if n:
+                    before = launches()
+                    step.capture(variant)
+                    captured[variant] = (
+                        {k: v - before[k] for k, v in launches().items()}, n)
             lead = 1
         with decode_ctx():
             t0 = time.perf_counter()
@@ -451,29 +449,34 @@ def prefill_decode(model, ids, steps: int, max_len: int,
             dec = time.perf_counter() - t0
         timed = steps - lead
         dec = dec / timed * steps if timed else 0.0
-        logits = logits.clone()
-    if captured is None:
+        logits = step.logits.clone()
+    if not captured:
         in_decode = {k: v - at_prefill[k] for k, v in launches().items()}
     else:
-        in_decode = {k: warm[k] - at_prefill[k] + n * (steps - 1)
-                     for k, n in captured.items()}
+        in_decode = {k: warm[k] - at_prefill[k]
+                     + sum(c[k] * n for c, n in captured.values())
+                     for k in warm}
     if info is not None:
-        info.update(graph=captured is not None, timed_steps=timed)
+        info.update(graph=bool(captured), timed_steps=timed,
+                    fold_replays=folds if captured else 0)
     del step
     return (torch.stack(toks, 1), ttft, dec, logits, at_prefill, in_decode,
             state, all_logits)
 
 
 def graph_vs_eager(model, ids, steps: int, max_len: int, arm: str,
-                   graph_run, card: str) -> float:
-    """The dense decode run eagerly, in this process and on the prompt of
+                   graph_run, card: str, quant_cfg=None) -> float:
+    """The decode (over the dense cache, or the quantized one of
+    ``quant_cfg``) run eagerly, in this process and on the prompt of
     ``graph_run`` (a graph run's prefill_decode result): its tokens and
-    last logits must equal the graph run's bit for bit, and its decode
-    launches the graph run's (the warm-up step's plus the captured step's
-    times the replays). Logs one line; returns the eager ms/step."""
+    last logits must equal the graph run's bit for bit, fold steps
+    included, and its decode launches the graph run's (the warm-up step's
+    plus each captured step's times its replays). Logs one line; returns
+    the eager ms/step."""
     import torch
 
-    eager = prefill_decode(model, ids, steps, max_len, graph=False)
+    eager = prefill_decode(model, ids, steps, max_len, graph=False,
+                           quant_cfg=quant_cfg)
     same = dict(tokens_identical=bool(torch.equal(eager[0], graph_run[0])),
                 logits_identical=bool(torch.equal(eager[3], graph_run[3])),
                 launches_equal=eager[5] == graph_run[5])
@@ -924,8 +927,10 @@ def quant_kv_main_path(packed, card: str):
     # the main path's run: counts zeroed just before, read just after
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    toks, ttft, dec, last, pre_counts, dec_counts, state, _ = prefill_decode(
-        packed, ids, STEPS, max_len, quant_cfg=qcfg)
+    info = {}
+    main = prefill_decode(packed, ids, STEPS, max_len, quant_cfg=qcfg,
+                          info=info)
+    toks, ttft, dec, last, pre_counts, dec_counts, state, _ = main
     peak = {"quant": torch.cuda.max_memory_allocated()}
     want_pre = want_counts(dequant_matmul_emi8=4 * L, dequant_gemv_emi8=1)
     want_dec = want_counts(dequant_gemv_emi8=STEPS * (4 * L + 1),
@@ -938,8 +943,15 @@ def quant_kv_main_path(packed, card: str):
         raise AssertionError("non-finite logits on the quant KV path")
     if not ((toks >= 0) & (toks < packed.cfg.vocab_size)).all():
         raise AssertionError("token ids out of range on the quant KV path")
-    if state.length != S0 + STEPS:
-        raise AssertionError(f"cache length {state.length}")
+    if not (int(state.length) == state.host_length == S0 + STEPS):
+        raise AssertionError(f"cache length {int(state.length)}, mirror "
+                             f"{state.host_length}")
+    if not (info["graph"] and info["fold_replays"] == 1):
+        raise AssertionError(f"quant KV decode not replayed with its fold "
+                             f"graph: {info}")
+    quant_eager_ms = graph_vs_eager(packed, ids, STEPS, max_len, "quant_kv",
+                                    main, card, quant_cfg=qcfg)
+    del main
     ratio = QuantizedDecodeCache(state, qcfg).compression_ratio
     quant_bytes = kv_bytes(state)
     del state
@@ -960,7 +972,9 @@ def quant_kv_main_path(packed, card: str):
         del out
     tps = {a: B * STEPS / best[a][1] for a in best}
     path = dict(layers=L, batch=B, prompt=S0, steps=STEPS, max_len=max_len,
-                quant_cfg=QKV_CFG, graph=False, dense_graph=True,
+                quant_cfg=QKV_CFG, graph=True, dense_graph=True,
+                fold_replays=info["fold_replays"],
+                eager_decode_ms_per_step=quant_eager_ms,
                 decode_tokens_per_s=tps["quant"],
                 decode_ms_per_step=best["quant"][1] / STEPS * 1e3,
                 ttft_ms=best["quant"][0] * 1e3,
@@ -1004,13 +1018,22 @@ def quant_two_layer_phase(card: str):
                                      quant_cfg=qcfg)
     feed = torch.cat([torch.argmax(first[0][:, -1], -1)[:, None],
                       toks[:, :-1]], 1)
-    reset_counts()
-    got = prefill_decode(two_k, ids, STEPS, max_len, quant_cfg=qcfg,
-                         feed=feed)[7]
-    counts = launches()
+    run = prefill_decode(two_k, ids, STEPS, max_len, quant_cfg=qcfg,
+                         feed=feed)
+    got, counts = run[7], {k: v for k, v in run[5].items() if v}
     want = prefill_decode(two_p, ids, STEPS, max_len, quant_cfg=qcfg,
                           feed=feed)[7]
-    if counts["quant_attention"] != 2 * STEPS:
+    # the cache.update route (the plain model) replayed from its graphs,
+    # the fold step's included, against its eager run
+    info = {}
+    plain = prefill_decode(two_p, ids, STEPS, max_len, quant_cfg=qcfg,
+                           info=info)
+    if not (info["graph"] and info["fold_replays"] == 1):
+        raise AssertionError(f"2-layer quant decode not replayed with its "
+                             f"fold graph: {info}")
+    graph_vs_eager(two_p, ids, STEPS, max_len, "quant_two_layer_update",
+                   plain, card, quant_cfg=qcfg)
+    if counts.get("quant_attention") != 2 * STEPS:
         raise AssertionError(f"2-layer quant decode launches {counts}")
     errs = []
     for a, b in zip(got, want):
@@ -1289,6 +1312,8 @@ def outlier_kernel_phase(card: str):
                            plain_ms=plain_ms, library_ms=lib_ms, card=card)
                 if kname == "dequant_gemv_outlier":
                     row.update(sideband_gemv_stats(p, M, K, N, ms))
+                elif kname in ("dequant_gemv_nb", "dequant_gemv_emi8"):
+                    row.update(gemv_stats(p, M, K, N, ms))
                 rows.append(row)
                 log(phase="outlier_kernels_vs_plain", **row)
                 del x, got, ref
@@ -1316,6 +1341,41 @@ def sideband_gemv_stats(w, M: int, K: int, N: int, ms: float) -> dict:
                 hbm_share=nbytes / ms / 1e-3 / HBM_BYTES_PER_S,
                 ctas_per_sm=ctas, occupancy=ctas * 12 / 64,
                 ring_bytes=plan["stages"] * plan["stage_bytes"],
+                stages=plan["stages"], ksplit=plan["ksplit"],
+                tiles=plan["tiles"], smem_bytes=plan["smem_bytes"])
+
+
+def gemv_stats(w, M: int, K: int, N: int, ms: float) -> dict:
+    """A GEMV's achieved HBM rate (the bytes its bound counts: weight, x,
+    f32 out, over its time) and, on the tensor-core routes (the dequant
+    GEMV's ``gemv_tc``, the NB GEMV), its plan and occupancy: CTAs an SM by
+    the card's occupancy query, 12 warps each (9 of them working), of the
+    SM's 64. ``w`` is a PackedMX or a PackedOutlierNB; a checkout without
+    these routes gives the rate alone."""
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    nbytes = w.nbytes() + M * K * 2 + M * N * 4
+    out = dict(hbm_GBps=nbytes / ms / 1e6,
+               hbm_share=nbytes / ms / 1e-3 / HBM_BYTES_PER_S)
+    if isinstance(w, pk.PackedOutlierNB):
+        if not hasattr(om, "nb_gemv_plan"):
+            return out
+        plan = om.nb_gemv_plan(4 * w.codes.shape[0], K, w.budget, M)
+        ctas = om.nb_gemv_occupancy(M, plan["smem_bytes"])
+        route = "tc"
+    else:
+        if not hasattr(dm, "gemv_route"):
+            return out
+        decode = dm.sad_decode_params(w)[0]
+        ww = pk.to_serving_layout(w)
+        route = dm.gemv_route(decode, ww.block_size)
+        if route != "tc":
+            return dict(out, route=route)
+        plan = dm.gemv_plan(decode, N, K, ww.block_size, M)
+        ctas = dm.gemv_occupancy(decode, M, plan["smem_bytes"])
+    return dict(out, route=route, ctas_per_sm=ctas, occupancy=ctas * 12 / 64,
                 stages=plan["stages"], ksplit=plan["ksplit"],
                 tiles=plan["tiles"], smem_bytes=plan["smem_bytes"])
 
@@ -1624,6 +1684,8 @@ def int_kernel_phase(card: str):
                                rel_err=rel, tol=tol, ms=ms, bound_ms=bound,
                                bound_by=by, plain_ms=plain_ms,
                                library_ms=lib_ms, card=card)
+                    if kind == "gemv":
+                        row.update(gemv_stats(p, M, K, N, ms))
                     rows.append(row)
                     log(phase="int_kernels_vs_plain", **row)
                     del x, got, ref
@@ -2411,6 +2473,27 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                                       if at["kind"] == "sideband" else ""),
             "blocks": _route_rows(rrows, name),
             "block_keys": list(ROUTE_KEYS)})
+    for decode in GEMV_CC_DECODES:
+        name = f"dequant_gemv_{decode}_cc"
+        mine = [r for r in rrows if r["kernel"] == name]
+        at = mine[0]
+        launches = by_path(name)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "microscopiq_tpu_torch/ops/cuda/csrc/dequant_gemv.cu",
+            "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:"
+                        + str(80 if decode.startswith("fp8") else 162),
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": f"gate_up (4096, 28672) M=8, {at['kind']} block "
+                  f"{at['block']}: gemv_partial on CUDA cores, the blocks "
+                  "that are no multiple of 16",
+            "blocks": _route_rows(rrows, name),
+            "block_keys": list(ROUTE_KEYS)})
     out += prefill_kernel_records(prows, pcounts)
     out += gemv_kernel_records(grows, gcounts)
     return {"kernels": out}
@@ -2646,6 +2729,89 @@ def sideband_gemv_times() -> list:
     return rows
 
 
+# (decode, format, transport, block) of --gemv-times: every decode of the
+# dequant GEMV, packed as the main paths and kernel phases pack it
+GEMV_TIME_CASES = (("emi8", "fp6_e3m2", "emi8", 32),
+                   ("native", "int8", "native", 32),
+                   ("sb4", "int4", "sb4", 32), ("sb2", "int2", "sb2", 16),
+                   ("pf4", "fp4_e2m1", "pf4", 32),
+                   ("pf6", "fp6_e3m2", "pf6", 32),
+                   ("bf16", "bfloat16", "native", 32),
+                   ("fp16", "fp16", "native", 16),
+                   ("fp8_e4m3", "fp8_e4m3", "native", 32),
+                   ("fp8_e5m2", "fp8_e5m2", "native", 32))
+
+
+def gemv_times() -> list:
+    """Every decode of the dequant GEMV (M = 1, 8, 64) and the NB GEMV
+    (budget 2, M = 1, 8, 64, 255) at the five Llama-3-8B shapes, then the
+    side-band GEMV's rows (``sideband_gemv_times``): each held to its plain
+    twin, timed with CUDA events over L2-cold operand copies beside its
+    byte bound, ``torch.matmul`` on a bf16 weight of the shape and its HBM
+    rate (and, in a checkout that has them, the tensor-core GEMVs' plan and
+    occupancy), on weights and x made from fixed seeds: two checkouts time
+    the same operands. ``python3 chip_smoke.py --gemv-times`` prints them
+    as one JSON line; run it in two checkouts in one call (this script
+    copied into the other one), alternated."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    gen = torch.Generator(device="cuda").manual_seed(808)
+    rows = []
+
+    def timed(kernel, tag, w, ps, fn, ref_fn, xs, lib, K, N):
+        for M, x in xs.items():
+            got = fn(x, w, torch.float32)
+            ref = ref_fn(x, w, torch.float32)
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+                raise AssertionError(f"{kernel} {tag} M={M}: rel err {rel}")
+            ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), len(ps))
+            nbytes = w.nbytes() + M * K * 2 + M * N * 4
+            rows.append(dict(kernel=kernel, **tag, M=M, K=K, N=N, ms=ms,
+                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             library_ms=lib[M], rel_err=rel,
+                             **gemv_stats(w, M, K, N, ms)))
+
+    for lin, K, N in SHAPES:
+        dense = torch.randn((K, N), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) * 0.02
+        ds = [dense] + [dense.clone()
+                        for _ in range(copies_for(dense.numel() * 2) - 1)]
+        xs = {M: torch.randn((M, K), generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for M in OUTLIER_M}
+        lib = {M: cuda_ms(lambda i: torch.matmul(x, ds[i]), len(ds))
+               for M, x in xs.items()}
+        del ds, dense
+        for decode, fmt, transport, bs in GEMV_TIME_CASES:
+            p = pk.to_serving_layout(pk.pack_mx(
+                int_weight(fmt, (K, N), gen).float(), 8, fmt, bs, axis=0,
+                transport=transport))
+            if dm.sad_decode_params(p)[0] != decode:
+                raise AssertionError(f"{fmt} {transport}: not {decode}")
+            ps = [p] + [_clone_packed(p)
+                        for _ in range(copies_for(p.nbytes()) - 1)]
+            timed("dequant_gemv", dict(decode=decode, block=bs, linear=lin),
+                  p, ps, dm.dequant_gemv, dm.dequant_matmul_reference,
+                  {M: xs[M] for M in GEMV_M}, lib, K, N)
+            del p, ps
+        nb = pk.pack_outlier_nb(nb_decisions(outlier_weight((K, N), gen)),
+                                budget=NB_BUDGET)
+        ps = [nb] + [_clone_packed(nb)
+                     for _ in range(copies_for(nb.nbytes()) - 1)]
+        timed("dequant_gemv_nb", dict(decode="nb", budget=NB_BUDGET,
+                                      linear=lin),
+              nb, ps, om.dequant_gemv_nb, om.dequant_matmul_nb_reference, xs,
+              lib, K, N)
+        del nb, ps, xs
+        torch.cuda.empty_cache()
+    return rows + [dict(kernel="dequant_gemv_outlier", **r)
+                   for r in sideband_gemv_times()]
+
+
 # ---------------------------------------------------------------------------
 # Slice 8: every MX block the JAX packers take, on its GEMM route
 # ---------------------------------------------------------------------------
@@ -2691,6 +2857,11 @@ ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
                  "dequant_matmul_fp8_e5m2_tile": ("dequant_matmul.cu", 80)}
 ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
               "library_ms", "rel_err")
+# the decodes whose GEMV takes the CUDA-core kernel at a block of
+# ROUTE_CASES (blocks no multiple of 16): emi8 and the 16-bit containers at
+# 8, sb4 at 2 and 8, sb2 at 4, the int8 and float8 containers at 8 and 2
+GEMV_CC_DECODES = ("emi8", "fp16", "bf16", "sb4", "sb2", "native",
+                   "fp8_e4m3", "fp8_e5m2")
 
 
 def _route_rows(rrows, name):
@@ -2701,10 +2872,12 @@ def _route_rows(rrows, name):
 def route_phase(card: str):
     """Each case of ROUTE_CASES at gate_up, M = 1024, through the GEMM
     wrapper against its plain twin (2e-3 of max |twin|), on the kernel that
-    ``gemm_route`` names, timed beside the bound, the plain version and
-    torch.matmul on the dequantized bf16 weight; then the entry point's own
-    run: one call a case, counts zeroed just before and read just after.
-    Returns (rows, launches)."""
+    ``gemm_route`` names, and (all but the side-band format) at M = 8
+    through the GEMV on the kernel that ``gemv_route`` names (1e-5), timed
+    beside the bound, the plain version and torch.matmul on the
+    dequantized bf16 weight; then the entry point's own run: one call a
+    case, counts zeroed just before and read just after. Returns (rows,
+    launches)."""
     import torch
 
     from microscopiq_tpu_torch.ops import packing as pk
@@ -2731,9 +2904,13 @@ def route_phase(card: str):
             transport = ("native" if kind in ("fp16", "bf16", "native",
                                               "fp8_e4m3", "fp8_e5m2")
                          else kind)
+            # bfloat16 blocks of 8 need 16x BF16_GAIN for amax > 2 in every
+            # block (none at the -127 exponent the kernels clamp)
+            W = int_weight(fmt, (K, N), gen).float()
             p = pk.to_serving_layout(pk.pack_mx(
-                int_weight(fmt, (K, N), gen).float(), 8, fmt, block, axis=0,
-                transport=transport))
+                W * 16 if fmt == "bfloat16" and block < 32 else W, 8, fmt,
+                block, axis=0, transport=transport))
+            del W
             fn, ref = dm.dequant_gemm, dm.dequant_matmul_reference
             dense = pk.dequantize_mx(p, dtype=torch.bfloat16)
             name = dm.gemm_counter(kind, block)
@@ -2764,12 +2941,43 @@ def route_phase(card: str):
                    plain_ms=plain_ms, library_ms=lib_ms, card=card)
         rows.append(row)
         log(phase="gemm_block_routes", **row)
-        weights.append((fn, p))
+        weights.append((fn, p, x))
+        if kind != "sideband":
+            # the GEMV at the same block, on the kernel gemv_route names
+            # (gemv_tc, or the CUDA-core one: its "_cc" counter)
+            xg = x[:8]
+            gname = dm.gemv_counter(kind, block)
+            reset_counts()
+            got = dm.dequant_gemv(xg, p, torch.float32)
+            want = ref(xg, p, torch.float32)
+            torch.cuda.synchronize()
+            if launches()[gname] != 1:
+                raise AssertionError(f"{kind} block {block}: no {gname}")
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+                raise AssertionError(f"{gname} block {block}: rel err {rel}")
+            ms = cuda_ms(lambda i: dm.dequant_gemv(xg, ps[i], torch.float32),
+                         nc)
+            plain_ms = cuda_ms(lambda i: ref(xg, p, torch.float32), 1,
+                               target_ms=20.0)
+            lib_ms = cuda_ms(lambda i: torch.matmul(xg, ds[i]), nd)
+            bound, by = row_bound(p.nbytes() + xg.numel() * 2 + 8 * N * 4,
+                                  8, N, K)
+            row = dict(kernel=gname, kind=kind, format=fmt, block=block,
+                       budget=0,
+                       linear="gate_up", M=8, K=K, N=N, max_abs_err=err,
+                       rel_err=rel, tol=GEMV_REL_TOL, ms=ms, bound_ms=bound,
+                       bound_by=by, plain_ms=plain_ms, library_ms=lib_ms,
+                       **gemv_stats(p, 8, K, N, ms), card=card)
+            rows.append(row)
+            log(phase="gemv_block_routes", **row)
+            weights.append((dm.dequant_gemv, p, xg))
         del ps, ds, dense, got, want
         torch.cuda.empty_cache()
     reset_counts()
-    for fn, p in weights:
-        fn(x, p, torch.bfloat16)
+    for fn, p, xi in weights:
+        fn(xi, p, torch.bfloat16)
     torch.cuda.synchronize()
     counts = {k: v for k, v in launches().items() if v}
     want = {}
@@ -2802,8 +3010,7 @@ def main(argv=None) -> int:
         if argv == ["--gemm-times"]:
             log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
         else:
-            log(phase="sideband_gemv_times", rows=sideband_gemv_times(),
-                card=card)
+            log(phase="gemv_times", rows=gemv_times(), card=card)
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False      # plain twins: f32

@@ -104,17 +104,21 @@ def params_from_jax(tree, device="cuda"):
 def quant_state_from_jax(state_np, device="cuda") -> QuantKVState:
     """The port's QuantKVState from a numpy'd JAX ``QuantKVState``.
 
-    A scalar ``length`` (the shared cache) becomes an int; a per-slot vector
-    stays a (B,) int32 tensor.
+    A scalar ``length`` (the shared cache) becomes a 0-d int32 tensor with
+    its host mirror ``host_length``; a per-slot vector stays a (B,) int32
+    tensor.
     """
     dev = resolve_device(device)
     fields = {}
     for f in dataclasses.fields(QuantKVState):
         val = state_np.get(f.name)
         if f.name == "length":
-            arr = np.asarray(val)
-            fields[f.name] = (int(arr) if arr.ndim == 0 else
-                              tensor_from_numpy(arr.astype(np.int32), dev))
+            arr = np.asarray(val).astype(np.int32)
+            fields[f.name] = tensor_from_numpy(arr, dev)
+            if arr.ndim == 0:
+                fields["host_length"] = int(arr)
+        elif f.name == "host_length":
+            continue
         elif val is not None:
             fields[f.name] = tensor_from_numpy(val, dev)
     return QuantKVState(**fields)

@@ -8,13 +8,15 @@ pad slots never attend, real positions are ``slot - offset[b]``, and rows
 that hit EOS emit ``pad_token_id`` after it. Temperature sampling is ROADMAP
 queue 1 item 7.
 
-Over the dense cache a decode step is :class:`DenseDecodeStep`: on a CUDA
-model its first call runs eagerly (it builds the kernels and its token is
-kept), its second captures the step in a CUDA graph and every call from
-then on replays it, so that the host launches one graph a token instead of
+A decode step is :class:`DecodeStep`: on a CUDA model the first call of
+each of its variants runs eagerly (it builds the kernels and its token is
+kept), the next captures the step in a CUDA graph and every call from then
+on replays it, so that the host launches one graph a token instead of
 every kernel of the step; on the CPU each call runs the step eagerly. The
-prefill stays eager (one call, with M = B x S rows on the GEMMs), and so do
-the steps over the quantized cache, whose fold step branches on the host.
+dense cache has one variant; the quantized cache two, the plain step and
+the step that folds a chunk, which the host mirror of the cache length
+names before each step. The prefill stays eager (one call, with M = B x S
+rows on the GEMMs).
 
 This is the single-sequence reference the serving engine is checked
 against, and the prefill + decode loop ``chip_smoke.py`` times.
@@ -28,8 +30,9 @@ import numpy as np
 import torch
 
 from ..kv.cache import (DenseDecodeCache, QuantizedDecodeCache,
-                        QuantKVConfig, check_dense_room, init_dense_cache,
-                        init_quant_cache)
+                        QuantKVConfig, check_dense_room, check_quant_room,
+                        init_dense_cache, init_quant_cache, next_fold_length,
+                        quant_fold_step)
 
 
 def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
@@ -47,34 +50,56 @@ def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
     raise ValueError(f"unknown cache_kind {kind!r}")
 
 
-class DenseDecodeStep:
-    """One greedy decode step over a dense cache, on static buffers.
+class DecodeStep:
+    """One greedy decode step over a dense or (with ``quant_cfg``) a
+    quantized cache, on static buffers.
 
     ``tok`` (B,) holds the token fed to the step and, after it, the greedy
     token out; ``logits`` the step's (B, 1, vocab) logits; the positions
     (``length - offset``), the forward pass, the argmax and the cache
-    length's advance all belong to the step. :meth:`eager` runs it;
-    :meth:`capture` records it in a CUDA graph (running nothing) and
-    :meth:`replay` replays that graph; calling the object does what
-    ``generate`` needs: on the CPU every call is eager, on a CUDA device
-    the first call is eager (the warm-up that builds the kernels, a real
-    step whose token is kept), the second captures and replays, and every
-    later call replays. A failed capture or replay raises: there is no
-    eager fallback. The overflow check reads the cache's host mirror of
-    its length before each step, eager or replayed.
+    length's advance all belong to the step. A step has a variant
+    (:meth:`variant`): ``"plain"``, or ``"fold"`` for a quantized-cache
+    step that folds a chunk, which the cache's host mirror of its length
+    names before the step. :meth:`eager` runs a step; :meth:`capture`
+    records one variant in a CUDA graph (running nothing) and
+    :meth:`replay` replays it. Calling the object does what ``generate``
+    needs: on the CPU every call is eager; on a CUDA device the first call
+    of each variant is eager (the warm-up that builds its kernels, a real
+    step whose token is kept), the next one captures and replays, and
+    every later one replays. Every cache configuration is captured, GEAR's
+    low-rank bases too (their ``torch.linalg.qr`` captures on the card). A
+    failed capture or replay raises: there is no eager fallback. The
+    overflow check reads the cache's host mirror before each step, eager
+    or replayed.
     """
 
-    def __init__(self, model, state, tok: torch.Tensor):
+    def __init__(self, model, state, tok: torch.Tensor,
+                 quant_cfg: Optional[QuantKVConfig] = None):
         self.model = model
         self.state = state
+        self.quant_cfg = quant_cfg
         self.tok = tok.detach().clone()
         self.logits = None
-        self.graph = None
-        self._calls = 0
+        self.graphs = {}               # variant -> (CUDAGraph, its logits)
+        self._eager_variants = set()
+
+    def variant(self) -> str:
+        """The variant of the next step, from the host mirror."""
+        if self.quant_cfg is not None and quant_fold_step(
+                self.quant_cfg, self.state.host_length):
+            return "fold"
+        return "plain"
+
+    def _check_room(self) -> None:
+        if self.quant_cfg is None:
+            check_dense_room(self.state, 1)
+        else:
+            check_quant_room(self.state, self.quant_cfg)
 
     def _step(self) -> torch.Tensor:
         st = self.state
-        cache = DenseDecodeCache(st)
+        cache = (DenseDecodeCache(st) if self.quant_cfg is None
+                 else QuantizedDecodeCache(st, self.quant_cfg))
         pos = (st.length - st.offset)[:, None]
         logits = self.model(self.tok[:, None], positions=pos, cache=cache)
         cache.finalize()
@@ -83,36 +108,47 @@ class DenseDecodeStep:
 
     def eager(self) -> torch.Tensor:
         """Run one step now; returns ``tok``."""
+        self._eager_variants.add(self.variant())
         self.logits = self._step()
         return self.tok
 
-    def capture(self) -> None:
-        """Record one step in a CUDA graph on a side stream. Nothing runs:
-        the device length stays, and the host mirror, which the recording
-        advanced, is put back."""
+    def capture(self, variant: str = "plain") -> None:
+        """Record one step of ``variant`` in a CUDA graph on a side stream.
+        Nothing runs: the device length stays, and the host mirror is put
+        back. A fold step is recorded with the mirror at the next length
+        that folds (the graph reads the device length when it replays)."""
         dev = self.tok.device
+        host = self.state.host_length
+        if variant == "fold":
+            self.state.host_length = next_fold_length(self.quant_cfg, host)
+        elif variant != self.variant():
+            raise ValueError(f"the next step is no {variant!r} step")
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        host = self.state.host_length
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side):
-            self.logits = self._step()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                logits = self._step()
+        finally:
+            self.state.host_length = host
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.state.host_length = host
+        self.graphs[variant] = (graph, logits)
 
     def replay(self) -> torch.Tensor:
-        """Replay the captured step; returns ``tok``."""
-        check_dense_room(self.state, 1)
-        self.graph.replay()
+        """Replay the captured step of the next step's variant; returns
+        ``tok``."""
+        self._check_room()
+        graph, self.logits = self.graphs[self.variant()]
+        graph.replay()
         self.state.host_length += 1
         return self.tok
 
     def __call__(self) -> torch.Tensor:
-        self._calls += 1
-        if self.tok.device.type != "cuda" or self._calls == 1:
+        v = self.variant()
+        if self.tok.device.type != "cuda" or v not in self._eager_variants:
             return self.eager()
-        if self.graph is None:
-            self.capture()
+        if v not in self.graphs:
+            self.capture(v)
         return self.replay()
 
 
@@ -179,18 +215,11 @@ def generate(model, prompt_ids, max_new_tokens: int,
         return out_t
 
     out = [host_tok(tok)]
-    step = DenseDecodeStep(model, state, tok) if cache_kind == "dense" \
-        else None
+    step = DecodeStep(model, state, tok,
+                      (quant_cfg or QuantKVConfig()) if cache_kind == "quant"
+                      else None)
     for _ in range(max_new_tokens - 1):
         if finished.all():
             break
-        if step is not None:
-            tok = step()
-        else:
-            cache = wrap(state)
-            pos = (state.length - offset)[:, None]
-            logits = model(tok[:, None], positions=pos, cache=cache)
-            state = cache.finalize()
-            tok = torch.argmax(logits[:, -1], dim=-1)
-        out.append(host_tok(tok))
+        out.append(host_tok(step()))
     return np.stack(out, axis=1)

@@ -13,17 +13,18 @@ the preallocated buffers: PyTorch runs eagerly and a copy of the whole cache
 per token would double its traffic. ``finalize`` still returns the state to
 carry to the next step. Where JAX quantizes every decode step and predicates
 the write (``lax.cond``, ``jnp.where``), the port quantizes only on the steps
-where a chunk folds; the stored values are the same. The dense cache keeps
-its ``length`` on the device (a CUDA graph of a decode step replays with
-it), with a host mirror for the overflow check; the shared quantized cache
-knows its ``length`` on the host; the slot cache reads once per step, on
-the host, whether any slot folds.
+where a chunk folds; the stored values are the same. The dense and the
+shared quantized cache keep their ``length`` on the device (a CUDA graph of
+a decode step replays with it), with a host mirror advanced by the same
+counts: the overflow check, and the quantized cache's choice of a fold
+step (all rows share one length), read the mirror, never the device; the
+slot cache reads once per step, on the host, whether any slot folds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional
 
 import torch
 
@@ -140,9 +141,10 @@ class QuantKVState:
     # residual recent-token window (L, B, res_slots, KVH, hd)
     res_k: torch.Tensor
     res_v: torch.Tensor
-    # tokens written: an int for the shared cache (the host knows it), a
-    # (B,) int32 tensor of per-slot depths for the slot cache
-    length: Union[int, torch.Tensor]
+    # tokens written: a 0-d int32 tensor on the cache's device for the
+    # shared cache (advanced in place, as DenseKVState.length), a (B,)
+    # int32 tensor of per-slot depths for the slot cache
+    length: torch.Tensor
     # per-row left-pad count (B,), as DenseKVState.offset
     offset: Optional[torch.Tensor] = None
     # GEAR-L per-chunk rank-r bases of the quantization error:
@@ -157,6 +159,9 @@ class QuantKVState:
     k_oi: Optional[torch.Tensor] = None
     v_ov: Optional[torch.Tensor] = None
     v_oi: Optional[torch.Tensor] = None
+    # the shared cache's host mirror of ``length``, advanced by the same
+    # counts: the overflow check and the fold choice read it
+    host_length: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,7 +290,8 @@ def init_quant_cache(n_layers, batch, max_len, kv_heads, head_dim,
         v_mn=z((n_layers, batch, kv_heads, C, cfg.gap, G), torch.float32),
         v_sc=z((n_layers, batch, kv_heads, C, cfg.gap, G), torch.float32),
         res_k=z(res, cfg.residual_dtype), res_v=z(res, cfg.residual_dtype),
-        length=0, offset=offset.to(dev), **gear)
+        length=z((), torch.int32), offset=offset.to(dev), host_length=0,
+        **gear)
 
 
 def _inv_levels(bits: int) -> float:
@@ -532,21 +538,55 @@ def _assemble(st: QuantKVState, cfg: QuantKVConfig, li: int, dtype):
     return k_all, v_all, C
 
 
+def quant_fold_step(cfg: QuantKVConfig, length: int) -> bool:
+    """Whether the decode step at ``length`` tokens folds a chunk (from the
+    host mirror: every row shares the length)."""
+    return cfg.n_full(length + 1) > cfg.n_full(length)
+
+
+def next_fold_length(cfg: QuantKVConfig, length: int) -> int:
+    """The least length >= ``length`` at which a decode step folds."""
+    at = max(length, cfg.residual_len + cfg.gap - 1)
+    return at + (-(at - cfg.residual_len + 1)) % cfg.gap
+
+
+def check_quant_room(state: QuantKVState, cfg: QuantKVConfig,
+                     S: int = 1) -> None:
+    """Raise ValueError when S more decode tokens would fold a chunk past
+    the store, from the host mirror of the length."""
+    C = state.kq.shape[3]
+    at = cfg.n_full(state.host_length + S) - 1
+    if at >= C:
+        raise ValueError(_OVERFLOW_MSG.format(cap=C, at=at))
+
+
 class QuantizedDecodeCache:
     """4/2/8-bit grouped KV cache with a full-precision residual window; all
-    rows share one length, known on the host."""
+    rows share one length.
+
+    A decode step writes at the device length and reads nothing on the host
+    but the length's mirror (whether the step folds, the overflow check),
+    so a step through it can be captured in a CUDA graph: one graph for a
+    plain step, one for a fold step. ``finalize`` advances the length
+    (device and mirror) once per step, in place.
+    """
 
     def __init__(self, state: QuantKVState, cfg: QuantKVConfig):
         self.state = state
         self.cfg = cfg
-        self._new_len = state.length
+        self._written = 0
 
     # -- internals ---------------------------------------------------------
-    def _write(self, li: int, pieces, chunk: int) -> None:
-        """Land compressed chunks at chunk index ``chunk`` onward."""
+    def _write(self, li: int, pieces, chunk) -> None:
+        """Land compressed chunks at chunk index ``chunk`` onward: a host
+        int (the prefill), or a (1,) device index (a decode fold, whose
+        room the caller checked from the host mirror)."""
         for name, val in pieces.items():
             lay = getattr(self.state, name)[li]
             ax = _CHUNK_AXIS[name] - 1
+            if isinstance(chunk, torch.Tensor):
+                lay.index_copy_(ax, chunk, val.to(lay.dtype))
+                continue
             n = val.shape[ax]
             if chunk + n > lay.shape[ax]:
                 raise ValueError(_OVERFLOW_MSG.format(cap=lay.shape[ax],
@@ -574,20 +614,25 @@ class QuantizedDecodeCache:
             st.res_v[li, :, :tail] = v[:, nch * gap:].to(st.res_v.dtype)
 
     def _ingest_decode(self, li: int, k, v) -> None:
-        """Write the token into the residual at ``length - n_full * gap``;
-        when a chunk fills, fold the oldest ``gap`` residual rows into chunk
-        ``n_full_new - 1``. Old residual rows stay, masked by res_len."""
+        """Write the token into the residual at ``length - n_full * gap``
+        (on the device); when the host mirror says that a chunk fills,
+        fold the oldest ``gap`` residual rows into chunk ``n_full(length +
+        1) - 1`` (a device index). Old residual rows stay, masked by
+        res_len."""
         st, cfg = self.state, self.cfg
         gap = cfg.gap
-        nfull_old = cfg.n_full(st.length)
-        slot = st.length - nfull_old * gap
-        st.res_k[li, :, slot:slot + 1] = k.to(st.res_k.dtype)
-        st.res_v[li, :, slot:slot + 1] = v.to(st.res_v.dtype)
-        nfull_new = cfg.n_full(st.length + 1)
-        if nfull_new > nfull_old:
+        length = st.length
+        fold = quant_fold_step(cfg, st.host_length)
+        if fold:
+            check_quant_room(st, cfg)       # before anything is written
+        slot = (length - cfg.n_full(length) * gap).long().reshape(1)
+        st.res_k[li].index_copy_(1, slot, k.to(st.res_k.dtype))
+        st.res_v[li].index_copy_(1, slot, v.to(st.res_v.dtype))
+        if fold:
+            chunk = (cfg.n_full(length + 1) - 1).long().reshape(1)
             rk = st.res_k[li, :, :gap].transpose(1, 2)[:, :, None]
             rv = st.res_v[li, :, :gap].transpose(1, 2)[:, :, None]
-            self._write(li, _compress_chunks(rk, rv, cfg), nfull_new - 1)
+            self._write(li, _compress_chunks(rk, rv, cfg), chunk)
             if cfg.residual_len > 0:
                 _shift_residual(st.res_k[li], gap)
                 _shift_residual(st.res_v[li], gap)
@@ -601,8 +646,8 @@ class QuantizedDecodeCache:
             self._ingest_prefill(layer_idx, k, v)
         else:
             self._ingest_decode(layer_idx, k, v)
+        self._written = S
         new_len = st.length + S
-        self._new_len = new_len
         # assemble keys/values: dequantized chunks ++ residual
         k_all, v_all, C = _assemble(st, cfg, layer_idx, k.dtype)
 
@@ -623,17 +668,24 @@ class QuantizedDecodeCache:
 
     def ingest_for_fused(self, layer_idx: int, k, v):
         """Decode-step ingest for the fused attention kernel: returns the
-        full (L-leading) buffers it reads and the new length."""
+        full (L-leading) buffers it reads and the new length (a 0-d device
+        tensor)."""
         _check_fusable(self.cfg)
         self._ingest_decode(layer_idx, k, v)
-        self._new_len = self.state.length + 1
+        self._written = 1
         names = _FUSED_FIELDS
         if self.cfg.rank > 0:
             names += _LOWRANK_FIELDS
-        return tuple(getattr(self.state, n) for n in names), self._new_len
+        return (tuple(getattr(self.state, n) for n in names),
+                self.state.length + 1)
 
     def finalize(self) -> QuantKVState:
-        return dataclasses.replace(self.state, length=self._new_len)
+        st = self.state
+        if self._written:
+            st.length.add_(self._written)
+            st.host_length += self._written
+            self._written = 0
+        return st
 
     @property
     def compression_ratio(self) -> float:

@@ -28,24 +28,32 @@
 // byte (2 bits of code, 2 x 8 bits of exponents and 2 x 8 bits of slot
 // bytes per 16 weights); at M = 8 every byte feeds 64 flops, far below the
 // ~295 flop/byte balance point. The bound is (weight bytes + x + out) /
-// 3.35 TB/s. The GEMM at M = 1024 does 4096 flops per weight byte: the bound
-// is 2*M*N*K / 989 TFLOP/s (bf16 tensor cores).
+// 3.35 TB/s; its f32 FMAs on CUDA cores would take longer, so the dot runs
+// on the tensor cores. The GEMM at M = 1024 does 4096 flops per weight
+// byte: the bound is 2*M*N*K / 989 TFLOP/s (bf16 tensor cores).
 //
-// GEMV design (simple and right first):
-// - one block of 128 threads per (N-block b, K-split, M-tile). A thread owns
-//   groups of 4 consecutive columns k, strided by 128 groups, so a warp's
-//   loads of a code row, of se/seo and of each slot row are 128 contiguous
-//   bytes (one 32-bit load per thread); x[m, k..k+3] comes from L2 as 8
-//   bytes a row.
-// - the thread decodes the 16 weights of each column in registers and adds
-//   x[m, k]·w into MT x 16 f32 sums (MT rows of x per block).
-// - the 128 threads' sums are reduced by warp shuffles in a fixed butterfly
-//   and then over the 4 warps in order; each K-split writes an f32 partial
-//   and split_reduce adds the partials in split order. The split count
-//   depends on (NB, K) only, never on M, so a row's result does not depend
-//   on the batch it came in (the engine then matches single-sequence decode).
-// - N is padded to a multiple of 16 in storage; the reduce writes only the
-//   orig_n real columns.
+// GEMV design (gv::nb_gemv, planned by outlier_matmul.py::nb_gemv_plan;
+// csrc/gemv_tc.cuh's pattern, as dequant_gemv.cu's gemv_tc):
+// - one persistent CTA an SM walks over a contiguous range of (8 N-blocks
+//   = 128 output columns, row group of up to 64 rows of x, K split)
+//   tiles; warp 8 keeps a ring of 128-column stages in flight (32 code
+//   rows, 8 se and 8 seo rows, 8 rows a slot: 2-D TMA boxes behind
+//   mbarriers, plain copies where K % 16 != 0); x stays in shared memory
+//   as bf16 for the split.
+// - consumer warp w owns N-block w of the tile: per half stage (64 K
+//   columns) lane p forms the 16 weights of K columns 2p, 2p + 1 with
+//   decode_pair (one exponent pair and one slot byte pair a slot serve all
+//   16), rounds them once to bf16 into the warp's 16 x 64 tile in shared
+//   memory (the B tile of NbSm90, bit for bit), and the warp runs 4
+//   mma.m16n8k16 steps on it (A fragments by ldmatrix: an N-block's 16 rows
+//   are exactly the 16-row operand, its K pairs neighbours in memory).
+//   The scale varies along K, so the dot cannot come before it: fresh
+//   accumulators every stage (128 K columns) are added to an f32 sum.
+// - each tile writes an f32 partial; split_reduce adds the splits in
+//   order. The split depends on (NB, K) only, never on M, so a row's
+//   result does not depend on the batch (the engine then matches
+//   single-sequence decode). N is padded to a multiple of 16 in storage;
+//   the reduce writes only the orig_n real columns.
 //
 // GEMM design: gemm_sm90.cuh's wgmma + TMA mainloop (256 x 128 output
 // tile, 64-deep K steps, two decode warpgroups feeding two wgmma
@@ -68,16 +76,13 @@
 // exact in bf16, so the tensor cores see the twin's weights; their f32
 // accumulation differs from a CUDA-core sum in order and internal rounding
 // (the emi8 GEMM's 2e-3 tolerance).
-#include "common.cuh"
-#include "gemm_sm90.cuh"
+#include "gemv_tc.cuh"
 
 namespace {
 
 using mxq::BTile;
 using mxq::exp2_i32;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;                     // N-block
 
 // fp4 e2m1 bits (s e e m) -> signed integer value 2·fp4 (exact).
@@ -85,10 +90,6 @@ __device__ __forceinline__ float fp4_twice(int b) {
   const int e = (b >> 1) & 3, m = b & 1;
   const int mag = (m + 2 * min(e, 1)) << max(e - 1, 0);
   return static_cast<float>((b & 8) ? -mag : mag);
-}
-
-__device__ __forceinline__ int byte_of(uint32_t word, int i) {
-  return static_cast<int>(static_cast<int8_t>((word >> (8 * i)) & 0xFF));
 }
 
 // The 16 weights of one column of an N-block: c0..c3 are its 4 code bytes
@@ -119,94 +120,53 @@ __device__ __forceinline__ void decode_column(int c0, int c1, int c2, int c3,
   }
 }
 
-// grid: (NB, ksplit, ceil(M / MT)); ws: (ksplit, M, Np) f32 partials.
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-nb_partial(const __nv_bfloat16* __restrict__ x,
-           const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
-           const int8_t* __restrict__ seo, const int8_t* __restrict__ ob,
-           float* __restrict__ ws, int M, int K, int Np, int NB, int budget,
-           int fold, int groups_per_split) {
-  __shared__ float red[kWarps][MT * kRows];
-  const int b = blockIdx.x;
-  const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
-  const int ngroups = (K + 3) / 4;
-  const int g_end = min(ngroups, (split + 1) * groups_per_split);
-  const bool vec = (K % 4) == 0;
-  const size_t nbk = static_cast<size_t>(NB) * K;
-
-  float acc[MT][kRows];
+// w[j][h]: the weight of row j of an N-block at the K column of half h
+// of a pair of neighbouring K columns, from the pair's code bytes (cw[r]:
+// byte row r, the lower column in the low byte), exponents (sw: se, ow:
+// seo) and slot bytes (slot s's pair at ob + s * ob_stride), in
+// decode_column's order and arithmetic: the inliers (the int2 code as an
+// f32 through the 1.5 * 2^23 bias: exact), then the slots in slot order.
+// 2 * fp4 placed as f32 bits (exponent field e, mantissa m: a subnormal
+// for e = 0) times 2^127 is fp4_twice exactly (-0 for the code 8, which
+// adds as fp4_twice's +0 does); decode_column adds +0 at every other row,
+// which changes no weight (none is -0). At most MAXB slots are read.
+template <int MAXB>
+__device__ __forceinline__ void decode_pair(const uint32_t (&cw)[4],
+                                            uint32_t sw, uint32_t ow,
+                                            const int8_t* ob, int ob_stride,
+                                            int slots, int fold,
+                                            float (&w)[kRows][2]) {
+  float osc[2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int h = 0; h < 2; ++h) {
+    const int s_in = static_cast<int8_t>(sw >> (8 * h));
+    const float sc = exp2_i32(s_in - fold);
+    osc[h] = exp2_i32(static_cast<int8_t>(ow >> (8 * h)) - s_in - 1);
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) acc[m][j] = 0.f;
-
-  for (int g = split * groups_per_split + threadIdx.x; g < g_end;
-       g += kThreads) {
-    const int k0 = 4 * g;
-    uint32_t cw[4], sw, ow;
-    const size_t bk = static_cast<size_t>(b) * K + k0;
-    if (vec) {
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t code = static_cast<uint32_t>(
+          static_cast<int>(static_cast<int8_t>(cw[r] >> (8 * h))));
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        cw[r] = __ldg(reinterpret_cast<const uint32_t*>(
-            codes + (static_cast<size_t>(4 * b + r)) * K + k0));
-      sw = __ldg(reinterpret_cast<const uint32_t*>(se + bk));
-      ow = __ldg(reinterpret_cast<const uint32_t*>(seo + bk));
-    } else {
-      sw = ow = 0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cw[r] = 0;
-      for (int kk = 0; kk < 4 && k0 + kk < K; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          cw[r] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                       codes[static_cast<size_t>(4 * b + r) * K + k0 + kk]))
-                   << (8 * kk);
-        sw |= static_cast<uint32_t>(static_cast<uint8_t>(se[bk + kk])) << (8 * kk);
-        ow |= static_cast<uint32_t>(static_cast<uint8_t>(seo[bk + kk])) << (8 * kk);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int k = k0 + kk;
-      if (k >= K) break;
-      float w[kRows];
-      decode_column(byte_of(cw[0], kk), byte_of(cw[1], kk), byte_of(cw[2], kk),
-                    byte_of(cw[3], kk), byte_of(sw, kk), byte_of(ow, kk),
-                    ob + bk + kk, nbk, budget, fold, w);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = (m0 + m < M)
-            ? __bfloat162float(x[static_cast<size_t>(m0 + m) * K + k])
-            : 0.f;
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+      for (int i = 0; i < 4; ++i) {
+        const int v = static_cast<int>(code << (30 - 2 * i)) >> 30;
+        w[r + 4 * i][h] = (__int_as_float(0x4B400000 + v) - 12582912.f) * sc;
       }
     }
   }
-
-  // fixed-order reduction: butterfly within each warp, then warps in order
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int s = 0; s < slots && s < MAXB; ++s) {
+    const uint32_t bw = *reinterpret_cast<const uint16_t*>(ob + s * ob_stride);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t ub = (bw >> (8 * h)) & 0xFF;
+      const int pos = ub >> 4;
+      const float val =
+          __uint_as_float(((ub & 7) << 22) | ((ub & 8) << 28)) * 0x1p127f
+          * osc[h];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      float v = acc[m][j];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][m * kRows + j] = v;
+      for (int j = 0; j < kRows; ++j)
+        if (pos == j) w[j][h] += val;
     }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MT * kRows; i += kThreads) {
-    const int m = i / kRows, j = i - m * kRows;
-    if (m0 + m >= M) continue;
-    float v = red[0][i];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += red[w][i];
-    ws[(static_cast<size_t>(split) * M + m0 + m) * Np + kRows * b + j] = v;
   }
 }
 
@@ -342,46 +302,9 @@ struct NbSm90 {
         raw + kSeOff + b * kK + 2 * p);
     const uint32_t ow = *reinterpret_cast<const uint16_t*>(
         raw + kSeoOff + b * kK + 2 * p);
-    // w[j][h]: row 16b + j at K column 2p + h; decode_column's inliers
-    // (the int2 code as an f32 through the 1.5 · 2^23 bias: exact)
-    float w[kRows][2], osc[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int s_in = static_cast<int8_t>(sw >> (8 * h));
-      const float sc = exp2_i32(s_in - fold);
-      osc[h] = exp2_i32(static_cast<int8_t>(ow >> (8 * h)) - s_in - 1);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint32_t code = static_cast<uint32_t>(
-            static_cast<int>(static_cast<int8_t>(cw[r] >> (8 * h))));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int v = static_cast<int>(code << (30 - 2 * i)) >> 30;
-          w[r + 4 * i][h] = (__int_as_float(0x4B400000 + v) - 12582912.f)
-                            * sc;
-        }
-      }
-    }
-    // the slots in slot order: 2·fp4 placed as f32 bits (exponent field e,
-    // mantissa m: a subnormal for e = 0) times 2^127 is fp4_twice exactly
-    // (-0 for the code 8, which adds as fp4_twice's +0 does); decode_column
-    // adds +0 at every other row, which changes no weight (none is -0)
-#pragma unroll 1
-    for (int s = 0; s < slots && s < MAXB; ++s) {
-      const uint32_t bw = *reinterpret_cast<const uint16_t*>(
-          raw + kObOff + s * kSlotBytes + b * kK + 2 * p);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t ub = (bw >> (8 * h)) & 0xFF;
-        const int pos = ub >> 4;
-        const float val =
-            __uint_as_float(((ub & 7) << 22) | ((ub & 8) << 28)) * 0x1p127f
-            * osc[h];
-#pragma unroll
-        for (int j = 0; j < kRows; ++j)
-          if (pos == j) w[j][h] += val;
-      }
-    }
+    float w[kRows][2];
+    decode_pair<MAXB>(cw, sw, ow, raw + kObOff + b * kK + 2 * p, kSlotBytes,
+                      slots, fold, w);
     // row n's K columns 2p, 2p + 1: word p % 4 of its swizzled chunk p / 4
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
@@ -443,46 +366,415 @@ int launch_nb_sm90(const void* x, const int8_t* codes, const int8_t* se,
       out_bf16, tma);
 }
 
-template <int MT>
-void launch_partial(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
-                    const int8_t* codes, const int8_t* se, const int8_t* seo,
-                    const int8_t* ob, float* ws, int M, int K, int Np, int NB,
-                    int budget, int fold, int gps) {
-  nb_partial<MT><<<grid, kThreads, 0, st>>>(x, codes, se, seo, ob, ws, M, K,
-                                            Np, NB, budget, fold, gps);
+// ---------------------------------------------------------------------------
+// The GEMV (M < 256): nb_gemv
+// ---------------------------------------------------------------------------
+namespace gv {
+
+using mxq::gemv_tc::align_up;
+using mxq::gemv_tc::bar_wait;
+using mxq::gemv_tc::consumer_sync;
+using mxq::gemv_tc::init_ring;
+using mxq::gemv_tc::kAlign;
+using mxq::gemv_tc::kBarBytes;
+using mxq::gemv_tc::kConsumers;
+using mxq::gemv_tc::kMaxStages;
+using mxq::gemv_tc::kThreads;
+using mxq::gemv_tc::mma_bf16;
+using mxq::gemv_tc::n8_tiles;
+using mxq::gemv_tc::Ring;
+using mxq::gemv_tc::take_role;
+using mxq::gemv_tc::tile_range;
+using mxq::gemv_tc::x_frag;
+
+constexpr int kK = 128;                       // K columns a stage
+constexpr int kBlocks = 8;                    // N-blocks a tile, one a warp
+constexpr int kSeOff = 4 * kBlocks * kK;      // 4096: after 32 code rows
+constexpr int kSeoOff = kSeOff + kBlocks * kK;
+constexpr int kObOff = kSeoOff + kBlocks * kK;   // 6144
+constexpr int kSlotBytes = kBlocks * kK;      // 1024 a slot
+constexpr int kTileBytes = kRows * 128;       // a warp's bf16 tile: 16 x 64
+constexpr int kMaxSlots = 1 << 20;            // decode_pair's bound: none
+
+struct Plan {
+  int M, K, NB, budget, fold;
+  int ksplit, sps, stages, mgroups, n_tiles, tiles, tma;
+  int stage_bytes, x_pitch;
+};
+
+// outlier_matmul.py::nb_gemv_plan mirrors these.
+__host__ __device__ inline int stage_bytes(int budget) {
+  return align_up(kObOff + budget * kSlotBytes, 1024);
 }
+__host__ __device__ inline int smem_bytes(const Plan& p, int nt) {
+  return kAlign + kBarBytes + p.stages * p.stage_bytes
+         + (kConsumers / 32) * kTileBytes + align_up(8 * nt * p.x_pitch, 128);
+}
+
+// Where tile t lies: 8 N-blocks from nb0, row group mg, K split.
+struct Tile {
+  int nb0, mg, split, x_key;
+  __device__ __forceinline__ Tile(int t, const Plan& p) {
+    nb0 = (t % p.n_tiles) * kBlocks;
+    x_key = t / p.n_tiles;
+    mg = x_key % p.mgroups;
+    split = x_key / p.mgroups;
+  }
+};
+
+// The consumers' x of a tile (rows 8 NT mg.., the split's K columns,
+// zeros past M and K), bf16 in K order, row pitch x_pitch bytes.
+template <int NT>
+__device__ __forceinline__ void load_x(uint8_t* xs,
+                                       const __nv_bfloat16* __restrict__ x,
+                                       const Plan& p, const Tile& tl) {
+  consumer_sync();                  // every warp is done with the last x
+  const int m0 = tl.mg * 8 * NT, k0 = tl.split * p.sps * kK;
+  const int chunks = p.sps * kK / 8;
+  const bool vec = (p.K % 8) == 0;
+  for (int i = threadIdx.x; i < 8 * NT * chunks; i += kConsumers) {
+    const int m = i / chunks, kc = (i - m * chunks) * 8, k = k0 + kc;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (m0 + m < p.M && k < p.K) {
+      const __nv_bfloat16* src = x + static_cast<size_t>(m0 + m) * p.K + k;
+      if (vec && k + 8 <= p.K) {
+        v = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+        uint16_t e[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          e[j] = k + j < p.K ? __bfloat16_as_ushort(src[j]) : 0;
+        v = make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16),
+                       e[4] | (e[5] << 16), e[6] | (e[7] << 16));
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + m * p.x_pitch + 2 * kc) = v;
+  }
+  consumer_sync();
+}
+
+// Lane `lane`'s two K columns kc, kc + 1 of N-block `b` of a stage (raw),
+// the 16 rows of each, into the warp's bf16 tile bt (row j: 128 bytes of
+// 64 K columns, 16-byte chunk c at c ^ (j % 8)): decode_pair's weights
+// (NbSm90's), rounded once to bf16, a row's two columns a word.
+__device__ __forceinline__ void tile_pair(const int8_t* raw, int b, int kc,
+                                          int slots, int fold, uint8_t* bt) {
+  const int lane = threadIdx.x & 31;
+  uint32_t cw[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    cw[r] = *reinterpret_cast<const uint16_t*>(raw + (4 * b + r) * kK + kc);
+  const uint32_t sw = *reinterpret_cast<const uint16_t*>(
+      raw + kSeOff + b * kK + kc);
+  const uint32_t ow = *reinterpret_cast<const uint16_t*>(
+      raw + kSeoOff + b * kK + kc);
+  float w[kRows][2];
+  decode_pair<kMaxSlots>(cw, sw, ow, raw + kObOff + b * kK + kc, kSlotBytes,
+                         slots, fold, w);
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+    *reinterpret_cast<uint32_t*>(bt + j * 128
+                                 + (((lane >> 2) ^ (j & 7)) << 4)
+                                 + (lane & 3) * 4) =
+        mxq::sm90::pack_bf16(w[j][0], w[j][1]);
+}
+
+// Consumer warp w: N-block nb0 + w of each tile. Per stage and half of it
+// (64 K columns), lane p forms the 16 weights of K columns 2p, 2p + 1
+// (decode_pair: one exponent pair and one slot byte pair a slot serve all
+// 16), writes them as bf16 to the warp's 16 x 64 tile (row j: 128 bytes,
+// 16-byte chunk c at c ^ (j % 8)), and the warp runs 4 mma steps, the A
+// fragments by ldmatrix. Fresh accumulators each stage (128 K columns),
+// added to the f32 sums.
+template <int NT>
+__device__ __forceinline__ void consume(const Ring& ring, uint8_t* tiles,
+                                        uint8_t* xs,
+                                        const __nv_bfloat16* __restrict__ x,
+                                        float* __restrict__ ws,
+                                        const Plan& p, int Np) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint8_t* bt = tiles + warp * kTileBytes;
+  // ldmatrix.x4: lane l names row (l % 8) + 8 ((l / 8) % 2) of chunk
+  // 2 kk + l / 16
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lhalf = lane >> 4;
+  const uint32_t bt_s = mxq::sm90::smem_u32(bt);
+  int lo, hi;
+  tile_range(p.tiles, lo, hi);
+  int it = 0, x_key = -1;
+  for (int tt = lo; tt < hi; ++tt) {
+    const Tile tl(tt, p);
+    if (tl.x_key != x_key) {
+      load_x<NT>(xs, x, p, tl);
+      x_key = tl.x_key;
+    }
+    const int nb = tl.nb0 + warp;
+    const bool live = nb < p.NB;
+    const int slots = live ? p.budget : 0;
+    const int s_begin = tl.split * p.sps;
+    const int s_end = min(s_begin + p.sps, (p.K + kK - 1) / kK);
+    float sum[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[n][r] = 0.f;
+    for (int ks = s_begin; ks < s_end; ++ks, ++it) {
+      const int s = it % ring.stages;
+      bar_wait(ring.full(s), (it / ring.stages) & 1);
+      const int8_t* raw = reinterpret_cast<const int8_t*>(ring.stage(s));
+      if (live) {
+        float acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+          __syncwarp();                // the last half's ldmatrix reads
+          tile_pair(raw, warp, h * 64 + 2 * lane, slots, p.fold, bt);
+          __syncwarp();
+          const int kx = (ks - s_begin) * kK + h * 64;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t a[4];
+            const int chunk = 2 * kk + lhalf;
+            asm volatile(
+                "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+                "[%4];"
+                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                : "r"(bt_s + lrow * 128 + ((chunk ^ (lrow & 7)) << 4))
+                : "memory");
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              uint32_t b0, b1;
+              x_frag(xs, p.x_pitch, n, kx + 16 * kk, b0, b1);
+              mma_bf16(acc[n], a, b0, b1);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sum[n][r] += acc[n][r];
+      }
+      __syncwarp();                  // the warp's reads of the stage are done
+      if (lane == 0) mxq::sm90::mbar_arrive(ring.empty(s));
+    }
+    if (!live) continue;
+    // d0, d1: column 16 nb + g, rows 2t, 2t + 1; d2, d3: column + 8
+    const int m0 = tl.mg * 8 * NT;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + 8 * n + 2 * t + (r & 1);
+        if (m < p.M)
+          ws[(static_cast<size_t>(tl.split) * p.M + m) * Np + kRows * nb + g
+             + 8 * (r >> 1)] = sum[n][r];
+      }
+  }
+}
+
+// Warp 8: the copies of each tile's K columns into the ring.
+__device__ __forceinline__ void produce(const Ring& ring,
+                                        const CUtensorMap* codes_map,
+                                        const CUtensorMap* se_map,
+                                        const CUtensorMap* seo_map,
+                                        const CUtensorMap* ob_map,
+                                        const int8_t* __restrict__ codes,
+                                        const int8_t* __restrict__ se,
+                                        const int8_t* __restrict__ seo,
+                                        const int8_t* __restrict__ ob,
+                                        const Plan& p) {
+  const int lane = threadIdx.x & 31;
+  const int tx = kObOff + p.budget * kSlotBytes;
+  int lo, hi;
+  tile_range(p.tiles, lo, hi);
+  int it = 0;
+  for (int tt = lo; tt < hi; ++tt) {
+    const Tile tl(tt, p);
+    const int s_begin = tl.split * p.sps;
+    const int s_end = min(s_begin + p.sps, (p.K + kK - 1) / kK);
+    for (int ks = s_begin; ks < s_end; ++ks, ++it) {
+      const int s = it % ring.stages;
+      bar_wait(ring.empty(s), ((it / ring.stages) & 1) ^ 1);
+      int8_t* raw = reinterpret_cast<int8_t*>(ring.stage(s));
+      const int k0 = ks * kK;
+      if (p.tma) {
+        if (lane == 0) {
+          using mxq::sm90::tma_load_2d;
+          mxq::sm90::mbar_expect_tx(ring.full(s), tx);
+          tma_load_2d(raw, codes_map, k0, 4 * tl.nb0, ring.full(s));
+          tma_load_2d(raw + kSeOff, se_map, k0, tl.nb0, ring.full(s));
+          tma_load_2d(raw + kSeoOff, seo_map, k0, tl.nb0, ring.full(s));
+          // rows past NB of slot s are slot s + 1's; no warp reads a slot
+          // of an N-block past NB
+          for (int sl = 0; sl < p.budget; ++sl)
+            tma_load_2d(raw + kObOff + sl * kSlotBytes, ob_map, k0,
+                        sl * p.NB + tl.nb0, ring.full(s));
+        }
+      } else {
+        // plain copies, zeros outside the weight
+#pragma unroll 1
+        for (int c = lane; c < tx; c += 32) {
+          const int row = c / kK, k = k0 + c % kK;
+          int8_t v = 0;
+          if (k < p.K) {
+            if (c < kSeOff) {
+              if (4 * tl.nb0 + row < 4 * p.NB)
+                v = codes[static_cast<size_t>(4 * tl.nb0 + row) * p.K + k];
+            } else if (c < kObOff) {
+              const int i = row - 4 * kBlocks, nb = tl.nb0 + i % kBlocks;
+              if (nb < p.NB)
+                v = (i < kBlocks ? se : seo)[static_cast<size_t>(nb) * p.K
+                                             + k];
+            } else {
+              const int i = row - 6 * kBlocks;
+              const int sl = i / kBlocks, nb = tl.nb0 + i % kBlocks;
+              if (nb < p.NB)
+                v = ob[(static_cast<size_t>(sl) * p.NB + nb) * p.K + k];
+            }
+          }
+          raw[c] = v;
+        }
+        mxq::sm90::mbar_arrive(ring.full(s));
+      }
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 1)
+nb_gemv(const __grid_constant__ CUtensorMap codes_map,
+        const __grid_constant__ CUtensorMap se_map,
+        const __grid_constant__ CUtensorMap seo_map,
+        const __grid_constant__ CUtensorMap ob_map,
+        const __nv_bfloat16* __restrict__ x,
+        const int8_t* __restrict__ codes, const int8_t* __restrict__ se,
+        const int8_t* __restrict__ seo, const int8_t* __restrict__ ob,
+        float* __restrict__ ws, const Plan p, int Np) {
+  extern __shared__ uint8_t gemv_smem[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(gemv_smem) + kAlign - 1)
+      & ~uintptr_t(kAlign - 1));
+  const Ring ring{base + kBarBytes, mxq::sm90::smem_u32(base), p.stages,
+                  p.stage_bytes};
+  uint8_t* tiles = base + kBarBytes + p.stages * p.stage_bytes;
+  uint8_t* xs = tiles + (kConsumers / 32) * kTileBytes;
+  init_ring(ring, p.tma != 0);
+  if (take_role())
+    consume<NT>(ring, tiles, xs, x, ws, p, Np);
+  else if (threadIdx.x / 32 == kConsumers / 32)
+    produce(ring, &codes_map, &se_map, &seo_map, &ob_map, codes, se, seo, ob,
+            p);
+}
+
+template <int NT>
+int launch(const void* x, const int8_t* codes, const int8_t* se,
+           const int8_t* seo, const int8_t* ob, float* ws, const Plan& p,
+           int Np, int ctas, int smem, cudaStream_t st) {
+  auto kernel = nb_gemv<NT>;
+  CUtensorMap maps[4] = {};
+  if (p.tma) {
+    using mxq::sm90::raw_tensor_map;
+    int err = raw_tensor_map(&maps[0], codes, 1, p.K, 4LL * p.NB, kK,
+                             4 * kBlocks);
+    if (err == 0)
+      err = raw_tensor_map(&maps[1], se, 1, p.K, p.NB, kK, kBlocks);
+    if (err == 0)
+      err = raw_tensor_map(&maps[2], seo, 1, p.K, p.NB, kK, kBlocks);
+    if (err == 0 && p.budget > 0)
+      err = raw_tensor_map(&maps[3], ob, 1, p.K,
+                           static_cast<long long>(p.budget) * p.NB, kK,
+                           kBlocks);
+    if (err != 0) return err;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<ctas, kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3],
+      static_cast<const __nv_bfloat16*>(x), codes, se, seo, ob, ws, p, Np);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int occupancy(int smem, int* blocks) {
+  auto kernel = nb_gemv<NT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                      kThreads, smem);
+  return static_cast<int>(e);
+}
+
+}  // namespace gv
 
 }  // namespace
 
-// x: (M, K) bf16; codes: (Np/4, K) int8; se, seo: (NB, K) int8 with
-// NB = Np/16; ob: (budget, NB, K) int8; ws: (ksplit, M, Np) f32 scratch;
-// out: (M, N) bf16 or f32 with N <= Np. Returns the cudaError_t of the
-// launches (0 on success).
+// x: (M, K) bf16, 16-byte aligned; codes: (Np/4, K) int8; se, seo: (NB, K)
+// int8 with NB = Np/16; ob: (budget, NB, K) int8; ws: (ksplit, M, Np) f32
+// scratch; out: (M, N) bf16 or f32 with N <= Np. The plan (ksplit, sps
+// 128-column stages a split, stages, ctas, smem) is outlier_matmul.py::
+// nb_gemv_plan's; smem must be the bytes that it implies here. Returns the
+// cudaError_t of the launches (0 on success; cudaErrorInvalidValue for a
+// plan or operands the kernel refuses).
 extern "C" int dequant_gemv_nb(const void* x, const void* codes,
-                                 const void* se, const void* seo,
-                                 const void* ob, void* ws, void* out, int M,
-                                 int K, int Np, int N, int budget, int fold,
-                                 int ksplit, int groups_per_split,
-                                 int out_bf16, void* stream) {
+                               const void* se, const void* seo,
+                               const void* ob, void* ws, void* out, int M,
+                               int K, int Np, int N, int budget, int fold,
+                               int ksplit, int sps, int stages, int ctas,
+                               int smem, int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int NB = Np / kRows;
-  const int mt = M >= 8 ? 8 : M >= 4 ? 4 : M >= 2 ? 2 : 1;
-  const dim3 grid(NB, ksplit, (M + mt - 1) / mt);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  gv::Plan p{};
+  p.M = M; p.K = K; p.NB = Np / kRows; p.budget = budget; p.fold = fold;
+  p.ksplit = ksplit; p.sps = sps; p.stages = stages;
+  const int nt = mxq::gemv_tc::n8_tiles(M);
+  p.mgroups = (M + 8 * nt - 1) / (8 * nt);
+  p.n_tiles = (p.NB + gv::kBlocks - 1) / gv::kBlocks;
+  p.tiles = p.mgroups * p.n_tiles * ksplit;
+  p.tma = K % 16 == 0 && aligned(codes) && aligned(se) && aligned(seo)
+          && (budget == 0 || aligned(ob));
+  p.stage_bytes = gv::stage_bytes(budget);
+  p.x_pitch = sps * gv::kK * 2 + 16;
+  if (M < 1 || budget < 0 || Np % kRows != 0 || sps < 1 || stages < 2
+      || stages > gv::kMaxStages || ctas < 1
+      || static_cast<long long>(ksplit) * sps * gv::kK < K || !aligned(x)
+      || smem != gv::smem_bytes(p, nt))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* cp = static_cast<const int8_t*>(codes);
   const auto* sp = static_cast<const int8_t*>(se);
   const auto* op = static_cast<const int8_t*>(seo);
   const auto* bp = static_cast<const int8_t*>(ob);
   auto* wp = static_cast<float*>(ws);
-  switch (mt) {
-    case 8: launch_partial<8>(grid, st, xp, cp, sp, op, bp, wp, M, K, Np, NB, budget, fold, groups_per_split); break;
-    case 4: launch_partial<4>(grid, st, xp, cp, sp, op, bp, wp, M, K, Np, NB, budget, fold, groups_per_split); break;
-    case 2: launch_partial<2>(grid, st, xp, cp, sp, op, bp, wp, M, K, Np, NB, budget, fold, groups_per_split); break;
-    default: launch_partial<1>(grid, st, xp, cp, sp, op, bp, wp, M, K, Np, NB, budget, fold, groups_per_split); break;
+  int err;
+#define MXQ_NB_GEMV(NT) \
+  err = gv::launch<NT>(x, cp, sp, op, bp, wp, p, Np, ctas, smem, st)
+  switch (nt) {
+    case 1: MXQ_NB_GEMV(1); break;
+    case 2: MXQ_NB_GEMV(2); break;
+    case 4: MXQ_NB_GEMV(4); break;
+    default: MXQ_NB_GEMV(8); break;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+#undef MXQ_NB_GEMV
+  if (err != 0) return err;
   return mxq::launch_split_reduce(wp, out, M, Np, N, ksplit, out_bf16, st);
+}
+
+// Blocks of nb_gemv that one SM holds at once for M rows and smem bytes of
+// dynamic shared memory, into *blocks. Returns the cudaError_t of the query.
+extern "C" int nb_gemv_occupancy(int M, int smem, void* blocks) {
+  int* b = static_cast<int*>(blocks);
+  switch (mxq::gemv_tc::n8_tiles(M)) {
+    case 1: return gv::occupancy<1>(smem, b);
+    case 2: return gv::occupancy<2>(smem, b);
+    case 4: return gv::occupancy<4>(smem, b);
+    default: return gv::occupancy<8>(smem, b);
+  }
 }
 
 // x: (M, Kx) bf16, Kx >= K; codes, se, seo, ob as above with NB = Np/16

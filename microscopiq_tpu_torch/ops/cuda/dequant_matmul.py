@@ -31,6 +31,7 @@ kernel or raise: there is no silent fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -40,9 +41,23 @@ from .. import packing as pk
 from . import build
 
 GEMV_MAX_M = 64
+# the CUDA-core GEMVs (dequant_gemv.cu's gemv_partial, the "cc" route, and
+# dequant_gemv_s8.cu): columns a block, blocks to aim for, K-blocks a split
 GEMV_TILE_N = 512                 # kThreads * kCols in dequant_gemv.cu
 _GEMV_TARGET_BLOCKS = 8 * 132     # ~8 blocks per SM of an H100
 _GEMV_MIN_BLOCKS_PER_SPLIT = 4    # keeps the f32 partials << the codes
+# the tensor-core GEMVs (csrc/gemv_tc.cuh, dequant_gemv.cu's gemv_tc and
+# nb_matmul.cu's nb_gemv): one CTA an SM of an H100, tiles an SM to aim
+# for, K rows of x a split at most, the ring's depth at most, the
+# alignment slack and barrier block, and dequant_gemv.cu's tile (columns)
+# and sub-tile row (bytes)
+GEMV_SMS = 132
+GEMV_TILES_PER_SM = 6
+GEMV_SPLIT_ROWS = 1024
+GEMV_MAX_STAGES = 8
+_GEMV_FIXED_SMEM = 1024 + 1024
+GEMV_TC_TN = 256
+_GEMV_SUB_W = 128
 
 # decode name -> mxq::Decode id of csrc/common.cuh; the names key the launch
 # counts ("emi8" serves emi8 and emi8m, "native" the int8 container,
@@ -50,6 +65,9 @@ _GEMV_MIN_BLOCKS_PER_SPLIT = 4    # keeps the f32 partials << the codes
 _DECODES = {"emi8": 0, "native": 1, "sb4": 2, "sb2": 3, "pf4": 4, "pf6": 5,
             "bf16": 6, "fp16": 7, "fp8_e4m3": 8, "fp8_e5m2": 9}
 _S8_DECODES = ("native", "sb4", "sb2")
+# decode -> the transport whose packed rows it reads
+_TRANSPORT_OF = {d: d if d in ("sb4", "sb2", "pf4", "pf6") else "native"
+                 for d in _DECODES}
 # decode -> code container, for the decodes whose codes are not int8
 _CODE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
                 "fp8_e4m3": torch.float8_e4m3fn,
@@ -80,11 +98,14 @@ NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
 
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
-# after. dequant_matmul_<decode> counts the GEMM that gemm_route gives the
+# after. dequant_gemv_<decode> counts the tensor-core GEMV (gemv_route's
+# "tc" blocks), dequant_gemv_<decode>_cc the CUDA-core one at the other
+# blocks; dequant_matmul_<decode> counts the GEMM that gemm_route gives the
 # default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16, bf16, emi8,
 # the int8 container and float8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
 launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
+                 **{f"dequant_gemv_{d}_cc": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}_tile": 0 for d in SM90_BLOCKS
                     if d in _DECODES},
@@ -225,8 +246,11 @@ def reset_launch_counts() -> None:
 
 # C entry points: (source in csrc/, argument types), pointers (and the
 # stream) as c_void_p, ints as c_int
-_ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 11
+_ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 16
                              + [_ptr]),
+            "dequant_gemv_occupancy": ("dequant_gemv", [_int] * 3 + [_ptr]),
+            "dequant_gemv_cc": ("dequant_gemv", [_ptr] * 5 + [_int] * 11
+                                + [_ptr]),
             "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 11
                                + [_ptr]),
             "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 9
@@ -300,6 +324,135 @@ def gemv_ksplit(N: int, NB: int) -> Tuple[int, int]:
     return -(-NB // per), per
 
 
+def _align(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def gemv_n8_tiles(M: int) -> int:
+    """n8 tiles of x rows that one tile of a tensor-core GEMV sums (its
+    template NT; 8 rows each): 1, 2, 4 or 8."""
+    return 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+
+
+def gemv_split(stages_total: int, stage_rows: int, col_tiles: int,
+               fits) -> Tuple[int, int]:
+    """(ksplit, stages a split) of a tensor-core GEMV: enough splits for
+    ~GEMV_TILES_PER_SM tiles an SM, at most GEMV_SPLIT_ROWS K rows of x a
+    split, fewer where ``fits(stages a split)`` says that the ring would
+    not keep two stages beside 64 rows of x. Depends on the weight's
+    shape alone, never on M."""
+    per = max(1, GEMV_SPLIT_ROWS // stage_rows)
+    while per > 1 and not fits(per):
+        per //= 2
+    want = -(-GEMV_SMS * GEMV_TILES_PER_SM // col_tiles)
+    ksplit = min(stages_total, max(-(-stages_total // per), want))
+    sps = -(-stages_total // ksplit)
+    return -(-stages_total // sps), sps
+
+
+def _gemv_stages(fixed: int, stage_bytes: int) -> int:
+    """Ring stages (at most GEMV_MAX_STAGES) that fit beside ``fixed``
+    bytes in the shared memory a block may use."""
+    return min(GEMV_MAX_STAGES, (SM90_MAX_SMEM - fixed) // stage_bytes)
+
+
+def _gemv_stage(decode: str, B: int) -> Tuple[int, int, int, int]:
+    """(packed rows a block, sb, sub_stride, stage_bytes) of ``gemv_tc``'s
+    ring stage for ``decode`` at block B (its ``layout``): 2 * code bytes
+    sub-tiles of sb * rows rows of 128 bytes, each 1024-aligned, then the
+    sb exponent rows of 256 columns, 1024-aligned."""
+    cb = 2 if decode in ("bf16", "fp16") else 1
+    rows = pk.transport_rows_per_block(_TRANSPORT_OF[decode], B)
+    sb = 1
+    while 2 * sb * rows * cb <= _GEMV_SUB_W:
+        sb *= 2
+    sub_stride = _align(sb * rows * _GEMV_SUB_W, 1024)
+    stage_bytes = 2 * cb * sub_stride + _align(sb * GEMV_TC_TN, 1024)
+    return rows, sb, sub_stride, stage_bytes
+
+
+def _gemv_x_bytes(nt: int, split_rows: int) -> int:
+    """gemv_tc's and nb_gemv's x in shared memory: 8 nt rows of the split's
+    K rows as bf16 plus 16 bytes, 128-aligned."""
+    return _align(8 * nt * (split_rows * 2 + 16), 128)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_route(decode: str, block: int) -> str:
+    """The hand-written GEMV kernel of a weight of ``decode`` (a key of
+    ``_DECODES``) in blocks of ``block``: ``"tc"``, dequant_gemv.cu's
+    ``gemv_tc`` (mma.sync on the tensor cores behind a TMA ring;
+    :func:`gemv_plan`), for blocks that are a multiple of 16 whose stage
+    holds at most 256 packed rows and whose ring keeps two stages beside
+    64 rows of x (16-256 for the one-byte decodes, 16-128 for the bf16
+    and fp16 containers); else ``"cc"``, ``gemv_partial`` on CUDA cores
+    (blocks 2, 4, 8, 6, 12, 20, ...). Chosen from the weight alone, before
+    the launch."""
+    if decode not in _DECODES:
+        raise ValueError(f"unknown GEMV decode {decode!r}")
+    if block % 16 or block < 16:
+        return "cc"
+    rows, sb, _, stage_bytes = _gemv_stage(decode, block)
+    fits = _gemv_stages(_GEMV_FIXED_SMEM + _gemv_x_bytes(8, sb * block),
+                        stage_bytes) >= 2
+    return "tc" if rows <= 256 and fits else "cc"
+
+
+def gemv_counter(decode: str, block: int) -> str:
+    """The ``launch_counts`` key of the GEMV that ``dequant_gemv`` launches
+    for ``decode`` at ``block``."""
+    cc = gemv_route(decode, block) == "cc"
+    return f"dequant_gemv_{decode}" + ("_cc" if cc else "")
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(decode: str, N: int, K: int, B: int, M: int) -> dict:
+    """Host-side plan of ``gemv_tc`` (``csrc/dequant_gemv.cu``) for a (K, N)
+    weight of ``decode`` in blocks of ``B`` and M rows of x, mirroring the
+    kernel's ``layout`` and ``smem_bytes``:
+
+    - ``stage_blocks`` (sb): K-blocks a ring stage holds, the largest
+      power of two whose packed rows fill at most one 128-byte row a column
+      pair (sb * rows * code bytes <= 128, at least one block);
+    - ``sub_stride`` (one 128-byte-wide, 1024-aligned sub-tile of sb *
+      rows rows; two a stage for one-byte codes, four for two-byte ones),
+      ``se_off`` and ``stage_bytes`` (the sb exponent rows of 256 columns
+      after them, 1024-aligned);
+    - ``ksplit`` and ``split_blocks``: :func:`gemv_split`, whole stages;
+      they and the stage never depend on M, so neither does the order of
+      a row's sums;
+    - ``n8_tiles`` (rows of x a tile: 8 each), ``x_pitch`` (bytes of an x
+      row in shared memory: the split's K as bf16, plus 16), ``stages``
+      (2-8, as many as fit beside x in 227 KB), ``smem_bytes``;
+    - ``col_tiles``, ``tiles`` and ``ctas`` (one an SM, persistent);
+      ``tma``: TMA copies (N % 16 == 0), else plain copies.
+
+    Cached (a decode step asks for the same few plans at every layer):
+    the dict is shared, not to be changed. Raises ValueError for a block
+    that ``gemv_route`` sends to ``"cc"``."""
+    if gemv_route(decode, B) != "tc":
+        raise ValueError(f"no tensor-core {decode} GEMV takes block {B}")
+    _, sb, sub_stride, stage_bytes = _gemv_stage(decode, B)
+    se_off = stage_bytes - _align(sb * GEMV_TC_TN, 1024)
+    NB = -(-K // B)
+    col_tiles = -(-N // GEMV_TC_TN)
+    ksplit, sps = gemv_split(
+        -(-NB // sb), sb * B, col_tiles,
+        lambda per: _gemv_stages(_GEMV_FIXED_SMEM
+                                 + _gemv_x_bytes(8, per * sb * B),
+                                 stage_bytes) >= 2)
+    nt = gemv_n8_tiles(M)
+    fixed = _GEMV_FIXED_SMEM + _gemv_x_bytes(nt, sps * sb * B)
+    stages = _gemv_stages(fixed, stage_bytes)
+    tiles = col_tiles * ksplit
+    return {"n8_tiles": nt, "stage_blocks": sb, "sub_stride": sub_stride,
+            "se_off": se_off, "stage_bytes": stage_bytes, "ksplit": ksplit,
+            "split_blocks": sps * sb, "x_pitch": sps * sb * B * 2 + 16,
+            "stages": stages, "smem_bytes": fixed + stages * stage_bytes,
+            "col_tiles": col_tiles, "tiles": tiles,
+            "ctas": min(tiles, GEMV_SMS), "tma": N % 16 == 0}
+
+
 def _operands(x: torch.Tensor, w: pk.PackedMX, out_dtype):
     """Checked (x (M, K), serving-layout weight, decode, fold, mw, ebits);
     x is not yet cast."""
@@ -333,10 +486,22 @@ def _operands(x: torch.Tensor, w: pk.PackedMX, out_dtype):
     return x.reshape(-1, K), ww, decode, fold, mw, ebits
 
 
+def gemv_occupancy(decode: str, M: int, smem: int) -> int:
+    """CTAs of ``gemv_tc`` that one SM holds at once (the card's occupancy
+    query) for ``decode``, M rows and ``smem`` bytes of shared memory."""
+    blocks = ctypes.c_int(0)
+    err = _kernel("dequant_gemv_occupancy")(M, _DECODES[decode], smem,
+                                            ctypes.addressof(blocks))
+    build.check(err, "dequant_gemv_occupancy")
+    return blocks.value
+
+
 def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
                  out_dtype=torch.float32) -> torch.Tensor:
-    """Scale-after-dot GEMV (M <= 64); x is rounded to bf16 first, as the
-    TPU kernel does."""
+    """Scale-after-dot GEMV (M <= 64) on the kernel that :func:`gemv_route`
+    names (``gemv_tc`` on the plan of :func:`gemv_plan`, or the CUDA-core
+    ``gemv_partial``); x is rounded to bf16 first, as the TPU kernel
+    does."""
     if x.device.type == "cpu":
         return dequant_matmul_reference(x, w, out_dtype)
     x2, ww, decode, fold, mw, ebits = _operands(x, w, out_dtype)
@@ -345,17 +510,33 @@ def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
     if not 0 < M <= GEMV_MAX_M:
         raise ValueError(f"GEMV takes 1..{GEMV_MAX_M} rows, got {M}")
     NB, _, N = ww.codes.shape
-    ksplit, _ = gemv_ksplit(N, NB)
-    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+    B = ww.block_size
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    err = _kernel("dequant_gemv")(
-        x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), M, K, N, NB, ww.block_size,
-        _DECODES[decode], mw, ebits, fold, ksplit,
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"dequant_gemv_{decode}")
-    launch_counts[f"dequant_gemv_{decode}"] += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    common = (ww.codes.data_ptr(), ww.scale_exp.data_ptr())
+    counter = gemv_counter(decode, B)
+    if gemv_route(decode, B) == "tc":
+        plan = gemv_plan(decode, N, K, B, M)
+        if x2.data_ptr() % 16:
+            x2 = x2.clone()
+        ws = torch.empty((plan["ksplit"], M, N), dtype=torch.float32,
+                         device=x.device)
+        err = _kernel("dequant_gemv")(
+            x2.data_ptr(), *common, ws.data_ptr(), out.data_ptr(), M, K, N,
+            NB, B, _DECODES[decode], mw, ebits, fold, plan["ksplit"],
+            plan["split_blocks"], plan["stage_blocks"], plan["stages"],
+            plan["ctas"], plan["smem_bytes"],
+            int(out_dtype == torch.bfloat16), stream)
+    else:
+        ksplit, _ = gemv_ksplit(N, NB)
+        ws = torch.empty((ksplit, M, N), dtype=torch.float32,
+                         device=x.device)
+        err = _kernel("dequant_gemv_cc")(
+            x2.data_ptr(), *common, ws.data_ptr(), out.data_ptr(), M, K, N,
+            NB, B, _DECODES[decode], mw, ebits, fold, ksplit,
+            int(out_dtype == torch.bfloat16), stream)
+    build.check(err, counter)
+    launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))
 
 

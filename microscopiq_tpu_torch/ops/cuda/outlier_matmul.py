@@ -28,7 +28,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
 
 import torch
 
@@ -37,12 +37,21 @@ from ..packing import PackedMXOutlier, PackedOutlierNB
 from . import build
 from . import operands as op
 from .dequant_matmul import (MAX_OUTLIER_BUDGET, NB_BLOCK, SM90_MAX_SMEM,
-                             gemm_route, sm90_plan, sm90_x)
+                             gemm_route, gemv_n8_tiles, gemv_split,
+                             sm90_plan, sm90_x)
+from .dequant_matmul import _GEMV_FIXED_SMEM as _TC_FIXED_SMEM
+from .dequant_matmul import _align, _gemv_stages, _gemv_x_bytes
 from .dequant_matmul import scale_fold as _scale_fold
 
 GEMM_FROM_M = 256                 # rows from which the GEMMs take over
-NB_THREADS = 128                  # kThreads in nb_matmul.cu
-_TARGET_BLOCKS = 8 * 132          # ~8 blocks per SM of an H100
+# the NB GEMV (nb_matmul.cu, namespace gv): K columns a stage, N-blocks a
+# tile (one a consumer warp), the bytes of a stage before its slots and of
+# one slot, a warp's bf16 decode tile
+NB_GEMV_K = 128
+NB_GEMV_BLOCKS = 8
+_NB_GEMV_SLOT0 = 6144
+_NB_GEMV_SLOT = 1024
+_NB_GEMV_TILE = 16 * 128
 # the side-band GEMV (outlier_matmul.cu, namespace gemv): columns a tile,
 # row groups, the shared-memory slack and barrier bytes, K rows a stage at
 # least, K rows of x a split at most, the SMs of an H100 (one CTA each),
@@ -68,7 +77,8 @@ _OUT_DTYPES = op.OUT_DTYPES
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: (source in csrc/, argument types)
 _ENTRIES = {
-    "dequant_gemv_nb": ("nb_matmul", [_ptr] * 7 + [_int] * 9 + [_ptr]),
+    "dequant_gemv_nb": ("nb_matmul", [_ptr] * 7 + [_int] * 12 + [_ptr]),
+    "nb_gemv_occupancy": ("nb_matmul", [_int] * 2 + [_ptr]),
     "dequant_gemm_nb": ("nb_matmul", [_ptr] * 6 + [_int] * 9 + [_ptr]),
     "dequant_gemv_outlier": ("outlier_matmul",
                              [_ptr] * 8 + [_int] * 17 + [_ptr]),
@@ -120,23 +130,63 @@ def dequant_matmul_outlier_reference(x: torch.Tensor, w: PackedMXOutlier,
 # ---------------------------------------------------------------------------
 # NB kernels
 # ---------------------------------------------------------------------------
-def nb_ksplit(NB: int, K: int) -> Tuple[int, int]:
-    """(ksplit, column groups of 4 per split) of the NB kernel's grid.
+@functools.lru_cache(maxsize=None)
+def nb_gemv_plan(Np: int, K: int, budget: int, M: int) -> dict:
+    """Host-side plan of the NB GEMV (``nb_matmul.cu``'s ``gv::nb_gemv``)
+    for a compact (Np, K) weight (Np = 16 NB rows) with ``budget`` slots
+    and M rows of x, mirroring the kernel's ``stage_bytes`` and
+    ``smem_bytes``:
 
-    Depends only on the weight's shape, never on M, so that a row's result
-    is the same in a batch of any size.
-    """
-    groups = -(-K // 4)
-    want = max(1, -(-_TARGET_BLOCKS // NB))
-    per = max(NB_THREADS, -(-groups // want))
-    per = -(-per // NB_THREADS) * NB_THREADS
-    return -(-groups // per), per
+    - a stage is 128 K columns of the 8 N-blocks of a tile: 32 code rows,
+      8 se and 8 seo rows, 8 rows a slot (``stage_bytes``, 1024-aligned);
+    - ``ksplit`` and ``split_stages`` (sps): ``gemv_split``, never
+      depending on M;
+    - ``n8_tiles`` (8 rows of x each; at most 64 rows a tile) and
+      ``m_groups``; ``x_pitch``; ``stages`` (2-8, as many as fit beside
+      x and the 8 warps' 4 KB bf16 decode tiles); ``smem_bytes``;
+    - ``n_tiles``, ``tiles`` and ``ctas`` (one an SM, persistent);
+      ``tma``: TMA copies (K % 16 == 0), else plain copies.
+
+    Cached, as ``dequant_matmul.gemv_plan``: the dict is shared, not to be
+    changed. Raises ValueError where no ring of two stages fits (a budget
+    far above what the packer makes)."""
+    NB = Np // 16
+    n_tiles = -(-NB // NB_GEMV_BLOCKS)
+    stage_bytes = _align(_NB_GEMV_SLOT0 + budget * _NB_GEMV_SLOT, 1024)
+    fixed0 = _TC_FIXED_SMEM + NB_GEMV_BLOCKS * _NB_GEMV_TILE
+
+    ksplit, sps = gemv_split(
+        -(-K // NB_GEMV_K), NB_GEMV_K, n_tiles,
+        lambda per: _gemv_stages(fixed0 + _gemv_x_bytes(8, per * NB_GEMV_K),
+                                 stage_bytes) >= 2)
+    nt = gemv_n8_tiles(M)
+    fixed = fixed0 + _gemv_x_bytes(nt, sps * NB_GEMV_K)
+    stages = _gemv_stages(fixed, stage_bytes)
+    if stages < 2:
+        raise ValueError(f"no NB GEMV ring fits {budget} slots")
+    m_groups = -(-M // (8 * nt))
+    tiles = m_groups * n_tiles * ksplit
+    return {"n8_tiles": nt, "stage_bytes": stage_bytes, "ksplit": ksplit,
+            "split_stages": sps, "x_pitch": sps * NB_GEMV_K * 2 + 16,
+            "stages": stages, "smem_bytes": fixed + stages * stage_bytes,
+            "m_groups": m_groups, "n_tiles": n_tiles, "tiles": tiles,
+            "ctas": min(tiles, GEMV_SMS), "tma": K % 16 == 0}
+
+
+def nb_gemv_occupancy(M: int, smem: int) -> int:
+    """CTAs of the NB GEMV that one SM holds at once (the card's occupancy
+    query) for M rows and ``smem`` bytes of shared memory."""
+    blocks = ctypes.c_int(0)
+    err = _kernel("nb_gemv_occupancy")(M, smem, ctypes.addressof(blocks))
+    build.check(err, "nb_gemv_occupancy")
+    return blocks.value
 
 
 def dequant_gemv_nb(x: torch.Tensor, w: PackedOutlierNB,
                     out_dtype=torch.float32) -> torch.Tensor:
-    """The NB GEMV kernel (any M; the dispatch sends it M < GEMM_FROM_M).
-    x is rounded to bf16 first, as the TPU kernel does."""
+    """The NB GEMV kernel (any M; the dispatch sends it M < GEMM_FROM_M), on
+    the plan of :func:`nb_gemv_plan`. x is rounded to bf16 first, as the
+    TPU kernel does."""
     if op.on_cpu(x, op.nb_tensors(w)):
         return dequant_matmul_nb_reference(x, w, out_dtype)
     x2 = op.nb_operands(x, w, out_dtype)
@@ -145,13 +195,17 @@ def dequant_gemv_nb(x: torch.Tensor, w: PackedOutlierNB,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    ksplit, per = nb_ksplit(Np // 16, K)
-    ws = torch.empty((ksplit, M, Np), dtype=torch.float32, device=x.device)
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    plan = nb_gemv_plan(Np, K, w.budget, M)
+    ws = torch.empty((plan["ksplit"], M, Np), dtype=torch.float32,
+                     device=x.device)
     err = _kernel("dequant_gemv_nb")(
         x2.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
         w.out_scale_exp.data_ptr(), w.out_byte.data_ptr(), ws.data_ptr(),
         out.data_ptr(), M, K, Np, N, w.budget, _scale_fold(w.elem_format),
-        ksplit, per, int(out_dtype == torch.bfloat16),
+        plan["ksplit"], plan["split_stages"], plan["stages"], plan["ctas"],
+        plan["smem_bytes"], int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "dequant_gemv_nb")
     launch_counts["dequant_gemv_nb"] += 1

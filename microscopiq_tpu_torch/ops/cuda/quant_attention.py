@@ -277,8 +277,8 @@ def quant_attention_decode(q, state_full, layer: int, length, v_group: int,
     q (B, H, hd): the step's queries. state_full: (kq, k_mn, k_sc, vq, v_mn,
     v_sc, res_k, res_v[, k_p, k_q, v_p, v_q]), the full (L-leading) cache
     buffers. length: live tokens including the current one, whose K/V are
-    already in the residual window; an int, or a (B,) tensor of per-slot
-    depths. Returns (B, H, hd) in q.dtype.
+    already in the residual window; an int, a 0-d tensor (every row), or
+    a (B,) tensor of per-slot depths. Returns (B, H, hd) in q.dtype.
     """
     kq, kmn, ksc, vq, vmn, vsc, res_k, res_v = (b[layer]
                                                 for b in state_full[:8])
@@ -287,6 +287,8 @@ def quant_attention_decode(q, state_full, layer: int, length, v_group: int,
     B, H, hd, KVH, rep, gap, bits = _layer_geometry(state_full, q)
     qg = q.reshape(B, KVH, rep, hd)
     if isinstance(length, torch.Tensor):
+        # a 0-d length (the shared cache's) serves every row
+        length = length.to(torch.int32).reshape(-1).expand(B)
         nfull = (length // gap).to(torch.int32)
         res_len = length - nfull * gap
     else:

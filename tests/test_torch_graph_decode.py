@@ -1,5 +1,5 @@
 """The dense KV cache with its length on the device, and the decode step
-that a CUDA model captures in a CUDA graph (``DenseDecodeStep``), on the
+that a CUDA model captures in a CUDA graph (``DecodeStep``), on the
 CPU against the JAX package and against the eager loop (LlamaForCausalLM
 tiny, float32; greedy tokens identical).
 
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from microscopiq_tpu.eval.generate import generate as j_generate
-from microscopiq_tpu_torch.eval.generate import (DenseDecodeStep, generate,
+from microscopiq_tpu_torch.eval.generate import (DecodeStep, generate,
                                                  pad_prompts)
 from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
                                             check_dense_room,
@@ -67,7 +67,7 @@ def test_length_is_a_device_tensor_advanced_in_place(pair):
     length = state.length
     assert length.shape == () and length.dtype == torch.int32
     assert int(length) == state.host_length == 5
-    step = DenseDecodeStep(tm, state, tok)
+    step = DecodeStep(tm, state, tok)
     with torch.inference_mode():
         for i in range(3):
             step()
@@ -80,7 +80,7 @@ def test_length_is_a_device_tensor_advanced_in_place(pair):
 
 @pytest.mark.parametrize("lens", [(5, 9, 7), (4, 4)])
 def test_step_run_eagerly_gives_the_eager_loop_s_tokens(pair, lens):
-    """DenseDecodeStep, run as the card captures it but eagerly, decodes the
+    """DecodeStep, run as the card captures it but eagerly, decodes the
     tokens of the loop it replaces: a fresh DenseDecodeCache a step, host
     positions, argmax of the logits."""
     _, _, tm = pair
@@ -104,7 +104,7 @@ def test_step_run_eagerly_gives_the_eager_loop_s_tokens(pair, lens):
     want_logits = logits
 
     state, tok = _prefill(tm, ids, offset, 32)
-    step = DenseDecodeStep(tm, state, tok)
+    step = DecodeStep(tm, state, tok)
     got = []
     with torch.inference_mode():
         for _ in range(steps):
@@ -120,7 +120,7 @@ def test_write_past_the_store_raises_from_the_host_mirror(pair):
     _, _, tm = pair
     ids = torch.as_tensor(np.random.default_rng(9).integers(0, 256, (2, 6)))
     state, tok = _prefill(tm, ids, torch.zeros(2, dtype=torch.int32), 8)
-    step = DenseDecodeStep(tm, state, tok)
+    step = DecodeStep(tm, state, tok)
     with torch.inference_mode():
         step()
         step()
@@ -147,8 +147,8 @@ def test_capture_needs_a_cuda_model(pair):
     _, _, tm = pair
     ids = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (1, 4)))
     state, tok = _prefill(tm, ids, torch.zeros(1, dtype=torch.int32), 12)
-    step = DenseDecodeStep(tm, state, tok)
+    step = DecodeStep(tm, state, tok)
     with torch.inference_mode():
         for _ in range(3):
             step()
-    assert step.graph is None and state.host_length == 7
+    assert not step.graphs and state.host_length == 7

@@ -22,7 +22,10 @@ products, f32 sums in another order), each against its own plain version,
 the decode variants i16, ebf8 and f32dot bit-equal to i32; the side-band
 GEMV (a persistent TMA stream whose slots are added as corrections) 1e-5;
 the bf16-container GEMM's B tile gemm_tile's bit for bit; a dense decode
-replayed from a CUDA graph bit-identical to the eager one.
+replayed from a CUDA graph bit-identical to the eager one, and a decode
+over the quantized cache replayed from its plain and fold graphs likewise;
+the tensor-core GEMVs (every decode of the dequant GEMV, the NB GEMV) 1e-5,
+at the scale clamps against the clamped scales in float64.
 """
 
 import dataclasses
@@ -498,8 +501,9 @@ def _tiny_tree(cfg, seed, device):
 def test_tiny_quant_cache_decodes_on_its_route(cuda, hidden):
     """LlamaConfig.tiny (head_dim 16), whose geometry the kernel does not
     take, decodes over the quantized cache through cache.update; at
-    hidden 128 (head_dim 32) through the fused kernel. The greedy tokens
-    equal use_kernels=False's."""
+    hidden 128 (head_dim 32) through the fused kernel, captured in the
+    plain and the fold step's graphs. The greedy tokens equal
+    use_kernels=False's."""
     from microscopiq_tpu_torch.eval.generate import generate
     from microscopiq_tpu_torch.kv.cache import QuantKVConfig
     from microscopiq_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -514,9 +518,11 @@ def test_tiny_quant_cache_decodes_on_its_route(cuda, hidden):
     qa.reset_launch_counts()
     got = generate(LlamaForCausalLM(cfg, device="cuda").load_params(tree),
                    prompts, 24, cache_kind="quant", quant_cfg=qcfg)
-    # one launch a layer and decode step on the fused route
+    # on the fused route one launch a layer at each eager step (the first
+    # plain and the first fold step) and at each capture (the plain and
+    # the fold graph); the 19 other steps replay the graphs
     assert qa.launch_counts["quant_attention"] == (
-        2 * 23 if route == "fused" else 0)
+        2 * 4 if route == "fused" else 0)
     want = generate(LlamaForCausalLM(cfg, use_kernels=False,
                                      device="cuda").load_params(tree),
                     prompts, 24, cache_kind="quant", quant_cfg=qcfg)
@@ -910,14 +916,33 @@ def test_decode_variants_bit_equal_to_i32(gemv_setup, small):
     assert par["exact"], par
 
 
+def _cc_gemv(x, w):
+    """The CUDA-core GEMV (dequant_gemv.cu's gemv_partial: the shipped GEMV
+    until the tensor-core one, now the route of the blocks that are no
+    multiple of 16) on any block, through its C entry."""
+    x2 = x.to(torch.bfloat16).contiguous()
+    M, K = x2.shape
+    decode, fold, mw, ebits = dm.sad_decode_params(w)
+    NB, _, N = w.codes.shape
+    ksplit, _ = dm.gemv_ksplit(N, NB)
+    ws = torch.empty((ksplit, M, N), device=x.device)
+    out = torch.empty((M, N), device=x.device)
+    assert dm._kernel("dequant_gemv_cc")(
+        x2.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), M, K, N, NB, w.block_size,
+        dm._DECODES[decode], mw, ebits, fold, ksplit, 0,
+        torch.cuda.current_stream().cuda_stream) == 0
+    return out
+
+
 def test_shipped_tile_repeats_the_shipped_gemv(gemv_setup):
-    """At (4096, 28672) the shipped GEMV splits K into 7-block splits:
+    """At (4096, 28672) the CUDA-core GEMV splits K into 7-block splits:
     tile (8, 512, 7) does its arithmetic in its order."""
     s = gemv_setup(exp_sad_tiles.NAME, False)
     w = s.weights["emi8"][0]
     assert dm.gemv_ksplit(w.codes.shape[2], w.codes.shape[0])[1] == 7
     assert torch.equal(eg.gemv_tiles(s.x, w, mt=8, tn=512, kb=7),
-                       dm.dequant_gemv(s.x, w))
+                       _cc_gemv(s.x, w))
 
 
 @pytest.mark.parametrize("mode", list(eg.MODES))
@@ -1493,7 +1518,7 @@ def test_graph_decode_is_bit_identical_to_eager(cuda, arm):
     """2 layers of Llama-3-8B at full width (chip_smoke's models: MX-FP6
     emi8, int4 sb4, the compact NB and the side-band formats), B = 8, a
     64-token prompt, 8 greedy steps over the dense cache: the decode
-    replayed from a CUDA graph (DenseDecodeStep, as generate and the main
+    replayed from a CUDA graph (DecodeStep, as generate and the main
     paths run it) gives the eager loop's tokens and last logits bit for
     bit, and its launches (the warm-up step's plus the captured step's
     times the replays) equal the eager loop's; generate's tokens are the
@@ -1517,7 +1542,7 @@ def test_graph_decode_is_bit_identical_to_eager(cuda, arm):
     graph = cs.prefill_decode(model, ids, 8, 80, info=info)
     eager = cs.prefill_decode(model, ids, 8, 80, graph=False)
     torch.cuda.synchronize()
-    assert info == {"graph": True, "timed_steps": 7}
+    assert info == {"graph": True, "timed_steps": 7, "fold_replays": 0}
     assert torch.equal(graph[0], eager[0])
     assert torch.equal(graph[3], eager[3])
     assert graph[5] == eager[5] and sum(graph[5].values()) > 0
@@ -1542,3 +1567,243 @@ def test_sm90_kernels_do_not_spill(cuda):
     assert len(gemv) == 16     # MT 1, 2, 4, 8; int8, float8; TMA, plain
     for ln in lines + gemv:
         assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core GEMVs: dequant_gemv.cu's gemv_tc (every decode) and
+# nb_matmul.cu's nb_gemv, 1e-5 of max |twin| (exact bf16 weights and
+# products; f32 sums in another order, the tensor core summing at most one
+# K-block or one 128-column stage)
+# ---------------------------------------------------------------------------
+# (format, transport, weight scale) of every decode of the dequant GEMV
+TC_GEMV_DECODES = [("fp6_e3m2", "emi8", 1.0), ("int8", "native", 1.0),
+                   ("int4", "sb4", 1.0), ("int2", "sb2", 1.0),
+                   ("fp4_e2m1", "pf4", 1.0), ("fp6_e3m2", "pf6", 1.0),
+                   ("bfloat16", "native", 8.0), ("fp16", "native", 1.0),
+                   ("fp8_e4m3", "native", 1.0), ("fp8_e5m2", "native", 1.0)]
+
+
+def _tc_blocks(transport):
+    return (32, 64, 128) if transport == "pf6" else (16, 32, 64)
+
+
+@pytest.mark.parametrize("fmt,transport,scale", TC_GEMV_DECODES)
+def test_tc_gemv_matches_twin(cuda, fmt, transport, scale):
+    """Every decode at blocks 16, 32 and 64 (pf6: 32, 64, 128), M = 1, 7,
+    8, 9, 64, on a TMA shape (N % 16 == 0) and on a ragged one (N = 1000:
+    plain copies; K no multiple of the block)."""
+    for block in _tc_blocks(transport):
+        for K, N in ((520, 1040), (200, 1000)):
+            w = _packed_as(K, N, fmt, transport, block, scale, block + N,
+                           cuda)
+            decode = dm.sad_decode_params(w)[0]
+            assert dm.gemv_route(decode, block) == "tc"
+            for M in (1, 7, 8, 9, 64):
+                x = _x(M, K, M + block, cuda)
+                dm.reset_launch_counts()
+                got = dm.dequant_gemv(x, w)
+                want = dm.dequant_matmul_reference(x, w)
+                torch.cuda.synchronize()
+                assert dm.launch_counts[f"dequant_gemv_{decode}"] == 1
+                assert sum(dm.launch_counts.values()) == 1
+                assert _rel(got, want) < 1e-5, (fmt, block, K, N, M)
+
+
+# (format, transport, block) at the blocks where gemv_route names the
+# CUDA-core kernel ("_cc") and at other packer blocks of the tc kernel
+GEMV_ROUTE_BLOCKS = [("fp6_e3m2", "emi8", 8), ("fp6_e3m2", "emi8", 48),
+                     ("int4", "sb4", 2), ("int4", "sb4", 8),
+                     ("int2", "sb2", 4), ("int2", "sb2", 48),
+                     ("int8", "native", 8), ("int8", "native", 2),
+                     ("fp8_e4m3", "native", 8), ("fp8_e5m2", "native", 2),
+                     ("fp16", "native", 8), ("bfloat16", "native", 8),
+                     ("fp4_e2m1", "pf4", 48), ("fp6_e3m2", "pf6", 96),
+                     ("fp6_e3m2", "emi8", 256)]
+
+
+@pytest.mark.parametrize("fmt,transport,block", GEMV_ROUTE_BLOCKS)
+def test_every_gemv_route_block_runs_its_kernel(cuda, fmt, transport, block):
+    K, N = 4 * block if block >= 64 else 480, 528
+    w = _packed_as(K, N, fmt, transport, block,
+                   8.0 if fmt == "bfloat16" else 1.0, block, cuda)
+    decode = dm.sad_decode_params(w)[0]
+    counter = dm.gemv_counter(decode, block)
+    assert counter.endswith("_cc") == (block % 16 != 0)
+    for M in (1, 8, 64):
+        x = _x(M, K, M, cuda)
+        dm.reset_launch_counts()
+        got = dm.dequant_gemv(x, w)
+        want = dm.dequant_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        assert dm.launch_counts[counter] == 1
+        assert sum(dm.launch_counts.values()) == 1
+        assert _rel(got, want) < 1e-5, (fmt, block, M)
+
+
+@pytest.mark.parametrize("fmt,transport,scale", TC_GEMV_DECODES)
+@pytest.mark.parametrize("side", ["low", "high"])
+def test_tc_gemv_at_the_scale_clamps(cuda, fmt, transport, scale, side):
+    """Block exponents -128..-120 (the scale clamps to 2^-126, as the TPU
+    kernel's _exp2_i32) and 118..127 (the largest scales), against the
+    unscaled decoded weight times the clamped scales, in float64; x scaled
+    so that the sums stay normal floats."""
+    K, N, M, block = 256, 528, 8, 32
+    w = _packed_as(K, N, fmt, transport, block, scale, 5, cuda)
+    decode, fold, _, _ = dm.sad_decode_params(w)
+    lo, hi = (-128, -119) if side == "low" else (118, 128)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    se = torch.randint(lo, hi, w.scale_exp.shape, generator=gen,
+                       device=cuda).to(torch.int8)
+    unit = dataclasses.replace(w, scale_exp=torch.full_like(w.scale_exp,
+                                                            fold))
+    U = tpk.dequantize_mx(unit, dtype=torch.bfloat16).double()
+    w = dataclasses.replace(w, scale_exp=se.contiguous())
+    e = torch.clamp(se.double() - fold, -126, 127).repeat_interleave(block,
+                                                                     0)
+    x = _x(M, K, 7, cuda) * (2.0 ** (100 if side == "low" else -120))
+    xb = x.to(torch.bfloat16).double()
+    want = xb @ (U * torch.exp2(e[:K]))
+    got = dm.dequant_gemv(x, w)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("budget", [1, 2, 4, 8, 16])
+def test_nb_gemv_matches_twin(cuda, budget):
+    """Budgets 1-16 at M = 1, 8, 64, 255, on a TMA shape and at K % 16 !=
+    0 (plain copies)."""
+    for K, N in ((520, 384), (200, 160)):
+        w = _nb_slots(K, N, budget, budget + K, cuda)
+        assert w.budget == budget
+        for M in (1, 8, 64, 255):
+            x = _x(M, K, M, cuda)
+            om.reset_launch_counts()
+            got = om.dequant_matmul_nb(x, w)
+            want = om.dequant_matmul_nb_reference(x, w)
+            torch.cuda.synchronize()
+            assert om.launch_counts["dequant_gemv_nb"] == 1
+            assert _rel(got, want) < 1e-5, (budget, K, M)
+
+
+@pytest.mark.parametrize("fmt,transport,scale", TC_GEMV_DECODES)
+def test_tc_gemv_rows_do_not_depend_on_batch(cuda, fmt, transport, scale):
+    w = _packed_as(4096, 1040, fmt, transport, 32, scale, 9, cuda)
+    x = _x(64, 4096, 2, cuda)
+    full = dm.dequant_gemv(x, w)
+    for lo, hi in ((0, 1), (0, 5), (3, 8), (8, 17), (1, 33), (0, 64)):
+        assert torch.equal(dm.dequant_gemv(x[lo:hi], w), full[lo:hi])
+
+
+def test_tc_gemv_plan_and_occupancy_on_the_card(cuda):
+    """The C entry refuses a plan whose shared memory is not its own, and
+    the card holds one CTA an SM at the main path's plans."""
+    w = _packed(4096, 1024, 1, cuda)
+    for M in (1, 8, 64):
+        plan = dm.gemv_plan("emi8", 1024, 4096, 32, M)
+        assert dm.gemv_occupancy("emi8", M, plan["smem_bytes"]) == 1
+        nb = om.nb_gemv_plan(28672, 4096, 2, M)
+        assert om.nb_gemv_occupancy(M, nb["smem_bytes"]) == 1
+    x = _x(8, 4096, 1, cuda).to(torch.bfloat16)
+    plan = dm.gemv_plan("emi8", 1024, 4096, 32, 8)
+    ws = torch.empty((plan["ksplit"], 8, 1024), device=cuda)
+    out = torch.empty((8, 1024), device=cuda)
+    err = dm._kernel("dequant_gemv")(
+        x.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), 8, 4096, 1024, 128, 32, 0, 4, 0, 4,
+        plan["ksplit"], plan["split_blocks"], plan["stage_blocks"],
+        plan["stages"], plan["ctas"], plan["smem_bytes"] + 128, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1                         # cudaErrorInvalidValue
+
+
+def test_tc_gemvs_do_not_spill(cuda):
+    from microscopiq_tpu_torch.ops.cuda import build
+
+    build.build_all(("dequant_gemv", "nb_matmul"))
+    lines = build.ptxas_report(("dequant_gemv", "nb_matmul"))
+    tc = [ln for ln in lines if "gemv_tc" in ln]
+    nb = [ln for ln in lines if "nb_gemv" in ln]
+    assert len(tc) == 40 and len(nb) == 4     # NT 1, 2, 4, 8 x decodes
+    for ln in tc + nb:
+        assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
+
+
+# ---------------------------------------------------------------------------
+# the quantized cache's decode step as CUDA graphs
+# ---------------------------------------------------------------------------
+def test_quant_graph_decode_is_bit_identical_to_eager(cuda):
+    """2 layers of Llama-3-8B at full width (MX-FP6 emi8, the fused decode
+    attention), B = 4, a 120-token prompt, 8 greedy steps over the 4-bit
+    KIVI cache of chip_smoke's quantized arm (gap 64): the last step folds
+    a chunk, and the decode replayed from the plain and the fold graphs
+    gives the eager loop's tokens and last logits bit for bit, with its
+    launches (the warm-up step's plus each captured step's times its
+    replays) equal to the eager loop's; generate's tokens are the same."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+
+    qcfg = QuantKVConfig(**cs.QKV_CFG)
+    model = cs.build(True, layers=2, seed=3)[0]
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (4, 120)), device=cuda)
+    info = {}
+    cs.reset_counts()
+    graph = cs.prefill_decode(model, ids, 8, 192, quant_cfg=qcfg, info=info)
+    eager = cs.prefill_decode(model, ids, 8, 192, quant_cfg=qcfg,
+                              graph=False)
+    torch.cuda.synchronize()
+    assert info == {"graph": True, "timed_steps": 7, "fold_replays": 1}
+    assert torch.equal(graph[0], eager[0])
+    assert torch.equal(graph[3], eager[3])
+    assert graph[5] == eager[5] and graph[5]["quant_attention"] == 2 * 8
+    st = graph[6]
+    assert int(st.length) == st.host_length == 128
+    assert torch.equal(st.kq, eager[6].kq) and torch.equal(st.res_k,
+                                                           eager[6].res_k)
+    got = generate(model, ids.cpu().numpy(), 9, cache_kind="quant",
+                   quant_cfg=qcfg, max_len=192)
+    want = torch.cat([graph[7][0][:, -1].argmax(-1)[:, None], graph[0]], 1)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(rank=2), dict(out_k=2),
+                                dict(residual_len=3, k_group=4)])
+def test_tiny_quant_update_route_graph_is_bit_identical(cuda, kw):
+    """LlamaConfig.tiny (head_dim 16: the cache.update route) over quantized
+    caches of gap 8, ragged prompts, 20 steps (two folds), GEAR-L
+    (rank 2, its QR captured), GEAR-S, a protected residual and sub-chunk
+    K groups: generate on the card (plain and fold graphs) gives the
+    tokens of the same decode run eagerly step by step."""
+    import sys
+
+    from microscopiq_tpu_torch.eval.generate import DecodeStep, generate
+    from microscopiq_tpu_torch.kv import cache as kvc
+    from microscopiq_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    model = LlamaForCausalLM(cfg, device="cuda").load_params(
+        _tiny_tree(cfg, 3, cuda))
+    qcfg = kvc.QuantKVConfig(bits=4, gap=8, v_group=8, **kw)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist()
+               for n in (5, 11, 9)]
+    got = generate(model, prompts, 20, cache_kind="quant", quant_cfg=qcfg)
+
+    class Eager(DecodeStep):
+        def __call__(self):
+            return self.eager()
+
+    gen_mod = sys.modules[generate.__module__]
+    orig = gen_mod.DecodeStep
+    gen_mod.DecodeStep = Eager
+    try:
+        want = generate(model, prompts, 20, cache_kind="quant",
+                        quant_cfg=qcfg)
+    finally:
+        gen_mod.DecodeStep = orig
+    np.testing.assert_array_equal(got, want)

@@ -169,8 +169,12 @@ def test_int_outlier_format_kernel_does_not_fold_the_code():
 @pytest.mark.parametrize("K,N", [(4096, 6144), (4096, 4096), (4096, 28672),
                                  (14336, 4096), (4096, 128256), (200, 48)])
 def test_nb_ksplit_covers_k_and_ignores_m(K, N):
-    NB = -(-N // 16)
-    ks, per = om.nb_ksplit(NB, K)
-    groups = -(-K // 4)
-    assert ks * per >= groups > (ks - 1) * per      # every column, once
-    assert per % om.NB_THREADS == 0
+    """The NB GEMV's K split (nb_gemv_plan: 128-column stages) covers every
+    column once and is the same at every M."""
+    Np = -(-N // 16) * 16
+    plans = [om.nb_gemv_plan(Np, K, 2, M) for M in (1, 8, 64, 255)]
+    stages = -(-K // om.NB_GEMV_K)
+    for p in plans:
+        ks, per = p["ksplit"], p["split_stages"]
+        assert ks * per >= stages > (ks - 1) * per  # every column, once
+    assert len({(p["ksplit"], p["split_stages"]) for p in plans}) == 1

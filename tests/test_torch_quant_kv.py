@@ -201,7 +201,7 @@ def test_init_layouts_match_jax():
         for f in dataclasses.fields(want):
             w = getattr(want, f.name)
             if f.name == "length":
-                assert got.length == 0
+                assert int(got.length) == got.host_length == 0
             elif w is None:
                 assert getattr(got, f.name) is None, f.name
             else:
@@ -264,7 +264,7 @@ def test_quantized_cache_prefill_then_decode_matches_jax(name):
         np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=2e-5,
                                    rtol=1e-4, err_msg=f"v at {t1}")
         _assert_state(tst, _np_state(jst), tcfg)
-    assert tst.length == S0 + steps
+    assert int(tst.length) == tst.host_length == S0 + steps
 
 
 def test_fused_ingest_matches_update_state():
@@ -275,13 +275,14 @@ def test_fused_ingest_matches_update_state():
     st = quant_state_from_jax(_np_state(jc.init_quant_cache(
         1, B, 3 * GAP, KVH, HD, jcfg)), device="cpu")
     st2 = dataclasses.replace(st, **{f: getattr(st, f).clone()
-                                     for f in tc._store_fields(tcfg)})
+                                     for f in tc._store_fields(tcfg)
+                                     + ["length"]})
     for t in range(GAP + 2):
         k = _t(rng.standard_normal((B, 1, KVH, HD)))
         v = _t(rng.standard_normal((B, 1, KVH, HD)))
         a = tc.QuantizedDecodeCache(st, tcfg)
         full, new_len = a.ingest_for_fused(0, k, v)
-        assert new_len == t + 1 and len(full) == 12
+        assert int(new_len) == t + 1 and len(full) == 12
         assert full[0] is st.kq and full[8] is st.k_p
         st = a.finalize()
         b = tc.QuantizedDecodeCache(st2, tcfg)
@@ -298,7 +299,9 @@ def test_fused_ingest_matches_update_state():
 def test_decode_past_the_store_raises():
     _, tcfg = _cfgs(bits=4, gap=GAP, v_group=HD)
     st = tc.init_quant_cache(1, 1, GAP, KVH, HD, tcfg, device="cpu")
-    st = dataclasses.replace(st, length=2 * GAP - 1)
+    st = dataclasses.replace(st, length=torch.tensor(2 * GAP - 1,
+                                                     dtype=torch.int32),
+                             host_length=2 * GAP - 1)
     x = torch.zeros(1, 1, KVH, HD)
     with pytest.raises(ValueError, match="overflows"):
         tc.QuantizedDecodeCache(st, tcfg).update(0, x, x, torch.zeros(1, 1),
