@@ -35,15 +35,17 @@ the package is missing. Phases, each of which raises on failure:
 5. a ``BatchEngine`` (dense slots, buckets 32/64/128) answering six requests
    of mixed lengths, one admitted mid-flight, compared token by token with
    single-sequence decode;
-6. ``quant_attention_vs_plain``: the quantized-KV flash-decode kernel against
-   its plain version at the Llama-3-8B geometry (B = 4 at 3136 live tokens,
-   B = 8 at 1024, timed beside the byte bound, the plain version and
-   ``scaled_dot_product_attention`` on the dequantized bf16 K/V), and
-   untimed at 2 and 8 bits, grouped V scales, GEAR-L rank 2 and ragged
-   per-slot lengths. Its times are device times (torch.profiler): the
-   wrapper's host time per call exceeds the kernel's, and CUDA events
-   around back-to-back calls would time the host; that wrapper time is
-   printed beside them;
+6. ``quant_attention_vs_plain``: the quantized-KV decode attention kernel
+   against its plain versions, as ``chunk_attention`` (the chunks' flash
+   state) and as the one-launch ``quant_attention_decode`` (chunks,
+   residual window, combine), at the Llama-3-8B geometry (B = 4 at 3136
+   live tokens, B = 8 at 1024, timed beside the byte bound, the plain
+   versions and ``scaled_dot_product_attention`` on the dequantized bf16
+   K/V), and untimed at 2 and 8 bits, grouped V scales, GEAR-L rank 2 and
+   ragged per-slot lengths. Its times are device times (torch.profiler)
+   and CUDA-graph times: the wrapper's host time per call exceeds the
+   kernel's, and CUDA events around back-to-back calls would time the
+   host; that wrapper time is printed beside them;
 7. ``quant_kv_main_path``: the 32-layer model of phase 4 through a 4-bit
    KIVI cache (``QuantKVConfig(bits=4, gap=64, v_group=128)``), a
    ``last_only`` prefill of 4 x 3072 tokens and 64 greedy decode steps, with
@@ -108,8 +110,10 @@ the package is missing. Phases, each of which raises on failure:
     to its plain twin, timed; then one call a case as the entry point's
     run, with exact launch counts;
 17. ``sad_s8_vs_plain``: the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
-    shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``,
-    beside the bf16-activation GEMV, ``torch.matmul`` and ``torch._int_mm``;
+    shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``, the
+    whole call and its GEMV alone, beside the bf16-activation GEMV,
+    ``torch.matmul`` and ``torch._int_mm``; the one-launch activation
+    quantizer bit-equal to its twin;
 18. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
     weight shape (block 32) and a ragged one (block 16), bit-equal to
     ``pack_mx(exact_scale=True)``, timed beside the byte bound;
@@ -144,6 +148,18 @@ bf16-container GEMMs (and ``torch.matmul`` on a bf16 weight) at
 M = 1024 at every Llama-3-8B shape on seeded operands and prints them as
 one JSON line (``sm90_gemm_times``), to compare two checkouts on one
 card.
+
+    python3 chip_smoke.py --qattn-times
+
+times only the quantized-KV decode attention (``chunk_attention`` and the
+whole layer's ``quant_attention_decode`` at B = 4 x 3136 and B = 8 x 1024
+live tokens: device, CUDA-graph and wrapper times, launches a call), the
+W8A8 call at gate_up (int8, sb4, sb2; M = 8, 64: the whole call and its
+GEMV alone) and the quant-KV arm's replayed decode step (ms a step, the
+attention kernels' device time and the kernel launches a step), and
+prints them as one JSON line (``qattn_times``). It calls only wrappers
+that the previous tree has too: copy it into a parent checkout to compare
+the two on one card.
 
     python3 chip_smoke.py --gemv-times
 
@@ -191,6 +207,7 @@ QATTN_REL_TOL = 2e-2
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+INT8_OPS = 1979e12               # dense int8 tensor-core peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 SHAPES = [("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
@@ -295,6 +312,29 @@ def graph_ms(fn, n_args: int, calls: int = 16, replays: int = 3) -> float:
     ms = start.elapsed_time(end) / (replays * calls)
     del graph
     return ms
+
+
+def kernel_split_ms(fn, n_args: int, calls: int = 16):
+    """Device time per call of fn(i), i cycling over n_args operand copies,
+    by CUDA kernel name, and the kernel launches per call, from one
+    torch.profiler window over ``calls`` calls: ({name: ms}, launches), or
+    (None, None) where the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % n_args)
+        torch.cuda.synchronize()
+    ms, count = {}, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t > 0:
+            ms[e.key] = t / 1e3 / calls
+            count += e.count
+    return (ms, count / calls) if ms else (None, None)
 
 
 def kernel_phase(card: str):
@@ -498,8 +538,10 @@ def decode_device_profile(model, ids, max_len: int, step_ms: float,
     graph's replays over the dense cache, ``steps - 1`` of them; every
     step over the quantized one), its share of the window's wall time
     (which the profiler inflates) and of ``step_ms``, the unprofiled step
-    time, and the kernels that take most device time. None where the
-    profiler records no device activity."""
+    time, the kernel launches a step, the device time a step of the
+    quantized attention's kernels (ATTENTION_KERNELS), and the kernels that
+    take most device time. None where the profiler records no device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,8 +575,14 @@ def decode_device_profile(model, ids, max_len: int, step_ms: float,
         key=lambda kv: -kv[1])
     busy_ms = busy / 1e3 / n
     wall_ms = dec / steps * 1e3
+    launches_total = sum(e.count for e in prof.key_averages()
+                         if getattr(e, "self_device_time_total", 0.0) > 0)
+    attention = sum(t for k, t in per_kernel
+                    if any(a in k for a in ATTENTION_KERNELS))
     return dict(steps=n, graph=info["graph"], profiled_wall_ms_per_step=wall_ms,
                 device_busy_ms_per_step=busy_ms,
+                kernel_launches_per_step=launches_total / n,
+                attention_kernels_ms_per_step=attention / 1e3 / n,
                 busy_share_of_profiled_wall=busy_ms / wall_ms,
                 busy_share_of_unprofiled_step=busy_ms / step_ms,
                 top_kernels_ms_per_step=[
@@ -805,13 +853,91 @@ def qattn_errors(got, want, live):
     return abs_err, rel
 
 
-def quant_attention_phase(card: str):
-    """Phase 6: the quantized-KV flash-decode kernel against its plain
-    version; timed at the Llama-3-8B decode shapes."""
+# kernels of the quantized decode attention, by name: this kernel, and the
+# one-chunk-a-block kernel and its merge that it replaced (for profiles of
+# either tree)
+ATTENTION_KERNELS = ("quant_attention", "chunk_partial", "chunk_merge")
+
+
+def qattn_timing(c, full, lengths, q) -> dict:
+    """Times of one layer's quantized decode attention at a QATTN_TIMED
+    configuration (every slot at the same length):
+
+    - ``ms`` (device time, torch.profiler) and ``graph_ms`` (a CUDA graph
+      of 16 calls, between events) of ``chunk_attention``, the chunks'
+      flash state; ``wrapper_ms``: its CUDA-event time back to back (the
+      host's);
+    - ``decode_ms`` / ``decode_graph_ms``: the same for
+      ``quant_attention_decode``, the whole layer's attention as the decode
+      step runs it (chunks, residual window, combine, normalisation), its
+      kernel launches a call and the device time of the attention kernels
+      among them;
+    - ``plain_ms``, ``decode_plain_ms``: the plain twins;
+    - ``library_ms``: ``scaled_dot_product_attention`` over the
+      dequantized bf16 K/V of the same live tokens;
+    - ``bound_ms``, ``bound_by``: :func:`qattn_bound`.
+    It calls only wrappers that the previous tree has too, so that
+    ``--qattn-times`` runs in a parent checkout."""
     import torch
     import torch.nn.functional as F
 
     from microscopiq_tpu_torch.kv.cache import _dequant_k, _dequant_v
+    from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
+
+    B, rep, scale = c["B"], QKV_H // QKV_KVH, QKV_HD ** -0.5
+    qg = q.reshape(B, QKV_KVH, rep, QKV_HD).contiguous()
+    nfull = (lengths // QKV_GAP).to(torch.int32)
+    per_call = sum(t.numel() * t.element_size() for t in full)
+    nc = copies_for(per_call)
+    fulls = [full] + [tuple(t.clone() for t in full) for _ in range(nc - 1)]
+    chunk = lambda j: qa.chunk_attention(                    # noqa: E731
+        qg, *(t[0] for t in fulls[j][:6]), nfull, scale, QKV_GAP, c["bits"])
+    decode = lambda j: qa.quant_attention_decode(            # noqa: E731
+        q, fulls[j], 0, lengths, c["v_group"], scale)
+    out = {"ms": device_ms(chunk, nc), "graph_ms": graph_ms(chunk, nc),
+           "wrapper_ms": cuda_ms(chunk, nc),
+           "decode_ms": device_ms(decode, nc),
+           "decode_graph_ms": graph_ms(decode, nc)}
+    by_name, per_call_launches = kernel_split_ms(decode, nc)
+    out["decode_launches_per_call"] = per_call_launches
+    out["decode_attention_kernels_ms"] = (
+        None if by_name is None else
+        sum(t for k, t in by_name.items()
+            if any(a in k for a in ATTENTION_KERNELS)))
+    args = tuple(t[0] for t in full[:6])
+    out["plain_ms"] = device_ms(
+        lambda j: qa.chunk_attention_reference(qg, *args, nfull, scale,
+                                               QKV_GAP, c["bits"]), 1,
+        calls=4)
+    out["decode_plain_ms"] = device_ms(
+        lambda j: qa.quant_attention_decode_reference(
+            q, full, 0, lengths, c["v_group"], scale), 1, calls=4)
+    # yardstick: SDPA over the dequantized bf16 K/V of the same live
+    # chunk tokens
+    kq, kmn, ksc, vq, vmn, vsc = args
+    T = int(nfull[0]) * QKV_GAP
+    deq = lambda x: x[:, :, :T // QKV_GAP].reshape(          # noqa: E731
+        B, QKV_KVH, T, QKV_HD).to(torch.bfloat16).contiguous()
+    kd = deq(_dequant_k(kq, kmn, ksc, torch.float32, c["bits"]))
+    vd = deq(_dequant_v(vq, vmn, vsc, c["v_group"], torch.float32,
+                        c["bits"]))
+    nd = copies_for(2 * kd.numel() * 2)
+    kvs = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(nd - 1)]
+    q4 = q.to(torch.bfloat16)[:, :, None]
+    out["library_ms"] = device_ms(
+        lambda j: F.scaled_dot_product_attention(
+            q4, *kvs[j], scale=scale, enable_gqa=True), nd)
+    out["bound_ms"], out["bound_by"] = qattn_bound(**c)
+    return out
+
+
+def quant_attention_phase(card: str):
+    """Phase 6: the quantized-KV decode attention kernel against its plain
+    versions, as chunk_attention (the chunks' unnormalised state) and as
+    the one-launch quant_attention_decode; timed at the Llama-3-8B decode
+    shapes (:func:`qattn_timing`)."""
+    import torch
+
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
     rows = []
@@ -846,46 +972,22 @@ def quant_attention_phase(card: str):
         ref = qa.quant_attention_decode_reference(
             q.float(), full, 0, lengths, c["v_group"], scale)
         on = lengths > 0
-        dec_rel = ((dec[on] - ref[on]).abs().max()
-                   / ref[on].abs().max()).item()
+        dec_abs = (dec[on] - ref[on]).abs().max().item()
+        dec_rel = dec_abs / ref[on].abs().max().item()
+        if dec[~on].any() or not torch.isfinite(dec).all():
+            raise AssertionError(f"quant_attention_decode {name}: empty "
+                                 "slots are not finite zeros")
         if not (np.isfinite(dec_rel) and dec_rel < QATTN_REL_TOL):
             raise AssertionError(f"quant_attention_decode {name}: rel err "
                                  f"{dec_rel}")
         row = dict(kernel="quant_attention", config=name, B=B,
                    live_tokens=c["lengths"], chunks=c["C"], bits=c["bits"],
                    v_group=c["v_group"], rank=c["rank"],
-                   max_abs_err=abs_err, rel_err=rel, decode_rel_err=dec_rel,
+                   max_abs_err=abs_err, rel_err=rel,
+                   decode_max_abs_err=dec_abs, decode_rel_err=dec_rel,
                    tol=QATTN_REL_TOL, card=card)
         if name in QATTN_TIMED:
-            per_call = sum(t.numel() * t.element_size() for t in full[:6])
-            nc = copies_for(per_call)
-            ops = [(kq, kmn, ksc, vq, vmn, vsc)] + [
-                tuple(t.clone() for t in (kq, kmn, ksc, vq, vmn, vsc))
-                for _ in range(nc - 1)]
-            kernel = lambda j: qa.chunk_attention(
-                qg, *ops[j], nfull, scale, QKV_GAP, c["bits"])
-            row["ms"] = device_ms(kernel, nc)
-            row["wrapper_ms"] = cuda_ms(kernel, nc)
-            row["plain_ms"] = device_ms(
-                lambda j: qa.chunk_attention_reference(qg, *args), 1,
-                calls=4)
-            # yardstick: SDPA over the dequantized bf16 K/V of the same
-            # live tokens (every slot of a timed config has the same length)
-            T = int(nfull[0]) * QKV_GAP
-            deq = lambda x: x[:, :, :T // QKV_GAP].reshape(
-                B, QKV_KVH, T, QKV_HD).to(torch.bfloat16).contiguous()
-            kd = deq(_dequant_k(kq, kmn, ksc, torch.float32, c["bits"]))
-            vd = deq(_dequant_v(vq, vmn, vsc, c["v_group"], torch.float32,
-                                c["bits"]))
-            nd = copies_for(2 * kd.numel() * 2)
-            kvs = [(kd, vd)] + [(kd.clone(), vd.clone())
-                                for _ in range(nd - 1)]
-            q4 = q[:, :, None]
-            row["library_ms"] = device_ms(
-                lambda j: F.scaled_dot_product_attention(
-                    q4, *kvs[j], scale=scale, enable_gqa=True), nd)
-            row["bound_ms"], row["bound_by"] = qattn_bound(**c)
-            del ops, kvs, kd, vd
+            row.update(qattn_timing(c, full, lengths, q))
         rows.append(row)
         log(phase="quant_attention_vs_plain", **row)
         del full, got, want
@@ -997,6 +1099,73 @@ def quant_kv_main_path(packed, card: str):
         profile=prof if prof else "not measured", card=card)
     torch.cuda.empty_cache()
     return {"prefill": pre_counts, "decode": dec_counts}, path
+
+
+def quant_kv_step_times() -> dict:
+    """The quant-KV arm's replayed decode alone (quant_kv_main_path's
+    32-layer MX-FP6 model, B = 4, 3072-token prompt, 64 steps): the best of
+    two runs' ms a step and the replayed steps' decode profile."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+
+    packed, _ = build(True, layers=32, seed=0)
+    B, S0, STEPS = 4, 3072, 64
+    qcfg = QuantKVConfig(**QKV_CFG)
+    max_len = ((S0 + STEPS) // qcfg.gap + 2) * qcfg.gap
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, packed.cfg.vocab_size, (B, S0)), device="cuda")
+    prefill_decode(packed, ids, 2, max_len, quant_cfg=qcfg)       # warm-up
+    best = min(prefill_decode(packed, ids, STEPS, max_len,
+                              quant_cfg=qcfg)[2] for _ in range(2))
+    step_ms = best / STEPS * 1e3
+    prof = decode_device_profile(packed, ids, max_len, step_ms,
+                                 quant_cfg=qcfg)
+    del packed
+    torch.cuda.empty_cache()
+    return dict(decode_ms_per_step=step_ms,
+                profile=prof if prof else "not measured")
+
+
+def qattn_times() -> dict:
+    """``python3 chip_smoke.py --qattn-times``: the attention rows of
+    :func:`qattn_timing` at QATTN_TIMED, the W8A8 rows of
+    :func:`s8_timing` at gate_up (M = 8, 64; int8, sb4, sb2) and the
+    quant-KV arm's replayed step (:func:`quant_kv_step_times`). It calls
+    only wrappers that the previous tree has too: copy this script into a
+    parent checkout to compare the two on one card."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+
+    attention = []
+    for i, (name, c) in enumerate(QATTN_TIMED.items()):
+        full, lengths = qattn_state(**c, seed=100 + i)
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        q = torch.randn((c["B"], QKV_H, QKV_HD), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        attention.append(dict(config=name,
+                              **qattn_timing(c, full, lengths, q)))
+        del full
+        torch.cuda.empty_cache()
+    w8a8, K, N = [], 4096, 28672
+    gen = torch.Generator(device="cuda").manual_seed(4008)
+    for case, (fmt, transport, bs) in S8_CASES.items():
+        W = int_weight(fmt, (K, N), gen)
+        p = pk.to_serving_layout(pk.pack_mx(W.float(), 8, fmt, bs, axis=0,
+                                            transport=transport))
+        del W
+        nc = copies_for(p.nbytes())
+        ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+        for M in (8, 64):
+            x = torch.randn((M, K), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            w8a8.append(dict(case=case, linear="gate_up", M=M,
+                             **s8_timing(x, ps, nc)))
+        del ps, p
+        torch.cuda.empty_cache()
+    return dict(attention=attention, w8a8=w8a8,
+                quant_kv=quant_kv_step_times())
 
 
 def quant_two_layer_phase(card: str):
@@ -1619,10 +1788,11 @@ def int_packed(case, W):
     return p if flat else pk.to_serving_layout(p)
 
 
-def row_bound(nbytes, M, N, K):
-    """(bound ms, bound_by): bytes over HBM against 2MNK over bf16 peak."""
+def row_bound(nbytes, M, N, K, peak=None):
+    """(bound ms, bound_by): bytes over HBM against 2MNK over the operands'
+    peak rate (bf16 unless given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * N * K / BF16_FLOPS * 1e3
+    t_ops = 2 * M * N * K / (peak or BF16_FLOPS) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1939,16 +2109,45 @@ def int_two_layer_phase(card: str):
     return out
 
 
+# the W8A8 call's GEMV and reduce kernels, by name (this tree's and the
+# previous one's): what is left of the call is the activation quantizer
+W8A8_KERNELS = ("gemv_s8_tc", "s8_partial", "split_reduce")
+
+
+def s8_timing(x, ps, nc) -> dict:
+    """Times of the W8A8 call dequant_matmul_sad_s8(x, w), w cycling over
+    the weight copies ps: ``ms``, the whole call's device time (a CUDA
+    graph of 16 calls: activation quantization, GEMV, reduce);
+    ``kernel_ms``, the device time of its GEMV and reduce kernels alone
+    (W8A8_KERNELS, torch.profiler), ``quantize_ms`` the rest of the call's
+    device time, and its kernel launches a call; ``wrapper_ms``, the
+    call's CUDA-event time back to back (the host's). It calls only the
+    wrapper, which the previous tree has too."""
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    s8 = lambda i: dm.dequant_matmul_sad_s8(x, ps[i])       # noqa: E731
+    out = {"ms": graph_ms(s8, nc), "wrapper_ms": cuda_ms(s8, nc)}
+    by_name, per_call = kernel_split_ms(s8, nc)
+    out["launches_per_call"] = per_call
+    out["kernel_ms"] = out["quantize_ms"] = None
+    if by_name is not None:
+        kern = sum(t for k, t in by_name.items()
+                   if any(a in k for a in W8A8_KERNELS))
+        out["kernel_ms"] = kern
+        out["quantize_ms"] = sum(by_name.values()) - kern
+    return out
+
+
 def s8_phase(card: str):
     """The W8A8 GEMV against dequant_matmul_sad_s8_reference at every
     Llama-3-8B shape and M = 1, 8, 64, beside the bf16-activation GEMV on
     the same weight, torch.matmul on the dequantized bf16 weight and, where
     it takes the shape (M > 16), torch._int_mm on int8 operands of the same
-    shape. The W8A8 and bf16 GEMV times are device times (``graph_ms``:
-    activation quantization, kernel and reduce); ``wrapper_ms`` is the W8A8
-    call's CUDA-event time. Then the entry point's own run: one call per
-    shape at M = 8, a decode step's linears and the lm_head. Returns (rows,
-    launches)."""
+    shape. The W8A8 times are :func:`s8_timing`'s (whole call and
+    kernel-only device times); the bf16 GEMV's a CUDA graph's. Then the
+    entry point's own run: one call per shape at M = 8, a decode step's
+    linears and the lm_head, and the activation quantizer's rows
+    (:func:`quantize_x_rows`). Returns (rows, launches)."""
     import torch
 
     from microscopiq_tpu_torch.ops import packing as pk
@@ -1985,11 +2184,7 @@ def s8_phase(card: str):
                 if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
                     raise AssertionError(f"{kname} {lin} M={M}: rel err "
                                          f"{rel}")
-                # device times: the wrapper's seven PyTorch launches that
-                # quantize x take more host time than the kernel runs
-                s8 = lambda i: dm.dequant_matmul_sad_s8(x, ps[i])
-                ms = graph_ms(s8, nc)
-                wrapper_ms = cuda_ms(s8, nc)
+                times = s8_timing(x, ps, nc)
                 bf16_ms = graph_ms(lambda i: dm.dequant_gemv(x, ps[i]), nc)
                 plain_ms = cuda_ms(
                     lambda i: dm.dequant_matmul_sad_s8_reference(x, p), 1,
@@ -2000,13 +2195,12 @@ def s8_phase(card: str):
                 int_mm_ms = (cuda_ms(lambda i: torch._int_mm(
                     xi, wi8[i % len(wi8)]), len(wi8))
                     if M > 16 and K % 8 == 0 and N % 8 == 0 else None)
-                bound, by = row_bound(p.nbytes() + M * K + M * 4 + M * N * 4,
-                                      M, N, K)
+                bound, by = row_bound(p.nbytes() + M * K * 2 + M * N * 4,
+                                      M, N, K, INT8_OPS)
                 row = dict(kernel=kname, case=case, format=fmt,
                            transport=transport, block=bs, linear=lin, M=M,
                            K=K, N=N, max_abs_err=err, rel_err=rel,
-                           tol=GEMV_REL_TOL, ms=ms, wrapper_ms=wrapper_ms,
-                           bf16_gemv_ms=bf16_ms,
+                           tol=GEMV_REL_TOL, **times, bf16_gemv_ms=bf16_ms,
                            bound_ms=bound, bound_by=by, plain_ms=plain_ms,
                            library_ms=lib_ms, int_mm_ms=int_mm_ms, card=card)
                 rows.append(row)
@@ -2025,11 +2219,47 @@ def s8_phase(card: str):
     counts = {k: v for k, v in launches().items() if v}
     want = {f"dequant_gemv_s8_{t}": len(SHAPES) for _, t, _ in
             S8_CASES.values()}
+    want["quantize_x_int8"] = len(SHAPES) * len(S8_CASES)
     if counts != want:
         raise AssertionError(f"W8A8 entry point launches {counts}")
     del weights
     torch.cuda.empty_cache()
-    return rows, counts
+    return rows + quantize_x_rows(card, gen), counts
+
+
+def quantize_x_rows(card: str, gen):
+    """The one-launch activation quantizer (quantize_x_int8) against its
+    plain twin, bit for bit (codes and scales), at the K of the W8A8 GEMV's
+    shapes and M = 8, 64, timed beside its byte bound (x read once, codes
+    and scales written once) and the twin."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    rows = []
+    for K in sorted({K for _, K, _ in SHAPES}):
+        for M in (8, 64):
+            x = torch.randn((M, K), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5])   # ties
+            codes, scale = dm.quantize_x_int8(x)
+            want = dm.quantize_activations_int8(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(codes, want[0])
+                    and torch.equal(scale.view(torch.int32),
+                                    want[1].view(torch.int32))):
+                raise AssertionError(f"quantize_x_int8 K={K} M={M} is not "
+                                     "its twin's")
+            nbytes = M * K * 2 + M * K + M * 4
+            row = dict(kernel="quantize_x_int8", K=K, M=M, max_abs_err=0.0,
+                       ms=device_ms(lambda i: dm.quantize_x_int8(x), 1),
+                       plain_ms=device_ms(
+                           lambda i: dm.quantize_activations_int8(x), 1),
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", library_ms=None, card=card)
+            rows.append(row)
+            log(phase="sad_s8_vs_plain", **row)
+    return rows
 
 
 def quant_phase(card: str):
@@ -2360,15 +2590,24 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
         "source": "microscopiq_tpu_torch/ops/cuda/csrc/quant_attention.cu",
         "replaces": "microscopiq_tpu/ops/pallas/quant_attention.py:49",
         "launches": sum(launches.values()), "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in qrows),
-        "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "max_abs_err": max(max(r["max_abs_err"], r["decode_max_abs_err"])
+                           for r in qrows),
+        "ms": at["decode_ms"], "plain_ms": at["decode_plain_ms"],
         "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
         "library_ms": at["library_ms"],
-        "at": "B=4, 3136 live tokens, H=32, KVH=8, hd=128, gap=64, 4 bits",
+        "chunk_attention_ms": at["ms"],
+        "at": "B=4, 3136 live tokens, H=32, KVH=8, hd=128, gap=64, 4 bits; "
+              "ms: quant_attention_decode (one launch a layer, as the main "
+              "path calls it), device time; chunk_attention_ms: the same "
+              "kernel's chunks alone",
         "shapes": [{k: r[k] for k in ("config", "B", "live_tokens", "ms",
-                                      "wrapper_ms", "bound_ms", "plain_ms",
-                                      "library_ms", "max_abs_err",
-                                      "rel_err")}
+                                      "graph_ms", "wrapper_ms", "decode_ms",
+                                      "decode_graph_ms",
+                                      "decode_launches_per_call",
+                                      "bound_ms", "plain_ms",
+                                      "decode_plain_ms", "library_ms",
+                                      "max_abs_err", "rel_err",
+                                      "decode_rel_err")}
                    for r in timed]})
 
     short = ("case", "linear", "M", "ms", "bound_ms", "plain_ms",
@@ -2413,6 +2652,8 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                 out[-1]["mainloop"] = SM90_SOURCE
                 out[-1]["blocks"] = _route_rows(rrows, name)
                 out[-1]["block_keys"] = list(ROUTE_KEYS)
+    s8_keys = ("wrapper_ms", "kernel_ms", "quantize_ms", "bf16_gemv_ms",
+               "int_mm_ms")
     for transport in ("native", "sb4", "sb2"):
         name = f"dequant_gemv_s8_{transport}"
         mine = [r for r in srows if r["kernel"] == name]
@@ -2427,16 +2668,29 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"],
+            "kernel_ms": at["kernel_ms"], "quantize_ms": at["quantize_ms"],
             "at": f"gate_up (4096, 28672) M=8, {at['format']} {transport} "
                   f"block {at['block']}; ms: device time of the call "
-                  "(activation quantization, kernel, reduce); library: "
-                  "torch.matmul on bf16",
-            "shapes": [[r[k] for k in short[1:] + ("wrapper_ms",
-                                                   "bf16_gemv_ms",
-                                                   "int_mm_ms")]
-                       for r in mine],
-            "shape_keys": list(short[1:] + ("wrapper_ms", "bf16_gemv_ms",
-                                            "int_mm_ms"))})
+                  "(activation quantization, kernel, reduce); kernel_ms: "
+                  "the GEMV and reduce alone; library: torch.matmul on bf16",
+            "shapes": [[r[k] for k in short[1:] + s8_keys] for r in mine],
+            "shape_keys": list(short[1:] + s8_keys)})
+    mine = [r for r in srows if r["kernel"] == "quantize_x_int8"]
+    at = next(r for r in mine if r["K"] == 4096 and r["M"] == 8)
+    launches = by_path("quantize_x_int8")
+    out.append({
+        "name": "quantize_x_int8", "route": "cuda",
+        "source": "microscopiq_tpu_torch/ops/cuda/csrc/dequant_gemv_s8.cu",
+        "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:304 "
+                    "(quantize_activations_int8, XLA beside the kernel)",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": 0.0, "ms": at["ms"], "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+        "library_ms": None,
+        "at": "x (8, 4096) bf16; bit-equal to its twin at every row",
+        "shapes": [[r[k] for k in ("K", "M", "ms", "plain_ms", "bound_ms")]
+                   for r in mine],
+        "shape_keys": ["K", "M", "ms", "plain_ms", "bound_ms"]})
     at = next(r for r in mrows if r["linear"] == "gate_up"
               and r["format"] == "fp6_e3m2")
     launches = by_path("quantize_mx")
@@ -2998,9 +3252,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv not in ([], ["--gemm-times"], ["--gemv-times"]):
-        print("usage: chip_smoke.py [--gemm-times | --gemv-times]",
-              file=sys.stderr)
+    if argv not in ([], ["--gemm-times"], ["--gemv-times"],
+                    ["--qattn-times"]):
+        print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
+              "--qattn-times]", file=sys.stderr)
         return 2
     from microscopiq_tpu_torch.ops.cuda import build
 
@@ -3009,6 +3264,8 @@ def main(argv=None) -> int:
         card = card_line()
         if argv == ["--gemm-times"]:
             log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
+        elif argv == ["--qattn-times"]:
+            log(phase="qattn_times", **qattn_times(), card=card)
         else:
             log(phase="gemv_times", rows=gemv_times(), card=card)
         return 0

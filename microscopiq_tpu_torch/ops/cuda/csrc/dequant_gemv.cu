@@ -89,42 +89,26 @@ using mxq::gemv_tc::kConsumers;
 using mxq::gemv_tc::kMaxStages;
 using mxq::gemv_tc::kThreads;
 using mxq::gemv_tc::mma_bf16;
+using mxq::gemv_tc::kSubW;
+using mxq::gemv_tc::kTN;
 using mxq::gemv_tc::n8_tiles;
+using mxq::gemv_tc::Plan;
+using mxq::gemv_tc::produce;
 using mxq::gemv_tc::Ring;
+using mxq::gemv_tc::ring_maps;
+using mxq::gemv_tc::smem_bytes;
+using mxq::gemv_tc::stage_layout;
+using mxq::gemv_tc::swz;
 using mxq::gemv_tc::take_role;
 using mxq::gemv_tc::tile_range;
 using mxq::gemv_tc::x_frag;
 
-constexpr int kTN = 256;                      // columns a tile
-constexpr int kSubW = 128;                    // bytes of a sub-tile row
-
-struct Plan {
-  int M, K, N, NB, B, mw, ebits, fold;
-  int rows;                                   // packed rows a block
-  int ksplit, nbps, sb, stages, col_tiles, tiles, tma;
-  int sub_stride, se_off, stage_bytes, x_pitch;
-};
-
-// Stage layout (dequant_matmul.py::gemv_plan mirrors it): 2 * code_bytes
-// sub-tiles of sb * rows rows of 128 bytes, each 1024-aligned, then the sb
-// exponent rows of 256 columns; whole stages of 1024 bytes.
+// The x rows of a split: bf16, plus 16 bytes (dequant_matmul.py's
+// _gemv_x_bytes mirrors it).
 template <int D>
 __host__ __device__ inline void layout(Plan& p) {
-  constexpr int cb = mxq::code_bytes<D>();
-  p.sub_stride = align_up(p.sb * p.rows * kSubW, 1024);
-  p.se_off = 2 * cb * p.sub_stride;
-  p.stage_bytes = p.se_off + align_up(p.sb * kTN, 1024);
+  stage_layout<mxq::code_bytes<D>()>(p);
   p.x_pitch = p.nbps * p.B * 2 + 16;
-}
-__host__ __device__ inline int smem_bytes(const Plan& p, int nt) {
-  return kAlign + kBarBytes + p.stages * p.stage_bytes
-         + align_up(8 * nt * p.x_pitch, 128);
-}
-
-// Byte `byte` (< 128) of row `row` of a sub-tile written with the 128-byte
-// swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-__device__ __forceinline__ int swz(int row, int byte) {
-  return row * kSubW + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
 }
 
 // The position in a block's x row (mma order) of K row kb of the block.
@@ -467,67 +451,6 @@ __device__ __forceinline__ void consume(const Ring& ring, uint8_t* xs,
   }
 }
 
-// Warp 8: the copies of each tile's K-blocks into the ring.
-template <int D>
-__device__ __forceinline__ void produce(const Ring& ring,
-                                        const CUtensorMap* codes_map,
-                                        const CUtensorMap* se_map,
-                                        const int8_t* __restrict__ codes,
-                                        const int8_t* __restrict__ se,
-                                        const Plan& p) {
-  constexpr int cb = mxq::code_bytes<D>(), subs = 2 * cb;
-  const int lane = threadIdx.x & 31;
-  const int srows = p.sb * p.rows, live_rows = p.NB * p.rows;
-  int lo, hi;
-  tile_range(p.tiles, lo, hi);
-  int it = 0;
-  for (int tt = lo; tt < hi; ++tt) {
-    const int split = tt / p.col_tiles, n0 = (tt % p.col_tiles) * kTN;
-    const int nb_begin = split * p.nbps;
-    const int nb_end = min(p.NB, nb_begin + p.nbps);
-    for (int nb0 = nb_begin; nb0 < nb_end; nb0 += p.sb, ++it) {
-      const int s = it % ring.stages;
-      bar_wait(ring.empty(s), ((it / ring.stages) & 1) ^ 1);
-      uint8_t* st = ring.stage(s);
-      if (p.tma) {
-        if (lane == 0) {
-          mxq::sm90::mbar_expect_tx(ring.full(s),
-                                    subs * srows * kSubW + p.sb * kTN);
-#pragma unroll
-          for (int h = 0; h < subs; ++h)
-            mxq::sm90::tma_load_2d(st + h * p.sub_stride, codes_map,
-                                   n0 + h * (kSubW / cb), nb0 * p.rows,
-                                   ring.full(s));
-          mxq::sm90::tma_load_2d(st + p.se_off, se_map, n0, nb0,
-                                 ring.full(s));
-        }
-      } else {
-        // plain copies in the swizzled layout, zeros outside the weight
-#pragma unroll 1
-        for (int i = lane; i < subs * srows * kSubW; i += 32) {
-          const int h = i / (srows * kSubW), rem = i - h * srows * kSubW;
-          const int r = rem / kSubW, bt = rem % kSubW;
-          const int col = n0 + h * (kSubW / cb) + bt / cb;
-          const int grow = nb0 * p.rows + r;
-          st[h * p.sub_stride + swz(r, bt)] =
-              (col < p.N && grow < live_rows)
-                  ? codes[(static_cast<size_t>(grow) * p.N + col) * cb
-                          + bt % cb]
-                  : 0;
-        }
-#pragma unroll 1
-        for (int i = lane; i < p.sb * kTN; i += 32) {
-          const int b = i / kTN, col = n0 + i % kTN;
-          st[p.se_off + i] = (nb0 + b < p.NB && col < p.N)
-                                 ? se[static_cast<size_t>(nb0 + b) * p.N + col]
-                                 : 0;
-        }
-        mxq::sm90::mbar_arrive(ring.full(s));
-      }
-    }
-  }
-}
-
 template <int NT, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 gemv_tc(const __grid_constant__ CUtensorMap codes_map,
@@ -546,26 +469,16 @@ gemv_tc(const __grid_constant__ CUtensorMap codes_map,
   if (take_role())
     consume<NT, D>(ring, xs, x, ws, p);
   else if (threadIdx.x / 32 == kConsumers / 32)
-    produce<D>(ring, &codes_map, &se_map, codes, se, p);
+    produce<mxq::code_bytes<D>()>(ring, &codes_map, &se_map, codes, se, p);
 }
 
 template <int NT, int D>
 int launch(const void* x, const int8_t* codes, const int8_t* se, float* ws,
            const Plan& p, int ctas, int smem, cudaStream_t st) {
-  constexpr int cb = mxq::code_bytes<D>();
   auto kernel = gemv_tc<NT, D>;
   CUtensorMap maps[2] = {};
-  if (p.tma) {
-    int err = mxq::sm90::tensor_map_2d(
-        &maps[0],
-        cb == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                : CU_TENSOR_MAP_DATA_TYPE_UINT16,
-        cb, codes, p.N, static_cast<long long>(p.NB) * p.rows, kSubW / cb,
-        p.sb * p.rows, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err == 0)
-      err = mxq::sm90::raw_tensor_map(&maps[1], se, 1, p.N, p.NB, kTN, p.sb);
-    if (err != 0) return err;
-  }
+  const int err = ring_maps<mxq::code_bytes<D>()>(maps, codes, se, p);
+  if (err != 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

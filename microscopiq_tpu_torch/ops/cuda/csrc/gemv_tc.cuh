@@ -1,11 +1,13 @@
-// Pieces shared by the two tensor-core GEMVs (dequant_gemv.cu's
-// scale-after-dot GEMV and nb_matmul.cu's compact-NB GEMV): a persistent
+// Pieces shared by the tensor-core GEMVs (dequant_gemv.cu's
+// scale-after-dot GEMV, dequant_gemv_s8.cu's W8A8 GEMV and nb_matmul.cu's
+// compact-NB GEMV): a persistent
 // CTA an SM, two consumer warpgroups (8 warps) and a copying warpgroup of
 // which one warp works, registers moved from the copiers to the consumers
 // by setmaxnreg, a ring of stages behind
-// full/empty mbarriers, x kept in shared memory as bf16 for a whole K
-// split, and the dot on mma.sync.m16n8k16 (bf16 in, f32 out) with the
-// weight as the 16-row operand and up to 8 rows of x as the 8-wide one.
+// full/empty mbarriers, x kept in shared memory for a whole K split, and
+// the dot on mma.sync.m16n8k16 with the weight as the 16-row operand and
+// up to 8 rows of x as the 8-wide one; the stage layout of packed code
+// rows and exponent rows, and the copying warp that fills it.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -128,6 +130,116 @@ __device__ __forceinline__ void x_frag(const uint8_t* xs, int pitch, int nt,
       xs + (8 * nt + (lane >> 2)) * pitch + 2 * kp) + (lane & 3);
   b0 = r[0];
   b1 = r[4];
+}
+
+constexpr int kTN = 256;                      // columns a tile
+constexpr int kSubW = 128;                    // bytes of a sub-tile row
+
+// A GEMV's plan (the Python side's gemv_plan mirrors it).
+struct Plan {
+  int M, K, N, NB, B, mw, ebits, fold;
+  int rows;                                   // packed rows a block
+  int ksplit, nbps, sb, stages, col_tiles, tiles, tma;
+  int sub_stride, se_off, stage_bytes, x_pitch;
+};
+
+// Stage layout of CB-byte codes: 2 * CB sub-tiles of sb * rows rows of 128
+// bytes, each 1024-aligned, then the sb exponent rows of 256 columns;
+// whole stages of 1024 bytes.
+template <int CB>
+__host__ __device__ inline void stage_layout(Plan& p) {
+  p.sub_stride = align_up(p.sb * p.rows * kSubW, 1024);
+  p.se_off = 2 * CB * p.sub_stride;
+  p.stage_bytes = p.se_off + align_up(p.sb * kTN, 1024);
+}
+__host__ __device__ inline int smem_bytes(const Plan& p, int nt) {
+  return kAlign + kBarBytes + p.stages * p.stage_bytes
+         + align_up(8 * nt * p.x_pitch, 128);
+}
+
+// Byte `byte` (< 128) of row `row` of a sub-tile written with the 128-byte
+// swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+__device__ __forceinline__ int swz(int row, int byte) {
+  return row * kSubW + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// The copying warp (warp 8): each tile's K-blocks of CB-byte codes and
+// their exponents into the ring, by TMA (p.tma) or plain copies.
+template <int CB>
+__device__ __forceinline__ void produce(const Ring& ring,
+                                        const CUtensorMap* codes_map,
+                                        const CUtensorMap* se_map,
+                                        const int8_t* __restrict__ codes,
+                                        const int8_t* __restrict__ se,
+                                        const Plan& p) {
+  constexpr int subs = 2 * CB;
+  const int lane = threadIdx.x & 31;
+  const int srows = p.sb * p.rows, live_rows = p.NB * p.rows;
+  int lo, hi;
+  tile_range(p.tiles, lo, hi);
+  int it = 0;
+  for (int tt = lo; tt < hi; ++tt) {
+    const int split = tt / p.col_tiles, n0 = (tt % p.col_tiles) * kTN;
+    const int nb_begin = split * p.nbps;
+    const int nb_end = min(p.NB, nb_begin + p.nbps);
+    for (int nb0 = nb_begin; nb0 < nb_end; nb0 += p.sb, ++it) {
+      const int s = it % ring.stages;
+      bar_wait(ring.empty(s), ((it / ring.stages) & 1) ^ 1);
+      uint8_t* st = ring.stage(s);
+      if (p.tma) {
+        if (lane == 0) {
+          mxq::sm90::mbar_expect_tx(ring.full(s),
+                                    subs * srows * kSubW + p.sb * kTN);
+#pragma unroll
+          for (int h = 0; h < subs; ++h)
+            mxq::sm90::tma_load_2d(st + h * p.sub_stride, codes_map,
+                                   n0 + h * (kSubW / CB), nb0 * p.rows,
+                                   ring.full(s));
+          mxq::sm90::tma_load_2d(st + p.se_off, se_map, n0, nb0,
+                                 ring.full(s));
+        }
+      } else {
+        // plain copies in the swizzled layout, zeros outside the weight
+#pragma unroll 1
+        for (int i = lane; i < subs * srows * kSubW; i += 32) {
+          const int h = i / (srows * kSubW), rem = i - h * srows * kSubW;
+          const int r = rem / kSubW, bt = rem % kSubW;
+          const int col = n0 + h * (kSubW / CB) + bt / CB;
+          const int grow = nb0 * p.rows + r;
+          st[h * p.sub_stride + swz(r, bt)] =
+              (col < p.N && grow < live_rows)
+                  ? codes[(static_cast<size_t>(grow) * p.N + col) * CB
+                          + bt % CB]
+                  : 0;
+        }
+#pragma unroll 1
+        for (int i = lane; i < p.sb * kTN; i += 32) {
+          const int b = i / kTN, col = n0 + i % kTN;
+          st[p.se_off + i] = (nb0 + b < p.NB && col < p.N)
+                                 ? se[static_cast<size_t>(nb0 + b) * p.N + col]
+                                 : 0;
+        }
+        mxq::sm90::mbar_arrive(ring.full(s));
+      }
+    }
+  }
+}
+
+// The tensor maps of produce's TMA copies (p.tma): CB-byte codes in
+// 128-byte-wide swizzled boxes of sb * rows rows, exponents in boxes of sb
+// rows of 256 columns. Returns 0 or a cudaError_t.
+template <int CB>
+static inline int ring_maps(CUtensorMap (&maps)[2], const int8_t* codes,
+                            const int8_t* se, const Plan& p) {
+  if (!p.tma) return 0;
+  int err = mxq::sm90::tensor_map_2d(
+      &maps[0],
+      CB == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+      CB, codes, p.N, static_cast<long long>(p.NB) * p.rows, kSubW / CB,
+      p.sb * p.rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = mxq::sm90::raw_tensor_map(&maps[1], se, 1, p.N, p.NB, kTN, p.sb);
+  return err;
 }
 
 }  // namespace gemv_tc

@@ -100,7 +100,8 @@ NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
 # kernels; chip_smoke.py zeroes them before the main path and reads them
 # after. dequant_gemv_<decode> counts the tensor-core GEMV (gemv_route's
 # "tc" blocks), dequant_gemv_<decode>_cc the CUDA-core one at the other
-# blocks; dequant_matmul_<decode> counts the GEMM that gemm_route gives the
+# blocks; dequant_gemv_s8_<decode> and dequant_gemv_s8_<decode>_cc the W8A8
+# GEMV's routes (s8_route), quantize_x_int8 its activation quantizer; dequant_matmul_<decode> counts the GEMM that gemm_route gives the
 # default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16, bf16, emi8,
 # the int8 container and float8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
@@ -109,7 +110,9 @@ launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}_tile": 0 for d in SM90_BLOCKS
                     if d in _DECODES},
-                 **{f"dequant_gemv_s8_{d}": 0 for d in _S8_DECODES}}
+                 **{f"dequant_gemv_s8_{d}": 0 for d in _S8_DECODES},
+                 **{f"dequant_gemv_s8_{d}_cc": 0 for d in _S8_DECODES},
+                 "quantize_x_int8": 0}
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
@@ -253,8 +256,12 @@ _ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 16
                                 + [_ptr]),
             "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 11
                                + [_ptr]),
-            "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 9
+            "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 14
                                 + [_ptr]),
+            "dequant_gemv_s8_cc": ("dequant_gemv_s8", [_ptr] * 6
+                                   + [_int] * 9 + [_ptr]),
+            "quantize_x_int8": ("dequant_gemv_s8", [_ptr, _int, _ptr, _ptr,
+                                                    _int, _int, _ptr]),
             "dequant_b_tile": ("dequant_matmul", [_ptr] * 3 + [_int] * 8
                                + [_ptr])}
 
@@ -371,10 +378,11 @@ def _gemv_stage(decode: str, B: int) -> Tuple[int, int, int, int]:
     return rows, sb, sub_stride, stage_bytes
 
 
-def _gemv_x_bytes(nt: int, split_rows: int) -> int:
-    """gemv_tc's and nb_gemv's x in shared memory: 8 nt rows of the split's
-    K rows as bf16 plus 16 bytes, 128-aligned."""
-    return _align(8 * nt * (split_rows * 2 + 16), 128)
+def _gemv_x_bytes(nt: int, split_rows: int, xb: int = 2) -> int:
+    """gemv_tc's, nb_gemv's and gemv_s8_tc's x in shared memory: 8 nt rows
+    of the split's K rows of xb bytes (bf16: 2, int8: 1) plus 16 bytes,
+    128-aligned."""
+    return _align(8 * nt * (split_rows * xb + 16), 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -390,10 +398,17 @@ def gemv_route(decode: str, block: int) -> str:
     the launch."""
     if decode not in _DECODES:
         raise ValueError(f"unknown GEMV decode {decode!r}")
+    return _tc_route(decode, block, 2)
+
+
+def _tc_route(decode: str, block: int, xb: int) -> str:
+    """"tc" where a tensor-core GEMV with x of xb bytes takes ``decode`` at
+    ``block`` (a multiple of 16, at most 256 packed rows a stage, two
+    stages beside 64 rows of x), else "cc"."""
     if block % 16 or block < 16:
         return "cc"
     rows, sb, _, stage_bytes = _gemv_stage(decode, block)
-    fits = _gemv_stages(_GEMV_FIXED_SMEM + _gemv_x_bytes(8, sb * block),
+    fits = _gemv_stages(_GEMV_FIXED_SMEM + _gemv_x_bytes(8, sb * block, xb),
                         stage_bytes) >= 2
     return "tc" if rows <= 256 and fits else "cc"
 
@@ -432,6 +447,11 @@ def gemv_plan(decode: str, N: int, K: int, B: int, M: int) -> dict:
     that ``gemv_route`` sends to ``"cc"``."""
     if gemv_route(decode, B) != "tc":
         raise ValueError(f"no tensor-core {decode} GEMV takes block {B}")
+    return _tc_plan(decode, N, K, B, M, 2)
+
+
+def _tc_plan(decode: str, N: int, K: int, B: int, M: int, xb: int) -> dict:
+    """:func:`gemv_plan` for x of xb bytes an element."""
     _, sb, sub_stride, stage_bytes = _gemv_stage(decode, B)
     se_off = stage_bytes - _align(sb * GEMV_TC_TN, 1024)
     NB = -(-K // B)
@@ -439,15 +459,15 @@ def gemv_plan(decode: str, N: int, K: int, B: int, M: int) -> dict:
     ksplit, sps = gemv_split(
         -(-NB // sb), sb * B, col_tiles,
         lambda per: _gemv_stages(_GEMV_FIXED_SMEM
-                                 + _gemv_x_bytes(8, per * sb * B),
+                                 + _gemv_x_bytes(8, per * sb * B, xb),
                                  stage_bytes) >= 2)
     nt = gemv_n8_tiles(M)
-    fixed = _GEMV_FIXED_SMEM + _gemv_x_bytes(nt, sps * sb * B)
+    fixed = _GEMV_FIXED_SMEM + _gemv_x_bytes(nt, sps * sb * B, xb)
     stages = _gemv_stages(fixed, stage_bytes)
     tiles = col_tiles * ksplit
     return {"n8_tiles": nt, "stage_blocks": sb, "sub_stride": sub_stride,
             "se_off": se_off, "stage_bytes": stage_bytes, "ksplit": ksplit,
-            "split_blocks": sps * sb, "x_pitch": sps * sb * B * 2 + 16,
+            "split_blocks": sps * sb, "x_pitch": sps * sb * B * xb + 16,
             "stages": stages, "smem_bytes": fixed + stages * stage_bytes,
             "col_tiles": col_tiles, "tiles": tiles,
             "ctas": min(tiles, GEMV_SMS), "tma": N % 16 == 0}
@@ -612,12 +632,74 @@ def dequant_matmul(x: torch.Tensor, w: pk.PackedMX,
 def quantize_activations_int8(x: torch.Tensor):
     """Per-token symmetric int8 quantization: (codes, scale), x: (..., K)
     -> int8 codes of x's shape and an f32 scale (..., 1). Divides by
-    amax / 127 and rounds half to even, bit for bit as the JAX function."""
+    amax / 127 and rounds half to even, bit for bit as the JAX function.
+    The plain twin of :func:`quantize_x_int8`. The divisor 127 is a
+    tensor on x's device: PyTorch on CUDA multiplies by the reciprocal of a
+    CPU scalar divisor, which is not JAX's (exact) division."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-30) / 127.0
+    scale = torch.clamp(amax, min=1e-30) / torch.full((), 127.0,
+                                                      device=x.device)
     codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return codes, scale
+
+
+def quantize_x_int8(x: torch.Tensor):
+    """:func:`quantize_activations_int8` of x (M, K) in one launch of
+    ``csrc/dequant_gemv_s8.cu``'s ``quantize_rows`` on the card (x in f32
+    or bf16; another dtype is cast to f32 first), bit for bit; on the CPU
+    the twin itself."""
+    if x.device.type == "cpu":
+        return quantize_activations_int8(x)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    M, K = x.shape
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return codes, scale
+    err = _kernel("quantize_x_int8")(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+        scale.data_ptr(), M, K,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "quantize_x_int8")
+    launch_counts["quantize_x_int8"] += 1
+    return codes, scale
+
+
+@functools.lru_cache(maxsize=None)
+def s8_route(decode: str, block: int) -> str:
+    """The W8A8 GEMV kernel of a weight of ``decode`` (the int8 container
+    "native", "sb4" or "sb2") in blocks of ``block``: ``"tc"``,
+    ``gemv_s8_tc`` (int8 mma.sync behind a TMA ring; :func:`s8_gemv_plan`),
+    for blocks that are a multiple of 16 whose stage and ring fit; else
+    ``"cc"``, ``s8_partial`` on CUDA cores. Chosen from the weight alone,
+    before the launch."""
+    if decode not in _S8_DECODES:
+        raise ValueError(f"unknown W8A8 decode {decode!r}")
+    return _tc_route(decode, block, 1)
+
+
+def s8_counter(decode: str, block: int) -> str:
+    """The ``launch_counts`` key of the W8A8 GEMV at ``decode``, ``block``."""
+    cc = s8_route(decode, block) == "cc"
+    return f"dequant_gemv_s8_{decode}" + ("_cc" if cc else "")
+
+
+@functools.lru_cache(maxsize=None)
+def s8_gemv_plan(decode: str, N: int, K: int, B: int, M: int) -> dict:
+    """Host-side plan of ``gemv_s8_tc``: :func:`gemv_plan`'s stage, split
+    and ring for int8 x (one byte a K row, so ``x_pitch`` is the split's K
+    plus 16 and the ring may be deeper). Depends on M only through
+    ``n8_tiles`` and what fits beside it, never the split. Raises
+    ValueError for a block that :func:`s8_route` sends to ``"cc"``."""
+    if s8_route(decode, B) != "tc":
+        raise ValueError(f"no tensor-core W8A8 {decode} GEMV takes block "
+                         f"{B}")
+    return _tc_plan(decode, N, K, B, M, 1)
 
 
 def _s8_check(w: pk.PackedMX) -> Tuple[str, int]:
@@ -651,9 +733,9 @@ def dequant_matmul_sad_s8(x: torch.Tensor, w: pk.PackedMX,
     """y ≈ x @ dequant(w) with int8 activations (the W8A8 decode path):
     integer-exact given the quantized operands, whose only approximation is
     the per-token int8 activation grid. Int-format weights in the int8
-    container, sb4 or sb2. On a CUDA device the activations are quantized by
-    the same PyTorch operations as on the CPU (the TPU wrapper runs them in
-    XLA, outside its kernel), then the kernel runs."""
+    container, sb4 or sb2. On a CUDA device the activations are quantized
+    by one launch (:func:`quantize_x_int8`), then the GEMV of
+    :func:`s8_route` runs, 64 rows at a time on its "tc" route."""
     decode, fold = _s8_check(w)
     if x.device.type == "cpu":
         return dequant_matmul_sad_s8_reference(x, w, out_dtype)
@@ -664,19 +746,38 @@ def dequant_matmul_sad_s8(x: torch.Tensor, w: pk.PackedMX,
                          f"block {ww.block_size} gives {rows}")
     M, K = x2.shape
     NB, _, N = ww.codes.shape
+    B = ww.block_size
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
-    xq, xscale = quantize_activations_int8(x2)
-    xq, xscale = xq.contiguous(), xscale.reshape(M).contiguous()
-    ksplit, _ = gemv_ksplit(N, NB)
-    ws = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-    err = _kernel("dequant_gemv_s8")(
-        xq.data_ptr(), xscale.data_ptr(), ww.codes.data_ptr(),
-        ww.scale_exp.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N, NB,
-        ww.block_size, _DECODES[decode], fold, ksplit,
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f"dequant_gemv_s8_{decode}")
-    launch_counts[f"dequant_gemv_s8_{decode}"] += 1
+    xq, xscale = quantize_x_int8(x2)
+    xscale = xscale.reshape(M)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    common = (ww.codes.data_ptr(), ww.scale_exp.data_ptr())
+    counter = s8_counter(decode, B)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    if s8_route(decode, B) == "tc":
+        for m0 in range(0, M, GEMV_MAX_M):
+            mt = min(GEMV_MAX_M, M - m0)
+            plan = s8_gemv_plan(decode, N, K, B, mt)
+            ws = torch.empty((plan["ksplit"], mt, N), dtype=torch.float32,
+                             device=x.device)
+            err = _kernel("dequant_gemv_s8")(
+                xq[m0:].data_ptr(), xscale[m0:].data_ptr(), *common,
+                ws.data_ptr(), out[m0:].data_ptr(), mt, K, N, NB, B,
+                _DECODES[decode], fold, plan["ksplit"],
+                plan["split_blocks"], plan["stage_blocks"], plan["stages"],
+                plan["ctas"], plan["smem_bytes"], out_bf16, stream)
+            build.check(err, counter)
+            launch_counts[counter] += 1
+    else:
+        ksplit, _ = gemv_ksplit(N, NB)
+        ws = torch.empty((ksplit, M, N), dtype=torch.float32,
+                         device=x.device)
+        err = _kernel("dequant_gemv_s8_cc")(
+            xq.data_ptr(), xscale.data_ptr(), *common, ws.data_ptr(),
+            out.data_ptr(), M, K, N, NB, B, _DECODES[decode], fold, ksplit,
+            out_bf16, stream)
+        build.check(err, counter)
+        launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))

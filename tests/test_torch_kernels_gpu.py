@@ -289,6 +289,67 @@ def test_w8a8_rows_do_not_depend_on_batch(cuda):
         assert torch.equal(dm.dequant_matmul_sad_s8(x[:M], w), full[:M])
 
 
+@pytest.mark.parametrize("fmt,transport,bs", [("int8", "native", 32),
+                                              ("int4", "sb4", 16),
+                                              ("int2", "sb2", 16)])
+@pytest.mark.parametrize("M", [1, 8, 13, 64, 100])
+def test_w8a8_tc_route_at_every_m(cuda, fmt, transport, bs, M):
+    """The int8 tensor-core GEMV at chip_smoke's W8A8 cases, 64 rows a
+    launch, after one launch of the activation quantizer."""
+    w = _packed_as(4096, 1024, fmt, transport, bs, 1.0, M, cuda)
+    x = _x(M, 4096, M + 1, cuda).to(torch.bfloat16)
+    assert dm.s8_route(transport, bs) == "tc"
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul_sad_s8(x, w, torch.bfloat16)
+    want = dm.dequant_matmul_sad_s8_reference(x, w)
+    torch.cuda.synchronize()
+    assert dm.launch_counts[f"dequant_gemv_s8_{transport}"] == -(-M // 64)
+    assert dm.launch_counts["quantize_x_int8"] == 1
+    assert sum(dm.launch_counts.values()) == 1 + -(-M // 64)
+    f32 = dm.dequant_matmul_sad_s8(x, w)
+    assert _rel(f32, want) < 1e-5
+    assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+def test_w8a8_cc_route_takes_the_other_blocks(cuda):
+    for fmt, transport, bs in (("int8", "native", 8), ("int4", "sb4", 8)):
+        w = _packed_as(512, 384, fmt, transport, bs, 1.0, 3, cuda)
+        x = _x(5, 512, 4, cuda)
+        assert dm.s8_route(transport, bs) == "cc"
+        dm.reset_launch_counts()
+        got = dm.dequant_matmul_sad_s8(x, w)
+        torch.cuda.synchronize()
+        assert dm.launch_counts[f"dequant_gemv_s8_{transport}_cc"] == 1
+        assert _rel(got, dm.dequant_matmul_sad_s8_reference(x, w)) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_x_int8_is_bit_exact(cuda, dtype):
+    """One launch, bit-equal to quantize_activations_int8 (on the card and
+    on the CPU): ties at .5 round to even, an all-zero row gives zeros."""
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((9, 4100))
+         * np.exp(rng.uniform(-3, 3, (9, 1)))).astype(np.float32)
+    x[0, :6] = [127.0, 0.5, 1.5, 2.5, -2.5, -0.5]     # scale 1: ties
+    x[0, 6:] = np.clip(x[0, 6:], -100, 100)
+    x[1] = 0.0
+    x[2, :4] = [254.0, 1.0, 3.0, -5.0]                # scale 2: ties
+    x[2, 4:] = np.clip(x[2, 4:], -200, 200)
+    xt = torch.from_numpy(x).to(dtype).to(cuda)
+    dm.reset_launch_counts()
+    codes, scale = dm.quantize_x_int8(xt)
+    torch.cuda.synchronize()
+    assert dm.launch_counts["quantize_x_int8"] == 1
+    for wc, ws in (dm.quantize_activations_int8(xt),
+                   dm.quantize_activations_int8(xt.cpu())):
+        assert torch.equal(codes.cpu(), wc.cpu())
+        assert torch.equal(scale.cpu().view(torch.int32),
+                           ws.cpu().view(torch.int32))
+    assert codes[0, :6].tolist() == [127, 0, 2, 2, -2, 0]
+    assert codes[2, :4].tolist() == [127, 0, 2, -2]
+    assert not codes[1].any()
+
+
 @pytest.mark.parametrize("fmt", ["fp6_e3m2", "fp4_e2m1", "int8", "int4",
                                  "int2", "fp8_e4m3", "fp8_e5m2", "fp16",
                                  "bfloat16"])
@@ -445,8 +506,8 @@ def test_quant_attention_wrapper_checks_operands(cuda):
         bad, _ = qattn_operands(1, 1, 17, 64, 2, 64, 4, 1, 0, 1, cuda)
         call(bad, nfull[:1])
     with pytest.raises(ValueError, match="shared memory"):
-        bad, _ = qattn_operands(1, 1, 1, 256, 1, 256, 8, 1, 0, 1, cuda)
-        qa.chunk_attention(*bad, nfull[:1], 0.1, 256, 8)
+        bad, _ = qattn_operands(1, 1, 1, 256, 1, 1024, 8, 1, 0, 1, cuda)
+        qa.chunk_attention(*bad, nfull[:1], 0.1, 1024, 8)
     with pytest.raises(ValueError, match="exceed 8 at head_dim 256"):
         bad, _ = qattn_operands(1, 1, 9, 256, 2, 64, 4, 1, 0, 1, cuda)
         call(bad, nfull[:1])
@@ -461,18 +522,152 @@ def test_quant_attention_wrapper_checks_operands(cuda):
 
 
 def test_quant_attention_smem_mirror_is_the_kernel_s(cuda):
-    """decode_route's shared-memory count is the kernel's own
-    (quant_attention_smem_bytes) at every geometry it may be asked."""
+    """decode_route's and the plan's shared-memory count is the kernel's
+    own (quant_attention_smem_bytes) at every geometry it may be asked,
+    with ring depths and scaled-q slots."""
     from microscopiq_tpu_torch.ops.cuda import build
 
     fn = build.load("quant_attention").quant_attention_smem_bytes
     for rep in range(1, 17):
         for hd in range(32, 257, 32):
             for gap in (8, 64, 256, 1024):
-                for Gh in (1, hd // 8):
-                    for rank in (0, 1, 4):
-                        assert qa.smem_bytes(rep, hd, gap, Gh, rank) == fn(
-                            rep, hd, gap, Gh, rank), (rep, hd, gap, Gh, rank)
+                for bits in (2, 4, 8):
+                    for Gh in (1, hd // 8):
+                        for stages, slots in ((1, 2), (4, 4), (4, 8)):
+                            args = (rep, hd, gap, bits, Gh, stages, slots)
+                            assert qa.smem_bytes(*args) == fn(*args), args
+
+
+def qattn_decode_state(B, KVH, rep, hd, C, gap, bits, Gh, rank, seed, device,
+                       res_dtype=torch.bfloat16, lr_dtype=torch.bfloat16):
+    """A one-layer cache (leading layer axis 1) in the fused layout: random
+    chunk operands as qattn_operands, a residual window of gap rows."""
+    ops, lowrank = qattn_operands(B, KVH, rep, hd, C, gap, bits, Gh, rank,
+                                  seed, device, lr_dtype)
+    g = torch.Generator().manual_seed(seed + 1)
+    res = lambda: torch.randn((B, gap, KVH, hd), generator=g).to(  # noqa
+        res_dtype).to(device)
+    full = tuple(t[None].contiguous() for t in ops[1:]) + (
+        res()[None].contiguous(), res()[None].contiguous())
+    if lowrank is not None:
+        full += tuple(t[None].contiguous() for t in lowrank)
+    return full
+
+
+def _decode_lengths(c):
+    """Live lengths of a QATTN_CASES case: its folded chunks plus a
+    residual count that varies by slot (0 included)."""
+    return [n * c["gap"] + (5 * i) % c["gap"]
+            for i, n in enumerate(c["nfull"])]
+
+
+@pytest.mark.parametrize("case", sorted(QATTN_CASES))
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+def test_quant_decode_matches_twin(cuda, case, qdtype):
+    """The one-launch decode (chunks, residual window, combine) against
+    quant_attention_decode_reference at 2e-2, with (B,), 0-d and int
+    lengths; one launch a call."""
+    c = dict(QATTN_CASES[case])
+    B, KVH, rep, hd = c["B"], c["KVH"], c["rep"], c["hd"]
+    full = qattn_decode_state(**{k: v for k, v in c.items() if k != "nfull"},
+                              seed=len(case) + 7, device=cuda)
+    q = torch.randn((B, KVH * rep, hd), generator=torch.Generator(
+        ).manual_seed(3)).to(qdtype).to(cuda)
+    v_group, scale = hd // c["Gh"], hd ** -0.5
+    lens = _decode_lengths(c)
+    for length in (torch.tensor(lens, dtype=torch.int32, device=cuda),
+                   torch.tensor(lens[-1], dtype=torch.int32, device=cuda),
+                   lens[-1]):
+        qa.reset_launch_counts()
+        got = qa.quant_attention_decode(q, full, 0, length, v_group, scale)
+        want = qa.quant_attention_decode_reference(q.float(), full, 0,
+                                                   length, v_group, scale)
+        torch.cuda.synchronize()
+        assert qa.launch_counts["quant_attention"] == 1
+        assert got.dtype == qdtype and got.shape == (B, KVH * rep, hd)
+        live = torch.as_tensor(length, device=cuda).reshape(-1).expand(B) > 0
+        assert torch.isfinite(got).all()
+        assert _rel(got[live].float(), want[live]) < 2e-2
+        assert not got[~live].any()
+
+
+def test_quant_decode_long_splits_prep_each_chunk(cuda):
+    """With 64 KV heads a (b, g) takes 9 splits of 23 of its 200 chunks,
+    more than the scaled-q slots hold, so the kernel makes each chunk's
+    scaled q from its stage as it lands; it matches the twin as the short
+    splits do."""
+    full = qattn_decode_state(2, 64, 4, 32, 200, 64, 4, 1, 0, 13, cuda)
+    plan = qa.attention_plan(200, 64, 4, 32, 64, 4, 1)
+    assert plan["cps"] > qa.MAX_SLOTS and plan["slots"] == 2
+    q = torch.randn((2, 256, 32), device=cuda).to(torch.bfloat16)
+    length = torch.tensor([200 * 64, 123 * 64 + 17], dtype=torch.int32,
+                          device=cuda)
+    got = qa.quant_attention_decode(q, full, 0, length, 32, 32 ** -0.5)
+    want = qa.quant_attention_decode_reference(q.float(), full, 0, length,
+                                               32, 32 ** -0.5)
+    assert _rel(got.float(), want) < 2e-2
+
+
+def test_quant_decode_f32_window_and_bases(cuda):
+    full = qattn_decode_state(2, 2, 4, 64, 5, 32, 4, 1, 3, 9, cuda,
+                              res_dtype=torch.float32,
+                              lr_dtype=torch.float32)
+    q = torch.randn((2, 8, 64), device=cuda)
+    length = torch.tensor([5 * 32, 2 * 32 + 31], dtype=torch.int32,
+                          device=cuda)
+    got = qa.quant_attention_decode(q, full, 0, length, 64, 0.125)
+    want = qa.quant_attention_decode_reference(q, full, 0, length, 64, 0.125)
+    assert _rel(got, want) < 2e-2
+
+
+def test_quant_decode_rows_do_not_depend_on_batch_and_repeat(cuda):
+    """A slot's row is the same in a batch of any size, and two runs give
+    the same bits."""
+    full = qattn_decode_state(6, 8, 4, 128, 17, 64, 4, 1, 0, 3, cuda)
+    q = torch.randn((6, 32, 128), device=cuda).to(torch.bfloat16)
+    length = torch.tensor([16 * 64 + 3, 0, 3 * 64, 17 * 64, 9 * 64 + 63, 40],
+                          dtype=torch.int32, device=cuda)
+    out = qa.quant_attention_decode(q, full, 0, length, 128, 128 ** -0.5)
+    assert torch.equal(out, qa.quant_attention_decode(q, full, 0, length,
+                                                      128, 128 ** -0.5))
+    for lo, hi in ((0, 1), (2, 5), (3, 4)):
+        part = qa.quant_attention_decode(
+            q[lo:hi], tuple(t[:, lo:hi].contiguous() for t in full), 0,
+            length[lo:hi], 128, 128 ** -0.5)
+        assert torch.equal(part, out[lo:hi])
+    assert not out[1].any()                        # length 0: zeros
+
+
+def test_quant_decode_empty_slots_are_finite_zeros(cuda):
+    full = qattn_decode_state(3, 2, 4, 128, 4, 64, 4, 1, 2, 5, cuda)
+    q = torch.randn((3, 8, 128), device=cuda)
+    out = qa.quant_attention_decode(q, full, 0, torch.zeros(
+        3, dtype=torch.int32, device=cuda), 128, 0.1)
+    assert torch.isfinite(out).all() and not out.any()
+
+
+def test_quant_decode_graph_replays_bit_identical(cuda):
+    """Captured in a CUDA graph (a device length advanced in place between
+    replays, as the decode step's cache does) and replayed twice, the
+    one-launch decode gives eager's bits."""
+    full = qattn_decode_state(4, 8, 4, 128, 51, 64, 4, 1, 0, 11, cuda)
+    q = torch.randn((4, 32, 128), device=cuda).to(torch.bfloat16)
+    length = torch.tensor(3136, dtype=torch.int32, device=cuda)
+    call = lambda: qa.quant_attention_decode(  # noqa: E731
+        q, full, 0, length, 128, 128 ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for step in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, call())
+        length.add_(1)
 
 
 def _tiny_tree(cfg, seed, device):

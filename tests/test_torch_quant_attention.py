@@ -73,7 +73,7 @@ def _close(got, want, tol):
 
 CASES = [(bits, vg, 0, "slots") for bits in (2, 4, 8) for vg in (HD, 8)] + [
     (4, HD, 2, "slots"), (4, 8, 2, "scalar"), (4, HD, 0, "scalar"),
-    (2, 8, 2, "slots")]
+    (2, 8, 2, "slots"), (4, 8, 0, "0-d"), (8, HD, 2, "0-d")]
 
 
 @pytest.mark.parametrize("bits,v_group,rank,lengths", CASES)
@@ -84,6 +84,9 @@ def test_decode_attention_matches_jax(bits, v_group, rank, lengths):
     if lengths == "slots":
         j_len = jnp.asarray(SLOT_LENGTHS, jnp.int32)
         t_len = torch.as_tensor(SLOT_LENGTHS, dtype=torch.int32)
+    elif lengths == "0-d":
+        j_len = jnp.int32(3 * GAP + 2)
+        t_len = torch.tensor(3 * GAP + 2, dtype=torch.int32)
     else:
         j_len, t_len = jnp.int32(2 * GAP + 7), 2 * GAP + 7
     want_twin = jqa.quant_attention_decode_reference(
@@ -173,12 +176,47 @@ def test_twin_matches_cache_update_attention():
 
 
 def test_chunk_splits_depend_on_chunks_and_heads_only():
+    """Splits of about five chunks (the Llama-3-8B decode at B = 4 in one
+    wave of CTAs), at most MAX_SPLITS, every chunk in one, from (C, KVH)
+    alone; fewer where many KV heads fill the card already."""
     for C in (1, 4, 17, 51, 200):
-        for KVH_ in (1, 2, 8, 32):
+        for KVH_ in (1, 2, 8, 32, 64):
             nsplit, cps = qa.chunk_splits(C, KVH_)
-            assert 1 <= nsplit <= C and (nsplit - 1) * cps < C <= nsplit * cps
-    assert qa.chunk_splits(51, 8) == (51, 1)
-    assert qa.chunk_splits(200, 8) == (50, 4)
+            assert 1 <= nsplit <= min(C, qa.MAX_SPLITS)
+            assert (nsplit - 1) * cps < C <= nsplit * cps
+    assert qa.chunk_splits(51, 8) == (11, 5)
+    assert qa.chunk_splits(17, 8) == (4, 5)
+    assert qa.chunk_splits(200, 8) == (29, 7)
+    assert qa.chunk_splits(200, 64) == (9, 23)
+    assert qa.chunk_splits(3, 1) == (1, 3)
+
+
+def test_attention_plan_ring_fits_and_is_as_deep_as_it_may_be():
+    """The block makes every chunk's scaled q ahead where the split's
+    chunks fit MAX_SLOTS slots (else two slots, a chunk's as it lands); the
+    ring takes min(MAX_STAGES, cps) stages where they fit in 227 KB beside
+    them, fewer where not, never none; the plan's shared memory is
+    smem_bytes at that depth."""
+    plan = qa.attention_plan(51, 8, 4, 128, 64, 4, 1)
+    assert plan == {"nsplit": 11, "cps": 5, "stages": 4, "slots": 5,
+                    "stage_bytes": 9728, "smem_bytes": 69376}
+    assert qa.attention_plan(200, 64, 4, 32, 64, 4, 1)["slots"] == 2
+    assert qa.attention_plan(6, 2, 4, 128, 64, 4, 1)["stages"] == 3  # cps 3
+    for hd in (32, 128, 256):
+        for gap in (8, 64, 256, 512):
+            for bits in (2, 4, 8):
+                if qa._geometry_fault(hd, 4, gap, bits, 1) is not None:
+                    continue
+                plan = qa.attention_plan(40, 2, 4, hd, gap, bits, 1)
+                st, sl = plan["stages"], plan["slots"]
+                assert 1 <= st <= min(qa.MAX_STAGES, plan["cps"])
+                assert sl in (2, plan["cps"]) and sl <= qa.MAX_SLOTS
+                assert plan["smem_bytes"] == qa.smem_bytes(4, hd, gap, bits,
+                                                           1, st, sl)
+                assert plan["smem_bytes"] <= qa.MAX_SMEM_BYTES
+                if st < min(qa.MAX_STAGES, plan["cps"]):
+                    assert qa.smem_bytes(4, hd, gap, bits, 1, st + 1,
+                                         sl) > qa.MAX_SMEM_BYTES
 
 
 def test_residual_attention_rows_do_not_depend_on_batch():
@@ -204,23 +242,64 @@ def test_residual_attention_rows_do_not_depend_on_batch():
 def test_decode_route_takes_the_kernel_s_geometries(hd, rep):
     """The fused decode runs where the kernel takes the geometry: head_dim
     a multiple of 32 up to 256, up to 16 query heads per KV head (8 above
-    head_dim 128) and a block's shared memory within 227 KB, which grows
-    with the gap until it passes; everywhere else cache.update."""
+    head_dim 128) and a block's shared memory (one ring stage) within
+    227 KB, which grows with the gap until it passes; everywhere else
+    cache.update. The low-rank rank does not enter it."""
     fits = hd % 32 == 0 and 32 <= hd <= 256 and rep <= (
         16 if hd <= 128 else 8)
     last = 0
     for gap in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
         for bits, v_group, rank in ((4, 8, 0), (2, 128, 2), (8, 32, 1)):
             Gh = hd // min(v_group, hd)
-            smem = qa.smem_bytes(rep, hd, gap, Gh, rank)
+            smem = qa.smem_bytes(rep, hd, gap, bits, Gh)
             want = fits and smem <= qa.MAX_SMEM_BYTES == 227 * 1024
-            assert qa.decode_route(hd, rep, gap, bits, v_group, rank) == (
-                "fused" if want else "update")
+            for r in (rank, 64):
+                assert qa.decode_route(hd, rep, gap, bits, v_group, r) == (
+                    "fused" if want else "update")
         assert smem > last
         last = smem
     if fits:                       # a short gap fits, the longest does not
         assert qa.decode_route(hd, rep, 8, 4, 8) == "fused"
         assert qa.decode_route(hd, rep, 4096, 4, 8) == "update"
+
+
+def _parent_smem_bytes(rep, hd, gap, Gh, rank):
+    """Shared memory of the one-chunk-a-block kernel that this one
+    replaced (its Smem, f32 arrays on 16-byte boundaries), the bound of
+    the geometries its route sent to the kernel."""
+    up = lambda n: (n + 3) & ~3                   # noqa: E731
+    krep = next((b for b in (1, 2, 4, 8) if rep <= b), 16)
+    k = up(rep * hd)
+    p = up(k + max(gap * (hd + 1), 4 * rep * hd))
+    pt = up(p + rep * gap)
+    vsm = up(pt + gap * krep)
+    lk = up(vsm + 2 * gap * Gh)
+    lv = up(lk + rank * gap)
+    pl = up(lv + rank * gap)
+    m = up(pl + rep * rank)
+    return (m + 3 * rep) * 4
+
+
+def test_decode_route_takes_every_geometry_the_parent_kernel_took():
+    """Every geometry that the previous kernel's route sent to the kernel
+    (head_dim a multiple of 32 up to 256, rep <= 16 (8 above 128), bits
+    2/4/8 with gap % per == 0, any V group, any rank, shared memory <= 227
+    KB) still goes to the kernel."""
+    taken = 0
+    for hd in range(32, 257, 32):
+        for rep in range(1, 17 if hd <= 128 else 9):
+            for bits, per in ((2, 4), (4, 2), (8, 1)):
+                for gap in range(per, 1025, per * 3):
+                    for Gh in (1, 2, hd // 32, hd):
+                        for rank in (0, 8, 64):
+                            if _parent_smem_bytes(rep, hd, gap, Gh,
+                                                  rank) > 227 * 1024:
+                                continue
+                            taken += 1
+                            assert qa.decode_route(hd, rep, gap, bits,
+                                                   hd // Gh, rank) \
+                                == "fused", (hd, rep, gap, bits, Gh, rank)
+    assert taken > 10000
 
 
 def test_decode_route_refuses_bits_and_gaps_the_kernel_does_not_pack():
@@ -232,11 +311,27 @@ def test_decode_route_refuses_bits_and_gaps_the_kernel_does_not_pack():
 
 def test_smem_bytes_is_the_kernel_s_layout():
     """Smem of csrc/quant_attention.cu at the Llama-3-8B decode (head_dim
-    128, 4 query heads per KV head, gap 64, per-token V scales), by hand
-    in floats: q 512, keys 64 x 129 (over the 4 x 4 x 128 reduction), 256
-    logits, 64 x 4 probabilities, 2 x 64 V scales, 3 x 4 running values;
-    with rank 2, 2 x 64 low-rank q values each for K and V and 4 x 2
-    products more."""
-    assert qa.smem_bytes(4, 128, 64, 1, 0) == 4 * (
-        512 + 64 * 129 + 256 + 256 + 128 + 12) == 37680
-    assert qa.smem_bytes(4, 128, 64, 1, 2) == 37680 + 4 * (256 + 8)
+    128, 4 query heads per KV head, gap 64, 4 bits, per-token V scales), by
+    hand in bytes: 128 of alignment slack and 128 of barriers, q as 4 rows
+    of 132 floats (to a multiple of 128 bytes), four chunks' scaled-q
+    fragments (8 x 128 floats each; two by default) and 64 bytes of
+    q . k_mn each (to a multiple of 128), q (4 x 128 floats at most) and
+    8 x 128 bytes of K scales a slot, then 4 ring
+    stages of 2 x 32 x 128 code bytes, 2 x 128 K and 2 x 64 V scale floats
+    (9728 bytes), over the merge area (4 warps x 8 x 128 floats in the
+    fragment layout, (8 + 64 + 7) x 4 floats of states, split weights and
+    l, 4 x 64 logits)."""
+    stage = 2 * 32 * 128 + 4 * (2 * 128 + 2 * 64)
+    assert qa.stage_bytes(128, 64, 4, 1) == stage == 9728
+    fixed = 128 + 128 + 2176 + 2 * 8 * 128 * 4 + 128 + 2048 + 2 * 8 * 128
+    merge = 4 * (4 * 8 * 128 + 79 * 4 + 4 * 64)
+    assert merge < 4 * stage
+    assert qa.smem_bytes(4, 128, 64, 4, 1, 4, 4) == (
+        fixed + 2 * 8 * 128 * 4 + 128 + 2 * 8 * 128 + 4 * stage) == 64128
+    assert qa.smem_bytes(4, 128, 64, 4, 1, 4) == fixed + 4 * stage
+    # with one stage the merge area is the larger, as at rep 16 (4 x 16 x
+    # 128 + 79 x 16 + 16 x 64 floats)
+    assert qa.smem_bytes(4, 128, 64, 4, 1) == fixed + merge
+    assert qa.smem_bytes(16, 128, 64, 4, 1) == (
+        128 + 128 + 16 * 132 * 4 + 2 * 16 * 128 * 4 + 128 + 16 * 128 * 4
+        + 2 * 8 * 128 + 4 * (4 * 16 * 128 + 79 * 16 + 16 * 64))

@@ -92,3 +92,56 @@ def test_wrapper_on_cpu_is_the_twin_and_checks_formats():
     p = tpk.pack_mx(W, 8, "int4", 32, axis=1)
     with pytest.raises(ValueError, match="axis 0"):
         dm.dequant_matmul_sad_s8(torch.zeros(1, 32), p)
+
+
+@pytest.mark.parametrize("decode", ["native", "sb4", "sb2"])
+def test_s8_route_takes_multiples_of_16(decode):
+    """The int8 tensor-core GEMV takes every block that is a multiple of 16
+    (its mma step) up to 256 for one-byte codes; the CUDA-core kernel the
+    others that the W8A8 path takes (4 packed rows a group)."""
+    for block in (16, 32, 48, 64, 128, 256):
+        assert dm.s8_route(decode, block) == "tc"
+    for block in (4, 8, 12, 20, 24):
+        assert dm.s8_route(decode, block) == "cc"
+    assert dm.s8_counter(decode, 32) == f"dequant_gemv_s8_{decode}"
+    assert dm.s8_counter(decode, 8) == f"dequant_gemv_s8_{decode}_cc"
+    with pytest.raises(ValueError, match="no tensor-core W8A8"):
+        dm.s8_gemv_plan(decode, 256, 256, 8, 1)
+
+
+@pytest.mark.parametrize("decode,block", [("native", 32), ("sb4", 16),
+                                          ("sb2", 16), ("sb4", 32)])
+def test_s8_gemv_plan_is_the_bf16_gemv_s_with_int8_x(decode, block):
+    """The W8A8 plan has the bf16-activation GEMV's stage (the same packed
+    code rows) and a split that depends on the weight alone; x takes one
+    byte a K row, so its pitch is the split's K plus 16 and the ring fits
+    227 KB beside 64 rows."""
+    for K, N in ((4096, 28672), (4096, 6144), (14336, 4096), (200, 130)):
+        plans = [dm.s8_gemv_plan(decode, N, K, block, M)
+                 for M in (1, 8, 13, 64)]
+        bf16 = dm.gemv_plan(decode, N, K, block, 8)
+        for p in plans:
+            for key in ("stage_blocks", "sub_stride", "se_off",
+                        "stage_bytes", "ksplit", "split_blocks",
+                        "col_tiles", "tiles", "ctas", "tma"):
+                assert p[key] == plans[0][key], key
+            assert p["stage_bytes"] == bf16["stage_bytes"]
+            assert p["x_pitch"] == p["split_blocks"] * block + 16
+            assert 2 <= p["stages"] <= dm.GEMV_MAX_STAGES
+            assert p["smem_bytes"] == (
+                2048 + p["stages"] * p["stage_bytes"]
+                + -(-8 * p["n8_tiles"] * p["x_pitch"] // 128) * 128)
+            assert p["smem_bytes"] <= dm.SM90_MAX_SMEM
+            NB = -(-K // block)
+            assert p["ksplit"] * p["split_blocks"] >= NB
+        assert [p["n8_tiles"] for p in plans] == [1, 1, 2, 8]
+
+
+def test_quantize_x_int8_on_cpu_is_the_twin():
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (3, 70)).astype(np.float32))
+    dm.reset_launch_counts()
+    codes, scale = dm.quantize_x_int8(x)
+    want = dm.quantize_activations_int8(x)
+    assert torch.equal(codes, want[0]) and torch.equal(scale, want[1])
+    assert dm.launch_counts["quantize_x_int8"] == 0

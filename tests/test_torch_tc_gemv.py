@@ -140,15 +140,22 @@ def test_gemv_plan_at_the_main_path_shape():
 def test_gemv_plan_mirrors_the_kernel_source():
     src = (CSRC / "dequant_gemv.cu").read_text()
     hdr = (CSRC / "gemv_tc.cuh").read_text()
+    s8 = (CSRC / "dequant_gemv_s8.cu").read_text()
+    # the stage layout and the ring's copier are gemv_tc.cuh's, shared with
+    # the W8A8 GEMV; the x pitch is each kernel's own
+    for line in ("p.x_pitch = p.nbps * p.B * 2 + 16;", "p.tma = N % 16 == 0",
+                 "stage_layout<mxq::code_bytes<D>()>(p);"):
+        assert line in src, line
+    for line in ("p.x_pitch = p.nbps * p.B + 16;", "p.tma = N % 16 == 0",
+                 "stage_layout<1>(p);"):
+        assert line in s8, line
     for line in ("constexpr int kTN = 256;", "constexpr int kSubW = 128;",
                  "p.sub_stride = align_up(p.sb * p.rows * kSubW, 1024);",
-                 "p.se_off = 2 * cb * p.sub_stride;",
+                 "p.se_off = 2 * CB * p.sub_stride;",
                  "p.stage_bytes = p.se_off + align_up(p.sb * kTN, 1024);",
-                 "p.x_pitch = p.nbps * p.B * 2 + 16;",
                  "return kAlign + kBarBytes + p.stages * p.stage_bytes\n"
-                 "         + align_up(8 * nt * p.x_pitch, 128);",
-                 "p.tma = N % 16 == 0"):
-        assert line in src, line
+                 "         + align_up(8 * nt * p.x_pitch, 128);"):
+        assert line in hdr, line
     for line in ("constexpr int kAlign = 1024;",
                  "constexpr int kBarBytes = 1024;",
                  "constexpr int kMaxStages = 8;",
