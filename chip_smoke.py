@@ -109,15 +109,28 @@ the package is missing. Phases, each of which raises on failure:
     or ``gemm_tile`` where the block does not divide its K step) and held
     to its plain twin, timed; then one call a case as the entry point's
     run, with exact launch counts;
-17. ``sad_s8_vs_plain``: the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
+17. ``sad_s8_vs_plain`` (run right after the build, while the profiler's
+    windows are whole): the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
     shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``, the
-    whole call and its GEMV alone, beside the bf16-activation GEMV,
+    whole call and its GEMV alone (a profiler window checked against the
+    wrappers' launch counts), beside the bf16-activation GEMV,
     ``torch.matmul`` and ``torch._int_mm``; the one-launch activation
     quantizer bit-equal to its twin;
 18. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
     weight shape (block 32) and a ragged one (block 16), bit-equal to
     ``pack_mx(exact_scale=True)``, timed beside the byte bound;
-19. ``prefill_experiments``: the port's four prefill-GEMM experiment
+19. ``gptq_main_path``: Llama-3-8B at full width, 2 layers, GPTQ-calibrated
+    on the card (``quant.calibrate.gptq_quantize_model``: int2 inliers, fp4
+    outliers, block 16, at most 2 outliers a block, decisions collected; its
+    column loop replayed from CUDA graphs) on 16 synthetic crops of 512
+    tokens, each linear's Hessian proxy loss beside round-to-nearest's;
+    packed from GPTQ's decisions into the compact NB transport (4.0 bits a
+    weight), its perplexity over 8 windows of 512 tokens (NB GEMMs) within
+    1e-3 of the fake-quant model's and its last logits within 4e-2, and a
+    prefill with 32 graph-replayed decode steps (NB GEMVs), launch counts
+    held exactly; the seconds a layer by stage and the column loop's
+    seconds a column eagerly and replayed;
+20. ``prefill_experiments``: the port's four prefill-GEMM experiment
     scripts (``microscopiq_tpu_torch.scripts.exp_prefill_floor``,
     ``_tiles2``, ``_overlap``, ``_pipe``) through their ``main()`` at
     gate_up, M = 1024, on one seeded setup: one line per arm (the
@@ -126,7 +139,7 @@ the package is missing. Phases, each of which raises on failure:
     held to its plain version and timed in three interleaved passes, then
     ``prefill_decomposition``: dense, tile loop, convert, decode, best
     tiles, pipelining and resident x side by side;
-20. ``gemv_experiments``: the port's three decode-GEMV experiment scripts
+21. ``gemv_experiments``: the port's three decode-GEMV experiment scripts
     (``microscopiq_tpu_torch.scripts.exp_decode_variants``,
     ``exp_sad_tiles``, ``exp_nb_variants``) through their ``main()`` on
     their own setups (M = 8): one line per arm (the decode variants, the
@@ -169,6 +182,13 @@ side-band GEMV at the side-band arm's decode shapes (q, k, v, o, gate, up,
 down, lm_head; M = 1, 8, 64, 255), each beside its bound, ``torch.matmul``
 and its HBM rate, and prints them as one JSON line (``gemv_times``), to
 compare two checkouts on one card.
+
+    python3 chip_smoke.py --quant-times
+
+times only the MX block quantizer (gate_up in five formats at block 32,
+the ragged shape at block 16) beside its byte bound and prints one JSON
+line (``quant_times``); it calls only the wrapper, which the previous tree
+has too, so copy it into a parent checkout to compare the two on one card.
 """
 
 from __future__ import annotations
@@ -258,30 +278,14 @@ def card_info():
     return card_line(), torch.cuda.get_device_name(0), torch.cuda.device_count()
 
 
-def device_ms(fn, n_args: int, calls: int = 16) -> float:
+def device_ms(fn, n_args: int, calls: int = 16, phase: str = "") -> float:
     """Device time per call of fn(i), i cycling over n_args operand copies:
-    the CUDA kernels' time in a torch.profiler window over ``calls`` calls,
-    over their number. For a call whose host time exceeds its device time,
-    where back-to-back CUDA events would time the host. A window in which
-    the profiler delivered no device record is taken again; after three
-    such windows the call is timed with CUDA events, and stderr says so."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(0)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(calls):
-                fn(i % n_args)
-            torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / 1e3 / calls
-    print("chip_smoke: torch.profiler recorded no device time in three "
-          "windows; timed with CUDA events", file=sys.stderr, flush=True)
-    return cuda_ms(fn, n_args)
+    the CUDA kernels' time in a whole torch.profiler window over ``calls``
+    calls (:func:`kernel_split_ms`, which raises on a short one), over
+    their number. For a call whose host time exceeds its device time,
+    where back-to-back CUDA events would time the host."""
+    by_name, _ = kernel_split_ms(fn, n_args, calls, phase=phase)
+    return sum(by_name.values())
 
 
 def graph_ms(fn, n_args: int, calls: int = 16, replays: int = 3) -> float:
@@ -314,27 +318,78 @@ def graph_ms(fn, n_args: int, calls: int = 16, replays: int = 3) -> float:
     return ms
 
 
-def kernel_split_ms(fn, n_args: int, calls: int = 16):
-    """Device time per call of fn(i), i cycling over n_args operand copies,
-    by CUDA kernel name, and the kernel launches per call, from one
-    torch.profiler window over ``calls`` calls: ({name: ms}, launches), or
-    (None, None) where the profiler recorded no device time."""
+PROFILE_FILLER = 4096     # spin kernels on each side of the timed calls
+filler_lost = []          # per window: filler records the profiler lost
+
+
+def profile_window(fn, n_args: int, calls: int):
+    """One torch.profiler window over ``calls`` calls of fn(i), i cycling
+    over n_args operand copies: [(CUDA kernel name, device us, events)]
+    for every kernel with device time. The calls sit between
+    PROFILE_FILLER one-cycle spin kernels (``torch.cuda._sleep``) on each
+    side, which are left out of the result; how many of their records the
+    window lost goes to ``filler_lost``. On the H100 machines a window
+    loses the kernel records of its first N launches, N growing through
+    the process (one more every ~15 s in a probe, 170 in one full run),
+    and, in some windows, the records of its last launches, those whose
+    kernel times fall past the window's end (a few hundred us of them):
+    the filler takes both losses (``_dev/profiler_clock.py``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn(0)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_FILLER):
+            torch.cuda._sleep(1)
         for i in range(calls):
             fn(i % n_args)
+        for _ in range(PROFILE_FILLER):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    ms, count = {}, 0
+    events, spin = [], 0
     for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if t > 0:
-            ms[e.key] = t / 1e3 / calls
-            count += e.count
-    return (ms, count / calls) if ms else (None, None)
+        if getattr(e, "self_device_time_total", 0.0) <= 0:
+            continue
+        if "spin_kernel" in e.key:
+            spin += e.count
+        else:
+            events.append((e.key, e.self_device_time_total, e.count))
+    filler_lost.append(2 * PROFILE_FILLER - spin)
+    return events
+
+
+def kernel_split_ms(fn, n_args: int, calls: int = 16, phase: str = "",
+                    window=None, sync=None):
+    """Device time per call of fn(i), i cycling over n_args operand copies,
+    by CUDA kernel name, and the kernel launches per call, from a whole
+    torch.profiler window (``window``, :func:`profile_window` unless a
+    test gives another): ({name: ms}, launches).
+
+    A window is whole when it holds, over its calls, at least as many kernel
+    events as the wrappers' ``launch_counts`` rose by over the same calls
+    (a wrapper counts one of the kernels it launches) and a multiple of the
+    calls (every call launches the same kernels). A short window is taken
+    again over half the calls; a second short one raises, naming the phase
+    and both counts."""
+    import torch
+
+    sync = sync or torch.cuda.synchronize
+    window = window or profile_window
+    fn(0)
+    sync()
+    for n in (calls, max(1, calls // 2)):
+        before = sum(launches().values())
+        events = window(fn, n_args, n)
+        want = sum(launches().values()) - before
+        got = sum(c for _, _, c in events)
+        if events and got >= want and got % n == 0:
+            return {k: t / 1e3 / n for k, t, _ in events}, got / n
+        print(f"chip_smoke: {phase}: the profiler window held {got} kernel "
+              f"events over {n} calls, the wrappers counted {want}: "
+              f"{[(k[:48], c) for k, _, c in events]}",
+              file=sys.stderr, flush=True)
+    raise AssertionError(
+        f"{phase}: the profiler window held {got} kernel events over {n} "
+        f"calls (twice short); the wrappers counted {want} launches")
 
 
 def kernel_phase(card: str):
@@ -894,24 +949,26 @@ def qattn_timing(c, full, lengths, q) -> dict:
         qg, *(t[0] for t in fulls[j][:6]), nfull, scale, QKV_GAP, c["bits"])
     decode = lambda j: qa.quant_attention_decode(            # noqa: E731
         q, fulls[j], 0, lengths, c["v_group"], scale)
-    out = {"ms": device_ms(chunk, nc), "graph_ms": graph_ms(chunk, nc),
+    tag = f"quant_attention B={c['B']} C={c['C']}"
+    out = {"ms": device_ms(chunk, nc, phase=f"{tag} chunk"),
+           "graph_ms": graph_ms(chunk, nc),
            "wrapper_ms": cuda_ms(chunk, nc),
-           "decode_ms": device_ms(decode, nc),
+           "decode_ms": device_ms(decode, nc, phase=f"{tag} decode"),
            "decode_graph_ms": graph_ms(decode, nc)}
-    by_name, per_call_launches = kernel_split_ms(decode, nc)
+    by_name, per_call_launches = kernel_split_ms(decode, nc, phase=tag)
     out["decode_launches_per_call"] = per_call_launches
-    out["decode_attention_kernels_ms"] = (
-        None if by_name is None else
-        sum(t for k, t in by_name.items()
-            if any(a in k for a in ATTENTION_KERNELS)))
+    out["decode_attention_kernels_ms"] = sum(
+        t for k, t in by_name.items()
+        if any(a in k for a in ATTENTION_KERNELS))
     args = tuple(t[0] for t in full[:6])
     out["plain_ms"] = device_ms(
         lambda j: qa.chunk_attention_reference(qg, *args, nfull, scale,
                                                QKV_GAP, c["bits"]), 1,
-        calls=4)
+        calls=4, phase=f"{tag} chunk plain")
     out["decode_plain_ms"] = device_ms(
         lambda j: qa.quant_attention_decode_reference(
-            q, full, 0, lengths, c["v_group"], scale), 1, calls=4)
+            q, full, 0, lengths, c["v_group"], scale), 1, calls=4,
+        phase=f"{tag} decode plain")
     # yardstick: SDPA over the dequantized bf16 K/V of the same live
     # chunk tokens
     kq, kmn, ksc, vq, vmn, vsc = args
@@ -926,7 +983,8 @@ def qattn_timing(c, full, lengths, q) -> dict:
     q4 = q.to(torch.bfloat16)[:, :, None]
     out["library_ms"] = device_ms(
         lambda j: F.scaled_dot_product_attention(
-            q4, *kvs[j], scale=scale, enable_gqa=True), nd)
+            q4, *kvs[j], scale=scale, enable_gqa=True), nd,
+        phase=f"{tag} sdpa")
     out["bound_ms"], out["bound_by"] = qattn_bound(**c)
     return out
 
@@ -1392,11 +1450,14 @@ def outlier_model(arm, layers, seed, use_kernels=True, tree=None):
 
 
 def weight_stats(model):
-    """(packed bytes of the linears, their bits per weight element)."""
+    """(packed bytes of the linears, their bits per weight element); dense
+    kernels are left out."""
+    import torch
+
     total = elems = 0
     for m in model.modules():
         w = getattr(m, "kernel", None)
-        if w is None or not hasattr(w, "nbytes"):
+        if w is None or isinstance(w, torch.Tensor):
             continue
         total += w.nbytes()
         if hasattr(w, "orig_n"):
@@ -2127,14 +2188,12 @@ def s8_timing(x, ps, nc) -> dict:
 
     s8 = lambda i: dm.dequant_matmul_sad_s8(x, ps[i])       # noqa: E731
     out = {"ms": graph_ms(s8, nc), "wrapper_ms": cuda_ms(s8, nc)}
-    by_name, per_call = kernel_split_ms(s8, nc)
+    by_name, per_call = kernel_split_ms(s8, nc, phase="sad_s8_vs_plain")
     out["launches_per_call"] = per_call
-    out["kernel_ms"] = out["quantize_ms"] = None
-    if by_name is not None:
-        kern = sum(t for k, t in by_name.items()
-                   if any(a in k for a in W8A8_KERNELS))
-        out["kernel_ms"] = kern
-        out["quantize_ms"] = sum(by_name.values()) - kern
+    kern = sum(t for k, t in by_name.items()
+               if any(a in k for a in W8A8_KERNELS))
+    out["kernel_ms"] = kern
+    out["quantize_ms"] = sum(by_name.values()) - kern
     return out
 
 
@@ -2252,9 +2311,11 @@ def quantize_x_rows(card: str, gen):
                                      "its twin's")
             nbytes = M * K * 2 + M * K + M * 4
             row = dict(kernel="quantize_x_int8", K=K, M=M, max_abs_err=0.0,
-                       ms=device_ms(lambda i: dm.quantize_x_int8(x), 1),
+                       ms=device_ms(lambda i: dm.quantize_x_int8(x), 1,
+                                    phase=f"quantize_x_int8 K={K} M={M}"),
                        plain_ms=device_ms(
-                           lambda i: dm.quantize_activations_int8(x), 1),
+                           lambda i: dm.quantize_activations_int8(x), 1,
+                           phase=f"quantize_x_int8 plain K={K} M={M}"),
                        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                        bound_by="bytes", library_ms=None, card=card)
             rows.append(row)
@@ -2329,6 +2390,299 @@ def quant_phase(card: str):
     del layer
     torch.cuda.empty_cache()
     return rows, counts
+
+
+def quant_times() -> list:
+    """The MX block quantizer's time at gate_up (4096 x 28672, f32) in the
+    five formats at block 32, and at the ragged block-16 shape in fp6:
+    CUDA events over L2-cold copies, as quant_phase times it, beside the
+    byte bound (f32 in, codes and exponents out) and its share. It calls
+    only the wrapper, which the previous tree has too."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
+
+    gen = torch.Generator(device="cuda").manual_seed(4016)
+    cases = [("gate_up", 4096, 28672, 32, f) for f in QUANT_FORMATS] + [
+        ("ragged",) + QUANT_RAGGED + (16, "fp6_e3m2")]
+    rows = []
+    for lin, K, N, bs, fmt in cases:
+        W = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        W[::97] *= 30.0
+        nc = copies_for(W.numel() * 4)
+        Ws = [W] + [W.clone() for _ in range(nc - 1)]
+        got = mq.quantize_mx_block(W, 8, fmt, bs)
+        nbytes = W.numel() * 4 + got.codes.numel() * got.codes.element_size() \
+            + got.scale_exp.numel()
+        ms = cuda_ms(lambda i: mq.quantize_mx_block(Ws[i], 8, fmt, bs), nc)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(format=fmt, block=bs, linear=lin, K=K, N=N, ms=ms,
+                         bound_ms=bound, share_of_bound=bound / ms))
+        del Ws, W, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+GPTQ_LAYERS = 2                 # of Llama-3-8B's 32: calibration is per layer
+GPTQ_CALIB = (16, 512)          # crops x tokens (the reference: 128 x 2048)
+GPTQ_PPL = (8, 512)             # windows x tokens
+GPTQ_BUDGET = 2                 # outliers a block: the compact NB slots
+# packed against fake-quant perplexity: the same weights (the NB decode is
+# exact), bf16 sums in another order
+GPTQ_PPL_REL_TOL = 1e-3
+GPTQ_PATHS = ("self_attn/q_proj", "self_attn/k_proj", "self_attn/v_proj",
+              "self_attn/o_proj", "mlp/gate_proj", "mlp/up_proj",
+              "mlp/down_proj")
+
+
+def gptq_tree(cfg, seed):
+    """Llama-3-8B weights at full width and ``cfg.num_hidden_layers`` deep
+    for calibration, seeded on the card: the linears outlier_weight's (bf16,
+    N(0, 0.02) with 3% of the elements x10), the embeddings float32, the
+    norms ones, the lm_head N(0, 0.02) bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    k = lambda shape: {"kernel": outlier_weight(shape, gen)}  # noqa: E731
+    ones = lambda: {"scale": torch.ones(D, device="cuda")}  # noqa: E731
+    model = {"embed_tokens": torch.randn((V, D), generator=gen,
+                                         device="cuda") * 0.02,
+             "norm": ones()}
+    for i in range(cfg.num_hidden_layers):
+        model[f"layers_{i}"] = {
+            "self_attn": {"q_proj": k((D, H * hd)), "k_proj": k((D, KVH * hd)),
+                          "v_proj": k((D, KVH * hd)), "o_proj": k((H * hd, D))},
+            "mlp": {"gate_proj": k((D, I)), "up_proj": k((D, I)),
+                    "down_proj": k((I, D))},
+            "input_layernorm": ones(), "post_attention_layernorm": ones()}
+    lm_head = torch.randn((D, V), generator=gen, device="cuda",
+                          dtype=torch.bfloat16) * 0.02
+    return {"params": {"model": model, "lm_head": {"kernel": lm_head}}}
+
+
+def _serving(tree):
+    """The tree with its dense leaves in bf16 and its projections fused."""
+    import torch
+
+    from microscopiq_tpu_torch.nn import fuse_projections
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return node.to(torch.bfloat16) if isinstance(node, torch.Tensor) \
+            else node
+
+    return fuse_projections(conv(tree))
+
+
+def gptq_column_loop_times(W, H, qz, blocks: int = 2) -> dict:
+    """Seconds a column of the block step at W's rows (one linear's W and
+    H), eagerly and replayed from its CUDA graph, over ``blocks`` blocks of
+    128 columns."""
+    import torch
+
+    from microscopiq_tpu_torch.quant import gptq as gq
+
+    g = gq.GPTQ(W)
+    g.H = H
+    W_, Hinv, _ = g.inverse_hessian()
+    step = gq.mx_block_step(gq.quantizer_config(qz), "mx_prune", True)
+    parts = [(W_[:, b * 128:(b + 1) * 128],
+              Hinv[b * 128:(b + 1) * 128, b * 128:(b + 1) * 128])
+             for b in range(blocks)]
+    out = {}
+    for tag in ("eager", "graph"):
+        run = step if tag == "eager" else gq.GraphedStep(step, parts[0])
+        run(*parts[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in parts:
+            run(*p)
+        torch.cuda.synchronize()
+        out[tag] = (time.perf_counter() - t0) / (128 * blocks)
+        del run
+    return out
+
+
+def gptq_main_path(card: str):
+    """The GPTQ path at Llama-3-8B width, GPTQ_LAYERS deep: calibration
+    (``gptq_quantize_model``, the canonical quantizer with at most
+    GPTQ_BUDGET outliers a block, decisions collected) on the synthetic
+    corpus's GPTQ_CALIB crops, each linear's Hessian proxy loss beside
+    round-to-nearest's on the same H (printed, not held: prune-and-
+    redistribute zeroes weights that RTN keeps); the compact NB packing from
+    GPTQ's decisions (4.0 bits a weight) and fused projections; the packed
+    model's perplexity over GPTQ_PPL windows (NB GEMMs) within
+    GPTQ_PPL_REL_TOL of the fake-quant model's, last-position logits within
+    LOGIT_REL_TOL; a last_only prefill of 8 x 128 tokens and 32 greedy
+    decode steps replayed from a CUDA graph (NB GEMVs), launch counts held
+    exactly. Returns the path's launches ({"prefill": ppl and prefill,
+    "decode": decode})."""
+    import torch
+
+    from microscopiq_tpu_torch.eval.data import get_loaders
+    from microscopiq_tpu_torch.eval.ppl import perplexity
+    from microscopiq_tpu_torch.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM)
+    from microscopiq_tpu_torch.nn import pack_params
+    from microscopiq_tpu_torch.quant import MXQuantizer
+    from microscopiq_tpu_torch.quant import gptq as gq
+    from microscopiq_tpu_torch.quant.calibrate import gptq_quantize_model
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    L, (NC, SC), (NW, SW) = GPTQ_LAYERS, GPTQ_CALIB, GPTQ_PPL
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=L)     # float32 calibration
+    V = cfg.vocab_size
+    tree = gptq_tree(cfg, seed=15)
+    crops, test_ids = get_loaders("synthetic", NC, seed=0, seqlen=SC)
+    calib = torch.as_tensor(np.concatenate(crops) % V, device="cuda").long()
+    test_ids = np.asarray(test_ids)[:NW * SW] % V
+    if len(test_ids) != NW * SW:
+        raise AssertionError(f"test stream of {len(test_ids)} tokens")
+    qz = MXQuantizer(8, 8, "int2", "fp4_e2m1", std_dev=2.0, axes=(0,),
+                     block_size=16, max_outliers_per_block=GPTQ_BUDGET)
+    proxy, kept = {}, {}
+
+    def on_quantized(i, path, g, Q):
+        rtn = qz.quantize(g.W)
+        loss = lambda q: float((((q - g.W) @ g.H) * (q - g.W)).sum())  # noqa
+        proxy[f"layers_{i}/{path}"] = {"gptq": loss(Q), "rtn": loss(rtn)}
+        if i == 0 and path == "self_attn/q_proj":
+            kept["q_proj"] = (g.W.clone(), g.H.clone())
+
+    timer = gq.StageTimer("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qtree, dec = gptq_quantize_model("llama", cfg, tree, calib, quantizer=qz,
+                                     collect_decisions=True, verbose=False,
+                                     timer=timer, on_quantized=on_quantized)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    calib_peak = torch.cuda.max_memory_allocated()
+    gq.clear_graphs()
+    want = {("model", f"layers_{i}") + tuple(p.split("/")) + ("kernel",)
+            for i in range(L) for p in GPTQ_PATHS}
+    if set(dec) != want or len(proxy) != len(want):
+        raise AssertionError(f"calibrated {sorted(dec)}, want {sorted(want)}")
+    for key in want:
+        q = qtree["params"]
+        w = tree["params"]
+        for k in key:
+            q, w = q[k], w[k]
+        if not (torch.isfinite(q).all() and (q != w.float()).any()):
+            raise AssertionError(f"{key}: not calibrated")
+    if not all(np.isfinite(v["gptq"]) and np.isfinite(v["rtn"])
+               for v in proxy.values()):
+        raise AssertionError(f"proxy losses {proxy}")
+    st = timer.seconds
+    per_layer = {"capture": (st["capture"] - st["hessian"]) / L,
+                 "hessian": st["hessian"] / L,
+                 "cholesky": st["cholesky"] / L,
+                 "column_loop": st["column_loop"] / L,
+                 "of_which_graph_capture": st.get("graph_capture", 0.0) / L,
+                 "propagate": st["propagate"] / L}
+    cols = kept["q_proj"][0].shape[1]
+    columns_a_layer = (3 * cols + cfg.num_attention_heads * cfg.head_dim
+                       + 2 * cols + cfg.intermediate_size)
+    loop = gptq_column_loop_times(*kept.pop("q_proj"), qz)
+    del tree
+    torch.cuda.empty_cache()
+
+    specs = finalize_mx_specs(OUTLIER_SPECS)
+    packed = _serving(pack_params(qtree["params"], specs,
+                                  outlier_transport="compact",
+                                  outlier_budget=GPTQ_BUDGET, decisions=dec))
+    fake = _serving(qtree["params"])
+    del qtree, dec
+    scfg = LlamaConfig.llama3_8b(num_hidden_layers=L, dtype=torch.bfloat16,
+                                 fused_projections=True)
+    m_packed = LlamaForCausalLM(scfg, device="cuda").load_params(packed)
+    m_fake = LlamaForCausalLM(scfg, device="cuda").load_params(fake)
+    weight_bytes, bits = weight_stats(m_packed)
+    if bits != 4.0:
+        raise AssertionError(f"compact NB at {bits} bits a weight")
+
+    # perplexity: counts zeroed just before the packed run, read just after
+    perplexity(m_packed, test_ids[:2 * SW], seqlen=SW)        # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ppl_packed = perplexity(m_packed, test_ids, seqlen=SW)
+    torch.cuda.synchronize()
+    ppl_s = time.perf_counter() - t0
+    ppl_counts = launches()
+    if ppl_counts != want_counts(dequant_gemm_nb=NW * 4 * L):
+        raise AssertionError(f"perplexity launches {ppl_counts}")
+    reset_counts()
+    ppl_fake = perplexity(m_fake, test_ids, seqlen=SW)
+    if any(launches().values()):
+        raise AssertionError(f"the fake-quant model launched {launches()}")
+    ppl_rel = abs(ppl_packed - ppl_fake) / ppl_fake
+    # how often the NB GEMM's bf16 outputs equal the dense bf16 product's
+    x = torch.randn((SW, cfg.hidden_size), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1),
+                    dtype=torch.bfloat16)
+    gu = (m_packed.model.layers[0].mlp.gate_up_proj(x)
+          == m_fake.model.layers[0].mlp.gate_up_proj(x)).float().mean()
+    nb_equal_share = gu.item()
+    ids = torch.as_tensor(test_ids[:SW][None].astype(np.int64), device="cuda")
+    lp = m_packed(ids, last_only=True).float()
+    lf = m_fake(ids, last_only=True).float()
+    logit_rel = ((lp - lf).abs().max() / lf.abs().max()).item()
+    if not (np.isfinite(ppl_packed) and ppl_rel <= GPTQ_PPL_REL_TOL):
+        raise AssertionError(f"perplexity packed {ppl_packed}, fake-quant "
+                             f"{ppl_fake}: rel {ppl_rel}")
+    if not (np.isfinite(logit_rel) and logit_rel <= LOGIT_REL_TOL):
+        raise AssertionError(f"last-position logits rel err {logit_rel}")
+    del m_fake, fake
+    torch.cuda.empty_cache()
+
+    # decode: the main path's prefill and graph-replayed steps
+    B, S0, STEPS = 8, 128, 32
+    max_len = S0 + STEPS + 8
+    dids = torch.as_tensor(np.random.default_rng(0).integers(0, V, (B, S0)),
+                           device="cuda")
+    prefill_decode(m_packed, dids, 2, max_len)               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    toks, ttft, dec_s, last, pre, dcounts, *_ = prefill_decode(
+        m_packed, dids, STEPS, max_len)
+    serve_peak = torch.cuda.max_memory_allocated()
+    want_pre = want_counts(dequant_gemm_nb=4 * L)
+    want_dec = want_counts(dequant_gemv_nb=STEPS * 4 * L)
+    if pre != want_pre or dcounts != want_dec:
+        raise AssertionError(f"GPTQ path launches prefill {pre}, decode "
+                             f"{dcounts}")
+    if not (torch.isfinite(last.float()).all()
+            and ((toks >= 0) & (toks < V)).all()):
+        raise AssertionError("non-finite logits or tokens out of range")
+    log(phase="gptq_main_path", layers=L, calib_crops=NC, calib_tokens=SC,
+        seconds_a_layer=per_layer, calibration_wall_s=wall_s,
+        calibration_tokens_per_s=NC * SC / wall_s,
+        column_loop_s_a_column={**loop, "rows": cfg.hidden_size},
+        column_loop_s_a_layer_from_columns={
+            k: v * columns_a_layer for k, v in loop.items()},
+        columns_a_layer=columns_a_layer, proxy_loss=proxy,
+        ppl_windows=NW, ppl_seqlen=SW, ppl_packed=ppl_packed,
+        ppl_fake_quant=ppl_fake, ppl_rel=ppl_rel, ppl_tol=GPTQ_PPL_REL_TOL,
+        nb_gemm_equal_to_dense_share=nb_equal_share,
+        ppl_tokens_per_s=NW * SW / ppl_s, logits_rel_err=logit_rel,
+        logits_tol=LOGIT_REL_TOL, weight_bytes=weight_bytes,
+        bits_per_weight=bits, decode_ms_per_step=dec_s / STEPS * 1e3,
+        ttft_ms=ttft * 1e3, launches_ppl={k: v for k, v in ppl_counts.items()
+                                          if v},
+        launches_prefill={k: v for k, v in pre.items() if v},
+        launches_decode={k: v for k, v in dcounts.items() if v},
+        peak_mem_gb_calibration=calib_peak / 1e9,
+        peak_mem_gb_serving=serve_peak / 1e9, card=card)
+    del m_packed, packed, toks, last
+    torch.cuda.empty_cache()
+    return {"prefill": {k: pre[k] + ppl_counts[k] for k in pre},
+            "decode": dcounts}
 
 
 PREFILL_SCRIPTS = ("exp_prefill_floor", "exp_prefill_tiles2",
@@ -2521,7 +2875,9 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     paths; for the decodes that no 32-layer arm packs (sb2, pf4, pf6, the
     16-bit containers, int2 in the int8 container), the 2-layer
     full-width model runs (``two_layer_<case>``); for the W8A8 GEMV and the
-    quantizer, which no model path calls, their entry point's own run; for
+    quantizer, which no model path calls, their entry point's own run; the
+    GPTQ-calibrated 2-layer path (``gptq``: perplexity and prefill, decode)
+    for the NB kernels; for
     the GEMMs at the MX blocks that no model path packs (the gemm_tile
     routes of pf6, pf4, fp16, emi8, sb4, sb2, int8, float8 and the
     side-band format, and the sm90 ones at the other blocks of
@@ -3253,9 +3609,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if argv not in ([], ["--gemm-times"], ["--gemv-times"],
-                    ["--qattn-times"]):
+                    ["--qattn-times"], ["--quant-times"]):
         print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
-              "--qattn-times]", file=sys.stderr)
+              "--qattn-times | --quant-times]", file=sys.stderr)
         return 2
     from microscopiq_tpu_torch.ops.cuda import build
 
@@ -3266,6 +3622,8 @@ def main(argv=None) -> int:
             log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
         elif argv == ["--qattn-times"]:
             log(phase="qattn_times", **qattn_times(), card=card)
+        elif argv == ["--quant-times"]:
+            log(phase="quant_times", rows=quant_times(), card=card)
         else:
             log(phase="gemv_times", rows=gemv_times(), card=card)
         return 0
@@ -3282,6 +3640,11 @@ def main(argv=None) -> int:
     log(phase="build", seconds=build_s, ptxas=build.ptxas_report(),
         card=card)
     sm90_build_line(card)
+    # first, while the process is young: the profiler's windows lose
+    # more kernel records at their start the older the process is
+    # (profile_window's filler takes them; kernel_split_ms raises on a
+    # short window)
+    srows, scounts = s8_phase(card)
 
     rows = kernel_phase(card)
     packed, counts, _ = model_phase(card)
@@ -3301,13 +3664,17 @@ def main(argv=None) -> int:
     icounts = int_main_path(card)
     tcounts = int_two_layer_phase(card)
     rrows, rcounts = route_phase(card)
-    srows, scounts = s8_phase(card)
     mrows, mcounts = quant_phase(card)
+    gptq_counts = gptq_main_path(card)
     prows, pcounts = prefill_experiments_phase(card)
     grows, gcounts = gemv_experiments_phase(card)
+    log(phase="profiler_windows", windows=len(filler_lost),
+        filler=PROFILE_FILLER, filler_lost_max=max(filler_lost),
+        filler_lost_by_window=filler_lost, card=card)
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
-                                  ocounts, irows, icounts, tcounts, srows,
+                                  {**ocounts, "gptq": gptq_counts}, irows,
+                                  icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
                                   grows, gcounts, rrows, rcounts)),
           flush=True)

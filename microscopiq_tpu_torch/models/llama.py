@@ -129,33 +129,37 @@ class QLinear(nn.Module):
     which picks the GEMV or the GEMM by token count: ``dequant_matmul``
     for a PackedMX, ``dequant_matmul_nb`` and ``dequant_matmul_outlier``
     for the outlier formats (their GEMMs take the 256 tokens and more that
-    the JAX ``QLinear`` leaves to XLA). Without it, the plain twins.
+    the JAX ``QLinear`` leaves to XLA). Without it, the plain twins. A
+    ``bias`` (OPT's linears) is added to the product.
     """
 
     def __init__(self, dtype, use_kernels: bool = True):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
-        self.kernel = None          # set by LlamaForCausalLM.load_params
+        self.kernel = None          # set by load_params
+        self.bias = None            # (N,), added after the product (OPT)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel
         if isinstance(w, PackedMX):
             f = dequant_matmul if self.use_kernels else dequant_matmul_reference
-            return f(x, w, out_dtype=self.dtype)
-        if isinstance(w, PackedOutlierNB):
+            y = f(x, w, out_dtype=self.dtype)
+        elif isinstance(w, PackedOutlierNB):
             f = (dequant_matmul_nb if self.use_kernels
                  else dequant_matmul_nb_reference)
-            return f(x, w, out_dtype=self.dtype)
-        if isinstance(w, PackedMXOutlier):
+            y = f(x, w, out_dtype=self.dtype)
+        elif isinstance(w, PackedMXOutlier):
             f = (dequant_matmul_outlier if self.use_kernels
                  else dequant_matmul_outlier_reference)
-            return f(x, w, out_dtype=self.dtype)
-        if isinstance(w, torch.Tensor):
+            y = f(x, w, out_dtype=self.dtype)
+        elif isinstance(w, torch.Tensor):
             dt = torch.promote_types(x.dtype, w.dtype)
-            return torch.matmul(x.to(dt), w.to(dt))
-        raise TypeError(f"kernel of type {type(w).__name__} is neither a "
-                        "dense tensor nor a packed weight")
+            y = torch.matmul(x.to(dt), w.to(dt))
+        else:
+            raise TypeError(f"kernel of type {type(w).__name__} is neither a "
+                            "dense tensor nor a packed weight")
+        return y if self.bias is None else y + self.bias
 
 
 class Attention(nn.Module):
@@ -323,8 +327,7 @@ class LlamaForCausalLM(nn.Module):
 
     def load_params(self, params) -> "LlamaForCausalLM":
         """Install a flax-named weight tree (``{"params": ...}`` or bare)."""
-        tree = params.get("params", params)
-        _load_tree(self, tree, "", self.device)
+        install_tree(self, params.get("params", params), self.device)
         for name, mod in self.named_modules():
             if isinstance(mod, QLinear) and mod.kernel is None:
                 raise KeyError(f"no kernel for {name} in the weight tree")
@@ -346,20 +349,28 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(x)
 
 
-def _load_tree(module: nn.Module, tree: dict, path: str,
-               device: torch.device) -> None:
+def install_tree(module: nn.Module, tree: dict, device: torch.device,
+                 path: str = "") -> None:
+    """Install a flax-named weight tree into ``module``: a subtree goes to
+    the child module of its name (``layers_{i}`` to ``layers[i]``); a leaf
+    to the buffer or the attribute of its name (``kernel``, ``bias``,
+    ``scale``, ``embed_tokens``, ...), which the module must have; every
+    leaf a tensor or a packed weight on ``device``."""
     for key, val in tree.items():
         where = f"{path}/{key}" if path else key
         if isinstance(val, dict):
-            if isinstance(module, LlamaModel) and key.startswith("layers_"):
-                child = module.layers[int(key[len("layers_"):])]
+            layers = getattr(module, "layers", None)
+            if isinstance(layers, nn.ModuleList) and key.startswith(
+                    "layers_"):
+                child = layers[int(key[len("layers_"):])]
             elif isinstance(getattr(module, key, None), nn.Module):
                 child = getattr(module, key)
             else:
                 raise KeyError(f"weight tree entry {where} has no module")
-            _load_tree(child, val, where, device)
+            install_tree(child, val, device, where)
             continue
-        if key not in ("kernel", "scale", "embed_tokens"):
+        held = getattr(module, key, KeyError)
+        if not (held is None or isinstance(held, (torch.Tensor,) + _PACKED)):
             raise KeyError(f"unexpected weight {where}")
         if not isinstance(val, (torch.Tensor,) + _PACKED):
             raise TypeError(f"{where}: {type(val).__name__} is not a tensor "
@@ -367,8 +378,8 @@ def _load_tree(module: nn.Module, tree: dict, path: str,
         if val.device.type != device.type or (
                 device.index is not None and val.device.index != device.index):
             raise ValueError(f"{where} is on {val.device}, model on {device}")
-        if key == "scale":
-            module.register_buffer("scale", val)
+        if key in module._buffers:
+            module.register_buffer(key, val)
         else:
             setattr(module, key, val)
 

@@ -1,7 +1,8 @@
-"""Packing and serving-layout transforms of a parameter tree.
+"""Quantization, packing and serving-layout transforms of a parameter tree.
 
-Counterpart of ``find_linear_params``, ``pack_params``, ``_concat_kernels``
-and ``fuse_projections`` in ``microscopiq_tpu/nn/mapping.py``. The tree is
+Counterpart of ``find_linear_params``, ``quantize_params``, ``pack_params``,
+``_concat_kernels`` and ``fuse_projections`` in
+``microscopiq_tpu/nn/mapping.py``. The tree is
 the flax-named nested dict that :func:`microscopiq_tpu_torch.convert.
 params_from_jax` and :func:`microscopiq_tpu_torch.models.llama.build_params`
 produce; a leaf's path is the tuple of its keys.
@@ -15,6 +16,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..ops import packing
+from ..ops.outlier import quantize_mx_outlier_op
 from ..ops.packing import (PackedMX, PackedMXOutlier, PackedOutlierNB,
                            pack_mx, pack_mx_outlier)
 
@@ -47,6 +49,24 @@ def find_linear_params(params, skip: Sequence[str] = ("lm_head",)
             continue
         out[keys] = leaf
     return out
+
+
+def quantize_params(params, mx_specs, skip: Sequence[str] = ("lm_head",)):
+    """Fake-quantize (round to nearest) every linear kernel of a tree with
+    the outlier-aware MX quantizer on its last axis, bit-exact to the JAX
+    ``quantize_params``; returns a new tree."""
+    targets = set(find_linear_params(params, skip).keys())
+
+    def visit(keys, leaf):
+        if keys not in targets:
+            return leaf
+        return quantize_mx_outlier_op(
+            leaf, mx_specs, inlier_elem_format=mx_specs["w_elem_format"],
+            outlier_elem_format=(mx_specs["w_outlier_elem_format"]
+                                 or mx_specs["w_elem_format"]),
+            axes=[-1])
+
+    return _map_leaves(params, visit)
 
 
 def pack_params(params, mx_specs, skip: Sequence[str] = ("lm_head",),

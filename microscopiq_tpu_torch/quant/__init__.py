@@ -1,0 +1,7 @@
+"""Calibration: the GPTQ engine, its quantizer configs and the
+layer-sequential driver."""
+
+from .gptq import GPTQ
+from .quantizer import MXQuantizer, UniformQuantizer, quantize_uniform
+
+__all__ = ["GPTQ", "MXQuantizer", "UniformQuantizer", "quantize_uniform"]

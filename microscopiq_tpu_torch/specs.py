@@ -1,13 +1,15 @@
 """MX quantization specs: the part that the packers and the serving path read.
 
 Counterpart of ``microscopiq_tpu/specs.py`` (``MxSpecs``,
-``finalize_mx_specs``, ``mx_assert_finite``). The CLI registration and the
-other assert helpers of the reference belong to the calibration/training
-path (ROADMAP queue 1 items 6 and 9) and are not carried here.
+``finalize_mx_specs``, ``mx_assert_finite``, and the CLI's ``add_mx_args``
+and ``get_mx_specs``). The backward-pass specs and the other assert helpers
+belong to the training path (ROADMAP queue 1 item 9) and are not carried
+here.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import Optional
@@ -16,6 +18,43 @@ import torch
 
 # MX_ASSERT=True turns on the NaN guards of the outlier quantizer
 _ASSERT_MODE = os.environ.get("MX_ASSERT", "False")
+
+_HELP = {
+    "scale_bits": "Bits (sign + magnitude) for the shared exponent/scale",
+    "w_elem_format": "Weight MX elem format, one of {fp8_e5m2, fp8_e4m3, "
+                     "fp6_e3m2, fp6_e2m3, fp4_e2m1, int8, int4, int2}",
+    "a_elem_format": "Activation MX elem format. See w_elem_format",
+    "w_elem_format_bp": "Backpass weight MX elem format",
+    "a_elem_format_bp_ex": "Backpass act MX elem format (error x)",
+    "a_elem_format_bp_os": "Backpass act MX elem format (output side)",
+    "w_outlier_elem_format": "Outlier elem format for outlier-aware weight "
+                             "quantization (None disables the outlier path)",
+    "outlier_std_dev": "k in the mean±k·std outlier rule",
+    "mx_flush_fp32_subnorms": "Flush blocks with subnormal shared scale to 0",
+    "shared_exp_method": "Shared exponent method: max or none",
+    "block_size": "MX shared-exponent block size",
+    "bfloat": "BfloatX container format (8 exp + sign + mantissa)",
+    "fp": "fpX container format (5 exp + sign + mantissa)",
+    "bfloat_subnorms": "Bfloat/FP supports subnorms",
+    "quantize_backprop": "Enable mx/bfloat quantization on backward pass",
+    "round": "Global rounding mode: nearest, floor, even",
+    "round_m": "Optimizer m/v rounding mode",
+    "round_weight": "Weight bfloat rounding mode",
+    "round_output": "Activation bfloat rounding mode",
+    "round_grad_weight": "Weight-gradient rounding mode",
+    "round_grad_input": "Input-gradient rounding mode",
+    "round_mx_output": "Forward-pass MX rounding mode",
+    "round_mx_input_grad_input": "",
+    "round_mx_weight_grad_input": "",
+    "round_mx_grad_output_grad_input": "",
+    "round_mx_input_grad_weight": "",
+    "round_mx_grad_output_grad_weight": "",
+    "softmax_exp2": "Softmax uses 2^x instead of e^x",
+    "vec_use_exp2": "Use 2^x to compute e^x in vector ops",
+    "vec_use_recip": "Use Newton-Raphson reciprocal for division",
+    "use_pallas": "Use fused kernels for quantized ops (the port's CUDA "
+                  "kernels); plain PyTorch semantics otherwise",
+}
 
 
 def mx_assert_finite(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -82,6 +121,7 @@ class MxSpecs:
 
 
 _FIELDS = {f.name for f in dataclasses.fields(MxSpecs)}
+_DEFAULTS = MxSpecs()
 
 
 def apply_mx_specs(mx_specs, default_mx_specs: Optional[MxSpecs] = None
@@ -127,3 +167,46 @@ def finalize_mx_specs(specs, early_exit: bool = True) -> Optional[MxSpecs]:
               "round_mx_grad_output_grad_weight"):
         assign_if_none(r, "round_grad_input")
     return apply_mx_specs(specs, MxSpecs())
+
+
+def add_mx_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Register every spec knob as a CLI flag: ``--<name>`` (a true default
+    as ``--no_<name>``), plus ``--skip_early_exit``."""
+    group = parser.add_argument_group("mx", "MX specs")
+    for f in dataclasses.fields(MxSpecs):
+        k, v = f.name, getattr(_DEFAULTS, f.name)
+        help_str = _HELP.get(k, "") or "No help string"
+        if "elem_format" in k:
+            group.add_argument("--" + k, type=str, default=v, help=help_str)
+        elif isinstance(v, bool) and v is False:
+            group.add_argument("--" + k, action="store_true", help=help_str)
+        elif isinstance(v, bool) and v is True:
+            group.add_argument("--no_" + k, action="store_true",
+                               help=help_str)
+        elif isinstance(v, float):
+            group.add_argument("--" + k, type=float, default=None,
+                               help=help_str)
+        elif isinstance(v, int):
+            group.add_argument("--" + k, type=int, default=None,
+                               help=help_str)
+        else:
+            group.add_argument("--" + k, type=str, default=None,
+                               help=help_str)
+    group.add_argument("--skip_early_exit", action="store_true",
+                       default=False,
+                       help="Don't early exit if no quantization is specified")
+    return parser
+
+
+def get_mx_specs(parsed_args: argparse.Namespace) -> Optional[MxSpecs]:
+    """A finalized spec from the flags of :func:`add_mx_args`."""
+    parsed = {}
+    for f in dataclasses.fields(MxSpecs):
+        k, v = f.name, getattr(_DEFAULTS, f.name)
+        if isinstance(v, bool) and v is True:
+            if hasattr(parsed_args, "no_" + k):
+                parsed[k] = not getattr(parsed_args, "no_" + k)
+        elif hasattr(parsed_args, k):
+            parsed[k] = getattr(parsed_args, k)
+    early_exit = not getattr(parsed_args, "skip_early_exit", False)
+    return finalize_mx_specs(parsed, early_exit=early_exit)

@@ -377,6 +377,167 @@ def test_quantizer_is_bit_exact(cuda, fmt, shape, bs):
     assert torch.equal(got.scale_exp, want.scale_exp)
 
 
+def _quant_edges(M, K, bs, fmt, seed):
+    """Rows that reach the quantizer's edges: all-zero blocks, subnormal
+    blocks, +-max_norm times the block scale, and (bfloat16) magnitudes
+    whose shared exponents pass +-126."""
+    from microscopiq_tpu_torch.formats import get_format_params
+
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((M, K))
+         * np.exp2(rng.integers(-20, 4, (M, 1)))).astype(np.float32)
+    _, _, emax, max_norm, _ = get_format_params(fmt)
+    x[0] = 0.0
+    if M > 1:
+        x[1] = rng.standard_normal(K).astype(np.float32) * np.float32(1e-41)
+    if M > 2:
+        x[2, ::3] = np.float32(max_norm * 2.0 ** -emax)
+        x[2, 1::3] = -np.float32(max_norm * 2.0 ** -emax)
+    if M > 3:
+        x[3] = (rng.standard_normal(K) * 2.0 ** 120).astype(np.float32)
+    if M > 4:
+        x[4] = (rng.standard_normal(K) * 2.0 ** -130).astype(np.float32)
+    return x
+
+
+def _quant_check(xt, fmt, bs, scale_bits=8):
+    from microscopiq_tpu_torch.ops.cuda import mx_quant as mq
+
+    mq.reset_launch_counts()
+    got = mq.quantize_mx_block(xt, scale_bits, fmt, bs)
+    want = mq.quantize_mx_reference(xt.contiguous(), scale_bits, fmt, bs)
+    torch.cuda.synchronize()
+    assert mq.launch_counts["quantize_mx"] == 1
+    raw = lambda t: t.view(torch.uint8 if t.element_size() == 1
+                           else torch.int16)
+    assert got.codes.shape == want.codes.shape
+    assert torch.equal(raw(got.codes), raw(want.codes))
+    assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+@pytest.mark.parametrize("fmt", ["fp6_e3m2", "fp4_e2m1", "int8", "int4",
+                                 "int2", "fp8_e5m2", "float16", "bfloat16"])
+@pytest.mark.parametrize("bs", [1, 2, 16, 32, 64, 96, 256])
+@pytest.mark.parametrize("K", [1021, 1022, 1023, 1024])
+def test_quantizer_blocks_ragged_k_and_edges(cuda, fmt, bs, K):
+    """Every block width the kernel's geometry distinguishes, K = 1, 2, 3
+    and 0 (mod 4) (rows whose 16-byte loads and 4-byte stores do not line
+    up take the scalar head/tail), and the edge rows of _quant_edges."""
+    x = _quant_edges(37, K, bs, fmt, seed=bs * 4 + K % 4)
+    _quant_check(torch.from_numpy(x).to(cuda), fmt, bs)
+
+
+@pytest.mark.parametrize("fmt", ["fp6_e3m2", "int8", "bfloat16"])
+@pytest.mark.parametrize("bs", [2, 16, 32, 256])
+def test_quantizer_misaligned_row_base(cuda, fmt, bs):
+    """A contiguous input whose base is 4 bytes past a 16-byte boundary."""
+    x = _quant_edges(9, 512, bs, fmt, seed=bs)
+    flat = torch.zeros(9 * 512 + 1, device=cuda)
+    flat[1:] = torch.from_numpy(x).to(cuda).reshape(-1)
+    xt = flat[1:].view(9, 512)
+    assert xt.data_ptr() % 16 == 4
+    _quant_check(xt, fmt, bs)
+
+
+def test_quantizer_bfloat16_shared_exponents_past_126(cuda):
+    """bfloat16 elements at 2^-140 .. 2^126: shared exponents reach the
+    int8 clamp at both ends, where the plain version's half factors and a
+    single clamped 2^e differ."""
+    rng = np.random.default_rng(5)
+    rows = [rng.standard_normal(256) * 2.0 ** e for e in
+            (-140, -133, -127, -126, -100, 0, 100, 120, 125, 126)]
+    x = np.stack(rows).astype(np.float32)
+    for scale_bits in (8, 6):
+        _quant_check(torch.from_numpy(x).to(cuda), "bfloat16", 32,
+                     scale_bits)
+
+
+@pytest.mark.parametrize("mode", ["mx_prune", "mx_v1", "uniform"])
+def test_gptq_fasterquant_on_card_matches_cpu(cuda, mode):
+    """GPTQ on the card, its block step captured once in a CUDA graph and
+    replayed (two runs bit-identical); against the CPU's run, a proxy loss
+    tr((W-Q) H (W-Q)^T) within 2% and, in the MX modes, >= 95% of Q's
+    entries identical (the card's Cholesky and sums differ in the last
+    bits, and a flipped rounding feeds forward: on the uniform 4-bit grid
+    one flip moves the rest of its row, so there the loss is the measure);
+    with decisions, which rebuild Q exactly."""
+    from microscopiq_tpu_torch.quant import GPTQ, MXQuantizer
+    from microscopiq_tpu_torch.quant import UniformQuantizer
+    from microscopiq_tpu_torch.quant import gptq as gq
+
+    rng = np.random.default_rng(17)
+    W = (rng.standard_normal((256, 384)) * 0.05).astype(np.float32)
+    W[rng.random(W.shape) < 0.03] *= 10.0
+    mix = np.eye(384) + 0.2 * rng.standard_normal((384, 384))
+    X = (rng.standard_normal((4, 64, 384)) @ mix).astype(np.float32)
+    collect = mode == "mx_prune"
+
+    def proxy(Q):
+        E = Q.double() - torch.from_numpy(W).double()
+        Xf = torch.from_numpy(X.reshape(-1, 384)).double()
+        return float(((E @ Xf.T) ** 2).sum())
+
+    def run(dev):
+        if mode == "uniform":
+            qz = UniformQuantizer()
+            qz.configure(4, perchannel=True, sym=False)
+        else:
+            qz = MXQuantizer(8, 8, "int2", "fp4_e2m1", std_dev=2.0,
+                             axes=(0,), block_size=16,
+                             max_outliers_per_block=2)
+        g = GPTQ(torch.from_numpy(W).to(dev), mode=mode)
+        g.quantizer = qz
+        for xb in X:
+            g.add_batch(torch.from_numpy(xb).to(dev))
+        Q, _ = g.fasterquant(blocksize=128, collect_decisions=collect)
+        return Q.cpu(), g.decisions
+
+    gq.clear_graphs()
+    q_cpu, _ = run("cpu")
+    q_graph, dec = run(cuda)
+    assert len(gq._GRAPHS) == 1          # one geometry, captured once
+    q_replay, _ = run(cuda)
+    gq.clear_graphs()
+    assert torch.equal(q_graph, q_replay)
+    same = (q_graph == q_cpu).float().mean().item()
+    assert abs(proxy(q_graph) - proxy(q_cpu)) <= 0.02 * proxy(q_cpu), same
+    if mode != "uniform":
+        assert same >= 0.95, same
+    if collect:
+        rep = lambda se: se.repeat_interleave(16, dim=0)  # noqa: E731
+        recon = (dec["inl_code"] * torch.exp2(rep(dec["se_in"]))
+                 + dec["out_code"] * torch.exp2(rep(dec["se_out"])
+                                                - rep(dec["se_in"])))
+        assert torch.equal(recon.cpu(), q_graph)
+
+
+def test_gptq_graphed_block_step_is_the_eager_step(cuda):
+    """One block step replayed from its CUDA graph gives the eager step's
+    Q, errors, losses and decisions bit for bit, on new inputs too."""
+    from microscopiq_tpu_torch.quant import MXQuantizer
+    from microscopiq_tpu_torch.quant import gptq as gq
+
+    rng = np.random.default_rng(3)
+    qz = MXQuantizer(8, 8, "int2", "fp4_e2m1", std_dev=2.0, axes=(0,),
+                     block_size=16, max_outliers_per_block=2)
+    step = gq.mx_block_step(gq.quantizer_config(qz), "mx_prune", True)
+    blocks = []
+    for _ in range(2):
+        W = torch.from_numpy((rng.standard_normal((512, 128)) * 0.05
+                              ).astype(np.float32)).to(cuda)
+        A = torch.from_numpy(rng.standard_normal((128, 128)).astype(
+            np.float32)).to(cuda)
+        H = A @ A.T + 128 * torch.eye(128, device=cuda)
+        blocks.append((W, torch.linalg.cholesky(torch.cholesky_inverse(
+            torch.linalg.cholesky(H))).T.contiguous()))
+    graphed = gq.GraphedStep(step, blocks[0])
+    for W1, Hinv1 in blocks:
+        want = step(W1, Hinv1)
+        got = graphed(W1, Hinv1)
+        for a, b in zip(want[:3] + tuple(want[3]), got[:3] + tuple(got[3])):
+            assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # quantized-KV flash-decode attention
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15
+    assert int(n) >= 51
     assert bad == "[]", bad
 
 
@@ -51,9 +51,12 @@ def test_cuda_entry_points_raise_without_a_card():
                                                 init_quant_cache,
                                                 init_slot_quant_cache)
     from microscopiq_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                              OPTConfig, OPTForCausalLM,
                                               build_params)
+    from microscopiq_tpu_torch.models import opt
     from microscopiq_tpu_torch.serve.engine import (BatchEngine,
                                                     init_slot_cache)
+    from microscopiq_tpu_torch.utils.checkpoint import load_checkpoint
 
     cfg = LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -64,6 +67,12 @@ def test_cuda_entry_points_raise_without_a_card():
         params_from_jax({})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quant_state_from_jax({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OPTForCausalLM(OPTConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt.build_params(OPTConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint("checkpoint-that-is-never-read")
     for init in (init_dense_cache, init_slot_cache, init_quant_cache,
                  init_slot_quant_cache):
         with pytest.raises(RuntimeError, match="no CUDA device"):
