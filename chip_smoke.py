@@ -150,6 +150,39 @@ the package is missing. Phases, each of which raises on failure:
     shipped GEMV, the best tile, the shipped NB GEMV and the best NB mode
     side by side.
 
+Run right after phase 9, on phase 4's 32-layer MX-FP6 model (no second
+model is built; each path's launch counts join the ``kernels`` line):
+
+22. ``trace_stats``: ``utils.observability.trace`` around 7 replays of the
+    decode step (B = 8): ``device_kernel_stats`` holds exactly the GEMV
+    launches the captured step implies, ``device_busy_us`` lies between
+    the GEMV's device time and the replays' wall time, the filler kept at
+    both ends; ``decode_token_stats`` of 22 replayed steps; the busy share
+    beside ``decode_device_profile``'s;
+23. ``h2o_engine``: ``BatchEngine(cache_kind="h2o")``, 4 slots, buckets up
+    to 128, a 256-token budget, 16 recent tokens, six requests of 96-128
+    prompt tokens asking for 192 new ones (every slot evicts), each
+    answered in full, two of them token-identical to a 1-slot H2O engine,
+    and at a budget no request outgrows token-identical to the dense
+    engine;
+24. ``h2o_main_path``: B = 4, a 128-token prompt and 128 eager greedy steps
+    through ``H2OCache``: at the dense run's length the dense cache's
+    tokens; at a 192-token budget (64 evictions a layer) the slots and
+    scores of layers 0 and 31 equal to a CPU replay fed the (k, v, probs)
+    recorded on the card; ``QuantH2OCache`` (4 bits) beside it, with KV
+    bytes;
+25. ``sink_main_path``: B = 4, ``SinkDecodeCache`` with 4 sink tokens and
+    256 slots, a 128-token prompt and 192 steps at the clamped slot
+    positions (64 evictions), the first eviction's re-rotated keys against
+    ``_rope_delta`` on the CPU;
+26. ``gear_codecs``: ``compress_insert`` in its nine methods and
+    ``true_gear_compress``/``true_gear_decompress`` on bf16 K/V of shape
+    (4, 8, 3072, 128), on the card against the same calls on the CPU
+    (restored tensors), timed, beside ``CompressionConfig.compress_ratio``;
+27. ``host_codec``: the g++-built ``native.pack_mx_native`` bit-equal to
+    ``pack_mx`` at gate_up, fp6_e3m2, block 32, with its seconds;
+    ``kv_policy_phases`` logs the six phases' seconds.
+
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +229,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -1316,6 +1350,485 @@ def quant_engine_phase(model, card: str):
         card=card)
     del one
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# H2O and sink caches, the GEAR codecs, the trace readers and the
+# host codec, on the 32-layer MX-FP6 model of phase 4
+# ---------------------------------------------------------------------------
+H2O_BUDGET, H2O_RECENT = 192, 16     # main path: 128 + 128 tokens, 64 evicted
+H2O_ENGINE = dict(n_slots=4, budget=256, recent=16, new=192, requests=6,
+                  prompt=(96, 128))  # 288-320 tokens a request: all evict
+SINK_TOKENS, SINK_SLOTS = 4, 256     # 128 + 192 tokens: 64 evictions
+GEAR_SHAPE = (4, 8, 3072, 128)       # the quant-KV arm's K/V, (B, H, S, D)
+GEAR_CFG = dict(quantize_bit=4, group_size=64, rank=2, loop=3, left=0.02)
+GEAR_METHODS = ("channelQfixed", "tokenQfixed", "kcvtQfixed", "KIVI",
+                "GEARL-KIVI", "GEARS-KIVI", "Flexgen", None, "None")
+# GEAR codecs, card against CPU, of max |CPU|: their element-wise float32
+# arithmetic is IEEE on both and their top-k a stable sort; the low-rank
+# products sum in other orders, and a bf16 output may round one ulp
+# (2^-8 of the largest value) apart; two allowed
+GEAR_REL_TOL = 2 ** -7
+HOST_CODEC_SHAPE = (4096, 28672)     # gate_up
+
+
+class CacheRecorder:
+    """Passes every call on to ``cache``; records device copies of the
+    (k, v, positions) of ``update`` and the probs of ``observe`` at
+    ``layers`` into ``log``."""
+
+    def __init__(self, cache, log):
+        self.cache, self.log = cache, log
+
+    def update(self, li, k, v, positions, mask):
+        if li in self.log:
+            self.log[li].append(("update", k.clone(), v.clone(),
+                                 positions.clone()))
+        return self.cache.update(li, k, v, positions, mask)
+
+    def observe(self, li, probs):
+        if li in self.log:
+            self.log[li].append(("observe", probs.clone()))
+        self.cache.observe(li, probs)
+
+    def finalize(self):
+        return self.cache.finalize()
+
+
+def cache_decode(model, ids, steps: int, state, wrap, positions=None,
+                 on_step=None):
+    """A ``last_only`` prefill, then ``steps`` eager greedy decode steps,
+    each through a fresh ``wrap(state)``. A step's query positions are
+    ``positions(cache, t)`` (default: its token's index t); ``on_step(t,
+    state)`` runs before step t. Returns (tokens (B, 1 + steps), the
+    prefill's first, host ms a decode step, final state, last logits, the
+    prefill's logits)."""
+    import torch
+
+    B, S0 = ids.shape
+    pos_of = positions or (lambda c, t: torch.full((B, 1), t, device="cuda"))
+    with torch.inference_mode():
+        cache = wrap(state)
+        logits = model(ids, positions=torch.arange(
+            S0, device="cuda").expand(B, S0), cache=cache, last_only=True)
+        state = cache.finalize()
+        first = logits
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        toks = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(S0, S0 + steps):
+            if on_step is not None:
+                on_step(t, state)
+            cache = wrap(state)
+            logits = model(tok[:, None], positions=pos_of(cache, t),
+                           cache=cache)
+            state = cache.finalize()
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+    return torch.stack(toks, 1), ms, state, logits, first
+
+
+def _check_tokens(name, toks, logits, vocab):
+    import torch
+
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{name}: non-finite logits")
+    if not ((toks >= 0) & (toks < vocab)).all():
+        raise AssertionError(f"{name}: token ids out of range")
+
+
+def h2o_engine_phase(model, card: str):
+    """``BatchEngine(cache_kind="h2o")``: six requests of 96-128 prompt
+    tokens asking for 192 new ones through 4 slots of a 256-token budget
+    (every slot evicts), each answered in full; two of them token-identical
+    to a 1-slot H2O engine; and with a budget no request outgrows, the H2O
+    engine token-identical to the dense one. Returns the launch counts."""
+    import torch
+
+    from microscopiq_tpu_torch.serve.engine import BatchEngine, Request
+    from microscopiq_tpu_torch.utils.observability import metrics
+
+    c = H2O_ENGINE
+    rng = np.random.default_rng(16)
+    lens = rng.integers(c["prompt"][0], c["prompt"][1] + 1, c["requests"])
+    reqs = [Request(rng.integers(0, model.cfg.vocab_size, (n,)).astype(
+        np.int64), c["new"]) for n in lens]
+    mk = lambda n, **kw: BatchEngine(
+        model, n_slots=n, max_len=512, prompt_buckets=(32, 64, 128),
+        device="cuda", **kw)
+    h2o = dict(cache_kind="h2o", h2o_budget=c["budget"],
+               h2o_recent=c["recent"])
+    eng = mk(c["n_slots"], **h2o)
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = len(metrics.timers["engine.decode_step"])
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    steps = len(metrics.timers["engine.decode_step"]) - steps0
+    peak = torch.cuda.max_memory_allocated()
+    kv = kv_bytes(eng.state)
+    evicted = int((eng.state.pos >= c["budget"]).sum())
+    for r in reqs:
+        if r.error is not None or len(r.out_tokens) != c["new"]:
+            raise AssertionError(f"h2o engine: a request of "
+                                 f"{len(r.prompt_ids)} tokens got "
+                                 f"{len(r.out_tokens)}/{c['new']} tokens, "
+                                 f"error {r.error}")
+    del eng
+    one = mk(1, **h2o)
+    for r in reqs[:2]:
+        alone = one.generate([r.prompt_ids], max_new_tokens=c["new"])[0]
+        if alone != r.out_tokens:
+            raise AssertionError("h2o engine: 4-slot and 1-slot tokens "
+                                 "differ")
+    del one
+    # a budget that no request outgrows keeps every token: dense tokens
+    prompts, new = [r.prompt_ids for r in reqs[:2]], 64
+    kw = dict(cache_kind="h2o", h2o_budget=256)
+    got = BatchEngine(model, n_slots=2, max_len=256, device="cuda",
+                      prompt_buckets=(32, 64, 128), **kw).generate(
+        prompts, max_new_tokens=new)
+    want = BatchEngine(model, n_slots=2, max_len=256, device="cuda",
+                       prompt_buckets=(32, 64, 128)).generate(
+        prompts, max_new_tokens=new)
+    if got != want:
+        raise AssertionError("h2o engine with an unconstrained budget "
+                             "differs from the dense engine")
+    counts = {k: counts[k] + v for k, v in launches().items()}
+    if not (counts["dequant_gemv_emi8"] and counts["dequant_matmul_emi8"]):
+        raise AssertionError(f"h2o engine did not use both kernels: {counts}")
+    tokens = c["requests"] * c["new"]
+    log(phase="h2o_engine", requests=len(reqs), slots=c["n_slots"],
+        prompt_tokens=[int(n) for n in lens], new_tokens=c["new"],
+        budget=c["budget"], recent=c["recent"], wall_s=wall,
+        decode_steps=steps, tokens_per_s=tokens / wall,
+        ms_per_step=wall / steps * 1e3, kv_bytes=kv,
+        slots_holding_evicting_writes=evicted, peak_mem_gb=peak / 1e9,
+        identical_to_one_slot_engine=2,
+        unconstrained_equal_to_dense=len(prompts),
+        launches={k: v for k, v in counts.items() if v}, card=card)
+    return {"prefill": want_counts(), "decode": counts}
+
+
+def h2o_main_path(model, card: str):
+    """B = 4, a 128-token prompt and 128 eager greedy steps through
+    ``H2OCache``: with the budget at the dense run's length, the dense
+    cache's tokens; at a budget of 192 (64 evictions a layer), the slots
+    kept in layers 0 and 31 equal a CPU replay of the cache fed the (k, v,
+    probs) recorded on the card; ``QuantH2OCache`` (4 bits) at that budget
+    beside it. Returns the launch counts."""
+    import torch
+
+    from microscopiq_tpu_torch.kv import h2o
+
+    cfg = model.cfg
+    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 128
+    kv = (cfg.num_key_value_heads, cfg.head_dim)
+    ids = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (B, S0)), device="cuda")
+    max_len = S0 + STEPS
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dense = prefill_decode(model, ids, STEPS, max_len)
+    pre, dec = dense[4], dense[5]
+    reset_counts()
+    wrap = lambda st: h2o.H2OCache(st, H2O_RECENT)
+    full, full_ms, *_ = cache_decode(
+        model, ids, STEPS,
+        h2o.init_h2o_cache(L, B, max_len, *kv, device="cuda"), wrap)
+    as_dense = bool(torch.equal(full[:, 1:], dense[0]))
+    rec = {0: [], L - 1: []}
+    toks, ms, state, logits, first = cache_decode(
+        model, ids, STEPS,
+        h2o.init_h2o_cache(L, B, H2O_BUDGET, *kv, device="cuda"),
+        lambda st: CacheRecorder(wrap(st), rec))
+    _check_tokens("h2o_main_path", toks, logits, cfg.vocab_size)
+    qtoks, qms, qstate, qlogits, qfirst = cache_decode(
+        model, ids, STEPS,
+        h2o.init_quant_h2o_cache(L, B, H2O_BUDGET, *kv, bits=4,
+                                 device="cuda"),
+        lambda st: h2o.QuantH2OCache(st, H2O_RECENT))
+    _check_tokens("quant h2o", qtoks, qlogits, cfg.vocab_size)
+    eager = launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = want_counts(dequant_matmul_emi8=3 * 4 * L,
+                       dequant_gemv_emi8=3 * (1 + STEPS * (4 * L + 1)))
+    if eager != want:
+        raise AssertionError(f"h2o main path launches {eager}, want {want}")
+    replay = {}
+    for li, events in rec.items():
+        st = h2o.init_h2o_cache(1, B, H2O_BUDGET, *kv, device="cpu")
+        for ev in events:
+            if ev[0] == "update":
+                c = h2o.H2OCache(st, H2O_RECENT)
+                c.update(0, *(t.cpu() for t in ev[1:]), None)
+            else:
+                c.observe(0, ev[1].cpu())
+                st = c.finalize()
+        replay[li] = dict(
+            positions_equal=bool(torch.equal(st.pos[0],
+                                             state.pos[li].cpu())),
+            scores_equal=bool(torch.equal(st.score[0],
+                                          state.score[li].cpu())),
+            kept_from_evicting_steps=int((state.pos[li] >= H2O_BUDGET).sum()),
+            slots_full=bool((state.pos[li] >= 0).all()))
+    dense_bytes = kv_bytes(dense[6])
+    log(phase="h2o_main_path", layers=L, batch=B, prompt=S0, steps=STEPS,
+        budget=H2O_BUDGET, recent=H2O_RECENT,
+        evictions_per_row_and_layer=S0 + STEPS - H2O_BUDGET,
+        tokens_equal_dense_at_full_budget=as_dense,
+        full_budget_ms_per_step=full_ms, ms_per_step=ms,
+        dense_graph_ms_per_step=dense[2] / STEPS * 1e3,
+        cpu_replay=replay, quant_bits=4, quant_ms_per_step=qms,
+        quant_token_agreement=(qtoks == toks).float().mean().item(),
+        quant_prefill_logits_rel_err=((qfirst.float() - first.float()).abs(
+        ).max() / first.float().abs().max()).item(),
+        kv_bytes=kv_bytes(state), quant_kv_bytes=kv_bytes(qstate),
+        dense_kv_bytes=dense_bytes, peak_mem_gb=peak / 1e9,
+        launches_eager=eager, card=card)
+    if not as_dense:
+        raise AssertionError("H2O at the dense length differs from dense")
+    if not all(r["positions_equal"] and r["scores_equal"] and r["slots_full"]
+               for r in replay.values()):
+        raise AssertionError(f"H2O slots differ from the CPU replay: "
+                             f"{replay}")
+    return {"prefill": pre, "decode": {k: dec[k] + eager[k] for k in dec}}
+
+
+def sink_main_path(model, card: str):
+    """B = 4, ``SinkDecodeCache`` (4 sink tokens, 256 slots), a 128-token
+    prompt and 192 decode steps at the clamped slot positions (64
+    evictions): the first evicting step's re-rotated keys (layer 0) against
+    ``_rope_delta`` of the same keys on the CPU. Returns the launch
+    counts."""
+    import torch
+
+    from microscopiq_tpu_torch.kv import sink as sk
+
+    cfg = model.cfg
+    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 192
+    C, ns = SINK_SLOTS, SINK_TOKENS
+    ids = torch.as_tensor(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (B, S0)), device="cuda")
+    snaps = {}
+
+    def on_step(t, st):
+        if t in (C, C + 1):               # before and after the first evict
+            snaps[t] = st.k[0].clone()
+
+    reset_counts()
+    toks, ms, state, logits, _ = cache_decode(
+        model, ids, STEPS,
+        sk.init_sink_cache(L, B, ns, C - ns, cfg.num_key_value_heads,
+                           cfg.head_dim, device="cuda"),
+        lambda st: sk.SinkDecodeCache(st, ns, cfg.rope_theta),
+        positions=lambda c, t: c.slot_positions(1)[None, :].expand(B, 1),
+        on_step=on_step)
+    counts = launches()
+    _check_tokens("sink_main_path", toks, logits, cfg.vocab_size)
+    want = sk._rope_delta(snaps[C][:, ns + 1:].cpu(), -1.0,
+                          cfg.rope_theta).float()
+    got = snaps[C + 1][:, ns:C - 1].cpu().float()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    sinks = bool(torch.equal(snaps[C + 1][:, :ns], snaps[C][:, :ns]))
+    log(phase="sink_main_path", layers=L, batch=B, prompt=S0, steps=STEPS,
+        sink_tokens=ns, slots=C, evictions=S0 + STEPS - C,
+        length=state.host_length, ms_per_step=ms,
+        rerotation_max_abs_err=err, rerotation_rel_err=rel,
+        rerotation_equal_share=(got == want).float().mean().item(),
+        tol=GEAR_REL_TOL, sinks_kept=sinks,
+        launches={k: v for k, v in counts.items() if v}, card=card)
+    if not (sinks and rel <= GEAR_REL_TOL
+            and state.host_length == int(state.length) == S0 + STEPS):
+        raise AssertionError(f"sink cache: rel err {rel}, sinks kept {sinks}")
+    if counts != want_counts(dequant_matmul_emi8=4 * L,
+                             dequant_gemv_emi8=1 + STEPS * (4 * L + 1)):
+        raise AssertionError(f"sink main path launches {counts}")
+    return {"prefill": want_counts(), "decode": counts}
+
+
+def gear_codecs_phase(card: str):
+    """``compress_insert`` in each of its nine methods and
+    ``true_gear_compress``/``true_gear_decompress`` on bf16 K/V of the
+    quant-KV arm's shape, on the card against the same calls on the CPU
+    (restored tensors, never the factors), timed, beside
+    ``CompressionConfig.compress_ratio``."""
+    import torch
+
+    from microscopiq_tpu_torch.kv import CompressionConfig, gear
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    k, v = (torch.randn(GEAR_SHAPE, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    kc, vc = k.cpu(), v.cpu()
+    B, H, S, D = GEAR_SHAPE
+
+    def compare(got, want):
+        got, want = got.cpu().float(), want.float()
+        err = (got - want).abs().max().item()
+        return err, err / want.abs().max().item(), (
+            got == want).float().mean().item()
+
+    rows = []
+    for method in GEAR_METHODS:
+        cfg = CompressionConfig(compress_method=method, attention_number=1,
+                                **GEAR_CFG).copy_for_all_attention()
+        gk, gv = gear.compress_insert(k, v, cfg, 0)
+        t0 = time.perf_counter()
+        ck, cv = gear.compress_insert(kc, vc, cfg, 0)
+        cpu_s = time.perf_counter() - t0
+        ek, rk, fk = compare(gk, ck)
+        ev, rv, fv = compare(gv, cv)
+        ms = cuda_ms(lambda i: gear.compress_insert(k, v, cfg, 0), 1,
+                     target_ms=20.0)
+        rows.append(dict(method=method, ms=ms, cpu_s=cpu_s,
+                         max_abs_err=max(ek, ev), rel_err=max(rk, rv),
+                         equal_share=min(fk, fv),
+                         config_ratio=cfg.compress_ratio(S, H * D)))
+    bits, left, rank, loop = 4, GEAR_CFG["left"], GEAR_CFG["rank"], 3
+    g = gear.true_gear_compress(k, bits, left, rank, loop)
+    restored = gear.true_gear_decompress(g, torch.bfloat16)
+    t0 = time.perf_counter()
+    gc = gear.true_gear_compress(kc, bits, left, rank, loop)
+    cpu_s = time.perf_counter() - t0
+    err, rel, eq = compare(restored, gear.true_gear_decompress(
+        gc, torch.bfloat16))
+    ms = cuda_ms(lambda i: gear.true_gear_compress(k, bits, left, rank,
+                                                   loop), 1, target_ms=20.0)
+    dms = cuda_ms(lambda i: gear.true_gear_decompress(g, torch.bfloat16), 1,
+                  target_ms=20.0)
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        g.base.codes, g.base.mn, g.base.scale, g.out_values, g.out_indices,
+        g.p, g.q))
+    cfg = CompressionConfig(compress_method="GEAR", quantize_bit=bits,
+                            group_size=0, rank=rank, left=left)
+    rows.append(dict(method="true_gear", ms=ms, decompress_ms=dms,
+                     cpu_s=cpu_s, max_abs_err=err, rel_err=rel,
+                     equal_share=eq, ratio=nbytes / (k.numel() * 2),
+                     config_ratio=cfg.compress_ratio(S, H * D)))
+    for r in rows:
+        log(phase="gear_codecs", shape=list(GEAR_SHAPE), dtype="bfloat16",
+            tol=GEAR_REL_TOL, **r, card=card)
+    bad = [r["method"] for r in rows
+           if not (np.isfinite(r["rel_err"]) and r["rel_err"] <= GEAR_REL_TOL)]
+    if bad:
+        raise AssertionError(f"GEAR codecs differ on the card: {bad}")
+
+
+def trace_stats_phase(model, card: str):
+    """``utils.observability.trace`` around 7 replays of the 32-layer MX-FP6
+    decode step (B = 8): ``device_kernel_stats`` counts the GEMV launches
+    that the captured step implies, ``device_busy_us`` lies between the
+    GEMV's total and the replays' wall time; ``decode_token_stats`` of 22
+    replayed steps timed one by one; the busy share beside
+    ``decode_device_profile``'s. Returns the launch counts."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from microscopiq_tpu_torch.eval.generate import DecodeStep
+    from microscopiq_tpu_torch.utils import observability as ob
+
+    B, S0, STEPS, CALLS = 8, 128, 8, 24
+    max_len = S0 + 32 + 8
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (B, S0)), device="cuda")
+    reset_counts()
+    info = {}
+    with tempfile.TemporaryDirectory() as d:
+        run = prefill_decode(model, ids, STEPS, max_len, info=info,
+                             decode_ctx=functools.partial(ob.trace, d))
+        pre, dec = run[4], run[5]
+        replays = info["timed_steps"]
+        per_step = {k: n // STEPS for k, n in dec.items()}
+        want = per_step["dequant_gemv_emi8"] * replays
+        stats = ob.device_kernel_stats(d, min_events=want)
+        gemv = {k: a for k, a in stats.items() if "gemv_tc" in k}
+        gemv_n = sum(a["count"] for a in gemv.values())
+        gemv_us = sum(a["total_us"] for a in gemv.values())
+        busy = ob.device_busy_us(d)
+        lead, tail = ob.filler_kept(d)
+        rows = sorted({proc for proc, ev in ob._iter_trace_events(d)
+                       if ev.get("cat") == "kernel"})
+        top = sorted(stats.items(), key=lambda kv: -kv[1]["total_us"])[:6]
+    wall_us = run[2] / STEPS * replays * 1e6
+    before = launches()
+    out = prefill_decode(model, ids, 1, max_len)
+    step = DecodeStep(model, out[6], out[0][:, -1])
+    times = []
+    with torch.inference_mode():
+        for _ in range(CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    # the step's kernels launch once eagerly and once at its capture; the
+    # later replays launch what the capture recorded
+    timed = {k: n - before[k] + per_step[k] * (CALLS - 2)
+             for k, n in launches().items()}
+    tok_stats = ob.decode_token_stats(times[2:], B)
+    prof = decode_device_profile(model, ids, max_len,
+                                 tok_stats["median_s"] * 1e3)
+    log(phase="trace_stats", replays=replays, batch=B,
+        gemv_events=gemv_n, gemv_launches_implied=want,
+        gemv_device_us=gemv_us, device_busy_us=busy, window_wall_us=wall_us,
+        busy_share=busy / wall_us,
+        decode_profile_busy_share=(prof["busy_share_of_profiled_wall"]
+                                   if prof else "not measured"),
+        filler_kept=[lead, tail], kernel_rows=rows,
+        top_kernels_us=[(k[:60], a["total_us"]) for k, a in top],
+        decode_token_stats=tok_stats, card=card)
+    if not (gemv_n == want and gemv_us <= busy <= wall_us
+            and lead > 0 and tail > 0):
+        raise AssertionError(f"trace: {gemv_n} GEMV events of {want}, busy "
+                             f"{busy} us of {wall_us}, GEMV {gemv_us} us, "
+                             f"filler kept {lead}/{tail}")
+    return {"prefill": pre, "decode": {k: dec[k] + timed[k] for k in dec}}
+
+
+def host_codec_phase(card: str):
+    """The port's g++-built ``pack_mx_native`` against ``pack_mx``
+    (exact scales, on the card) at gate_up, fp6_e3m2, block 32: codes and
+    scales bit-equal; seconds a call."""
+    import torch
+
+    from microscopiq_tpu_torch import native
+    from microscopiq_tpu_torch.ops import packing as pk
+
+    K, N = HOST_CODEC_SHAPE
+    t0 = time.perf_counter()
+    native.get_lib()                        # builds here; raises on failure
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    W = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+    p = pk.pack_mx(W, 8, "fp6_e3m2", 32, exact_scale=True)
+    card_ms = cuda_ms(lambda i: pk.pack_mx(W, 8, "fp6_e3m2", 32,
+                                           exact_scale=True), 1)
+    Wc = W.cpu().numpy()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        codes, scales = native.pack_mx_native(Wc, 8, "fp6_e3m2", 32)
+        secs.append(time.perf_counter() - t0)
+    same = (np.array_equal(codes, p.codes.view(torch.uint8).cpu().numpy())
+            and np.array_equal(scales, p.scale_exp.cpu().numpy()))
+    log(phase="host_codec", shape=[K, N], format="fp6_e3m2", block=32,
+        bit_equal=bool(same), native_s=min(secs), native_s_runs=secs,
+        threads=min(16, os.cpu_count() or 1),
+        build_s=build_s, pack_mx_card_ms=card_ms, card=card)
+    if not same:
+        raise AssertionError("pack_mx_native differs from pack_mx")
 
 
 # ---------------------------------------------------------------------------
@@ -2877,7 +3390,9 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     full-width model runs (``two_layer_<case>``); for the W8A8 GEMV and the
     quantizer, which no model path calls, their entry point's own run; the
     GPTQ-calibrated 2-layer path (``gptq``: perplexity and prefill, decode)
-    for the NB kernels; for
+    for the NB kernels; the KV-policy and trace paths on the 32-layer
+    MX-FP6 model (``trace_stats``, ``h2o_engine``, ``h2o_main_path``,
+    ``sink_main_path``) for the emi8 GEMV and GEMM; for
     the GEMMs at the MX blocks that no model path packs (the gemm_tile
     routes of pf6, pf4, fp16, emi8, sb4, sb2, int8, float8 and the
     side-band format, and the sm90 ones at the other blocks of
@@ -3653,6 +4168,14 @@ def main(argv=None) -> int:
     qcounts, _ = quant_kv_main_path(packed, card)
     quant_two_layer_phase(card)
     quant_engine_phase(packed, card)
+    t0 = time.perf_counter()
+    kvcounts = {"trace_stats": trace_stats_phase(packed, card),
+                 "h2o_engine": h2o_engine_phase(packed, card),
+                 "h2o_main_path": h2o_main_path(packed, card),
+                 "sink_main_path": sink_main_path(packed, card)}
+    gear_codecs_phase(card)
+    host_codec_phase(card)
+    log(phase="kv_policy_phases", seconds=time.perf_counter() - t0, card=card)
     del packed
     torch.cuda.empty_cache()
 
@@ -3673,7 +4196,8 @@ def main(argv=None) -> int:
         filler_lost_by_window=filler_lost, card=card)
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
-                                  {**ocounts, "gptq": gptq_counts}, irows,
+                                  {**ocounts, "gptq": gptq_counts,
+                                   **kvcounts}, irows,
                                   icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
                                   grows, gcounts, rrows, rcounts)),

@@ -1,12 +1,15 @@
-"""Greedy decode of a (left-padded) batch over the dense or quantized KV
-cache.
+"""Greedy or temperature decode of a (left-padded) batch over the dense or
+quantized KV cache.
 
-Counterpart of ``microscopiq_tpu/eval/generate.py::generate`` with greedy
-sampling: one prefill on the last position only, then one decode step per
-token. Rows are right-aligned (left-padded, as HF ``padding_side="left"``);
-pad slots never attend, real positions are ``slot - offset[b]``, and rows
-that hit EOS emit ``pad_token_id`` after it. Temperature sampling is ROADMAP
-queue 1 item 7.
+Counterpart of ``microscopiq_tpu/eval/generate.py::generate``: one prefill
+on the last position only, then one decode step per token. Rows are
+right-aligned (left-padded, as HF ``padding_side="left"``); pad slots never
+attend, real positions are ``slot - offset[b]``, and rows that hit EOS emit
+``pad_token_id`` after it. Above temperature 0 every token, the prefill's
+too, is one categorical draw from softmax(logits / temperature) by
+``torch.multinomial`` with a ``torch.Generator`` (JAX splits a key for
+``jax.random.categorical``; the two draw different samples from the same
+distribution), the serving engine's arithmetic (:func:`sample_logits`).
 
 A decode step is :class:`DecodeStep`: on a CUDA model the first call of
 each of its variants runs eagerly (it builds the kernels and its token is
@@ -16,7 +19,10 @@ every kernel of the step; on the CPU each call runs the step eagerly. The
 dense cache has one variant; the quantized cache two, the plain step and
 the step that folds a chunk, which the host mirror of the cache length
 names before each step. The prefill stays eager (one call, with M = B x S
-rows on the GEMMs).
+rows on the GEMMs). Sampled steps (temperature > 0) run eagerly too: a
+replayed draw would need the generator's state registered with each graph,
+and an eager step draws from the generator in the same order on the card
+as on the CPU.
 
 This is the single-sequence reference the serving engine is checked
 against, and the prefill + decode loop ``chip_smoke.py`` times.
@@ -50,12 +56,27 @@ def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
     raise ValueError(f"unknown cache_kind {kind!r}")
 
 
-class DecodeStep:
-    """One greedy decode step over a dense or (with ``quant_cfg``) a
-    quantized cache, on static buffers.
+def sample_logits(logits: torch.Tensor, temps: np.ndarray,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(B,) tokens of (B, vocab) logits at per-row temperatures ``temps``
+    (a host array): 0 = greedy, else a categorical draw."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not (temps > 0).any():
+        return greedy
+    t = torch.as_tensor(temps, device=logits.device)
+    scaled = logits.to(torch.float32) / torch.clamp(t, min=1e-6)[:, None]
+    drawn = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
+                              generator=generator)[:, 0]
+    return torch.where(t > 0, drawn, greedy)
 
-    ``tok`` (B,) holds the token fed to the step and, after it, the greedy
-    token out; ``logits`` the step's (B, 1, vocab) logits; the positions
+
+class DecodeStep:
+    """One decode step over a dense or (with ``quant_cfg``) a quantized
+    cache, on static buffers; greedy, or at ``temperature`` > 0 a draw from
+    ``generator`` (every such step eager).
+
+    ``tok`` (B,) holds the token fed to the step and, after it, the token
+    out; ``logits`` the step's (B, 1, vocab) logits; the positions
     (``length - offset``), the forward pass, the argmax and the cache
     length's advance all belong to the step. A step has a variant
     (:meth:`variant`): ``"plain"``, or ``"fold"`` for a quantized-cache
@@ -74,10 +95,14 @@ class DecodeStep:
     """
 
     def __init__(self, model, state, tok: torch.Tensor,
-                 quant_cfg: Optional[QuantKVConfig] = None):
+                 quant_cfg: Optional[QuantKVConfig] = None,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
         self.model = model
         self.state = state
         self.quant_cfg = quant_cfg
+        self.temps = np.full(tok.shape[0], temperature, np.float32)
+        self.generator = generator
         self.tok = tok.detach().clone()
         self.logits = None
         self.graphs = {}               # variant -> (CUDAGraph, its logits)
@@ -103,7 +128,8 @@ class DecodeStep:
         pos = (st.length - st.offset)[:, None]
         logits = self.model(self.tok[:, None], positions=pos, cache=cache)
         cache.finalize()
-        self.tok.copy_(torch.argmax(logits[:, -1], dim=-1))
+        self.tok.copy_(sample_logits(logits[:, -1], self.temps,
+                                     self.generator))
         return logits
 
     def eager(self) -> torch.Tensor:
@@ -145,7 +171,8 @@ class DecodeStep:
 
     def __call__(self) -> torch.Tensor:
         v = self.variant()
-        if self.tok.device.type != "cuda" or v not in self._eager_variants:
+        if (self.tok.device.type != "cuda" or v not in self._eager_variants
+                or (self.temps > 0).any()):
             return self.eager()
         if v not in self.graphs:
             self.capture(v)
@@ -168,10 +195,14 @@ def generate(model, prompt_ids, max_new_tokens: int,
              cache_kind: str = "dense",
              quant_cfg: Optional[QuantKVConfig] = None,
              eos_token_id: Union[int, Sequence[int], None] = None,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
              max_len: Optional[int] = None,
              prompt_lens: Optional[np.ndarray] = None,
              pad_token_id: int = 0) -> np.ndarray:
-    """Greedy decode; returns (B, T <= max_new_tokens) token ids."""
+    """Greedy (``temperature`` 0) or sampled decode; returns (B, T <=
+    max_new_tokens) token ids. Sampling draws from ``generator`` (default:
+    a generator on the model's device seeded 0)."""
     if isinstance(prompt_ids, (list, tuple)):
         prompt_ids, prompt_lens = pad_prompts(prompt_ids, pad_token_id)
     prompt_ids = np.asarray(prompt_ids)
@@ -201,7 +232,10 @@ def generate(model, prompt_ids, max_new_tokens: int,
     cache = wrap(state)
     logits = model(ids, positions=positions, cache=cache, last_only=True)
     state = cache.finalize()
-    tok = torch.argmax(logits[:, -1], dim=-1)
+    temps = np.full(B, temperature, np.float32)
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    tok = sample_logits(logits[:, -1], temps, generator)
 
     finished = np.zeros(B, bool)
 
@@ -217,7 +251,7 @@ def generate(model, prompt_ids, max_new_tokens: int,
     out = [host_tok(tok)]
     step = DecodeStep(model, state, tok,
                       (quant_cfg or QuantKVConfig()) if cache_kind == "quant"
-                      else None)
+                      else None, temperature, generator)
     for _ in range(max_new_tokens - 1):
         if finished.all():
             break

@@ -7,6 +7,8 @@ KV cache, and ``last_only``/``logit_index`` logits. Linears hold a dense
 (K, N) kernel, a :class:`PackedMX`, a side-band :class:`PackedMXOutlier` or a
 compact :class:`PackedOutlierNB`; packed ones run through the CUDA kernels
 (``use_kernels=True``, the counterpart of ``use_pallas``) or their plain twin.
+A cache with an ``observe`` method (the H2O caches of ``kv/h2o.py``) is
+handed the float32 attention mass of each key slot after the softmax.
 A decode step over a quantized cache goes through the fused flash-decode
 kernel (``ops/cuda/quant_attention.py``) where the cache's layout allows and
 the kernel takes the geometry (``decode_route``: head_dim, query heads per
@@ -224,14 +226,20 @@ class Attention(nn.Module):
             logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k
                                   ).to(torch.float32) * scale
             logits = torch.where(mask[:, :, None], logits, neg)
-            probs = torch.softmax(logits, dim=-1).to(v.dtype)
-            out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+            probs = torch.softmax(logits, dim=-1)
+            if hasattr(cache, "observe"):
+                # H2O score feedback (kv/h2o.py): the float32 attention
+                # mass of each key slot, summed over heads and query rows
+                cache.observe(layer_idx, probs.sum(dim=(1, 2, 3)))
+            out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(v.dtype), v)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k
                                   ).to(torch.float32) * scale
             logits = torch.where(mask, logits, neg)
-            probs = torch.softmax(logits, dim=-1).to(v.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+            probs = torch.softmax(logits, dim=-1)
+            if hasattr(cache, "observe"):
+                cache.observe(layer_idx, probs.sum(dim=(1, 2)))
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
         return self.o_proj(out.reshape(B, S, H * hd))
 
 

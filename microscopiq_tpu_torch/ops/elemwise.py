@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..formats import _get_min_norm
+from ..formats import _get_min_norm, get_format_params
 
 _F32_INF = float("inf")
 
@@ -145,3 +145,15 @@ def quantize_elemwise_core(A: torch.Tensor, bits: int, exp_bits: int,
     out = torch.where(torch.isnan(A), torch.full_like(out, float("nan")), out)
     return out.to(orig_dtype)
 
+
+
+def quantize_elemwise(A: torch.Tensor, elem_format, round: str = "nearest",
+                      saturate_normals: bool = False,
+                      allow_denorm: bool = True) -> torch.Tensor:
+    """Quantize to a named element format (None = passthrough)."""
+    if elem_format is None:
+        return A
+    ebits, mbits, _, max_norm, _ = get_format_params(elem_format)
+    return quantize_elemwise_core(
+        A, mbits, ebits, max_norm, round=round,
+        saturate_normals=saturate_normals, allow_denorm=allow_denorm)

@@ -361,6 +361,71 @@ def decode_fp_bits(codes: torch.Tensor, fmt) -> torch.Tensor:
     return torch.where(s == 1, -mag, mag)
 
 
+# ---------------------------------------------------------------------------
+# Standalone transport packers (last axis; int4/fp4 two a byte, low nibble
+# the even index; int2 four a byte; fp6 four codes in three bytes)
+# ---------------------------------------------------------------------------
+def _interleave(parts) -> torch.Tensor:
+    out = torch.stack(parts, dim=-1)
+    return out.reshape(out.shape[:-2] + (-1,))
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] -> uint8, two a byte. Last axis even."""
+    c = codes.to(torch.int16) & 0xF
+    return (c[..., 0::2] | (c[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: int8, sign-extended from the nibble."""
+    p = packed.to(torch.int16)
+    return _interleave([(((p >> s) & 0xF) ^ 8) - 8 for s in (0, 4)]
+                       ).to(torch.int8)
+
+
+def pack_int2(codes: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-2, 1] -> uint8, four a byte."""
+    c = codes.to(torch.int16) & 0x3
+    return (c[..., 0::4] | (c[..., 1::4] << 2) | (c[..., 2::4] << 4)
+            | (c[..., 3::4] << 6)).to(torch.uint8)
+
+
+def unpack_int2(packed: torch.Tensor) -> torch.Tensor:
+    p = packed.to(torch.int16)
+    return _interleave([(((p >> s) & 0x3) ^ 2) - 2 for s in (0, 2, 4, 6)]
+                       ).to(torch.int8)
+
+
+def pack_fp4(vals: torch.Tensor) -> torch.Tensor:
+    """fp4_e2m1 grid values -> uint8, two a byte."""
+    c = encode_fp_bits(vals, "fp4_e2m1").to(torch.int16) & 0xF
+    return (c[..., 0::2] | (c[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_fp4(packed: torch.Tensor) -> torch.Tensor:
+    return _interleave([decode_fp_bits(packed & 0xF, "fp4_e2m1"),
+                        decode_fp_bits((packed >> 4) & 0xF, "fp4_e2m1")])
+
+
+def pack_fp6(vals: torch.Tensor, fmt: str = "fp6_e3m2") -> torch.Tensor:
+    """fp6 grid values, four codes -> three bytes:
+    c0[5:0] | c1[1:0] << 6 ; c1[5:2] | c2[3:0] << 4 ; c2[5:4] | c3[5:0] << 2.
+    """
+    codes = encode_fp_bits(vals, fmt).to(torch.int32)
+    c0, c1, c2, c3 = (codes[..., i::4] for i in range(4))
+    return _interleave([(c0 | (c1 << 6)) & 0xFF,
+                        ((c1 >> 2) | (c2 << 4)) & 0xFF,
+                        (c2 >> 4) | (c3 << 2)]).to(torch.uint8)
+
+
+def unpack_fp6(packed: torch.Tensor, fmt: str = "fp6_e3m2") -> torch.Tensor:
+    p = packed.to(torch.int32)
+    b0, b1, b2 = (p[..., i::3] for i in range(3))
+    codes = _interleave([b0 & 0x3F, ((b0 >> 6) | (b1 << 2)) & 0x3F,
+                         ((b1 >> 4) | (b2 << 4)) & 0x3F, (b2 >> 2) & 0x3F])
+    return decode_fp_bits(codes, fmt)
+
+
 def subbyte_params(fmt) -> Tuple[int, int]:
     """(codes_per_byte, bits) of the sb4/sb2 transports."""
     fmt = _fmt(fmt)

@@ -2,8 +2,9 @@
 
 Counterpart of ``microscopiq_tpu/serve/engine.py`` (``SlotKVState``,
 ``SlotDecodeCache``, ``SlotPrefillCache``, ``Request``, ``_bucket``,
-``BatchEngine``) with ``cache_kind="dense"`` or ``"quant"`` (the quantized
-slot caches of ``kv/cache.py``):
+``BatchEngine``) with ``cache_kind="dense"``, ``"quant"`` (the quantized
+slot caches of ``kv/cache.py``) or ``"h2o"`` (heavy-hitter eviction per
+slot, the slot caches of ``kv/h2o.py``):
 
 - a slot KV cache with a per-slot length vector; the attention mask derives
   from per-token positions, so slots at different depths share one batched
@@ -15,8 +16,7 @@ slot caches of ``kv/cache.py``):
   without stopping decode for the others.
 
 The model holds its weights (the JAX engine takes them as ``params``). K/V
-are written into the slot buffers in place. The H2O slot cache is ROADMAP
-queue 1 item 7.
+are written into the slot buffers in place.
 """
 
 from __future__ import annotations
@@ -30,8 +30,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..eval.generate import sample_logits
 from ..kv.cache import (QuantKVConfig, SlotQuantizedDecodeCache,
                         SlotQuantPrefillCache, init_slot_quant_cache)
+from ..kv.h2o import (SlotH2ODecodeCache, SlotH2OPrefillCache,
+                      init_slot_h2o_cache)
 from ..utils.observability import metrics
 
 
@@ -127,9 +130,9 @@ class Request:
 
 
 def _lengths(state) -> torch.Tensor:
-    """Per-slot depths of a dense (``lengths``) or quantized (``length``)
-    slot state."""
-    return state.lengths if isinstance(state, SlotKVState) else state.length
+    """Per-slot depths of a dense or H2O (``lengths``) or quantized
+    (``length``) slot state."""
+    return state.lengths if hasattr(state, "lengths") else state.length
 
 
 def _bucket(n: int, buckets) -> int:
@@ -146,18 +149,21 @@ class BatchEngine:
     Per-request temperature: 0 = greedy, > 0 = categorical sampling from a
     ``torch.Generator`` seeded with ``seed``. ``cache_kind`` "dense" keeps
     bf16 K/V slots; "quant" keeps the quantized slot cache of ``quant_cfg``
-    (default ``QuantKVConfig()``), whose gap must divide ``max_len``.
+    (default ``QuantKVConfig()``), whose gap must divide ``max_len``; "h2o"
+    keeps ``h2o_budget`` slots a request (default: the largest prompt
+    bucket, and never fewer, so that a prefill fits) and evicts the
+    lowest-score slot outside the ``h2o_recent`` newest tokens, while
+    ``max_len`` still bounds positions and new tokens. A budget under the
+    largest bucket raises ValueError (the JAX engine asserts).
     ``device`` defaults to "cuda" and must be the model's device.
     """
 
     def __init__(self, model, n_slots: int = 8, max_len: int = 512,
                  prompt_buckets=(32, 64, 128, 256),
                  cache_dtype=torch.bfloat16, seed: int = 0,
-                 cache_kind: str = "dense", quant_cfg=None, device="cuda"):
-        if cache_kind == "h2o":
-            raise NotImplementedError(
-                "cache_kind='h2o' is not ported yet (ROADMAP queue 1 item 7)")
-        if cache_kind not in ("dense", "quant"):
+                 cache_kind: str = "dense", quant_cfg=None,
+                 h2o_budget: int = 0, h2o_recent: int = 8, device="cuda"):
+        if cache_kind not in ("dense", "quant", "h2o"):
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         dev = resolve_device(device)
         if model.device.type != dev.type:
@@ -173,7 +179,17 @@ class BatchEngine:
         self.cache_kind = cache_kind
         dims = (cfg.num_hidden_layers, n_slots, max_len,
                 cfg.num_key_value_heads, cfg.head_dim)
-        if cache_kind == "quant":
+        if cache_kind == "h2o":
+            budget = h2o_budget or self.buckets[-1]
+            if budget < self.buckets[-1]:
+                raise ValueError(f"h2o_budget {budget} is under the largest "
+                                 f"prompt bucket {self.buckets[-1]}")
+            self.state = init_slot_h2o_cache(*dims[:2], budget, *dims[3:],
+                                             cache_dtype, device=dev)
+            self._mk_prefill = SlotH2OPrefillCache
+            self._mk_decode = lambda st, act: SlotH2ODecodeCache(
+                st, act, h2o_recent)
+        elif cache_kind == "quant":
             qcfg = quant_cfg or QuantKVConfig()
             if max_len % qcfg.gap:
                 raise ValueError(f"max_len {max_len} is not a multiple of "
@@ -200,14 +216,7 @@ class BatchEngine:
     def _sample(self, logits: torch.Tensor, temps: np.ndarray
                 ) -> torch.Tensor:
         """Per-row temperature: 0 = greedy, else categorical."""
-        greedy = torch.argmax(logits, dim=-1)
-        if not (temps > 0).any():
-            return greedy
-        t = torch.as_tensor(temps, device=logits.device)
-        scaled = logits.to(torch.float32) / torch.clamp(t, min=1e-6)[:, None]
-        drawn = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                  generator=self._gen)[:, 0]
-        return torch.where(t > 0, drawn, greedy)
+        return sample_logits(logits, temps, self._gen)
 
     @torch.inference_mode()
     def _prefill(self, ids: np.ndarray, slot: int, true_len: int,

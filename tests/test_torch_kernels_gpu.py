@@ -2163,3 +2163,177 @@ def test_tiny_quant_update_route_graph_is_bit_identical(cuda, kw):
     finally:
         gen_mod.DecodeStep = orig
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# KV policies, packers and traces on the card (no kernel of their own: their
+# PyTorch ops on CUDA tensors against the same calls on the CPU)
+# ---------------------------------------------------------------------------
+def _h2o_stream(seed, T, B, KVH, hd, budget):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16)
+    return (f(T, B, KVH, hd), f(T, B, KVH, hd),
+            torch.from_numpy(rng.random((T, B, budget)).astype(np.float32)))
+
+
+def test_h2o_slot_caches_card_equal_cpu(cuda):
+    """Per-slot prefills (one right-padded) and decode steps that evict,
+    with an inactive slot: every field equal on the card and the CPU."""
+    from microscopiq_tpu_torch.kv import h2o
+
+    L, B, budget, KVH, hd, recent, S = 1, 3, 16, 8, 128, 4, 12
+    ks, vs, sc = _h2o_stream(0, 40, B, KVH, hd, budget)
+    states = {d: h2o.init_slot_h2o_cache(L, B, budget, KVH, hd,
+                                         device=d) for d in ("cpu", cuda)}
+    for d in states:
+        for b, tl in enumerate((12, 9, 12)):
+            c = h2o.SlotH2OPrefillCache(states[d], b, tl)
+            c.update(0, ks[:S, b][None].to(d), vs[:S, b][None].to(d),
+                     torch.arange(S, device=d)[None], None)
+            c.observe(0, sc[b, b:b + 1].to(d))
+            states[d] = c.finalize(tl)
+        active = torch.tensor([True, True, False], device=d)
+        for t in range(S, 40):
+            st = states[d]
+            c = h2o.SlotH2ODecodeCache(st, active, recent)
+            _, _, m = c.update(0, ks[t][:, None].to(d), vs[t][:, None].to(d),
+                               st.lengths[:, None], None)
+            c.observe(0, sc[t].to(d))
+            states[d] = c.finalize()
+    for f in ("k", "v", "pos", "score", "lengths"):
+        assert torch.equal(getattr(states[cuda], f).cpu(),
+                           getattr(states["cpu"], f)), f
+    assert int(states["cpu"].pos.max()) == 39         # slots were evicted
+
+
+def test_h2o_argmin_ties_on_the_card(cuda):
+    """torch.argmin on CUDA returns the first minimal index, as on the CPU
+    and as jnp.argmin: rows all inf but one, rows of zeros, equal minima,
+    at the budgets of the main path."""
+    from microscopiq_tpu_torch.kv import h2o
+
+    for budget in (8, 192, 256, 1000):
+        score = torch.zeros((6, budget))
+        pos = torch.arange(budget).repeat(6, 1)
+        pos[0] = budget + 5                              # all protected...
+        pos[0, budget // 3] = 0                          # ...but one
+        score[2, budget // 2:] = -1.0                    # equal minima
+        score[3] = torch.linspace(1, 0, budget)
+        score[3, -1] = score[3, 0] = -2.0
+        score[4, 5:] = 0.5                               # zeros then halves
+        seen = budget + 4
+        want = h2o._victims(pos, score, seen, 4)
+        got = h2o._victims(pos.to(cuda), score.to(cuda), seen, 4)
+        assert torch.equal(got.cpu(), want), budget
+        assert want[0] == budget // 3 and want[1] == 0
+        assert want[2] == budget // 2 and want[3] == 0 and want[4] == 0
+
+
+def test_h2o_cache_card_equal_cpu(cuda):
+    """H2OCache and QuantH2OCache (4 bits): victims, stores and views on the
+    card equal the CPU's, fed the same tokens and scores."""
+    from microscopiq_tpu_torch.kv import h2o
+
+    B, KVH, hd, budget, T, S0 = 2, 8, 128, 24, 48, 16
+    ks, vs, sc = _h2o_stream(1, T, B, KVH, hd, budget)
+    for quant in (False, True):
+        out = {}
+        for d in ("cpu", cuda):
+            st = (h2o.init_quant_h2o_cache(1, B, budget, KVH, hd, bits=4,
+                                           device=d) if quant else
+                  h2o.init_h2o_cache(1, B, budget, KVH, hd, device=d))
+            mk = h2o.QuantH2OCache if quant else h2o.H2OCache
+            views = []
+            for t0, t1 in [(0, S0)] + [(t, t + 1) for t in range(S0, T)]:
+                c = mk(st, 4)
+                k, v, _ = c.update(
+                    0, ks[t0:t1].transpose(0, 1).to(d),
+                    vs[t0:t1].transpose(0, 1).to(d),
+                    torch.arange(t0, t1, device=d).expand(B, t1 - t0), None)
+                c.observe(0, sc[t0].to(d))
+                st = c.finalize()
+                views.append(k.float().cpu())
+            out[d] = (st, views)
+        (sc_, vc), (sg, vg) = out["cpu"], out[cuda]
+        assert torch.equal(sg.pos.cpu(), sc_.pos)
+        assert torch.equal(sg.score.cpu(), sc_.score)
+        assert all(torch.equal(a, b) for a, b in zip(vg, vc))
+        assert sg.host_length == int(sg.length) == T
+
+
+def test_rope_delta_card_equal_cpu(cuda):
+    from microscopiq_tpu_torch.kv.sink import _rope_delta
+
+    g = torch.Generator().manual_seed(2)
+    k = torch.randn((4, 252, 8, 128), generator=g).to(torch.bfloat16)
+    for delta, theta in ((-1.0, 500000.0), (-1.0, 10000.0), (7.0, 1e6)):
+        want = _rope_delta(k, delta, theta).float()
+        got = _rope_delta(k.to(cuda), delta, theta).float().cpu()
+        # cos and sin may differ by an ulp on the card; the bf16 rounding
+        # hides it but for a value at a rounding boundary (one bf16 ulp)
+        assert ((got - want).abs() <= 2 ** -7 * want.abs().clamp(
+            min=2 ** -7)).all()
+        assert (got == want).float().mean() > 0.99
+
+
+def test_packers_round_trip_on_the_card(cuda):
+    g = torch.Generator().manual_seed(3)
+    for name, lo, hi in (("int4", -8, 7), ("int2", -2, 1)):
+        codes = torch.randint(lo, hi + 1, (64, 256), generator=g,
+                              dtype=torch.int8)
+        pack = getattr(tpk, f"pack_{name}")
+        unpack = getattr(tpk, f"unpack_{name}")
+        packed = pack(codes.to(cuda))
+        assert torch.equal(packed.cpu(), pack(codes))
+        assert torch.equal(unpack(packed).cpu(), codes)
+    for fmt, nbits in (("fp4_e2m1", 4), ("fp6_e3m2", 6), ("fp6_e2m3", 6)):
+        grid = tpk.decode_fp_bits(torch.arange(2 ** nbits,
+                                               dtype=torch.uint8), fmt)
+        vals = grid[torch.randint(0, 2 ** nbits, (32, 96), generator=g)]
+        if nbits == 4:
+            packed, back = tpk.pack_fp4(vals.to(cuda)), tpk.unpack_fp4
+            assert torch.equal(packed.cpu(), tpk.pack_fp4(vals))
+            assert torch.equal(back(packed).cpu(), vals)
+        else:
+            packed = tpk.pack_fp6(vals.to(cuda), fmt)
+            assert torch.equal(packed.cpu(), tpk.pack_fp6(vals, fmt))
+            assert torch.equal(tpk.unpack_fp6(packed, fmt).cpu(), vals)
+
+
+def test_trace_window_whole_and_counts_equal_launches(cuda, tmp_path):
+    """trace() around GEMV launches: the filler kept at both ends and left
+    out of the stats, the GEMV's events equal to the wrapper's launches,
+    the busy time at least the GEMV's and at most the window's."""
+    import time
+
+    from microscopiq_tpu_torch.utils import observability as ob
+
+    p = _packed(4096, 4096, 4, cuda)
+    x = _x(8, 4096, 5, cuda).to(torch.bfloat16)
+    dm.dequant_gemv(x, p, torch.float32)
+    torch.cuda.synchronize()
+    for n in (5, 40):
+        d = str(tmp_path / f"tr{n}")
+        dm.reset_launch_counts()
+        with ob.trace(d):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                dm.dequant_gemv(x, p, torch.float32)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launched = sum(dm.launch_counts.values())
+        assert launched == n
+        stats = ob.device_kernel_stats(d, min_events=launched)
+        assert not any(ob.FILLER_KERNEL in k for k in stats)
+        gemv = sum(a["count"] for k, a in stats.items() if "gemv_tc" in k)
+        assert gemv == launched
+        lead, tail = ob.filler_kept(d)
+        assert lead > 0 and tail > 0
+        busy = ob.device_busy_us(d)
+        gemv_us = sum(a["total_us"] for k, a in stats.items()
+                      if "gemv_tc" in k)
+        assert gemv_us <= busy <= wall_us
+        with pytest.raises(AssertionError, match="lost records"):
+            ob.device_kernel_stats(d, min_events=sum(
+                a["count"] for a in stats.values()) + 1)

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 51
+    assert int(n) >= 57
     assert bad == "[]", bad
 
 
@@ -50,6 +50,11 @@ def test_cuda_entry_points_raise_without_a_card():
     from microscopiq_tpu_torch.kv.cache import (init_dense_cache,
                                                 init_quant_cache,
                                                 init_slot_quant_cache)
+    from microscopiq_tpu_torch.kv.h2o import (init_h2o_cache,
+                                              init_quant_h2o_cache,
+                                              init_slot_h2o_cache)
+    from microscopiq_tpu_torch.kv.sink import init_sink_cache
+    from microscopiq_tpu_torch.utils.profiling import format_mse_profile
     from microscopiq_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                               OPTConfig, OPTForCausalLM,
                                               build_params)
@@ -74,15 +79,21 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_checkpoint("checkpoint-that-is-never-read")
     for init in (init_dense_cache, init_slot_cache, init_quant_cache,
-                 init_slot_quant_cache):
+                 init_slot_quant_cache, init_h2o_cache, init_quant_h2o_cache,
+                 init_slot_h2o_cache):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init(1, 1, 64, 1, 32)
         init(1, 1, 64, 1, 32, device="cpu")           # the CPU when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_sink_cache(1, 1, 4, 60, 1, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        format_mse_profile(n=64)
     cpu_model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchEngine(cpu_model)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        BatchEngine(cpu_model, cache_kind="quant")
+    for kind in ("quant", "h2o"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BatchEngine(cpu_model, cache_kind=kind)
 
 
 def test_kernel_wrappers_reject_cpu_weights_for_cuda_inputs():
