@@ -119,7 +119,8 @@ the package is missing. Phases, each of which raises on failure:
 18. ``mx_quant_vs_plain``: the MX block quantizer in five formats on every
     weight shape (block 32) and a ragged one (block 16), bit-equal to
     ``pack_mx(exact_scale=True)``, timed beside the byte bound;
-19. ``gptq_main_path``: Llama-3-8B at full width, 2 layers, GPTQ-calibrated
+19. ``gptq_main_path``: Llama-3-8B at full width, 1 layer (2 until PR
+    17, cut for the run's time), GPTQ-calibrated
     on the card (``quant.calibrate.gptq_quantize_model``: int2 inliers, fp4
     outliers, block 16, at most 2 outliers a block, decisions collected; its
     column loop replayed from CUDA graphs) on 16 synthetic crops of 512
@@ -162,7 +163,8 @@ model is built; each path's launch counts join the ``kernels`` line):
 23. ``h2o_engine``: ``BatchEngine(cache_kind="h2o")``, 4 slots, buckets up
     to 128, a 256-token budget, 16 recent tokens, six requests of 96-128
     prompt tokens asking for 192 new ones (every slot evicts), each
-    answered in full, two of them token-identical to a 1-slot H2O engine,
+    answered in full, one of them (two before PR 17, which cut the
+    rerun for time) token-identical to a 1-slot H2O engine,
     and at a budget no request outgrows token-identical to the dense
     engine;
 24. ``h2o_main_path``: B = 4, a 128-token prompt and 128 eager greedy steps
@@ -182,6 +184,50 @@ model is built; each path's launch counts join the ``kernels`` line):
 27. ``host_codec``: the g++-built ``native.pack_mx_native`` bit-equal to
     ``pack_mx`` at gate_up, fp6_e3m2, block 32, with its seconds;
     ``kv_policy_phases`` logs the six phases' seconds.
+
+Then, still on that model:
+
+28. ``frontends``: the serving stack over loopback HTTP (127.0.0.1, port
+    0): a controller, an engine-backed worker (``engine_generate_stream_fn``,
+    4 dense slots), a ``generate``-backed worker under a second model name
+    (``torch_generate_stream_fn``, holding the engine's lock around each
+    capture), the web server and the OpenAI gateway; six concurrent chat
+    completions (three as SSE), two web chats and one ``cli.test_message``
+    of 32 new tokens, prompts of 16-120 words under the crc32 stand-in
+    tokenizer; every engine-backed answer equal to a 1-slot engine's
+    tokens for its prompt, every ``generate``-backed one to ``generate`` at
+    B = 1; requests/s, tokens/s and the time to the first streamed chunk;
+29. ``cot_evals``: ``evaluate_gsm8k`` (synthetic rows, limit 8, 48 new
+    tokens) over ``engine_generate_fn`` with the dense engine and with the
+    4-bit quantized one, and ``evaluate_cot_task`` for bbh, mmlu and aqua
+    (limit 8); an oracle scores 1.0 on each; two prompts' generations equal
+    a 1-slot engine's; the accuracies (random weights: ~0).
+
+After phase 4's model is freed:
+
+30. ``kv_accuracy``: ``scripts/kv_accuracy.py`` on the card at its own size
+    (trained 400 steps there): the ten arms' copy accuracy and its five
+    ordering checks; the dense and KIVI-2bit arms' predictions on one
+    batch of 16 rows against the port's CPU run on the same weights
+    (>= 99% of tokens equal);
+31. ``families``: Llama-2-7B, Mistral-7B, Mixtral-8x7B and MPT-7B at full
+    published width, 2 layers, every linear MX-FP6 emi8 block 32 by
+    ``nn.pack_params`` (the router too): B = 4, a 128-token prompt and 32
+    greedy steps replayed from a CUDA graph, held to the eager decode
+    (``graph_vs_eager``), the prefill's logits through the kernels against
+    the plain twins (Mistral: a cacheless 256-token forward under a
+    64-token window) within LOGIT_REL_TOL, Mixtral's router choices on the
+    card against the twin's on the same inputs (and, between the two
+    forwards, a token whose expert choice flips must be a near-tie of the
+    twin's router logits, within LOGIT_REL_TOL of max; it is counted and
+    left out of the logits' check); TTFT, ms a replayed step, weight GB
+    and the launches by kernel;
+32. ``hf_loading``: the seeded 2-layer Llama-2-7B-width tree exported
+    (``export_llama_state_dict``) to a ``.bin`` file and a BF16
+    ``.safetensors`` file, each in a directory with a ``config.json``,
+    loaded by ``cli.llm_cli.build_model``: the trees equal to the export
+    after the bf16 round trip, greedy tokens equal to the in-memory
+    model's.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1443,7 +1489,7 @@ def _check_tokens(name, toks, logits, vocab):
 def h2o_engine_phase(model, card: str):
     """``BatchEngine(cache_kind="h2o")``: six requests of 96-128 prompt
     tokens asking for 192 new ones through 4 slots of a 256-token budget
-    (every slot evicts), each answered in full; two of them token-identical
+    (every slot evicts), each answered in full; one of them token-identical
     to a 1-slot H2O engine; and with a budget no request outgrows, the H2O
     engine token-identical to the dense one. Returns the launch counts."""
     import torch
@@ -1484,7 +1530,7 @@ def h2o_engine_phase(model, card: str):
                                  f"error {r.error}")
     del eng
     one = mk(1, **h2o)
-    for r in reqs[:2]:
+    for r in reqs[:1]:
         alone = one.generate([r.prompt_ids], max_new_tokens=c["new"])[0]
         if alone != r.out_tokens:
             raise AssertionError("h2o engine: 4-slot and 1-slot tokens "
@@ -1512,7 +1558,7 @@ def h2o_engine_phase(model, card: str):
         decode_steps=steps, tokens_per_s=tokens / wall,
         ms_per_step=wall / steps * 1e3, kv_bytes=kv,
         slots_holding_evicting_writes=evicted, peak_mem_gb=peak / 1e9,
-        identical_to_one_slot_engine=2,
+        identical_to_one_slot_engine=1,
         unconstrained_equal_to_dense=len(prompts),
         launches={k: v for k, v in counts.items() if v}, card=card)
     return {"prefill": want_counts(), "decode": counts}
@@ -2936,7 +2982,8 @@ def quant_times() -> list:
     return rows
 
 
-GPTQ_LAYERS = 2                 # of Llama-3-8B's 32: calibration is per layer
+GPTQ_LAYERS = 1                 # of Llama-3-8B's 32: calibration is per
+                                # layer (2 until PR 17, cut for time)
 GPTQ_CALIB = (16, 512)          # crops x tokens (the reference: 128 x 2048)
 GPTQ_PPL = (8, 512)             # windows x tokens
 GPTQ_BUDGET = 2                 # outliers a block: the compact NB slots
@@ -3392,7 +3439,9 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     GPTQ-calibrated 2-layer path (``gptq``: perplexity and prefill, decode)
     for the NB kernels; the KV-policy and trace paths on the 32-layer
     MX-FP6 model (``trace_stats``, ``h2o_engine``, ``h2o_main_path``,
-    ``sink_main_path``) for the emi8 GEMV and GEMM; for
+    ``sink_main_path``, ``frontends``, ``cot_evals``) and the 2-layer
+    full-width families (``family_<name>``) for the emi8 GEMV and GEMM
+    (``cot_evals`` for the quantized-KV attention too); for
     the GEMMs at the MX blocks that no model path packs (the gemm_tile
     routes of pf6, pf4, fp16, emi8, sb4, sb2, int8, float8 and the
     side-band format, and the sm90 ones at the other blocks of
@@ -4116,6 +4165,610 @@ def route_phase(card: str):
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# Serving front-ends, generation evals, the KV accuracy probe, the other
+# model families and local HF checkpoints
+# ---------------------------------------------------------------------------
+FRONT_NEW = 32                 # new tokens a front-end request
+FRONT_WORDS = (16, 120)        # words a prompt
+FRONT_MODELS = ("llama3-8b-mxfp6", "llama3-8b-mxfp6-loop")
+
+
+def _words(rng, n: int) -> str:
+    from microscopiq_tpu_torch.eval.data import _WORDS
+
+    return " ".join(rng.choice(np.asarray(_WORDS), n))
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def frontends_phase(model, card: str):
+    """The serving stack over loopback HTTP on the 32-layer MX-FP6 model:
+    nine concurrent requests through the OpenAI gateway (chat, three as
+    SSE), the web server and the CLI, every answer held to a 1-slot engine
+    (engine-backed) or to ``generate`` at B = 1 (decode-loop worker).
+    Returns the launch counts."""
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.serve import cli, stack, worker
+    from microscopiq_tpu_torch.serve.engine import BatchEngine
+    from microscopiq_tpu_torch.serve.openai_api import OpenAIGateway
+    from microscopiq_tpu_torch.serve.web_server import WebServer
+
+    tok = stack.Crc32Tok(model.cfg.vocab_size)
+    eng_kw = dict(n_slots=4, max_len=320, prompt_buckets=(64, 128, 256))
+    logs = tempfile.TemporaryDirectory()           # the web server's log
+    reset_counts()
+    st = stack.start_stack(model, tok, FRONT_MODELS[0], log_dir=logs.name,
+                           **eng_kw)
+    urls = st["urls"]
+    loop = worker.serve_worker(worker.ModelWorker(
+        urls["controller"], "PENDING", [FRONT_MODELS[1]],
+        worker.torch_generate_stream_fn(model, tok, cache_kind="dense"),
+        register=False), "127.0.0.1", 0)
+    loop.worker.worker_addr = f"http://127.0.0.1:{loop.server_address[1]}"
+    threading.Thread(target=loop.serve_forever, daemon=True).start()
+    loop.worker.register_to_controller()
+
+    rng = np.random.default_rng(28)
+    lens = rng.integers(FRONT_WORDS[0], FRONT_WORDS[1] + 1, 9)
+    # (kind, model): six chats (the odd ones streamed), two web chats, one
+    # CLI message; the decode-loop worker takes a chat, the SSE chat after
+    # it and a web chat
+    plan = [("chat", 0), ("sse", 0), ("chat", 1), ("sse", 1), ("chat", 0),
+            ("sse", 0), ("web", 0), ("web", 1), ("cli", 0)]
+    jobs = [dict(kind=k, model=FRONT_MODELS[m], text=_words(rng, int(n)))
+            for (k, m), n in zip(plan, lens)]
+
+    def post(url, body, stream):
+        req = urllib.request.Request(
+            url, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        t0 = time.perf_counter()
+        first, out = None, b""
+        with urllib.request.urlopen(req, timeout=600) as r:
+            while True:
+                chunk = r.read(1 if stream else 65536)
+                if not chunk:
+                    break
+                if stream and first is None and (
+                        b"content" in out + chunk or b'"text"' in out + chunk):
+                    first = time.perf_counter() - t0
+                out += chunk
+        return out.decode(), first
+
+    def run(job):
+        try:
+            msgs = [{"role": "user", "content": job["text"]}]
+            if job["kind"] in ("chat", "sse"):
+                body = {"model": job["model"], "messages": msgs,
+                        "max_tokens": FRONT_NEW, "temperature": 0.0,
+                        "stream": job["kind"] == "sse"}
+                raw, first = post(urls["openai"] + "/v1/chat/completions",
+                                  body, job["kind"] == "sse")
+                if job["kind"] == "sse":
+                    evs = [json.loads(l[6:]) for l in raw.splitlines()
+                           if l.startswith("data: ") and l != "data: [DONE]"]
+                    job["answer"] = "".join(
+                        e["choices"][0]["delta"].get("content", "")
+                        for e in evs)
+                else:
+                    job["answer"] = json.loads(raw)["choices"][0][
+                        "message"]["content"]
+                job["prompt"] = OpenAIGateway(urls["controller"]
+                                              ).chat_prompt(msgs)
+            elif job["kind"] == "web":
+                body = {"model": job["model"], "messages": msgs,
+                        "temperature": 0.0, "max_new_tokens": FRONT_NEW}
+                raw, first = post(urls["web"] + "/api/chat", body, True)
+                last = [json.loads(l) for l in raw.splitlines() if l][-1]
+                if "error" in last:
+                    raise RuntimeError(last["error"])
+                job["answer"] = last["text"]
+                job["prompt"] = WebServer(urls["controller"]).build_prompt(
+                    msgs)
+            else:
+                t0 = time.perf_counter()
+                job["answer"] = cli.test_message(
+                    urls["controller"], job["model"], job["text"],
+                    FRONT_NEW, out=io.StringIO())
+                first = None
+                job["prompt"] = job["text"]
+                job["seconds"] = time.perf_counter() - t0
+            job["first_s"] = first
+        except Exception as e:                       # reported below
+            job["error"] = f"{type(e).__name__}: {e}"
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(j,)) for j in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    stack.stop_stack(st)
+    loop.shutdown()
+    loop.server_close()
+    loop.worker.shutdown()
+    logs.cleanup()
+    errors = [j["error"] for j in jobs if "error" in j]
+    if errors:
+        raise AssertionError(f"frontends: request errors {errors}")
+
+    # the references: a 1-slot engine (engine-backed), generate at B = 1
+    one = BatchEngine(model, device="cuda", **{**eng_kw, "n_slots": 1})
+    equal = 0
+    for j in jobs:
+        ids = np.asarray(tok.encode(j["prompt"]), np.int64)
+        if j["model"] == FRONT_MODELS[0]:
+            want = tok.decode(one.generate([ids], FRONT_NEW)[0])
+        else:
+            want = tok.decode(generate(model, ids[None], FRONT_NEW)[0]
+                              .tolist())
+        if j["answer"] != want:
+            raise AssertionError(f"frontends: a {j['kind']} answer of "
+                                 f"{j['model']} differs from its reference")
+        equal += 1
+    del one
+    for name in ("dequant_gemv_emi8", "dequant_matmul_emi8"):
+        if not counts[name]:
+            raise AssertionError(f"frontends: {name} never launched")
+    firsts = [j["first_s"] for j in jobs if j.get("first_s") is not None]
+    new_tokens = sum(j["answer"].count("<") for j in jobs)
+    log(phase="frontends", requests=len(jobs), wall_s=wall,
+        requests_per_s=len(jobs) / wall, tokens=new_tokens,
+        tokens_per_s=new_tokens / wall, streamed=len(firsts),
+        first_chunk_p50_s=_pct(firsts, 50), first_chunk_p90_s=_pct(firsts, 90),
+        prompt_words=[int(n) for n in lens],
+        kinds=[f"{j['kind']}:{j['model']}" for j in jobs],
+        answers_equal_to_reference=equal, loopback="127.0.0.1, port 0",
+        launches={k: v for k, v in counts.items() if v}, card=card)
+    return {"prefill": want_counts(), "decode": counts}
+
+
+COT_LIMIT, COT_NEW = 8, 48
+
+
+def cot_evals_phase(model, card: str):
+    """GSM8K (synthetic rows) over the dense and the 4-bit quantized engine
+    and BBH/MMLU/AQuA over the dense one, on the 32-layer MX-FP6 model; an
+    oracle scores 1.0 on each task; two prompts' generations equal a
+    1-slot engine's. Returns the launch counts."""
+    import torch
+
+    from microscopiq_tpu_torch.eval import cot_tasks, gsm8k
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.serve import stack
+    from microscopiq_tpu_torch.serve.engine import BatchEngine
+
+    tok = stack.Crc32Tok(model.cfg.vocab_size)
+    kw = dict(n_slots=8, max_len=256, prompt_buckets=(64, 128, 192),
+              device="cuda")
+    # the oracle: the answer read back from the rows
+    rows = gsm8k.load_gsm8k(COT_LIMIT)
+    by_q = {r["question"]: r["answer"] for r in rows}
+    for task in ("bbh", "mmlu", "aqua"):
+        by_q.update({r["question"]: f"The answer is ({r['answer']})."
+                     for r in cot_tasks.load_task(task, COT_LIMIT)})
+
+    def oracle(prompts):
+        qs = [p.split("Question: ")[-1].split("\nLet's think")[0]
+              for p in prompts]
+        return [by_q[q] for q in qs]
+
+    oracle_acc = {"gsm8k": gsm8k.evaluate_gsm8k(oracle, COT_LIMIT)[
+        "accuracy"]}
+    for task in ("bbh", "mmlu", "aqua"):
+        oracle_acc[task] = cot_tasks.evaluate_cot_task(
+            task, oracle, COT_LIMIT)["accuracy"]
+    if set(oracle_acc.values()) != {1.0}:
+        raise AssertionError(f"cot_evals: the oracle scored {oracle_acc}")
+
+    seen = []
+
+    def keep(fn):
+        def run(prompts):
+            outs = fn(prompts)
+            seen.extend(zip(prompts, outs))
+            return outs
+        return run
+
+    reset_counts()
+    t0 = time.perf_counter()
+    dense = BatchEngine(model, **kw)
+    fn = keep(gsm8k.engine_generate_fn(dense, tok, COT_NEW))
+    acc = {"gsm8k_dense": gsm8k.evaluate_gsm8k(fn, COT_LIMIT)["accuracy"]}
+    for task in ("bbh", "mmlu", "aqua"):
+        acc[task] = cot_tasks.evaluate_cot_task(task, fn, COT_LIMIT)[
+            "accuracy"]
+    del dense
+    quant = BatchEngine(model, cache_kind="quant",
+                        quant_cfg=QuantKVConfig(**QKV_CFG), **kw)
+    qfn = gsm8k.engine_generate_fn(quant, tok, COT_NEW)
+    acc["gsm8k_quant4"] = gsm8k.evaluate_gsm8k(qfn, COT_LIMIT)["accuracy"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches()
+    del quant
+    one = BatchEngine(model, **{**kw, "n_slots": 1})
+    for prompt, out in (seen[0], seen[-1]):
+        ids = np.asarray(tok.encode(prompt), np.int32)
+        if tok.decode(one.generate([ids], COT_NEW)[0]) != out:
+            raise AssertionError("cot_evals: a generation differs from the "
+                                 "1-slot engine's")
+    del one
+    for name in ("dequant_gemv_emi8", "dequant_matmul_emi8",
+                 "quant_attention"):
+        if not counts[name]:
+            raise AssertionError(f"cot_evals: {name} never launched")
+    log(phase="cot_evals", limit=COT_LIMIT, new_tokens=COT_NEW,
+        accuracy=acc, oracle_accuracy=oracle_acc, seconds=seconds,
+        identical_to_one_slot_engine=2,
+        note="random weights: the accuracies are expected near 0",
+        launches={k: v for k, v in counts.items() if v}, card=card)
+    return {"prefill": want_counts(), "decode": counts}
+
+
+KV_ACC_AGREE = 0.99            # card vs CPU predictions, dense and KIVI-2bit
+KV_ACC_STEPS = 400             # the script's training steps
+
+
+def kv_accuracy_phase(card: str):
+    """The copy probe (``scripts/kv_accuracy.py``) trained and evaluated on
+    the card; its ordering checks; dense and KIVI-2bit predictions on 16
+    rows against the port's CPU run on the same weights."""
+    import torch
+
+    from microscopiq_tpu_torch.eval.retrieval import (copy_predictions,
+                                                      sample_copy)
+    from microscopiq_tpu_torch.models import LlamaForCausalLM
+    from microscopiq_tpu_torch.scripts import kv_accuracy as ka
+
+    t0 = time.perf_counter()
+    model, task, train_s, tree = ka.trained(KV_ACC_STEPS, device="cuda",
+                                            retrain=True, log_every=0)
+    results = ka.evaluate(model, task)
+    checks = ka.ordering_checks(results)
+    eval_s = time.perf_counter() - t0 - train_s
+
+    def to_cpu(t):
+        return ({k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.cpu())
+
+    cpu = LlamaForCausalLM(model.cfg, device="cpu").load_params(
+        to_cpu(tree))
+    ids = sample_copy(np.random.default_rng(99), task, 16)
+    agree = {}
+    for arm in ("dense", "KIVI-2bit"):
+        kw = ka.arm_kwargs(arm, model, task)
+        a = copy_predictions(model, task, ids, **kw)
+        b = copy_predictions(cpu, task, ids, **kw)
+        agree[arm] = float((a == b).mean())
+    log(phase="kv_accuracy", train_steps=KV_ACC_STEPS, train_s=train_s,
+        eval_s=eval_s,
+        accuracy={k: v["accuracy"] for k, v in results.items()},
+        ordering_checks=checks, card_vs_cpu_agreement=agree,
+        agreement_rows=16, tol=KV_ACC_AGREE, card=card)
+    if not all(checks.values()):
+        raise AssertionError(f"kv_accuracy: ordering checks {checks}")
+    if min(agree.values()) < KV_ACC_AGREE:
+        raise AssertionError(f"kv_accuracy: card vs CPU agreement {agree}")
+
+
+FAMILIES = (("llama2_7b", {}), ("mistral_7b", {"sliding_window": 64}),
+            ("mixtral_8x7b", {}), ("mpt_7b", {}))
+FAMILY_B, FAMILY_S0, FAMILY_STEPS = 4, 128, 32
+
+
+def family_gemv_checks(model, name: str) -> list:
+    """Every distinct packed linear of a family (by K and N: its
+    projections, experts, router and lm_head) through ``dequant_matmul`` at
+    the decode's M = FAMILY_B, against its plain version on the same input
+    within GEMV_REL_TOL; each call must launch the GEMV once and nothing
+    else. These are the decode's shapes (the router's N = 8 on plain
+    copies), which the prefill's logits, taken through the GEMM, do not
+    reach. Returns one row a linear."""
+    import torch
+
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    gen = torch.Generator(device=model.device).manual_seed(4321)
+    rows, shapes = [], set()
+    for lin, m in model.named_modules():
+        w = getattr(m, "kernel", None)
+        if not isinstance(w, pk.PackedMX):
+            continue
+        K, N = w.orig_dim, pk.to_serving_layout(w).codes.shape[-1]
+        if (K, N) in shapes:
+            continue
+        shapes.add((K, N))
+        x = torch.randn((FAMILY_B, K), generator=gen, device=model.device,
+                        dtype=torch.bfloat16)
+        before = launches()
+        got = dm.dequant_matmul(x, w, torch.float32)
+        ran = {k: v - before.get(k, 0) for k, v in launches().items()
+               if v != before.get(k, 0)}
+        ref = dm.dequant_matmul_reference(x, w, torch.float32)
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        decode = dm.sad_decode_params(w)[0]
+        counter = dm.gemv_counter(decode, w.block_size)
+        tma = (dm.gemv_plan(decode, N, K, w.block_size, FAMILY_B)["tma"]
+               if dm.gemv_route(decode, w.block_size) == "tc" else None)
+        rows.append(dict(linear=lin, K=K, N=N, M=FAMILY_B, kernel=counter,
+                         tma=tma, max_abs_err=err, rel_err=rel))
+        if ran != {counter: 1}:
+            raise AssertionError(f"{name} {lin} (K={K}, N={N}): launched "
+                                 f"{ran}, not {counter} once")
+        if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+            raise AssertionError(f"{name} {lin} (K={K}, N={N}) GEMV at "
+                                 f"M={FAMILY_B}: rel err {rel} >= "
+                                 f"{GEMV_REL_TOL}")
+        del x, got, ref
+    return rows
+
+
+def families_phase(card: str):
+    """Llama-2-7B, Mistral-7B, Mixtral-8x7B and MPT-7B at full published
+    width, 2 layers, MX-FP6 emi8 block 32 by ``pack_params`` (every linear,
+    the lm_head and the router included): the graph decode against eager,
+    kernel logits against the plain twins, Mixtral's router choices, and
+    each distinct linear's GEMV at the decode's M against its plain version
+    (:func:`family_gemv_checks`).
+    Returns {family: launch counts}."""
+    import torch
+
+    from microscopiq_tpu_torch.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM,
+                                                    build_params)
+    from microscopiq_tpu_torch.nn import fuse_projections, pack_params
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    specs = finalize_mx_specs({"w_elem_format": "fp6_e3m2",
+                               "scale_bits": 8, "block_size": 32})
+    out = {}
+    for seed, (name, kw) in enumerate(FAMILIES):
+        t0 = time.perf_counter()
+        moe = name.startswith("mixtral")
+        cfg = getattr(LlamaConfig, name)(num_hidden_layers=2,
+                                         dtype=torch.bfloat16,
+                                         fused_projections=not moe, **kw)
+        tree = pack_params(build_params(cfg, seed=20 + seed, device="cuda")[
+            "params"], specs, skip=())
+        if not moe:
+            tree = fuse_projections(tree)
+        model = LlamaForCausalLM(cfg, device="cuda").load_params(tree)
+        twin = LlamaForCausalLM(cfg, use_kernels=False,
+                                device="cuda").load_params(tree)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        weight_bytes = sum(m.kernel.nbytes() for m in model.modules()
+                           if hasattr(getattr(m, "kernel", None), "nbytes")
+                           and callable(m.kernel.nbytes))
+        weight_bytes += model.model.embed_tokens.nbytes
+        ids = torch.as_tensor(np.random.default_rng(30 + seed).integers(
+            0, cfg.vocab_size, (FAMILY_B, FAMILY_S0)), device="cuda")
+        max_len = FAMILY_S0 + FAMILY_STEPS + 8
+        prefill_decode(model, ids, 2, max_len)              # warm-up
+        reset_counts()
+        run = prefill_decode(model, ids, FAMILY_STEPS, max_len)
+        toks, ttft, dec, last, pre, decc, *_ = run
+        _check_tokens(name, toks, last, cfg.vocab_size)
+        for k, want in (("dequant_matmul_emi8", pre),
+                        ("dequant_gemv_emi8", decc)):
+            if not want[k]:
+                raise AssertionError(f"{name}: {k} never launched")
+        graph_vs_eager(model, ids, FAMILY_STEPS, max_len, f"family_{name}",
+                       run, card)
+        # the prefill's logits, kernels vs plain twins (Mistral: a
+        # cacheless 256-token forward under its 64-token window)
+        fids = ids
+        if cfg.sliding_window is not None:
+            fids = torch.as_tensor(np.random.default_rng(40).integers(
+                0, cfg.vocab_size, (FAMILY_B, 256)), device="cuda")
+        router, hooks, seen = {}, [], []
+        logs = {"kernels": [], "plain": []}
+        if moe:
+            # the router's inputs (kernel run) and logits (both runs)
+            for tag, m in (("kernels", model), ("plain", twin)):
+                for layer in m.model.layers:
+                    hooks.append(layer.block_sparse_moe.gate.
+                                 register_forward_hook(
+                                     lambda mod, args, out, tag=tag:
+                                     logs[tag].append(out.detach().float())))
+            hooks += [layer.block_sparse_moe.register_forward_pre_hook(
+                lambda mod, args: seen.append(args[0].detach().clone()))
+                for layer in model.model.layers]
+        with torch.inference_mode():
+            a = model(fids).float()
+            b = twin(fids).float()
+            for h in hooks:
+                h.remove()
+            keep = torch.ones(fids.shape, dtype=torch.bool, device="cuda")
+            if moe:
+                K = cfg.num_experts_per_tok
+                agree, distinct, gaps = [], [], []
+                for li, x in enumerate(seen):
+                    # the same input through the router's GEMM and its twin
+                    got = model.model.layers[li].block_sparse_moe.route(x)[1]
+                    ref_mod = twin.model.layers[li].block_sparse_moe
+                    top = torch.topk(ref_mod.gate(x).float(), K + 1,
+                                     dim=-1).values
+                    clear = (top[..., K - 1] - top[..., K]) > 1e-3 * top.abs(
+                    ).amax(-1)
+                    want = ref_mod.route(x)[1]
+                    same = (got.sort(-1).values == want.sort(-1).values
+                            ).all(-1)
+                    agree.append(same[clear].float().mean().item())
+                    distinct.append(clear.float().mean().item())
+                    # the two forwards: a token whose choice differs at a
+                    # layer (its first) must be a near-tie of the twin's
+                    # logits there; it is left out of the logits' check
+                    la, lb = logs["kernels"][li], logs["plain"][li]
+                    ca = torch.topk(la, K, dim=-1).indices.sort(-1).values
+                    cb = torch.topk(lb, K, dim=-1).indices.sort(-1).values
+                    first = (ca != cb).any(-1) & keep
+                    tb = torch.topk(lb, K + 1, dim=-1).values
+                    gap = (tb[..., K - 1] - tb[..., K]) / lb.abs().amax(-1)
+                    gaps += gap[first].tolist()
+                    keep &= ~first
+                router = dict(
+                    router_agreement_same_input_by_layer=agree,
+                    router_distinct_share_by_layer=distinct,
+                    tokens_routed_differently=int((~keep).sum()),
+                    tokens=int(keep.numel()),
+                    their_router_gap_max=max(gaps, default=0.0),
+                    all_tokens_rel_err=((a - b).abs().max()
+                                        / b.abs().max()).item())
+                del seen, logs
+        err = (a - b)[keep].abs().max().item()
+        rel = err / b[keep].abs().max().item()
+        counts = {k: pre[k] + decc[k] for k in pre}
+        gemv = family_gemv_checks(model, name)
+        log(phase="families", family=name, layers=2, batch=FAMILY_B,
+            prompt=FAMILY_S0, steps=FAMILY_STEPS,
+            hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+            heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
+            vocab=cfg.vocab_size, experts=cfg.num_local_experts,
+            pos_emb=cfg.pos_emb, norm=cfg.norm_type, mlp=cfg.mlp_type,
+            tied=cfg.tie_word_embeddings, window=cfg.sliding_window,
+            logits_tokens=int(fids.shape[1]), prefill_max_abs_err=err,
+            prefill_rel_err=rel, tol=LOGIT_REL_TOL, ttft_ms=ttft * 1e3,
+            decode_ms_per_step=dec / FAMILY_STEPS * 1e3,
+            weight_gb=weight_bytes / 1e9, build_s=build_s,
+            launches={k: v for k, v in counts.items() if v}, **router,
+            gemv_vs_plain=gemv, gemv_tol=GEMV_REL_TOL, card=card)
+        if not rel < LOGIT_REL_TOL:
+            raise AssertionError(f"{name}: kernel vs plain logits rel err "
+                                 f"{rel}")
+        if moe and (min(router["router_agreement_same_input_by_layer"])
+                    < 1.0 or router["their_router_gap_max"] >= LOGIT_REL_TOL
+                    or router["tokens_routed_differently"]
+                    > router["tokens"] // 20):
+            raise AssertionError(f"{name}: router choices differ beyond "
+                                 f"near-ties: {router}")
+        out[f"family_{name}"] = {"prefill": pre, "decode": decc}
+        del model, twin, tree, a, b, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def _write_bf16_safetensors(state, path) -> None:
+    """A BF16 ``.safetensors`` file of ``state`` (8-byte little-endian
+    header length, JSON header, raw bytes), written here so that the
+    package needs no writer."""
+    import struct
+
+    import torch
+
+    header, blobs, at = {}, [], 0
+    for k, v in state.items():
+        b = v.detach().to(torch.bfloat16).contiguous().cpu().view(
+            torch.int16).numpy().tobytes()
+        header[k] = {"dtype": "BF16", "shape": list(v.shape),
+                     "data_offsets": [at, at + len(b)]}
+        blobs.append(b)
+        at += len(b)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for b in blobs:
+            f.write(b)
+
+
+def hf_loading_phase(card: str):
+    """The seeded 2-layer Llama-2-7B-width tree exported, written as a
+    ``.bin`` and a BF16 ``.safetensors`` checkpoint, loaded back by the
+    CLI's ``build_model``: trees and greedy tokens equal."""
+    import tempfile
+
+    import torch
+
+    from microscopiq_tpu_torch.cli.llm_cli import build_model
+    from microscopiq_tpu_torch.eval.generate import generate
+    from microscopiq_tpu_torch.models import loading
+    from microscopiq_tpu_torch.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM,
+                                                    build_params)
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2)
+    tree = build_params(cfg, seed=7, device="cuda")
+    state = loading.export_llama_state_dict(tree, cfg)
+    want = {k: v.to(torch.bfloat16).float() for k, v in state.items()}
+    hf_cfg = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_hidden_layers,
+              "num_attention_heads": cfg.num_attention_heads,
+              "num_key_value_heads": cfg.num_key_value_heads,
+              "max_position_embeddings": cfg.max_position_embeddings,
+              "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+              "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 24))
+    ref = LlamaForCausalLM(cfg, device="cuda").load_params(tree)
+    ref_toks = generate(ref, prompt, 16)
+    del ref
+    rec = {}
+    for kind in ("bin", "safetensors"):
+        # one checkpoint on disk at a time
+        with tempfile.TemporaryDirectory() as d:
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(hf_cfg, f)
+            w0 = time.perf_counter()
+            if kind == "bin":
+                torch.save({k: v.to(torch.bfloat16).cpu()
+                            for k, v in state.items()},
+                           os.path.join(d, "pytorch_model.bin"))
+            else:
+                _write_bf16_safetensors(state, os.path.join(
+                    d, "model.safetensors"))
+            write_s = time.perf_counter() - w0
+            file_gb = sum(os.path.getsize(os.path.join(d, f))
+                          for f in os.listdir(d)) / 1e9
+            l0 = time.perf_counter()
+            _, c, cls, params, tok = build_model(d, "cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - l0
+            got = loading.load_hf_state_dict(d, device="cuda")
+        if got.keys() != want.keys() or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"hf_loading: the {kind} checkpoint's "
+                                 "tensors differ from the export")
+        m = cls(c, device="cuda").load_params(params)
+        toks = generate(m, prompt, 16)
+        if not np.array_equal(toks, ref_toks):
+            raise AssertionError(f"hf_loading: greedy tokens of the {kind} "
+                                 "checkpoint differ")
+        rec[kind] = dict(file_gb=file_gb, write_s=write_s,
+                         build_model_s=load_s, tokenizer=tok is not None,
+                         tensors=len(got), tokens_equal=True)
+        del m, params, got
+        torch.cuda.empty_cache()
+    # build_model imports transformers where it is installed, for its
+    # optional tokenizer; the port must not pull JAX in through it
+    jax_loaded = sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "flax")))
+    log(phase="hf_loading", config="llama2_7b, 2 layers", files=rec,
+        seconds=time.perf_counter() - t0, jax_modules=len(jax_loaded),
+        card=card)
+    if jax_loaded:
+        raise AssertionError(f"hf_loading: JAX was imported: "
+                             f"{jax_loaded[:5]}")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -4176,8 +4829,24 @@ def main(argv=None) -> int:
     gear_codecs_phase(card)
     host_codec_phase(card)
     log(phase="kv_policy_phases", seconds=time.perf_counter() - t0, card=card)
+    secs = {}
+    t0 = time.perf_counter()
+    newcounts = {"frontends": frontends_phase(packed, card)}
+    secs["frontends"] = time.perf_counter() - t0
+    newcounts["cot_evals"] = cot_evals_phase(packed, card)
+    secs["cot_evals"] = time.perf_counter() - t0 - sum(secs.values())
     del packed
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kv_accuracy_phase(card)
+    secs["kv_accuracy"] = time.perf_counter() - t0
+    newcounts.update(families_phase(card))
+    secs["families"] = time.perf_counter() - t0 - secs["kv_accuracy"]
+    hf_loading_phase(card)
+    secs["hf_loading"] = (time.perf_counter() - t0 - secs["kv_accuracy"]
+                          - secs["families"])
+    log(phase="slice17_phases", seconds=secs, total_s=sum(secs.values()),
+        card=card)
 
     orows = outlier_kernel_phase(card)
     ocounts = outlier_main_path(card)
@@ -4197,7 +4866,7 @@ def main(argv=None) -> int:
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
                                   {**ocounts, "gptq": gptq_counts,
-                                   **kvcounts}, irows,
+                                   **kvcounts, **newcounts}, irows,
                                   icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
                                   grows, gcounts, rrows, rcounts)),

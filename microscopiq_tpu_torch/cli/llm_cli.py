@@ -6,9 +6,10 @@ Counterpart of ``microscopiq_tpu/cli/llm_cli.py``, with the same flags and
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions). Models:
 ``tiny-llama`` and ``tiny-opt``, whose weights are the port's seeded
 ``build_params`` (N(0, 0.02), seed 0; flax's initialisation cannot be
-reproduced without JAX, so they are not the JAX CLI's weights). A local HF
-checkpoint directory needs ``models/loading.py``, which is not ported yet
-(ROADMAP queue 1 item 10).
+reproduced without JAX, so they are not the JAX CLI's weights), or a local
+HF checkpoint directory (``config.json`` and ``.safetensors`` or ``.bin``
+files, read by ``models/loading.py``; an OPT architecture or else the
+Llama family: Llama, Mistral, Mixtral).
 
 Usage:
   python -m microscopiq_tpu_torch.cli.llm_cli tiny-opt synthetic \\
@@ -18,14 +19,19 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import numpy as np
 import torch
 
 
-def build_model(name: str, device):
-    """(kind, cfg, model class, weight tree, tokenizer) of a model name."""
+def build_model(name: str, device="cuda"):
+    """(kind, cfg, model class, weight tree, tokenizer) of a model name or
+    a local HF checkpoint directory (the tokenizer: ``transformers``'
+    ``AutoTokenizer`` from the directory's files where it loads, else
+    None)."""
     from ..models import llama, opt
 
     if name == "tiny-opt":
@@ -36,10 +42,45 @@ def build_model(name: str, device):
         cfg = llama.LlamaConfig.tiny()
         return ("llama", cfg, llama.LlamaForCausalLM,
                 llama.build_params(cfg, seed=0, device=device), None)
-    raise NotImplementedError(
-        f"{name!r}: a local HF checkpoint needs models/loading.py, which is "
-        "not ported yet (ROADMAP queue 1 item 10); the port's models are "
-        "tiny-llama and tiny-opt")
+
+    # local HF checkpoint directory
+    from ..models import loading
+
+    with open(os.path.join(name, "config.json")) as f:
+        hf = json.load(f)
+    arch = (hf.get("architectures") or [""])[0].lower()
+    state = loading.load_hf_state_dict(name, device=device)
+    tokenizer = None
+    try:
+        from transformers import AutoTokenizer
+        tokenizer = AutoTokenizer.from_pretrained(name,
+                                                  local_files_only=True)
+    except Exception:
+        pass
+    if "opt" in arch:
+        cfg = opt.OPTConfig(
+            vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+            ffn_dim=hf["ffn_dim"], num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            max_position_embeddings=hf["max_position_embeddings"],
+            do_layer_norm_before=hf.get("do_layer_norm_before", True))
+        return ("opt", cfg, opt.OPTForCausalLM,
+                loading.convert_opt(state, cfg), tokenizer)
+    cfg = llama.LlamaConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_hidden_layers=hf["num_hidden_layers"],
+        num_attention_heads=hf["num_attention_heads"],
+        num_key_value_heads=hf.get("num_key_value_heads",
+                                   hf["num_attention_heads"]),
+        max_position_embeddings=hf["max_position_embeddings"],
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        sliding_window=hf.get("sliding_window"),
+        num_local_experts=hf.get("num_local_experts", 0),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
+    return ("llama", cfg, llama.LlamaForCausalLM,
+            loading.convert_llama(state, cfg), tokenizer)
 
 
 def benchmark_decode(model, n_tokens: int = 64, batch: int = 1) -> float:
@@ -63,7 +104,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("model", help="tiny-opt | tiny-llama (seeded "
-                        "build_params weights) | a local HF dir (not ported)")
+                        "build_params weights) | a local HF checkpoint dir")
     parser.add_argument("dataset", nargs="?", default="synthetic",
                         choices=["wikitext2", "ptb", "c4", "synthetic"])
     parser.add_argument("--nsamples", type=int, default=128)

@@ -30,6 +30,8 @@ against, and the prefill + decode loop ``chip_smoke.py`` times.
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -39,6 +41,22 @@ from ..kv.cache import (DenseDecodeCache, QuantizedDecodeCache,
                         QuantKVConfig, check_dense_room, check_quant_room,
                         init_dense_cache, init_quant_cache, next_fold_length,
                         quant_fold_step)
+
+
+# Serializes the threads of one process that launch on the card: a CUDA-graph
+# capture (the second call of a ``DecodeStep`` variant) fails if another
+# thread launches work while it runs. ``generate`` holds it for its whole
+# call and ``serve.engine.BatchEngine`` for each step, so that a server may
+# run both from its request threads.
+DEVICE_LOCK = threading.RLock()
+
+
+def _holding_device_lock(fn):
+    @functools.wraps(fn)
+    def locked(*args, **kwargs):
+        with DEVICE_LOCK:
+            return fn(*args, **kwargs)
+    return locked
 
 
 def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
@@ -191,6 +209,7 @@ def pad_prompts(prompts: Sequence[Sequence[int]], pad_token_id: int = 0):
 
 
 @torch.inference_mode()
+@_holding_device_lock
 def generate(model, prompt_ids, max_new_tokens: int,
              cache_kind: str = "dense",
              quant_cfg: Optional[QuantKVConfig] = None,
@@ -202,7 +221,8 @@ def generate(model, prompt_ids, max_new_tokens: int,
              pad_token_id: int = 0) -> np.ndarray:
     """Greedy (``temperature`` 0) or sampled decode; returns (B, T <=
     max_new_tokens) token ids. Sampling draws from ``generator`` (default:
-    a generator on the model's device seeded 0)."""
+    a generator on the model's device seeded 0). Holds
+    :data:`DEVICE_LOCK`."""
     if isinstance(prompt_ids, (list, tuple)):
         prompt_ids, prompt_lens = pad_prompts(prompt_ids, pad_token_id)
     prompt_ids = np.asarray(prompt_ids)

@@ -1,12 +1,16 @@
-"""Llama-family decoder (Llama 2/3 geometry) in PyTorch.
+"""Llama-family decoder (Llama 2/3, Mistral, Mixtral, MPT) in PyTorch.
 
 Counterpart of ``microscopiq_tpu/models/llama.py`` for the serving path:
-RoPE, RMSNorm, GQA attention by grouped einsum (K/V are never repeated),
-SwiGLU MLP, optional fused ``qkv_proj``/``gate_up_proj``, a dense or quantized
-KV cache, and ``last_only``/``logit_index`` logits. Linears hold a dense
-(K, N) kernel, a :class:`PackedMX`, a side-band :class:`PackedMXOutlier` or a
-compact :class:`PackedOutlierNB`; packed ones run through the CUDA kernels
-(``use_kernels=True``, the counterpart of ``use_pallas``) or their plain twin.
+RoPE or ALiBi, RMSNorm or a biasless LayerNorm, GQA attention by grouped
+einsum (K/V are never repeated), a SwiGLU or exact-GELU MLP or Mixtral's
+top-k mixture of experts (every expert computed on every token, combined by
+the JAX module's one-hot einsums), Mistral's sliding window on a cacheless
+forward, optional fused ``qkv_proj``/``gate_up_proj``, a dense or quantized
+KV cache, tied or separate logits, and ``last_only``/``logit_index``
+logits. Linears hold a dense (K, N) kernel, a :class:`PackedMX`, a
+side-band :class:`PackedMXOutlier` or a compact :class:`PackedOutlierNB`;
+packed ones run through the CUDA kernels (``use_kernels=True``, the
+counterpart of ``use_pallas``) or their plain twin.
 A cache with an ``observe`` method (the H2O caches of ``kv/h2o.py``) is
 handed the float32 attention mass of each key slot after the softmax.
 A decode step over a quantized cache goes through the fused flash-decode
@@ -16,18 +20,20 @@ KV head, gap, bits, V group, rank), else through ``cache.update``; the
 choice is the same on every device.
 
 Weights are a flax-named nested dict (``model/layers_{i}/self_attn/
-qkv_proj/kernel``, ``model/norm/scale``, ``lm_head/kernel``, ...), made by
-:func:`build_params` or :func:`microscopiq_tpu_torch.convert.params_from_jax`
-and installed with :meth:`LlamaForCausalLM.load_params`.
+qkv_proj/kernel``, ``model/layers_{i}/block_sparse_moe/experts_{e}/...``,
+``model/norm/scale``, ``lm_head/kernel`` unless the embeddings are tied,
+...), made by :func:`build_params`, :func:`microscopiq_tpu_torch.convert.
+params_from_jax` or ``models/loading.py`` and installed with
+:meth:`LlamaForCausalLM.load_params`.
 
-Branches of the JAX module outside this slice raise ``NotImplementedError``
-naming their ROADMAP item: ALiBi/MPT, sliding window, MoE (queue 1 item 10)
-and fake-quant ``mx_specs`` (item 9).
+The fake-quant ``mx_specs`` branch (ROADMAP queue 1 item 9) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -36,7 +42,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..kv.cache import QuantizedDecodeCache, SlotQuantizedDecodeCache
-from ..nn.norms import RMSNorm
+from ..nn.norms import LayerNorm, RMSNorm
 from ..ops.cuda.dequant_matmul import (dequant_matmul,
                                        dequant_matmul_reference)
 from ..ops.cuda.outlier_matmul import (dequant_matmul_nb,
@@ -93,19 +99,60 @@ class LlamaConfig:
         base.update(kw)
         return LlamaConfig(**base)
 
+    @staticmethod
+    def llama2_7b(**kw) -> "LlamaConfig":
+        base = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=11008, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=32,
+                    max_position_embeddings=4096)
+        base.update(kw)
+        return LlamaConfig(**base)
 
-def _check_in_slice(cfg: LlamaConfig) -> None:
-    family = {"pos_emb": (cfg.pos_emb, "rope"),
-              "norm_type": (cfg.norm_type, "rms"),
-              "mlp_type": (cfg.mlp_type, "swiglu"),
-              "tie_word_embeddings": (cfg.tie_word_embeddings, False),
-              "sliding_window": (cfg.sliding_window, None),
-              "num_local_experts": (cfg.num_local_experts, 0)}
-    for name, (got, want) in family.items():
-        if got != want:
-            raise NotImplementedError(
-                f"{name}={got!r} (MPT/ALiBi, Mistral sliding window, Mixtral "
-                "MoE) is not ported yet (ROADMAP queue 1 item 10)")
+    @staticmethod
+    def mistral_7b(**kw) -> "LlamaConfig":
+        base = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    max_position_embeddings=4096, sliding_window=4096)
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    @staticmethod
+    def mixtral_8x7b(**kw) -> "LlamaConfig":
+        """Mixtral-8x7B geometry (HF MixtralConfig defaults: Mistral-7B's
+        attention, 8 experts of intermediate 14336, top 2, rope theta 1e6,
+        32768 positions)."""
+        base = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    max_position_embeddings=32768, rope_theta=1e6,
+                    num_local_experts=8, num_experts_per_tok=2)
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    @staticmethod
+    def mpt_7b(**kw) -> "LlamaConfig":
+        """MPT-7B geometry (HF MptConfig defaults: d_model=4096, n_heads=32,
+        n_layers=32, ffn = 4*d, ALiBi, biasless LayerNorm, exact GELU,
+        tied embeddings)."""
+        base = dict(vocab_size=50432, hidden_size=4096,
+                    intermediate_size=16384, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=32,
+                    max_position_embeddings=2048, rms_norm_eps=1e-5,
+                    pos_emb="alibi", norm_type="ln", mlp_type="gelu",
+                    tie_word_embeddings=True)
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    @staticmethod
+    def tiny_mpt(**kw) -> "LlamaConfig":
+        base = dict(vocab_size=256, hidden_size=64, intermediate_size=256,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=4, max_position_embeddings=128,
+                    rms_norm_eps=1e-5, pos_emb="alibi", norm_type="ln",
+                    mlp_type="gelu", tie_word_embeddings=True)
+        base.update(kw)
+        return LlamaConfig(**base)
 
 
 def rope(q, k, positions, head_dim, theta):
@@ -122,6 +169,20 @@ def rope(q, k, positions, head_dim, theta):
                          dim=-1).to(x.dtype)
 
     return rot(q), rot(k)
+
+
+def alibi_slopes(num_heads: int, bias_max: float = 8.0,
+                 device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes, as HF ``build_mpt_alibi_tensor``: geometric
+    over the next power of two, interleave-selected when num_heads is not a
+    power of two."""
+    npow = 2 ** math.ceil(math.log2(num_heads))
+    base = torch.arange(1, npow + 1, dtype=torch.float32,
+                        device=device) * (bias_max / npow)
+    slopes = 1.0 / torch.exp2(base)
+    if npow != num_heads:
+        slopes = torch.cat([slopes[1::2], slopes[::2]])[:num_heads]
+    return slopes
 
 
 class QLinear(nn.Module):
@@ -192,7 +253,8 @@ class Attention(nn.Module):
             q = self.q_proj(x).reshape(B, S, H, hd)
             k = self.k_proj(x).reshape(B, S, KVH, hd)
             v = self.v_proj(x).reshape(B, S, KVH, hd)
-        q, k = rope(q, k, positions, hd, cfg.rope_theta)
+        if cfg.pos_emb == "rope":
+            q, k = rope(q, k, positions, hd, cfg.rope_theta)
 
         scale = hd ** -0.5
         if cache is not None:
@@ -220,11 +282,23 @@ class Attention(nn.Module):
         neg = torch.finfo(torch.float32).min
         G = k.shape[2]
         rep = H // G
+        L = k.shape[1]
+        alibi = None
+        if cfg.pos_emb == "alibi":
+            # a key-slot-only bias, slope_h * (j - (L-1)): linear in the
+            # key slot, so softmax's shift invariance makes it the
+            # -slope * distance bias for every query row under any
+            # left-padding or append-order cache; float32, as in JAX
+            alibi = alibi_slopes(H, cfg.alibi_bias_max, q.device)[:, None] * (
+                torch.arange(L, dtype=torch.float32, device=q.device)
+                - (L - 1))[None, :]                              # (H, L)
         if rep > 1:
             # GQA by grouped einsum: repeated K/V are never materialized
             qg = q.reshape(B, S, G, rep, hd)
             logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k
                                   ).to(torch.float32) * scale
+            if alibi is not None:
+                logits = logits + alibi.reshape(G, rep, 1, L)[None]
             logits = torch.where(mask[:, :, None], logits, neg)
             probs = torch.softmax(logits, dim=-1)
             if hasattr(cache, "observe"):
@@ -235,6 +309,8 @@ class Attention(nn.Module):
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k
                                   ).to(torch.float32) * scale
+            if alibi is not None:
+                logits = logits + alibi[None, :, None, :]
             logits = torch.where(mask, logits, neg)
             probs = torch.softmax(logits, dim=-1)
             if hasattr(cache, "observe"):
@@ -244,14 +320,16 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU, down(silu(gate(x)) * up(x)), or MPT's down(gelu(up(x)))
+    with the exact-erf GELU and no gate."""
 
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
         super().__init__()
         self.cfg = cfg
-        I = cfg.intermediate_size
         mk = lambda: QLinear(cfg.dtype, use_kernels)
-        if cfg.fused_projections:
+        if cfg.mlp_type == "gelu":
+            self.up_proj = mk()
+        elif cfg.fused_projections:
             self.gate_up_proj = mk()
         else:
             self.gate_proj = mk()
@@ -260,6 +338,8 @@ class MLP(nn.Module):
 
     def forward(self, x):
         I = self.cfg.intermediate_size
+        if self.cfg.mlp_type == "gelu":
+            return self.down_proj(F.gelu(self.up_proj(x), approximate="none"))
         if self.cfg.fused_projections:
             gu = self.gate_up_proj(x)
             gate, up = gu[..., :I], gu[..., I:]
@@ -268,26 +348,79 @@ class MLP(nn.Module):
         return self.down_proj(F.silu(gate) * up)
 
 
+class MoEBlock(nn.Module):
+    """Mixtral's sparse MoE MLP: a router ``gate`` (a :class:`QLinear`,
+    packed like every linear), the top ``num_experts_per_tok`` router
+    logits through a float32 softmax cast to x's dtype, and every expert
+    computed on every token, combined by one-hot einsums (the JAX module's
+    formulation)."""
+
+    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.gate = QLinear(cfg.dtype, use_kernels)
+        for i in range(cfg.num_local_experts):
+            setattr(self, f"experts_{i}", MLP(cfg, use_kernels))
+
+    def route(self, x):
+        """(weights (B, S, K) in x's dtype, chosen experts (B, S, K))."""
+        router = self.gate(x)
+        weights, sel = torch.topk(router, self.cfg.num_experts_per_tok,
+                                  dim=-1)
+        return torch.softmax(weights.to(torch.float32), dim=-1
+                             ).to(x.dtype), sel
+
+    def forward(self, x):
+        E = self.cfg.num_local_experts
+        weights, sel = self.route(x)
+        outs = torch.stack([getattr(self, f"experts_{i}")(x)
+                            for i in range(E)], dim=2)           # (B,S,E,D)
+        # one-hot by comparison: F.one_hot checks its input on the host,
+        # which a CUDA graph's capture forbids
+        onehot = (sel[..., None] == torch.arange(E, device=sel.device)
+                  ).to(x.dtype)                                  # (B,S,K,E)
+        combine = torch.einsum("bske,bsk->bse", onehot, weights)
+        dt = torch.promote_types(outs.dtype, combine.dtype)
+        return torch.einsum("bsed,bse->bsd", outs.to(dt), combine.to(dt))
+
+
+def _make_norm(cfg: LlamaConfig):
+    """RMSNorm (Llama) or biasless LayerNorm (MPT)."""
+    if cfg.norm_type == "ln":
+        return LayerNorm(cfg.hidden_size, cfg.rms_norm_eps, use_bias=False)
+    return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.input_layernorm = _make_norm(cfg)
         self.self_attn = Attention(cfg, use_kernels)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
-                                                cfg.rms_norm_eps)
-        self.mlp = MLP(cfg, use_kernels)
+        self.post_attention_layernorm = _make_norm(cfg)
+        if cfg.num_local_experts > 0:
+            self.block_sparse_moe = MoEBlock(cfg, use_kernels)
+        else:
+            self.mlp = MLP(cfg, use_kernels)
 
     def forward(self, x, positions, mask, cache=None, layer_idx: int = 0):
         x = x + self.self_attn(self.input_layernorm(x), positions, mask,
                                cache, layer_idx)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        h = self.post_attention_layernorm(x)
+        if hasattr(self, "block_sparse_moe"):
+            return x + self.block_sparse_moe(h)
+        return x + self.mlp(h)
 
 
-def causal_mask(S: int, positions) -> torch.Tensor:
-    """(B, 1, S, S) boolean mask: key position <= query position."""
+def causal_mask(S: int, positions,
+                sliding_window: Optional[int] = None) -> torch.Tensor:
+    """(B, 1, S, S) boolean mask: key position <= query position, and with
+    Mistral's ``sliding_window`` within that many positions of it."""
     qp = positions[:, :, None]
     kp = positions[:, None, :]
-    return (kp <= qp)[:, None, :, :]
+    m = kp <= qp
+    if sliding_window is not None:
+        m = m & (kp > qp - sliding_window)
+    return m[:, None, :, :]
 
 
 class LlamaModel(nn.Module):
@@ -298,7 +431,7 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             [DecoderLayer(cfg, use_kernels)
              for _ in range(cfg.num_hidden_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.norm = _make_norm(cfg)
 
     def forward(self, input_ids, positions=None, mask=None, cache=None):
         B, S = input_ids.shape
@@ -306,7 +439,9 @@ class LlamaModel(nn.Module):
             positions = torch.arange(S, device=input_ids.device
                                      )[None, :].expand(B, S)
         if mask is None and cache is None:
-            mask = causal_mask(S, positions)
+            # the sliding window applies only here, as in JAX: no cached
+            # path applies it
+            mask = causal_mask(S, positions, self.cfg.sliding_window)
         x = self.embed_tokens[input_ids]
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, mask, cache, i)
@@ -314,10 +449,16 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama decoder with its lm_head; weights go in with :meth:`load_params`.
+    """Llama-family decoder with its lm_head, or with tied embeddings
+    logits = x @ embed.T (no ``lm_head`` in the tree; a plain matmul, as
+    JAX computes it outside any kernel); weights go in with
+    :meth:`load_params`.
 
     ``device`` defaults to "cuda" and must exist; pass ``device="cpu"`` to
-    run the plain versions on the CPU.
+    run the plain versions on the CPU. Mixtral with ``fused_projections``
+    raises ValueError: ``nn.fuse_projections`` fuses no expert, so its
+    experts would have no ``gate_up_proj`` (the JAX module fails there at
+    ``apply``).
     """
 
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
@@ -327,11 +468,16 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(
                 "fake-quant mx_specs layers are not ported yet "
                 "(ROADMAP queue 1 item 9)")
-        _check_in_slice(cfg)
+        if cfg.num_local_experts > 0 and cfg.fused_projections:
+            raise ValueError(
+                "fused_projections with MoE experts: fuse_projections fuses "
+                "no block_sparse_moe/experts_*, whose MLPs would need "
+                "gate_up_proj; serve Mixtral with fused_projections=False")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = LlamaModel(cfg, use_kernels)
-        self.lm_head = QLinear(cfg.dtype, use_kernels)
+        self.lm_head = (None if cfg.tie_word_embeddings
+                        else QLinear(cfg.dtype, use_kernels))
 
     def load_params(self, params) -> "LlamaForCausalLM":
         """Install a flax-named weight tree (``{"params": ...}`` or bare)."""
@@ -354,6 +500,10 @@ class LlamaForCausalLM(nn.Module):
             idx = torch.as_tensor(logit_index, device=x.device).long()
             x = torch.gather(x, 1, idx[:, None, None].expand(
                 x.shape[0], 1, x.shape[-1]))
+        if self.lm_head is None:
+            embed = self.model.embed_tokens
+            dt = torch.promote_types(x.dtype, embed.dtype)
+            return torch.matmul(x.to(dt), embed.to(dt).T)
         return self.lm_head(x)
 
 
@@ -401,6 +551,13 @@ def build_params(cfg: LlamaConfig, seed: int = 0, packed_specs=None,
     lm_head included) is packed by :func:`pack_mx` (axis 0, emi8 for fp4/fp6
     formats) into the pre-blocked serving layout. Projections stay unfused;
     pass the tree through ``nn.fuse_projections`` for a fused model.
+
+    The tree follows the family of ``cfg``: a ``block_sparse_moe`` (router
+    ``gate``, ``experts_{e}`` MLPs) in place of ``mlp`` for Mixtral, MPT's
+    gate-less MLP, no ``lm_head`` under tied embeddings. The draws go in
+    the order embedding, lm_head, then each layer's q, k, v, o and MLP
+    kernels (the router first, then each expert's), so a Llama tree is
+    the same for a seed whatever the other families add.
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -437,23 +594,36 @@ def build_params(cfg: LlamaConfig, seed: int = 0, packed_specs=None,
         return one(w)
 
     ones = lambda: torch.ones(D, dtype=cfg.dtype, device=dev)
+
+    def mlp():
+        if cfg.mlp_type == "gelu":
+            return {"up_proj": {"kernel": kernel((D, I))},
+                    "down_proj": {"kernel": kernel((I, D))}}
+        return {"gate_proj": {"kernel": kernel((D, I))},
+                "up_proj": {"kernel": kernel((D, I))},
+                "down_proj": {"kernel": kernel((I, D))}}
+
     model = {"embed_tokens": dense((cfg.vocab_size, D)).to(cfg.dtype)}
-    lm_head = kernel((D, cfg.vocab_size))
+    tree = {"model": model}
+    if not cfg.tie_word_embeddings:
+        tree["lm_head"] = {"kernel": kernel((D, cfg.vocab_size))}
     for i in range(cfg.num_hidden_layers):
-        model[f"layers_{i}"] = {
+        layer = {
             "self_attn": {
                 "q_proj": {"kernel": kernel((D, H * hd))},
                 "k_proj": {"kernel": kernel((D, KVH * hd))},
                 "v_proj": {"kernel": kernel((D, KVH * hd))},
                 "o_proj": {"kernel": kernel((H * hd, D))},
-            },
-            "mlp": {
-                "gate_proj": {"kernel": kernel((D, I))},
-                "up_proj": {"kernel": kernel((D, I))},
-                "down_proj": {"kernel": kernel((I, D))},
-            },
-            "input_layernorm": {"scale": ones()},
-            "post_attention_layernorm": {"scale": ones()},
-        }
+            }}
+        if cfg.num_local_experts > 0:
+            moe = {"gate": {"kernel": kernel((D, cfg.num_local_experts))}}
+            for e in range(cfg.num_local_experts):
+                moe[f"experts_{e}"] = mlp()
+            layer["block_sparse_moe"] = moe
+        else:
+            layer["mlp"] = mlp()
+        layer["input_layernorm"] = {"scale": ones()}
+        layer["post_attention_layernorm"] = {"scale": ones()}
+        model[f"layers_{i}"] = layer
     model["norm"] = {"scale": ones()}
-    return {"params": {"model": model, "lm_head": {"kernel": lm_head}}}
+    return {"params": tree}

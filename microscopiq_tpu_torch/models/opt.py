@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from ..nn.norms import LayerNorm
 from .llama import QLinear, causal_mask, install_tree
 
 
@@ -60,23 +61,6 @@ class OPTConfig:
                     max_position_embeddings=128)
         base.update(kw)
         return OPTConfig(**base)
-
-
-class LayerNorm(nn.Module):
-    """``(x - mean) * rsqrt(var + eps) * scale + bias`` over the last axis
-    (the plain branch of ``microscopiq_tpu/nn/norms.py::LayerNorm``)."""
-
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = torch.mean(x, dim=-1, keepdim=True)
-        var = torch.var(x, dim=-1, keepdim=True, correction=0)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
-            + self.bias
 
 
 class OPTAttention(nn.Module):

@@ -1,6 +1,6 @@
 from .mapping import (find_linear_params, fuse_projections, pack_params,
                       quantize_params)
-from .norms import RMSNorm
+from .norms import LayerNorm, RMSNorm
 
 __all__ = ["find_linear_params", "fuse_projections", "pack_params",
-           "quantize_params", "RMSNorm"]
+           "quantize_params", "LayerNorm", "RMSNorm"]

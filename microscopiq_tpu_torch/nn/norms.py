@@ -1,6 +1,7 @@
-"""RMSNorm (the plain branch of ``microscopiq_tpu/nn/norms.py::RMSNorm``).
+"""RMSNorm and LayerNorm (the plain branches of
+``microscopiq_tpu/nn/norms.py``).
 
-The fake-quant ``mx_specs`` branch belongs to the training path (ROADMAP
+The fake-quant ``mx_specs`` branches belong to the training path (ROADMAP
 queue 1 item 9).
 """
 
@@ -23,3 +24,23 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         var = torch.mean(x * x, dim=-1, keepdim=True)
         return x * torch.rsqrt(var + self.eps) * self.scale
+
+
+class LayerNorm(nn.Module):
+    """``(x - mean) * rsqrt(var + eps) * scale (+ bias)`` over the last
+    axis, the population variance, in x's dtype as the JAX module computes
+    it: OPT's norms with a bias, MPT's without (``use_bias=False``)."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 use_bias: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("scale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features) if use_bias
+                             else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.var(x, dim=-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale
+        return y if self.bias is None else y + self.bias

@@ -2,9 +2,10 @@
 
 Counterpart of ``microscopiq_tpu/serve/engine.py`` (``SlotKVState``,
 ``SlotDecodeCache``, ``SlotPrefillCache``, ``Request``, ``_bucket``,
-``BatchEngine``) with ``cache_kind="dense"``, ``"quant"`` (the quantized
-slot caches of ``kv/cache.py``) or ``"h2o"`` (heavy-hitter eviction per
-slot, the slot caches of ``kv/h2o.py``):
+``BatchEngine``, ``engine_generate_stream_fn``) with
+``cache_kind="dense"``, ``"quant"`` (the quantized slot caches of
+``kv/cache.py``) or ``"h2o"`` (heavy-hitter eviction per slot, the slot
+caches of ``kv/h2o.py``):
 
 - a slot KV cache with a per-slot length vector; the attention mask derives
   from per-token positions, so slots at different depths share one batched
@@ -23,14 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import queue
-import threading
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..eval.generate import sample_logits
+from ..eval.generate import DEVICE_LOCK, sample_logits
 from ..kv.cache import (QuantKVConfig, SlotQuantizedDecodeCache,
                         SlotQuantPrefillCache, init_slot_quant_cache)
 from ..kv.h2o import (SlotH2ODecodeCache, SlotH2OPrefillCache,
@@ -209,7 +209,7 @@ class BatchEngine:
         self.remaining = np.zeros((n_slots,), np.int32)
         self.temps = np.zeros((n_slots,), np.float32)
         self._gen = torch.Generator(device=dev).manual_seed(seed)
-        self._lock = threading.Lock()
+        self._lock = DEVICE_LOCK        # shared with eval.generate
         self._queue: "queue.Queue[Request]" = queue.Queue()
 
     # ---- device steps ----------------------------------------------------
@@ -330,3 +330,36 @@ class BatchEngine:
             self.submit(r)
         self.run_until_drained()
         return [r.out_tokens for r in reqs]
+
+
+def engine_generate_stream_fn(engine: BatchEngine, tokenizer,
+                              poll_s: float = 0.0):
+    """Adapt a BatchEngine to the worker's generate_stream_fn protocol:
+    tokens stream out as the scheduler produces them, interleaved with
+    other in-flight requests. Concurrent HTTP threads each drive
+    ``engine.step()``; the engine's lock serializes the steps, which stay
+    eager."""
+
+    def fn(prompt: str, max_new_tokens: int, temperature: float):
+        out: "queue.Queue" = queue.Queue()
+        req = Request(np.asarray(tokenizer.encode(prompt), np.int32),
+                      max_new_tokens,
+                      eos_id=getattr(tokenizer, "eos_id", -1),
+                      temperature=temperature,
+                      on_token=lambda t, d: out.put((t, d)))
+        engine.submit(req)
+        toks: List[int] = []
+        while True:
+            engine.step()
+            try:
+                while True:
+                    t, d = out.get_nowait()
+                    if t >= 0:                # -1 = rejection sentinel
+                        toks.append(t)
+                        yield tokenizer.decode(toks)
+                    if d:
+                        return
+            except queue.Empty:
+                pass
+
+    return fn

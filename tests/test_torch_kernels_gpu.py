@@ -2337,3 +2337,93 @@ def test_trace_window_whole_and_counts_equal_launches(cuda, tmp_path):
         with pytest.raises(AssertionError, match="lost records"):
             ob.device_kernel_stats(d, min_events=sum(
                 a["count"] for a in stats.values()) + 1)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 128])
+def test_moe_router_n8_runs_its_kernel(cuda, M):
+    """Mixtral's router (K = 4096, N = 8 experts) packed MX-FP6 emi8 block
+    32: the tensor-core GEMV (plain copies: N % 16 != 0) at M <= 64 and the
+    sm90 GEMM above, each launched once and within its tolerance of the
+    plain twin."""
+    p = _packed(4096, 8, 11, cuda)
+    assert not dm.gemv_plan("emi8", 8, 4096, 32, min(M, 64))["tma"]
+    assert not dm.sm90_plan("emi8", 4096, 8, 32)["tma"]
+    x = _x(M, 4096, 12, cuda).to(torch.bfloat16)
+    dm.reset_launch_counts()
+    got = dm.dequant_matmul(x, p, torch.float32)
+    want = dm.dequant_matmul_reference(x, p, torch.float32)
+    counter = "dequant_gemv_emi8" if M <= dm.GEMV_MAX_M else \
+        "dequant_matmul_emi8"
+    assert {k: v for k, v in dm.launch_counts.items() if v} == {counter: 1}
+    assert got.shape == (M, 8)
+    assert _rel(got, want) < (1e-5 if M <= dm.GEMV_MAX_M else 2e-3)
+
+
+def test_alibi_attention_matches_cpu(cuda):
+    """MPT's ALiBi attention (tiny MPT, float32, the dense KV cache): the
+    prefill and three decode steps on the card within 1e-4 of max |logit|
+    of the same model on the CPU."""
+    from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
+                                                init_dense_cache)
+    from microscopiq_tpu_torch.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM,
+                                                    build_params)
+
+    cfg = LlamaConfig.tiny_mpt()
+    tree = build_params(cfg, seed=3, device="cpu")
+    to_cuda = lambda t: ({k: to_cuda(v) for k, v in t.items()}
+                         if isinstance(t, dict) else t.to(cuda))
+    ids = torch.as_tensor(np.random.default_rng(4).integers(0, 256, (2, 12)))
+    outs = []
+    for dev, params in (("cpu", tree), (cuda, to_cuda(tree))):
+        m = LlamaForCausalLM(cfg, device=dev).load_params(params)
+        st = init_dense_cache(2, 2, 32, cfg.num_key_value_heads,
+                              cfg.head_dim, dtype=torch.float32, device=dev)
+        logits = []
+        with torch.inference_mode():
+            x = ids.to(dev)
+            for t0, t1 in ((0, 9), (9, 10), (10, 11), (11, 12)):
+                c = DenseDecodeCache(st)
+                pos = torch.arange(t0, t1, device=dev)[None].expand(2, -1)
+                logits.append(m(x[:, t0:t1], positions=pos, cache=c
+                                ).float().cpu())
+                st = c.finalize()
+            logits.append(m(x).float().cpu())
+        outs.append(torch.cat([l.reshape(-1) for l in logits]))
+    assert _rel(outs[1], outs[0]) < 1e-4
+
+
+def test_safetensors_reader_onto_the_card(cuda, tmp_path):
+    """read_safetensors / load_hf_state_dict straight onto the card: F32,
+    F16 and BF16 tensors bit for bit, float32 out of the loader."""
+    import json
+    import struct
+
+    from microscopiq_tpu_torch.models import loading
+
+    g = torch.Generator().manual_seed(0)
+    ts = {"a": torch.randn(4, 6, generator=g),
+          "b": torch.randn(7, generator=g).half(),
+          "c": torch.randn(3, 5, generator=g).bfloat16()}
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, blobs, at = {}, [], 0
+    for k, v in ts.items():
+        b = v.contiguous().view(torch.uint8).numpy().tobytes()
+        header[k] = {"dtype": names[v.dtype], "shape": list(v.shape),
+                     "data_offsets": [at, at + len(b)]}
+        blobs.append(b)
+        at += len(b)
+    h = json.dumps(header).encode()
+    with open(tmp_path / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h + b"".join(blobs))
+    got = loading.read_safetensors(str(tmp_path / "model.safetensors"),
+                                   device=cuda)
+    for k, v in ts.items():
+        assert got[k].is_cuda and got[k].dtype == v.dtype
+        assert torch.equal(got[k].cpu().view(torch.uint8),
+                           v.view(torch.uint8))
+    state = loading.load_hf_state_dict(str(tmp_path), device=cuda)
+    for k, v in ts.items():
+        assert state[k].is_cuda and state[k].dtype == torch.float32
+        assert torch.equal(state[k].cpu(), v.float())

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 57
+    assert int(n) >= 70
     assert bad == "[]", bad
 
 
@@ -88,6 +88,33 @@ def test_cuda_entry_points_raise_without_a_card():
         init_sink_cache(1, 1, 4, 60, 1, 32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         format_mse_profile(n=64)
+    from microscopiq_tpu_torch.eval.retrieval import (CopyTask,
+                                                      init_train_params,
+                                                      train_copy)
+    from microscopiq_tpu_torch.models import loading
+    from microscopiq_tpu_torch.scripts import kv_accuracy
+
+    for family in (LlamaConfig.llama2_7b, LlamaConfig.mistral_7b,
+                   LlamaConfig.mixtral_8x7b, LlamaConfig.mpt_7b):
+        small = family(num_hidden_layers=1, hidden_size=64,
+                       intermediate_size=64, vocab_size=64,
+                       num_attention_heads=4, num_key_value_heads=4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LlamaForCausalLM(small)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_params(small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loading.read_safetensors("checkpoint-that-is-never-read")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loading.load_hf_state_dict("checkpoint-that-is-never-read")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loading.state_dict_from_torch_model(torch.nn.Linear(2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kv_accuracy.model_and_task(n=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_copy(LlamaForCausalLM(cfg), CopyTask(n=4), steps=1)
     cpu_model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchEngine(cpu_model)
