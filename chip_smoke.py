@@ -161,15 +161,14 @@ model is built; each path's launch counts join the ``kernels`` line):
     both ends; ``decode_token_stats`` of 22 replayed steps; the busy share
     beside ``decode_device_profile``'s;
 23. ``h2o_engine``: ``BatchEngine(cache_kind="h2o")``, 4 slots, buckets up
-    to 128, a 256-token budget, 16 recent tokens, six requests of 96-128
-    prompt tokens asking for 192 new ones (every slot evicts), each
-    answered in full, one of them (two before PR 17, which cut the
-    rerun for time) token-identical to a 1-slot H2O engine,
+    to 128, a 192-token budget, 16 recent tokens, six requests of 96-128
+    prompt tokens asking for 128 new ones (every slot evicts), each
+    answered in full, one of them token-identical to a 1-slot H2O engine,
     and at a budget no request outgrows token-identical to the dense
-    engine;
-24. ``h2o_main_path``: B = 4, a 128-token prompt and 128 eager greedy steps
+    engine (the depth cut for the run's time: PERF.md section 4);
+24. ``h2o_main_path``: B = 4, a 128-token prompt and 96 eager greedy steps
     through ``H2OCache``: at the dense run's length the dense cache's
-    tokens; at a 192-token budget (64 evictions a layer) the slots and
+    tokens; at a 160-token budget (64 evictions a layer) the slots and
     scores of layers 0 and 31 equal to a CPU replay fed the (k, v, probs)
     recorded on the card; ``QuantH2OCache`` (4 bits) beside it, with KV
     bytes;
@@ -229,6 +228,41 @@ After phase 4's model is freed:
     after the bf16 round trip, greedy tokens equal to the in-memory
     model's.
 
+The training path (MX fake-quant layers, no kernel of their own: the
+reference computes their products in XLA), then ``slice18_phases`` with
+the three phases' seconds:
+
+33. ``mx_layers``: the fake-quant quantizers (``quantize_elemwise_op``,
+    ``quantize_mx_op``, ``quantize_mx_outlier_op``, dither with given
+    draws) on the card bit for bit against the CPU (NaN as NaN); every
+    layer of ``nn`` (the straight-through primitives, vector and SIMD ops,
+    activations, softmax, MX linear, matmul, bmm, ``mx_op_table``,
+    ``MXLinear``, the norms, GroupNorm, BatchNorm, the convs, pooling,
+    ``Conv2d``, LSTM) forward and backward on the card and on the CPU under
+    the canonical spec (fp6_e3m2, scale_bits 4, block 32, bfloat16),
+    ``quantize_backprop`` on and off: outputs and gradients within 2^-7 of
+    max |CPU|, the share of differing elements reported;
+    ``nn.QuantizedLinear`` on packed MX-FP6 and NB weights equal to
+    ``dequant_matmul`` / ``dequant_matmul_nb``, one GEMV launch at M = 8;
+34. ``actquant_ppl``: OPT-125M at its published size, seeded weights,
+    under the reference's activation-quantization config (fp4 weights,
+    int4 activations, block 128, ``a_axes=1``, only the linears MX): the
+    perplexity over 4 x 512 tokens of the synthetic stream beside the
+    dense model's; window 0 against the port's CPU run (1e-3 a reported
+    target: the int4 quantizer amplifies float32 ulps), and all 72 MX
+    linears against the CPU's on the inputs the card gave them (1e-5 of
+    max);
+35. ``train_main_path``: ``scripts.mx_ffn`` 200 steps on the card against
+    the CPU from one start (mse at steps 0, 50, 100, 150, 199 within 1%,
+    falling by half); Llama-3-8B width cut to 2 layers, float32 weights,
+    fake-quant fp6_e3m2 (scale_bits 8, block 32, bfloat16,
+    ``quantize_backprop`` on), 3 SGD steps on 1 x 512 tokens: seconds of
+    forward, backward and step, peak memory, the loss finite and falling,
+    every gradient finite, and the gate_up linear's autograd gradients
+    equal to nn/linear.py's backward formula (``mx_linear_backward``, from
+    ``quantize_mx_op`` on the card) on the operands its forward saves,
+    within 1e-6 of max.
+
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -268,6 +302,13 @@ times only the MX block quantizer (gate_up in five formats at block 32,
 the ragged shape at block 16) beside its byte bound and prints one JSON
 line (``quant_times``); it calls only the wrapper, which the previous tree
 has too, so copy it into a parent checkout to compare the two on one card.
+
+    python3 chip_smoke.py --cpu-references
+
+computes only the CPU runs that ``actquant_ppl`` and ``train_main_path``
+hold the card against and prints them as one JSON line; the whole run
+starts it in a process of its own after the build, on 2 of the host's
+cores, so that it overlaps the card's phases.
 """
 
 from __future__ import annotations
@@ -1402,9 +1443,9 @@ def quant_engine_phase(model, card: str):
 # H2O and sink caches, the GEAR codecs, the trace readers and the
 # host codec, on the 32-layer MX-FP6 model of phase 4
 # ---------------------------------------------------------------------------
-H2O_BUDGET, H2O_RECENT = 192, 16     # main path: 128 + 128 tokens, 64 evicted
-H2O_ENGINE = dict(n_slots=4, budget=256, recent=16, new=192, requests=6,
-                  prompt=(96, 128))  # 288-320 tokens a request: all evict
+H2O_BUDGET, H2O_RECENT = 160, 16     # main path: 128 + 96 tokens, 64 evicted
+H2O_ENGINE = dict(n_slots=4, budget=192, recent=16, new=128, requests=6,
+                  prompt=(96, 128))  # 224-256 tokens a request: all evict
 SINK_TOKENS, SINK_SLOTS = 4, 256     # 128 + 192 tokens: 64 evictions
 GEAR_SHAPE = (4, 8, 3072, 128)       # the quant-KV arm's K/V, (B, H, S, D)
 GEAR_CFG = dict(quantize_bit=4, group_size=64, rank=2, loop=3, left=0.02)
@@ -1488,7 +1529,7 @@ def _check_tokens(name, toks, logits, vocab):
 
 def h2o_engine_phase(model, card: str):
     """``BatchEngine(cache_kind="h2o")``: six requests of 96-128 prompt
-    tokens asking for 192 new ones through 4 slots of a 256-token budget
+    tokens asking for 128 new ones through 4 slots of a 192-token budget
     (every slot evicts), each answered in full; one of them token-identical
     to a 1-slot H2O engine; and with a budget no request outgrows, the H2O
     engine token-identical to the dense one. Returns the launch counts."""
@@ -1565,9 +1606,9 @@ def h2o_engine_phase(model, card: str):
 
 
 def h2o_main_path(model, card: str):
-    """B = 4, a 128-token prompt and 128 eager greedy steps through
+    """B = 4, a 128-token prompt and 96 eager greedy steps through
     ``H2OCache``: with the budget at the dense run's length, the dense
-    cache's tokens; at a budget of 192 (64 evictions a layer), the slots
+    cache's tokens; at a budget of 160 (64 evictions a layer), the slots
     kept in layers 0 and 31 equal a CPU replay of the cache fed the (k, v,
     probs) recorded on the card; ``QuantH2OCache`` (4 bits) at that budget
     beside it. Returns the launch counts."""
@@ -1576,7 +1617,7 @@ def h2o_main_path(model, card: str):
     from microscopiq_tpu_torch.kv import h2o
 
     cfg = model.cfg
-    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 128
+    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 96
     kv = (cfg.num_key_value_heads, cfg.head_dim)
     ids = torch.as_tensor(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (B, S0)), device="cuda")
@@ -4769,6 +4810,689 @@ def hf_loading_phase(card: str):
                              f"{jax_loaded[:5]}")
 
 
+# --------------------------------------------------------------- slice 18
+# MX fake-quant layers, card against CPU: the same float32 inputs and
+# seeded cotangents; outputs and gradients within one bfloat16 step
+# (2^-7) of max |CPU| (the layers round to bfloat16 containers after
+# exp/tanh/sums whose last float32 ulp differs between the two devices)
+MX_LAYER_REL_TOL = 2.0 ** -7
+# the activation-quantized OPT, card against CPU. Its int4 activation
+# quantizer turns float32 ulps into flipped roundings and outlier choices,
+# which 12 layers amplify: 1e-7 relative noise on the weights moves the CPU's
+# own perplexity by 0.14-0.85% at 6 layers (PERF.md), more than the 0.4%
+# between the actquant and dense perplexities, so window 0's perplexity is
+# reported against 1e-3 as a target and bounds nothing. The check is per
+# linear: each of the 72 MX linears of the card's forward against the CPU's
+# on the input the card gave it (the quantizers are bit-equal, only the
+# float32 sums' order differs), so a forward that skipped the activation
+# quantizer fails it
+ACTQUANT_REL_TOL = 1e-3
+ACTQUANT_LINEAR_REL_TOL = 1e-5
+# scripts.mx_ffn's mse at the logged steps, card against CPU
+MX_FFN_REL_TOL = 1e-2
+# the gate_up linear's autograd gradients against their formula, of max
+GRAD_FORMULA_REL_TOL = 1e-6
+# the reference's activation-quantization config (scripts/parity_ref.py
+# ACT_CFG, with a_axes=1 as its actquant run sets it)
+ACT_CFG = dict(w_elem_format="fp4", a_elem_format="int4", block_size=128,
+               quantize_backprop=False, a_axes=1)
+
+
+def _canonical_specs(qbp: bool, **kw):
+    """The reference's canonical MX config: fp6_e3m2 weights and
+    activations, scale_bits 4, block 32, bfloat16 containers (``kw``
+    overrides)."""
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    return finalize_mx_specs(dict(dict(
+        w_elem_format="fp6_e3m2", a_elem_format="fp6_e3m2", scale_bits=4,
+        block_size=32, bfloat=16, quantize_backprop=qbp), **kw))
+
+
+def _bits_differ(a, b):
+    """Mask of the elements whose float32 bits differ, NaN equal to NaN
+    (the devices propagate NaN payloads and signs differently)."""
+    import torch
+
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    nan = torch.isnan(a) & torch.isnan(b)
+    return (a.view(torch.int32) != b.view(torch.int32)) & ~nan
+
+
+def mx_quantizer_checks() -> list:
+    """The fake-quant quantizers on the card against the port's CPU run on
+    the same float32 inputs: bit for bit."""
+    import torch
+
+    from microscopiq_tpu_torch.formats import get_format_params
+    from microscopiq_tpu_torch.ops import elemwise as te
+    from microscopiq_tpu_torch.ops.mx import quantize_mx_op
+    from microscopiq_tpu_torch.ops.outlier import quantize_mx_outlier_op
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    rng = np.random.default_rng(1800)
+    x = (rng.standard_normal((1024, 1024)) * np.exp(
+        rng.uniform(-4, 4, (1024, 1024)))).astype(np.float32)
+    x.flat[:6] = [np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-42]
+    xc = torch.from_numpy(x)
+    draws = torch.from_numpy(rng.random(x.shape, dtype=np.float32))
+    # scale_bits 8 (at 4 most blocks of this range overflow to NaN), and
+    # the canonical 4 once
+    s = _canonical_specs(True, scale_bits=8)
+    cases = []
+    for rnd in ("nearest", "floor", "even"):
+        for knob in ({"bfloat": 16}, {"fp": 16}, {"bfloat": 12,
+                                                  "bfloat_subnorms": False}):
+            sp = finalize_mx_specs(dict(knob, w_elem_format="int8"))
+            cases.append((f"quantize_elemwise_op {knob} {rnd}",
+                          lambda t, sp=sp, r=rnd: te.quantize_elemwise_op(
+                              t, sp, round=r)))
+    for fmt in ("fp6_e3m2", "int4", "fp8_e4m3", "fp4_e2m1"):
+        for axes in ([-1], [0]):
+            cases.append((f"quantize_mx_op {fmt} axes={axes}",
+                          lambda t, f=fmt, a=axes: quantize_mx_op(
+                              t, s, elem_format=f, axes=a)))
+    cases.append(("quantize_mx_op fp6_e3m2 axes=[-1] scale_bits 4",
+                  lambda t: quantize_mx_op(t, _canonical_specs(True),
+                                           elem_format="fp6_e3m2",
+                                           axes=[-1])))
+    for inl, out in (("fp6_e3m2", "fp6_e3m2"), ("int4", "fp8_e4m3")):
+        cases.append((f"quantize_mx_outlier_op {inl}+{out}",
+                      lambda t, i=inl, o=out: quantize_mx_outlier_op(
+                          t, s, inlier_elem_format=i, outlier_elem_format=o,
+                          axes=[-1])))
+    for fmt in ("fp6_e3m2", "int4"):
+        ebits, mbits, _, max_norm, _ = get_format_params(fmt)
+        cases.append((f"dither {fmt} (given draws)",
+                      lambda t, e=ebits, m=mbits, mn=max_norm:
+                      te.quantize_elemwise_core(
+                          t, m, e, mn, round="dither",
+                          rand=draws.to(t.device))))
+    rows = []
+    for name, fn in cases:
+        want = fn(xc)
+        got = fn(xc.cuda())
+        torch.cuda.synchronize()
+        diff = int(_bits_differ(got, want).sum())
+        rows.append(dict(quantizer=name, elements=int(xc.numel()),
+                         nan_share=float(torch.isnan(want).float().mean()),
+                         bits_differ=diff))
+        if diff:
+            raise AssertionError(f"mx_layers: {name} on the card differs "
+                                 f"from the CPU in {diff} of "
+                                 f"{xc.numel()} elements")
+    return rows
+
+
+def _layer_cases():
+    """(name, make(spec, device) -> (fn, inputs)) of every MX layer: fn
+    takes the inputs (the parameters of a module among them) and returns
+    a tensor or a tuple of them."""
+    import copy
+
+    import torch
+
+    from microscopiq_tpu_torch import nn as tnn
+    from microscopiq_tpu_torch.nn import norms, vector_ops
+
+    gen = torch.Generator().manual_seed(1801)
+    rnd = lambda *shape, scale=1.0: torch.randn(shape, generator=gen) * scale
+    pos = lambda *shape: torch.rand(shape, generator=gen) + 0.25
+    x3 = rnd(4, 128, 256, scale=2.0)
+    cases = []
+
+    def add(name, fn_of_spec, inputs):
+        cases.append((name, fn_of_spec, inputs))
+
+    def module_case(name, module, x):
+        """A copy of the module a call, on the device with the spec, its
+        parameters passed as inputs so that their gradients are compared
+        too."""
+        names = [n for n, _ in module.named_parameters()]
+        params = [p.detach().clone() for _, p in module.named_parameters()]
+
+        def fn_of_spec(spec, dev):
+            m = copy.deepcopy(module)
+            for sub in m.modules():
+                if hasattr(sub, "mx_specs"):
+                    sub.mx_specs = spec
+            m = m.to(dev)
+            return lambda a, *p: torch.func.functional_call(
+                m, dict(zip(names, p)), (a,))
+        add(name, fn_of_spec, [x] + params)
+
+    add("ste_elemwise", lambda s, d: lambda a: tnn.ste_elemwise(
+        a, s, "nearest"), [x3])
+    add("ste_mx", lambda s, d: lambda a: tnn.ste_mx(
+        a, s, "fp6_e3m2", (-1,)), [x3])
+    add("ste_mx_outlier", lambda s, d: lambda a: tnn.ste_mx_outlier(
+        a, s, "int4", "fp6_e3m2", (-1,)), [x3])
+    for name in ("exp", "exp2", "recip", "sqrt", "tanh"):
+        f = getattr(vector_ops, "vec_" + name)
+        add("vec_" + name, lambda s, d, f=f: lambda a: f(a, s),
+            [pos(4, 128, 256)])
+    add("vec_div", lambda s, d: lambda a, b: vector_ops.vec_div(a, b, s),
+        [pos(4, 128, 256), pos(4, 128, 256)])
+    for name in ("add", "sub", "mul", "div"):
+        f = getattr(tnn, "simd_" + name)
+        add("simd_" + name, lambda s, d, f=f: lambda a, b: f(a, b, s),
+            [x3, pos(4, 128, 256)])
+    for name in ("sqrt", "square", "exp", "log"):
+        f = getattr(tnn, "simd_" + name)
+        add("simd_" + name, lambda s, d, f=f: lambda a: f(a, s),
+            [pos(4, 128, 256)])
+    for name in ("reduce_sum", "reduce_mean", "norm"):
+        f = getattr(tnn, "simd_" + name)
+        add("simd_" + name, lambda s, d, f=f: lambda a: (
+            f(a, axis=-1, keepdims=True, mx_specs=s), f(a, mx_specs=s)),
+            [pos(4, 128, 256)])
+    add("simd_split", lambda s, d: lambda a: tuple(tnn.simd_split(
+        a, 4, axis=-1, mx_specs=s)), [x3])
+    for name in ("relu", "relu6", "gelu", "tanh", "sigmoid", "silu"):
+        f = getattr(tnn, name)
+        add(name, lambda s, d, f=f: lambda a: f(a, s), [x3])
+    add("leaky_relu", lambda s, d: lambda a: tnn.leaky_relu(a, 0.1, s),
+        [x3])
+    add("softmax", lambda s, d: lambda a: tnn.softmax(a, -1, s), [x3])
+    add("softmax_exp2", lambda s, d: lambda a: tnn.softmax(
+        a, -1, s.replace(softmax_exp2=True)), [x3])
+    w = rnd(512, 256, scale=256 ** -0.5)
+    add("mx_linear", lambda s, d: lambda a, w, b: tnn.mx_linear(a, w, b, s),
+        [x3, w, rnd(512, scale=0.1)])
+    add("matmul aw", lambda s, d: lambda a, b: tnn.matmul(a, b, s, "aw"),
+        [x3, rnd(256, 192, scale=0.0625)])
+    add("bmm", lambda s, d: lambda a, b: tnn.bmm(a, b, s),
+        [x3, rnd(4, 256, 64, scale=0.0625)])
+    add("mx_op_table", lambda s, d: lambda a, b: (
+        tnn.mx_op_table(s)["add"](a, b), tnn.mx_op_table(s)["gelu"](a),
+        tnn.mx_op_table(s)["linear"](a, b[:64])), [x3, rnd(128, 256)])
+    module_case("MXLinear", tnn.MXLinear(256, 384, device="cpu",
+                                         generator=gen), x3)
+    # the norms' mx branch: norm_forward of the quantized input
+    add("LayerNorm", lambda s, d: lambda a, w, b: norms.norm_forward(
+        tnn.ste_elemwise(a, s, None), (-1,), w, b, 1e-5, s),
+        [x3, 1 + rnd(256, scale=0.1), rnd(256, scale=0.1)])
+    add("RMSNorm", lambda s, d: lambda a, w: norms.norm_forward(
+        tnn.ste_elemwise(a, s, None), (-1,), w, None, 1e-6, s,
+        use_mean=False), [x3, 1 + rnd(256, scale=0.1)])
+    module_case("GroupNorm", tnn.GroupNorm(4, 32, device="cpu"),
+                rnd(4, 32, 12, 12))
+    module_case("BatchNorm (training)",
+                tnn.BatchNorm(32, use_running_average=False,
+                              device="cpu").train(),
+                rnd(4, 32, 12, 12) + 1)
+    add("conv1d", lambda s, d: lambda a, w, b: tnn.conv1d(
+        a, w, b, stride=2, padding=1, mx_specs=s),
+        [rnd(4, 64, 100), rnd(96, 64, 3, scale=0.1), rnd(96)])
+    add("conv2d", lambda s, d: lambda a, w, b: tnn.conv2d(
+        a, w, b, stride=2, padding=1, groups=2, mx_specs=s),
+        [rnd(4, 64, 24, 24), rnd(96, 32, 3, 3, scale=0.1), rnd(96)])
+    add("conv3d", lambda s, d: lambda a, w, b: tnn.conv3d(
+        a, w, b, stride=1, padding=1, mx_specs=s),
+        [rnd(2, 32, 8, 8, 8), rnd(32, 32, 3, 3, 3, scale=0.1), rnd(32)])
+    add("conv_transpose2d", lambda s, d: lambda a, w, b: tnn.conv_transpose2d(
+        a, w, b, stride=2, padding=1, mx_specs=s),
+        [rnd(4, 64, 12, 12), rnd(64, 32, 3, 3, scale=0.1), rnd(32)])
+    add("adaptive_avg_pool2d", lambda s, d: lambda a: tnn.adaptive_avg_pool2d(
+        a, (6, 4), s), [rnd(4, 64, 24, 24)])
+    module_case("Conv2d", tnn.Conv2d(64, 64, 3, padding=1, device="cpu",
+                                     generator=gen),
+                rnd(4, 64, 16, 16))
+    module_case("LSTM", tnn.LSTM(64, 64, device="cpu", generator=gen),
+                rnd(6, 8, 64))
+    return cases
+
+
+def _flat(out) -> list:
+    """The tensors of a (nested) tuple, in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def mx_layer_checks() -> list:
+    """Every MX layer forward and backward on the card and on the CPU
+    (``quantize_backprop`` on and off), same inputs and cotangents:
+    outputs and input/parameter gradients within MX_LAYER_REL_TOL of max
+    |CPU|; the share of elements that differ is reported."""
+    import torch
+
+    rows = []
+    for name, fn_of_spec, inputs in _layer_cases():
+        for qbp in (True, False):
+            spec = _canonical_specs(qbp)
+            got = {}
+            for dev in ("cpu", "cuda"):
+                args = [a.detach().to(dev, copy=True).requires_grad_()
+                        for a in inputs]
+                outs = _flat(fn_of_spec(spec, dev)(*args))
+                gen = torch.Generator().manual_seed(1802)
+                cots = [torch.randn(o.shape, generator=gen).to(dev)
+                        for o in outs]
+                torch.autograd.backward(outs, cots)
+                got[dev] = ([o.detach().cpu() for o in outs]
+                            + [a.grad.cpu() for a in args])
+            worst, differ, total = 0.0, 0, 0
+            for c, g in zip(got["cpu"], got["cuda"]):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"mx_layers: {name} (qbp={qbp}) "
+                                         "is not finite on the card")
+                scale = float(c.abs().max()) or 1.0
+                worst = max(worst, float((g - c).abs().max()) / scale)
+                differ += int((g != c).sum())
+                total += c.numel()
+            rows.append(dict(layer=name, quantize_backprop=qbp,
+                             tensors=len(got["cpu"]), max_rel_err=worst,
+                             differ_share=differ / total))
+            if worst > MX_LAYER_REL_TOL:
+                raise AssertionError(
+                    f"mx_layers: {name} (qbp={qbp}) card against CPU: "
+                    f"{worst} of max > {MX_LAYER_REL_TOL}")
+    return rows
+
+
+def quantized_linear_checks() -> list:
+    """``nn.QuantizedLinear`` on packed MX-FP6 (emi8, block 32) and compact
+    NB weights at the o shape: equal to ``dequant_matmul`` /
+    ``dequant_matmul_nb`` on the same operands, one GEMV launch at M = 8
+    and nothing else, and within GEMV_REL_TOL of the plain twin."""
+    import torch
+
+    from microscopiq_tpu_torch import nn as tnn
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    gen = torch.Generator(device="cuda").manual_seed(1803)
+    K, N, M = 4096, 4096, 8
+    W = outlier_weight((K, N), gen)
+    packs = {
+        "mx_fp6": (pk.to_serving_layout(pk.pack_mx(
+            W.float(), 8, "fp6_e3m2", 32, axis=0, transport="emi8")),
+            dm.dequant_matmul, dm.dequant_matmul_reference),
+        "nb": (pk.pack_outlier_nb(nb_decisions(W), budget=NB_BUDGET),
+               om.dequant_matmul_nb, om.dequant_matmul_nb_reference)}
+    x = torch.randn((M, K), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    layer = tnn.QuantizedLinear(out_dtype=torch.float32)
+    rows = []
+    for name, (w, direct, plain) in packs.items():
+        before = launches()
+        got = layer(x, w)
+        ran = {k: v - before.get(k, 0) for k, v in launches().items()
+               if v != before.get(k, 0)}
+        want = direct(x, w, out_dtype=torch.float32)
+        ref = plain(x, w, out_dtype=torch.float32)
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        rows.append(dict(weight=name, K=K, N=N, M=M, launched=ran,
+                         equal_to_wrapper=bool(torch.equal(got, want)),
+                         rel_err_vs_plain=rel))
+        if len(ran) != 1 or not next(iter(ran)).startswith("dequant_gemv") \
+                or next(iter(ran.values())) != 1:
+            raise AssertionError(f"mx_layers: QuantizedLinear {name} "
+                                 f"launched {ran}, not one GEMV")
+        if not rows[-1]["equal_to_wrapper"]:
+            raise AssertionError(f"mx_layers: QuantizedLinear {name} differs "
+                                 "from its wrapper")
+        if not rel < GEMV_REL_TOL:
+            raise AssertionError(f"mx_layers: QuantizedLinear {name}: rel "
+                                 f"err {rel} against the plain twin")
+    return rows
+
+
+def mx_layers_phase(card: str) -> None:
+    t0 = time.perf_counter()
+    quant = mx_quantizer_checks()
+    layers = mx_layer_checks()
+    qlin = quantized_linear_checks()
+    log(phase="mx_layers", spec="fp6_e3m2 w/a, scale_bits 4, block 32, "
+        "bfloat16; quantize_backprop on and off", quantizers=quant,
+        layers=layers, layer_tol=MX_LAYER_REL_TOL,
+        layers_max_rel_err=max(r["max_rel_err"] for r in layers),
+        layers_differ_share_max=max(r["differ_share"] for r in layers),
+        quantized_linear=qlin, seconds=time.perf_counter() - t0, card=card)
+
+
+ACTQUANT_SEQLEN, ACTQUANT_WINDOWS = 512, 4
+def actquant_inputs():
+    """(cfg, spec, the seeded OPT-125M tree on the CPU, the token
+    stream)."""
+    from microscopiq_tpu_torch.eval.data import get_loaders
+    from microscopiq_tpu_torch.models import opt
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    cfg = opt.OPTConfig.opt_125m()
+    tree = opt.build_params(cfg, seed=18, device="cpu")
+    _, test_ids = get_loaders("synthetic", 0, seqlen=ACTQUANT_SEQLEN,
+                              allow_synthetic=True)
+    return (cfg, finalize_mx_specs(ACT_CFG), tree,
+            test_ids[:ACTQUANT_WINDOWS * ACTQUANT_SEQLEN])
+
+
+# threads of the process that computes the CPU references (of 8 cores)
+CPU_REFERENCE_THREADS = 2
+
+
+def cpu_references() -> dict:
+    """The CPU runs the training-path phases hold the card against:
+    ``scripts.mx_ffn``'s 200 steps from its start and the activation-
+    quantized OPT-125M's window-0 perplexity, with their seconds."""
+    from microscopiq_tpu_torch.eval.ppl import perplexity
+    from microscopiq_tpu_torch.models import opt
+    from microscopiq_tpu_torch.scripts import mx_ffn
+
+    t0 = time.perf_counter()
+    ffn = mx_ffn.train(mx_ffn.numpy_start(128, 0), 200, device="cpu")
+    t1 = time.perf_counter()
+    cfg, spec, tree, ids = actquant_inputs()
+    ppl = perplexity(
+        opt.OPTForCausalLM(cfg, mx_specs=spec, mx_linear_only=True,
+                           device="cpu").load_params(tree),
+        ids[:ACTQUANT_SEQLEN], ACTQUANT_SEQLEN)
+    return dict(mx_ffn=ffn, mx_ffn_s=t1 - t0, actquant_window0_ppl=ppl,
+                actquant_window0_s=time.perf_counter() - t1,
+                threads=CPU_REFERENCE_THREADS)
+
+
+def start_cpu_references():
+    """Start ``chip_smoke.py --cpu-references`` in a process of its own,
+    so that the CPU references overlap the card's phases; it is killed
+    at exit if it is still running."""
+    import atexit
+    import subprocess
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-references"],
+        stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS=str(CPU_REFERENCE_THREADS)))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def await_cpu_references(proc) -> dict:
+    """The JSON line of the process :func:`start_cpu_references` began;
+    raises if it failed."""
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"the CPU references exited {proc.returncode}")
+    ref = json.loads(out.strip().splitlines()[-1])
+    ref["waited_s"] = time.perf_counter() - t0
+    return ref
+
+
+def actquant_ppl_phase(card: str, ref: dict) -> None:
+    """OPT-125M at its published size, seeded weights, under the
+    reference's activation-quantization config (fp4 weights, int4
+    activations, block 128, a_axes=1, only the linears MX): perplexity on
+    the card over 4 windows of 512 tokens of the synthetic stream, beside
+    the dense model's; window 0's against the port's CPU run (reported),
+    and every MX linear against the CPU's on the input the card gave it
+    (:func:`actquant_linear_checks`)."""
+    import torch
+
+    from microscopiq_tpu_torch.eval.ppl import perplexity
+    from microscopiq_tpu_torch.models import opt
+
+    t0 = time.perf_counter()
+    cfg, spec, cpu_tree, ids = actquant_inputs()
+    tree = _tree_to(cpu_tree, "cuda")
+    seqlen = ACTQUANT_SEQLEN
+    dense = opt.OPTForCausalLM(cfg, device="cuda").load_params(tree)
+    aq = opt.OPTForCausalLM(cfg, mx_specs=spec, mx_linear_only=True,
+                            device="cuda").load_params(tree)
+    d0 = time.perf_counter()
+    ppl_dense = perplexity(dense, ids, seqlen)
+    torch.cuda.synchronize()
+    a0 = time.perf_counter()
+    ppl_aq = perplexity(aq, ids, seqlen)
+    torch.cuda.synchronize()
+    a1 = time.perf_counter()
+    one_card = perplexity(aq, ids[:seqlen], seqlen)
+    linears = actquant_linear_checks(aq, cpu_tree, ids[:seqlen])
+    one_cpu = ref["actquant_window0_ppl"]
+    rel = abs(one_card - one_cpu) / one_cpu
+    log(phase="actquant_ppl", config="opt_125m (12 layers, hidden 768, "
+        "vocab 50272), seeded weights", spec=dict(ACT_CFG,
+                                                  mx_linear_only=True),
+        stream=f"synthetic, {len(ids) // seqlen} x {seqlen} tokens",
+        ppl_actquant=ppl_aq, ppl_dense=ppl_dense,
+        window0_ppl_card=one_card, window0_ppl_cpu=one_cpu,
+        window0_rel_err=rel, window0_target=ACTQUANT_REL_TOL,
+        window0_target_met=rel <= ACTQUANT_REL_TOL, linears=linears,
+        linears_max_rel_err=max(r["rel_err"] for r in linears),
+        linear_tol=ACTQUANT_LINEAR_REL_TOL,
+        actquant_s=a1 - a0, dense_s=a0 - d0,
+        cpu_window_s=ref["actquant_window0_s"],
+        seconds=time.perf_counter() - t0, card=card)
+    if not (np.isfinite(ppl_aq) and np.isfinite(ppl_dense)):
+        raise AssertionError("actquant_ppl: a perplexity is not finite")
+    bad = [r for r in linears if not r["rel_err"] <= ACTQUANT_LINEAR_REL_TOL]
+    if bad:
+        raise AssertionError(f"actquant_ppl: MX linears on the card differ "
+                             f"from the CPU's on the same input: {bad}")
+    del dense, aq, tree
+    torch.cuda.empty_cache()
+
+
+def actquant_linear_checks(model, cpu_tree, window) -> list:
+    """Every layer's MX linears (q, k, v, out, fc1, fc2) of one forward of
+    ``window`` on the card, each against the same linear on the CPU
+    (``cpu_tree``'s weights) on the input the card gave it: within
+    ACTQUANT_LINEAR_REL_TOL of max |CPU|."""
+    import torch
+
+    from microscopiq_tpu_torch.nn import linear
+
+    seen, hooks = [], []
+    for i, layer in enumerate(model.layers):
+        for name in ("self_attn.q_proj", "self_attn.k_proj",
+                     "self_attn.v_proj", "self_attn.out_proj", "fc1", "fc2"):
+            mod = layer.get_submodule(name)
+            hooks.append(mod.register_forward_hook(
+                lambda m, inp, out, key=(i, name): seen.append(
+                    (key, m.mx_specs, inp[0].detach(), out.detach()))))
+    with torch.no_grad():
+        model(torch.as_tensor(window[None].astype(np.int64),
+                              device="cuda"))
+    for h in hooks:
+        h.remove()
+    rows = []
+    for (i, name), specs, x, y in seen:
+        node = cpu_tree["params"][f"layers_{i}"]
+        for part in name.split("."):
+            node = node[part]
+        with torch.no_grad():
+            want = linear(x.cpu(), node["kernel"].T, node["bias"], specs)
+        err = float((y.cpu() - want).abs().max())
+        rows.append(dict(layer=i, linear=name, a_axes=specs.a_axes,
+                         rel_err=err / float(want.abs().max())))
+    return rows
+
+
+def _tree_to(node, dev):
+    if isinstance(node, dict):
+        return {k: _tree_to(v, dev) for k, v in node.items()}
+    return node.to(dev)
+
+
+def mx_ffn_check(ref: dict) -> dict:
+    """scripts.mx_ffn, 200 steps from its start on the card against the
+    CPU's (:func:`cpu_references`): the mse at steps 0, 50, 100, 150, 199
+    within MX_FFN_REL_TOL, and a fall by at least half."""
+    from microscopiq_tpu_torch.scripts import mx_ffn
+
+    t0 = time.perf_counter()
+    card = mx_ffn.train(mx_ffn.numpy_start(128, 0), 200, device="cuda")
+    card_s = time.perf_counter() - t0
+    cpu, cpu_s = ref["mx_ffn"], ref["mx_ffn_s"]
+    steps = (0, 50, 100, 150, 199)
+    rel = max(abs(card[i] - cpu[i]) / cpu[i] for i in steps)
+    rec = dict(mse_card={i: card[i] for i in steps},
+               mse_cpu={i: cpu[i] for i in steps}, max_rel_err=rel,
+               tol=MX_FFN_REL_TOL, card_s=card_s,
+               ms_per_step=card_s / 200 * 1e3, cpu_s=cpu_s)
+    if not rel <= MX_FFN_REL_TOL:
+        raise AssertionError(f"train_main_path: mx_ffn's mse on the card "
+                             f"differs from the CPU's by {rel}")
+    if not card[199] <= 0.5 * card[0]:
+        raise AssertionError(f"train_main_path: mx_ffn's mse fell from "
+                             f"{card[0]} to {card[199]}, not by half")
+    return rec
+
+
+def gate_up_formula(x, w, g, specs):
+    """(grad_w, grad_in) of the MX linear y = mx_linear(x, w, None, specs)
+    (w (out, in)) for the output gradient g: nn/linear.py's backward
+    formula on the operands its forward saves with quantize_backprop on
+    (the bfloat-quantized ones), outside autograd."""
+    from microscopiq_tpu_torch.nn.linear import (mx_linear_backward,
+                                                 mx_linear_forward)
+
+    _, bf_x, bf_w = mx_linear_forward(x, w, None, specs)
+    grad_in, grad_w, _ = mx_linear_backward(g, bf_x, bf_w, False, specs)
+    return grad_w, grad_in
+
+
+def llama_train_check(layers: int = 2, steps: int = 3, seq: int = 512,
+                      lr: float = 0.1) -> dict:
+    """Llama-3-8B at full width, ``layers`` deep, float32 seeded weights,
+    fused projections, fake-quant MX (fp6_e3m2 weights and activations,
+    scale_bits 8, block 32, bfloat16, quantize_backprop on): ``steps`` SGD
+    steps on one batch of 1 x ``seq`` tokens. The loss must be finite and
+    fall, every gradient finite, and the first layer's gate_up linear's
+    autograd gradients (the first step's) equal to :func:`gate_up_formula`
+    within GRAD_FORMULA_REL_TOL of max."""
+    import torch
+    import torch.nn.functional as F
+
+    from microscopiq_tpu_torch.models.llama import (LlamaConfig,
+                                                    LlamaForCausalLM,
+                                                    build_params,
+                                                    trainable_leaves)
+    from microscopiq_tpu_torch.nn import fuse_projections
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    specs = finalize_mx_specs(dict(
+        w_elem_format="fp6_e3m2", a_elem_format="fp6_e3m2", scale_bits=8,
+        block_size=32, bfloat=16, quantize_backprop=True))
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers,
+                                fused_projections=True)
+    tree = _tree_float(fuse_projections(build_params(
+        cfg, seed=18, device="cuda")["params"]))
+    torch.cuda.empty_cache()
+    leaves = trainable_leaves(tree)
+    weight_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    model = LlamaForCausalLM(cfg, mx_specs=specs,
+                             device="cuda").load_params(tree)
+    gate_up = model.model.layers[0].mlp.gate_up_proj
+    w0 = gate_up.kernel.detach().clone()
+    seen = {}
+    forward = gate_up.forward
+
+    def traced(x):
+        # the first call's input, its gradient and the output's gradient
+        first = not seen
+        if first:
+            seen["x"] = x.detach()
+            x.register_hook(lambda g: seen.setdefault("grad_in", g.detach()))
+        y = forward(x)
+        if first:
+            y.register_hook(lambda g: seen.setdefault("g", g.detach()))
+        return y
+
+    gate_up.forward = traced
+    ids = torch.as_tensor(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (1, seq)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        logits = model(ids)
+        loss = F.cross_entropy(logits[0, :-1].float(), ids[0, 1:])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bad = sum(t.grad is None or not bool(torch.isfinite(t.grad).all())
+                  for t in leaves)
+        if bad:
+            raise AssertionError(f"train_main_path: {bad} of {len(leaves)} "
+                                 "gradients missing or not finite")
+        if step == 0:
+            grad_w = gate_up.kernel.grad.T.clone()
+        t3 = time.perf_counter()
+        with torch.no_grad():
+            for t in leaves:
+                t -= lr * t.grad
+                t.grad = None
+        torch.cuda.synchronize()
+        losses.append(float(loss.detach()))
+        times.append(dict(forward_s=t1 - t0, backward_s=t2 - t1,
+                          step_s=time.perf_counter() - t3))
+        del logits, loss
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gate_up.forward = forward
+    want_w, want_in = gate_up_formula(seen["x"], w0.T, seen["g"], specs)
+    err_w = float((grad_w - want_w).abs().max()) / float(
+        want_w.abs().max())
+    err_in = float((seen["grad_in"] - want_in).abs().max()) / float(
+        want_in.abs().max())
+    rec = dict(config=f"llama3_8b width, {layers} layers, float32 weights, "
+               "fused projections", tokens=seq, lr=lr, losses=losses,
+               times=times, peak_gb=peak_gb, weight_gb=weight_gb,
+               gate_up_grad_w_rel_err=err_w, gate_up_grad_in_rel_err=err_in,
+               tol=GRAD_FORMULA_REL_TOL)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_main_path: the loss did not fall: "
+                             f"{losses}")
+    if not (err_w <= GRAD_FORMULA_REL_TOL and err_in <= GRAD_FORMULA_REL_TOL):
+        raise AssertionError(f"train_main_path: gate_up's gradients differ "
+                             f"from the formula (grad_w {err_w}, grad_in "
+                             f"{err_in})")
+    del model, tree, leaves, seen, w0, grad_w
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tree_float(node):
+    if isinstance(node, dict):
+        return {k: _tree_float(v) for k, v in node.items()}
+    return node.float()
+
+
+def train_main_path(card: str, ref: dict) -> None:
+    t0 = time.perf_counter()
+    llama = llama_train_check()
+    ffn = mx_ffn_check(ref)
+    log(phase="train_main_path", mx_ffn=ffn, llama=llama,
+        seconds=time.perf_counter() - t0, card=card)
+
+
+def slice18_phases(card: str, refs) -> dict:
+    """``mx_layers``, ``actquant_ppl`` and ``train_main_path``, against
+    the CPU references computed by ``refs`` (the process
+    :func:`start_cpu_references` began); returns each phase's seconds and
+    the wait for the references."""
+    secs = {}
+    t0 = time.perf_counter()
+    mx_layers_phase(card)
+    secs["mx_layers"] = time.perf_counter() - t0
+    ref = await_cpu_references(refs)
+    log(phase="cpu_references", mx_ffn_s=ref["mx_ffn_s"],
+        actquant_window0_s=ref["actquant_window0_s"],
+        threads=ref["threads"], waited_s=ref["waited_s"], card=card)
+    secs["cpu_references_wait"] = ref["waited_s"]
+    for name, phase in (("actquant_ppl", actquant_ppl_phase),
+                        ("train_main_path", train_main_path)):
+        t0 = time.perf_counter()
+        phase(card, ref)
+        secs[name] = time.perf_counter() - t0
+    return secs
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -4777,10 +5501,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if argv not in ([], ["--gemm-times"], ["--gemv-times"],
-                    ["--qattn-times"], ["--quant-times"]):
+                    ["--qattn-times"], ["--quant-times"],
+                    ["--cpu-references"]):
         print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
-              "--qattn-times | --quant-times]", file=sys.stderr)
+              "--qattn-times | --quant-times | --cpu-references]",
+              file=sys.stderr)
         return 2
+    if argv == ["--cpu-references"]:
+        torch.set_num_threads(CPU_REFERENCE_THREADS)
+        print(json.dumps(cpu_references()), flush=True)
+        return 0
     from microscopiq_tpu_torch.ops.cuda import build
 
     if argv:
@@ -4807,6 +5537,7 @@ def main(argv=None) -> int:
     build_s = build.build_all()
     log(phase="build", seconds=build_s, ptxas=build.ptxas_report(),
         card=card)
+    refs = start_cpu_references()       # read by the slice-18 phases
     sm90_build_line(card)
     # first, while the process is young: the profiler's windows lose
     # more kernel records at their start the older the process is
@@ -4847,6 +5578,10 @@ def main(argv=None) -> int:
                           - secs["families"])
     log(phase="slice17_phases", seconds=secs, total_s=sum(secs.values()),
         card=card)
+    secs18 = slice18_phases(card, refs)
+    log(phase="slice18_phases", seconds=secs18,
+        total_s=sum(secs18.values()), card=card)
+    torch.cuda.empty_cache()
 
     orows = outlier_kernel_phase(card)
     ocounts = outlier_main_path(card)

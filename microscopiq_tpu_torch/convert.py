@@ -18,6 +18,11 @@ float8 and bfloat16 codes travel bit-exact. Names are kept
 
 A quantized KV-cache state arrives as a mapping of ``QuantKVState`` field
 names to numpy arrays (``None`` for a GEAR field that is off).
+
+The MX layers of ``nn`` (``MXLinear``'s (in, out) ``kernel``, ``Conv2d``'s
+OIHW ``kernel``, the norms' ``scale``/``bias``, BatchNorm's ``batch_stats``,
+the LSTM's ``w_ih``/``w_hh``/``bias``) take their flax variables, moved by
+:func:`params_from_jax`, through :func:`load_flax_variables`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import resolve_device
 from .kv.cache import QuantKVState
@@ -99,6 +105,43 @@ def params_from_jax(tree, device="cuda"):
         return tensor_from_numpy(node, dev)
 
     return visit(tree, "")
+
+
+def load_flax_variables(module: nn.Module, variables) -> nn.Module:
+    """Copy a flax variable tree into ``module``: ``{"params": ...,
+    "batch_stats": ...}`` (or a bare params tree) of tensors as
+    :func:`params_from_jax` gives them. A subtree goes to the child module
+    of its name (or of ``module.flax_names[name]``); a leaf to the
+    parameter or buffer of its name, which must exist with the leaf's
+    shape. Parameters are copied in place; a buffer takes the tensor."""
+    cols = (variables if isinstance(variables, dict) and set(variables) <= {
+        "params", "batch_stats"} and variables else {"params": variables})
+
+    def visit(mod, tree, path):
+        for key, val in tree.items():
+            where = f"{path}/{key}"
+            if isinstance(val, dict):
+                name = getattr(mod, "flax_names", {}).get(key, key)
+                child = getattr(mod, name, None)
+                if not isinstance(child, nn.Module):
+                    raise KeyError(f"{where} has no module")
+                visit(child, val, where)
+                continue
+            held = getattr(mod, key, None)
+            if not isinstance(held, torch.Tensor):
+                raise KeyError(f"{where} has no parameter or buffer")
+            if tuple(held.shape) != tuple(val.shape):
+                raise ValueError(f"{where}: shape {tuple(val.shape)}, "
+                                 f"module holds {tuple(held.shape)}")
+            if isinstance(held, nn.Parameter):
+                with torch.no_grad():
+                    held.copy_(val)
+            else:
+                mod.register_buffer(key, val.to(held.device))
+
+    for col, tree in cols.items():
+        visit(module, tree, col)
+    return module
 
 
 def quant_state_from_jax(state_np, device="cuda") -> QuantKVState:

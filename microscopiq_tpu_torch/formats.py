@@ -14,6 +14,16 @@ FP32_EXPONENT_BIAS = 127
 FP32_MIN_NORMAL = 2.0 ** (-FP32_EXPONENT_BIAS + 1)
 
 
+class RoundingMode(enum.IntEnum):
+    nearest = 0
+    floor = 1
+    even = 2
+
+    @staticmethod
+    def string_enums():
+        return [s.name for s in list(RoundingMode)]
+
+
 class ElemFormat(enum.Enum):
     int8 = 1
     int4 = 2

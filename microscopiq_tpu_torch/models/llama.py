@@ -26,8 +26,11 @@ qkv_proj/kernel``, ``model/layers_{i}/block_sparse_moe/experts_{e}/...``,
 params_from_jax` or ``models/loading.py`` and installed with
 :meth:`LlamaForCausalLM.load_params`.
 
-The fake-quant ``mx_specs`` branch (ROADMAP queue 1 item 9) raises
-``NotImplementedError``.
+With ``mx_specs`` (the fake-quant training path) every linear with a dense
+kernel, the lm_head apart, is ``nn.linear``'s MX linear (its bias through
+it too), and the norms quantize every intermediate; packed kernels still
+take their kernels. For training, install leaves that require gradients
+(:func:`trainable_leaves`); the serving paths are unchanged.
 """
 
 from __future__ import annotations
@@ -42,13 +45,9 @@ from torch import nn
 
 from .. import resolve_device
 from ..kv.cache import QuantizedDecodeCache, SlotQuantizedDecodeCache
+from ..nn.linear import linear as mx_linear
+from ..nn.linear import packed_matmul
 from ..nn.norms import LayerNorm, RMSNorm
-from ..ops.cuda.dequant_matmul import (dequant_matmul,
-                                       dequant_matmul_reference)
-from ..ops.cuda.outlier_matmul import (dequant_matmul_nb,
-                                       dequant_matmul_nb_reference,
-                                       dequant_matmul_outlier,
-                                       dequant_matmul_outlier_reference)
 from ..ops.cuda.quant_attention import decode_route, quant_attention_decode
 from ..ops.packing import (PackedMX, PackedMXOutlier, PackedOutlierNB,
                            pack_mx, to_serving_layout)
@@ -188,34 +187,29 @@ def alibi_slopes(num_heads: int, bias_max: float = 8.0,
 class QLinear(nn.Module):
     """Linear whose kernel is a dense (K, N) tensor or a packed weight.
 
-    With ``use_kernels`` every packed weight goes to its kernel wrapper,
-    which picks the GEMV or the GEMM by token count: ``dequant_matmul``
-    for a PackedMX, ``dequant_matmul_nb`` and ``dequant_matmul_outlier``
-    for the outlier formats (their GEMMs take the 256 tokens and more that
-    the JAX ``QLinear`` leaves to XLA). Without it, the plain twins. A
-    ``bias`` (OPT's linears) is added to the product.
+    A packed weight goes through ``nn.linear.packed_matmul``: with
+    ``use_kernels`` to its kernel wrapper, which picks the GEMV or the GEMM
+    by token count (the outlier formats' GEMMs take the 256 tokens and
+    more that the JAX ``QLinear`` leaves to XLA); without, the plain
+    twins. A
+    ``bias`` (OPT's linears) is added to the product. With ``mx_specs`` a
+    dense kernel goes through the MX linear, the bias with it.
     """
 
-    def __init__(self, dtype, use_kernels: bool = True):
+    def __init__(self, dtype, use_kernels: bool = True, mx_specs=None):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
+        self.mx_specs = mx_specs
         self.kernel = None          # set by load_params
         self.bias = None            # (N,), added after the product (OPT)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel
-        if isinstance(w, PackedMX):
-            f = dequant_matmul if self.use_kernels else dequant_matmul_reference
-            y = f(x, w, out_dtype=self.dtype)
-        elif isinstance(w, PackedOutlierNB):
-            f = (dequant_matmul_nb if self.use_kernels
-                 else dequant_matmul_nb_reference)
-            y = f(x, w, out_dtype=self.dtype)
-        elif isinstance(w, PackedMXOutlier):
-            f = (dequant_matmul_outlier if self.use_kernels
-                 else dequant_matmul_outlier_reference)
-            y = f(x, w, out_dtype=self.dtype)
+        if isinstance(w, _PACKED):
+            y = packed_matmul(x, w, self.dtype, self.use_kernels)
+        elif isinstance(w, torch.Tensor) and self.mx_specs is not None:
+            return mx_linear(x, w.T, self.bias, self.mx_specs)
         elif isinstance(w, torch.Tensor):
             dt = torch.promote_types(x.dtype, w.dtype)
             y = torch.matmul(x.to(dt), w.to(dt))
@@ -226,11 +220,12 @@ class QLinear(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
+    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
+                 mx_specs=None):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
-        mk = lambda: QLinear(cfg.dtype, use_kernels)
+        mk = lambda: QLinear(cfg.dtype, use_kernels, mx_specs)
         if cfg.fused_projections:
             self.qkv_proj = mk()
         else:
@@ -323,10 +318,11 @@ class MLP(nn.Module):
     """SwiGLU, down(silu(gate(x)) * up(x)), or MPT's down(gelu(up(x)))
     with the exact-erf GELU and no gate."""
 
-    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
+    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
+                 mx_specs=None):
         super().__init__()
         self.cfg = cfg
-        mk = lambda: QLinear(cfg.dtype, use_kernels)
+        mk = lambda: QLinear(cfg.dtype, use_kernels, mx_specs)
         if cfg.mlp_type == "gelu":
             self.up_proj = mk()
         elif cfg.fused_projections:
@@ -355,12 +351,13 @@ class MoEBlock(nn.Module):
     computed on every token, combined by one-hot einsums (the JAX module's
     formulation)."""
 
-    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
+    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
+                 mx_specs=None):
         super().__init__()
         self.cfg = cfg
-        self.gate = QLinear(cfg.dtype, use_kernels)
+        self.gate = QLinear(cfg.dtype, use_kernels, mx_specs)
         for i in range(cfg.num_local_experts):
-            setattr(self, f"experts_{i}", MLP(cfg, use_kernels))
+            setattr(self, f"experts_{i}", MLP(cfg, use_kernels, mx_specs))
 
     def route(self, x):
         """(weights (B, S, K) in x's dtype, chosen experts (B, S, K))."""
@@ -384,23 +381,25 @@ class MoEBlock(nn.Module):
         return torch.einsum("bsed,bse->bsd", outs.to(dt), combine.to(dt))
 
 
-def _make_norm(cfg: LlamaConfig):
+def _make_norm(cfg: LlamaConfig, mx_specs=None):
     """RMSNorm (Llama) or biasless LayerNorm (MPT)."""
     if cfg.norm_type == "ln":
-        return LayerNorm(cfg.hidden_size, cfg.rms_norm_eps, use_bias=False)
-    return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        return LayerNorm(cfg.hidden_size, cfg.rms_norm_eps, use_bias=False,
+                         mx_specs=mx_specs)
+    return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, mx_specs=mx_specs)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
+    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
+                 mx_specs=None):
         super().__init__()
-        self.input_layernorm = _make_norm(cfg)
-        self.self_attn = Attention(cfg, use_kernels)
-        self.post_attention_layernorm = _make_norm(cfg)
+        self.input_layernorm = _make_norm(cfg, mx_specs)
+        self.self_attn = Attention(cfg, use_kernels, mx_specs)
+        self.post_attention_layernorm = _make_norm(cfg, mx_specs)
         if cfg.num_local_experts > 0:
-            self.block_sparse_moe = MoEBlock(cfg, use_kernels)
+            self.block_sparse_moe = MoEBlock(cfg, use_kernels, mx_specs)
         else:
-            self.mlp = MLP(cfg, use_kernels)
+            self.mlp = MLP(cfg, use_kernels, mx_specs)
 
     def forward(self, x, positions, mask, cache=None, layer_idx: int = 0):
         x = x + self.self_attn(self.input_layernorm(x), positions, mask,
@@ -424,14 +423,15 @@ def causal_mask(S: int, positions,
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True):
+    def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
+                 mx_specs=None):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = None        # (vocab, D), set by load_params
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, use_kernels)
+            [DecoderLayer(cfg, use_kernels, mx_specs)
              for _ in range(cfg.num_hidden_layers)])
-        self.norm = _make_norm(cfg)
+        self.norm = _make_norm(cfg, mx_specs)
 
     def forward(self, input_ids, positions=None, mask=None, cache=None):
         B, S = input_ids.shape
@@ -458,16 +458,13 @@ class LlamaForCausalLM(nn.Module):
     run the plain versions on the CPU. Mixtral with ``fused_projections``
     raises ValueError: ``nn.fuse_projections`` fuses no expert, so its
     experts would have no ``gate_up_proj`` (the JAX module fails there at
-    ``apply``).
+    ``apply``). ``mx_specs`` (a finalized ``MxSpecs``) turns on the
+    fake-quant linears and norms; the lm_head stays plain, as in JAX.
     """
 
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
                  mx_specs=None, device="cuda"):
         super().__init__()
-        if mx_specs is not None:
-            raise NotImplementedError(
-                "fake-quant mx_specs layers are not ported yet "
-                "(ROADMAP queue 1 item 9)")
         if cfg.num_local_experts > 0 and cfg.fused_projections:
             raise ValueError(
                 "fused_projections with MoE experts: fuse_projections fuses "
@@ -475,7 +472,8 @@ class LlamaForCausalLM(nn.Module):
                 "gate_up_proj; serve Mixtral with fused_projections=False")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = LlamaModel(cfg, use_kernels)
+        self.mx_specs = mx_specs
+        self.model = LlamaModel(cfg, use_kernels, mx_specs)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else QLinear(cfg.dtype, use_kernels))
 
@@ -540,6 +538,27 @@ def install_tree(module: nn.Module, tree: dict, device: torch.device,
             module.register_buffer(key, val)
         else:
             setattr(module, key, val)
+
+
+def trainable_leaves(tree) -> list:
+    """Every tensor leaf of a weight tree set to require gradients (in
+    place), in the tree's order: the leaves to install for training and to
+    hand to an optimizer. Packed leaves raise: they are not trainable."""
+    out = []
+
+    def visit(node, path):
+        for key, val in node.items():
+            where = f"{path}/{key}"
+            if isinstance(val, dict):
+                visit(val, where)
+            elif isinstance(val, torch.Tensor):
+                out.append(val.requires_grad_(True))
+            else:
+                raise TypeError(f"{where}: a {type(val).__name__} leaf "
+                                "cannot take gradients")
+
+    visit(tree.get("params", tree), "")
+    return out
 
 
 def build_params(cfg: LlamaConfig, seed: int = 0, packed_specs=None,

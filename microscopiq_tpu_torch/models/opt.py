@@ -5,8 +5,12 @@ embeddings with OPT's +2 offset, pre-LayerNorm decoder blocks (post-LN with
 ``do_layer_norm_before=False``), a ReLU FFN, a final LayerNorm and tied
 embeddings (the opt-125m configuration). Linears are the Llama module's
 :class:`QLinear` with a bias: a dense (K, N) kernel or a packed weight,
-through the kernels or their plain twins. The fake-quant ``mx_specs``
-branch of LayerNorm and ReLU is ROADMAP queue 1 item 9 and raises.
+through the kernels or their plain twins. With ``mx_specs`` the linears
+are MX linears, and the LayerNorms and the ReLU quantize too unless
+``mx_linear_only`` (the reference's model swap, which turns only the
+linears into MX linears). Where the spec sets ``a_axes`` (the reference's
+input axis on 3-D inputs), fc1 and fc2 clear it: the reference feeds them
+2-D inputs, where that axis is the hidden one.
 
 Weights are a flax-named nested dict (``layers_{i}/self_attn/q_proj/
 {kernel,bias}``, ``layers_{i}/self_attn_layer_norm/{scale,bias}``,
@@ -21,10 +25,10 @@ import dataclasses
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from ..nn.activations import relu
 from ..nn.norms import LayerNorm
 from .llama import QLinear, causal_mask, install_tree
 
@@ -64,13 +68,14 @@ class OPTConfig:
 
 
 class OPTAttention(nn.Module):
-    def __init__(self, cfg: OPTConfig, use_kernels: bool = True):
+    def __init__(self, cfg: OPTConfig, use_kernels: bool = True,
+                 mx_specs=None):
         super().__init__()
         self.cfg = cfg
-        self.q_proj = QLinear(cfg.dtype, use_kernels)
-        self.k_proj = QLinear(cfg.dtype, use_kernels)
-        self.v_proj = QLinear(cfg.dtype, use_kernels)
-        self.out_proj = QLinear(cfg.dtype, use_kernels)
+        self.q_proj = QLinear(cfg.dtype, use_kernels, mx_specs)
+        self.k_proj = QLinear(cfg.dtype, use_kernels, mx_specs)
+        self.v_proj = QLinear(cfg.dtype, use_kernels, mx_specs)
+        self.out_proj = QLinear(cfg.dtype, use_kernels, mx_specs)
 
     def forward(self, x, mask, cache=None, layer_idx: int = 0,
                 positions=None):
@@ -91,37 +96,42 @@ class OPTAttention(nn.Module):
 
 
 class OPTLayer(nn.Module):
-    def __init__(self, cfg: OPTConfig, use_kernels: bool = True):
+    def __init__(self, cfg: OPTConfig, use_kernels: bool = True,
+                 mx_specs=None, mx_linear_only: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.self_attn_layer_norm = LayerNorm(cfg.hidden_size)
-        self.final_layer_norm = LayerNorm(cfg.hidden_size)
-        self.self_attn = OPTAttention(cfg, use_kernels)
-        self.fc1 = QLinear(cfg.dtype, use_kernels)
-        self.fc2 = QLinear(cfg.dtype, use_kernels)
+        self.other_specs = None if mx_linear_only else mx_specs
+        self.self_attn_layer_norm = LayerNorm(cfg.hidden_size,
+                                              mx_specs=self.other_specs)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size,
+                                          mx_specs=self.other_specs)
+        self.self_attn = OPTAttention(cfg, use_kernels, mx_specs)
+        ffn_specs = (mx_specs.replace(a_axes=None)
+                     if mx_specs is not None
+                     and mx_specs.get("a_axes") is not None else mx_specs)
+        self.fc1 = QLinear(cfg.dtype, use_kernels, ffn_specs)
+        self.fc2 = QLinear(cfg.dtype, use_kernels, ffn_specs)
 
     def forward(self, x, mask, cache=None, layer_idx: int = 0,
                 positions=None):
         ln1, ln2 = self.self_attn_layer_norm, self.final_layer_norm
+        act = lambda h: relu(h, self.other_specs)
         if self.cfg.do_layer_norm_before:
             x = x + self.self_attn(ln1(x), mask, cache, layer_idx, positions)
-            return x + self.fc2(F.relu(self.fc1(ln2(x))))
+            return x + self.fc2(act(self.fc1(ln2(x))))
         x = ln1(x + self.self_attn(x, mask, cache, layer_idx, positions))
-        return ln2(x + self.fc2(F.relu(self.fc1(x))))
+        return ln2(x + self.fc2(act(self.fc1(x))))
 
 
 class OPTForCausalLM(nn.Module):
     """OPT decoder with tied logits; weights go in with :meth:`load_params`.
     ``device`` defaults to "cuda" and must exist; pass ``device="cpu"`` to
-    run the plain versions on the CPU."""
+    run the plain versions on the CPU. ``mx_specs`` and ``mx_linear_only``
+    as in the module docstring; the final LayerNorm follows the layers'."""
 
     def __init__(self, cfg: OPTConfig, use_kernels: bool = True,
-                 mx_specs=None, device="cuda"):
+                 mx_specs=None, device="cuda", mx_linear_only: bool = False):
         super().__init__()
-        if mx_specs is not None:
-            raise NotImplementedError(
-                "fake-quant mx_specs layers (LayerNorm, ReLU, linears) are "
-                "not ported yet (ROADMAP queue 1 item 9)")
         if not cfg.tie_word_embeddings:
             raise NotImplementedError(
                 "an untied OPT lm_head is not ported (the JAX package's "
@@ -130,9 +140,12 @@ class OPTForCausalLM(nn.Module):
         self.device = resolve_device(device)
         self.embed_tokens = None        # (vocab, D), set by load_params
         self.embed_positions = None     # (max_positions + 2, D)
-        self.layers = nn.ModuleList([OPTLayer(cfg, use_kernels)
-                                     for _ in range(cfg.num_hidden_layers)])
-        self.final_layer_norm = LayerNorm(cfg.hidden_size)
+        self.mx_specs = mx_specs
+        self.layers = nn.ModuleList([
+            OPTLayer(cfg, use_kernels, mx_specs, mx_linear_only)
+            for _ in range(cfg.num_hidden_layers)])
+        self.final_layer_norm = LayerNorm(
+            cfg.hidden_size, mx_specs=None if mx_linear_only else mx_specs)
 
     def load_params(self, params) -> "OPTForCausalLM":
         """Install a flax-named weight tree (``{"params": ...}`` or bare)."""

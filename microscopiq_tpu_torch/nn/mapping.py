@@ -1,7 +1,7 @@
 """Quantization, packing and serving-layout transforms of a parameter tree.
 
 Counterpart of ``find_linear_params``, ``quantize_params``, ``pack_params``,
-``_concat_kernels`` and ``fuse_projections`` in
+``_concat_kernels``, ``fuse_projections`` and ``mx_op_table`` in
 ``microscopiq_tpu/nn/mapping.py``. The tree is
 the flax-named nested dict that :func:`microscopiq_tpu_torch.convert.
 params_from_jax` and :func:`microscopiq_tpu_torch.models.llama.build_params`
@@ -11,7 +11,7 @@ produce; a leaf's path is the tuple of its keys.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -216,3 +216,30 @@ def fuse_projections(params):
             layer["mlp"] = mlp
         tree[name] = layer
     return out
+
+
+def mx_op_table(mx_specs) -> Dict[str, Callable]:
+    """Op name -> its MX-quantized op with ``mx_specs`` bound."""
+    from . import activations as act
+    from . import simd_ops as simd
+    from .linear import bmm, linear, matmul
+    from .softmax import softmax
+
+    def bind(fn):
+        return lambda *a, **k: fn(*a, mx_specs=mx_specs, **k)
+
+    return {
+        "linear": bind(linear), "matmul": bind(matmul), "bmm": bind(bmm),
+        "softmax": bind(softmax),
+        "relu": bind(act.relu), "relu6": bind(act.relu6),
+        "gelu": bind(act.gelu), "silu": bind(act.silu),
+        "sigmoid": bind(act.sigmoid), "tanh": bind(act.tanh),
+        "leaky_relu": bind(act.leaky_relu),
+        "add": bind(simd.simd_add), "sub": bind(simd.simd_sub),
+        "mul": bind(simd.simd_mul), "div": bind(simd.simd_div),
+        "sqrt": bind(simd.simd_sqrt), "square": bind(simd.simd_square),
+        "exp": bind(simd.simd_exp), "log": bind(simd.simd_log),
+        "sum": bind(simd.simd_reduce_sum),
+        "mean": bind(simd.simd_reduce_mean),
+        "norm": bind(simd.simd_norm),
+    }

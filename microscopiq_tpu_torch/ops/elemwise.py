@@ -4,13 +4,17 @@ Counterpart of ``microscopiq_tpu/ops/elemwise.py`` and bit-exact with it:
 ``floor(log2|x|)`` comes from the float32 exponent field
 (``tensor.view(torch.int32)``), and powers of two are assembled into the
 exponent field, so no transcendental ``log2``/``exp2`` rounding can leak in.
+Also the spec-driven container quantizers of the MX layers
+(``quantize_bfloat``, ``quantize_fp``, ``quantize_elemwise_op``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..formats import _get_min_norm, get_format_params
+from ..formats import _get_max_norm, _get_min_norm, get_format_params
 
 _F32_INF = float("inf")
 
@@ -83,14 +87,28 @@ def _safe_rshift(x, bits: int, exp):
 
 
 def round_mantissa(A: torch.Tensor, bits: int, round: str = "nearest",
-                   clamp: bool = False) -> torch.Tensor:
-    """Round the scaled mantissa. Modes: floor, nearest, even.
+                   clamp: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   rand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Round the scaled mantissa. Modes: floor, nearest, even, dither.
 
     ``nearest`` is ``floor(|A| + 0.5)`` (ties away from zero), not
-    ``torch.round``. The reference's ``dither`` mode belongs to the
-    training path (ROADMAP queue 1 item 9).
+    ``torch.round``. ``dither`` is ``sign(A) * floor(|A| + u)`` with u
+    uniform in [0, 1): the draws ``rand`` (A's shape) where given, else
+    drawn from ``generator``; one of the two is required.
     """
-    if round == "floor":
+    if round == "dither":
+        if rand is None:
+            if generator is None:
+                raise ValueError("round='dither' requires a generator or "
+                                 "the uniform draws")
+            rand = torch.rand(A.shape, generator=generator, dtype=A.dtype,
+                              device=A.device)
+        elif rand.shape != A.shape:
+            raise ValueError(f"dither draws of shape {tuple(rand.shape)} "
+                             f"for a tensor of shape {tuple(A.shape)}")
+        out = _sign(A) * torch.floor(torch.abs(A) + rand.to(A.dtype))
+    elif round == "floor":
         out = _sign(A) * torch.floor(torch.abs(A))
     elif round == "nearest":
         out = _sign(A) * torch.floor(torch.abs(A) + 0.5)
@@ -98,9 +116,6 @@ def round_mantissa(A: torch.Tensor, bits: int, round: str = "nearest",
         absA = torch.abs(A)
         maskA = ((absA - 0.5) % 2 == 0).to(A.dtype)
         out = _sign(A) * (torch.floor(absA + 0.5) - maskA)
-    elif round == "dither":
-        raise NotImplementedError(
-            "round='dither' is not ported yet (ROADMAP queue 1 item 9)")
     else:
         raise ValueError(f"Unrecognized round method {round}")
     if clamp:
@@ -112,10 +127,14 @@ def round_mantissa(A: torch.Tensor, bits: int, round: str = "nearest",
 def quantize_elemwise_core(A: torch.Tensor, bits: int, exp_bits: int,
                            max_norm: float, round: str = "nearest",
                            saturate_normals: bool = False,
-                           allow_denorm: bool = True) -> torch.Tensor:
+                           allow_denorm: bool = True,
+                           generator: Optional[torch.Generator] = None,
+                           rand: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Quantize each element to a (sign, exp_bits, bits-2 mantissa) format.
 
-    Runs in float32 and casts back to the input dtype.
+    Runs in float32 and casts back to the input dtype. ``generator`` or
+    ``rand`` feed ``round="dither"`` (see :func:`round_mantissa`).
     """
     orig_dtype = A.dtype
     A = A.to(torch.float32)
@@ -133,7 +152,8 @@ def quantize_elemwise_core(A: torch.Tensor, bits: int, exp_bits: int,
         private_exp = None
 
     out = _safe_lshift(out, bits - 2, private_exp)
-    out = round_mantissa(out, bits, round, clamp=False)
+    out = round_mantissa(out, bits, round, clamp=False, generator=generator,
+                         rand=rand)
     out = _safe_rshift(out, bits - 2, private_exp)
 
     if saturate_normals or exp_bits == 0:
@@ -146,7 +166,6 @@ def quantize_elemwise_core(A: torch.Tensor, bits: int, exp_bits: int,
     return out.to(orig_dtype)
 
 
-
 def quantize_elemwise(A: torch.Tensor, elem_format, round: str = "nearest",
                       saturate_normals: bool = False,
                       allow_denorm: bool = True) -> torch.Tensor:
@@ -157,3 +176,51 @@ def quantize_elemwise(A: torch.Tensor, elem_format, round: str = "nearest",
     return quantize_elemwise_core(
         A, mbits, ebits, max_norm, round=round,
         saturate_normals=saturate_normals, allow_denorm=allow_denorm)
+
+
+def quantize_bfloat(A: torch.Tensor, bfloat: int, round: str = "nearest",
+                    allow_denorm: bool = True) -> torch.Tensor:
+    """Quantize to bfloatX (1 sign + 8 exp + (bfloat-9) mantissa bits)."""
+    if bfloat == 0 or bfloat == 32:
+        return A
+    max_norm = _get_max_norm(8, bfloat - 7)
+    return quantize_elemwise_core(
+        A, bits=bfloat - 7, exp_bits=8, max_norm=max_norm, round=round,
+        allow_denorm=allow_denorm)
+
+
+def quantize_fp(A: torch.Tensor, exp_bits: Optional[int] = None,
+                mantissa_bits: Optional[int] = None, round: str = "nearest",
+                allow_denorm: bool = True) -> torch.Tensor:
+    """Quantize to an IEEE-like fpX (NaN/Inf as in fp16/fp32)."""
+    if exp_bits is None or mantissa_bits is None:
+        return A
+    max_norm = _get_max_norm(exp_bits, mantissa_bits + 2)
+    return quantize_elemwise_core(
+        A, bits=mantissa_bits + 2, exp_bits=exp_bits, max_norm=max_norm,
+        round=round, allow_denorm=allow_denorm)
+
+
+def quantize_elemwise_op(A: torch.Tensor, mx_specs,
+                         round: Optional[str] = None) -> torch.Tensor:
+    """Spec-driven element-wise quantization by the ``bfloat`` or ``fp``
+    knob (mutually exclusive; bfloat > 9 and fp > 6 when set). ``round``
+    defaults to the spec's ``round``; ``mx_specs=None`` passes A through."""
+    if mx_specs is None:
+        return A
+    if round is None:
+        round = mx_specs["round"]
+    bfloat, fp = mx_specs["bfloat"], mx_specs["fp"]
+    if bfloat > 0 and fp > 0:
+        raise ValueError("Cannot set both [bfloat] and [fp] in mx_specs.")
+    if bfloat > 9:
+        return quantize_bfloat(A, bfloat=bfloat, round=round,
+                               allow_denorm=mx_specs["bfloat_subnorms"])
+    if 0 < bfloat <= 9:
+        raise ValueError("Cannot set [bfloat] <= 9 in mx_specs.")
+    if fp > 6:
+        return quantize_fp(A, exp_bits=5, mantissa_bits=fp - 6, round=round,
+                           allow_denorm=mx_specs["bfloat_subnorms"])
+    if 0 < fp <= 6:
+        raise ValueError("Cannot set [fp] <= 6 in mx_specs.")
+    return A

@@ -4,6 +4,7 @@ Counterpart of ``microscopiq_tpu/ops/mx.py``: tile the shared axes into
 ``block_size`` blocks, take one power-of-two scale per block from the max
 magnitude, clamp its exponent to ``scale_bits``, quantize the elements
 against the scaled values and rescale. Bit-exact with the JAX function.
+:func:`quantize_mx_op` is the spec-driven form that the MX layers call.
 """
 
 from __future__ import annotations
@@ -143,3 +144,20 @@ def quantize_mx(A: torch.Tensor, scale_bits: int, elem_format,
     if block_size:
         A = undo_reshape_to_blocks(A, padded_shape, orig_shape, axes)
     return A
+
+
+def quantize_mx_op(A: torch.Tensor, mx_specs, elem_format=None,
+                   block_size: Optional[int] = None, axes: Axes = None,
+                   round: str = "nearest") -> torch.Tensor:
+    """Spec-driven :func:`quantize_mx`: the block size, shared-exponent
+    method and subnormal flush from ``mx_specs``, scale_bits 8 where the
+    spec leaves it 0; ``elem_format=None`` passes A through."""
+    if elem_format is None:
+        return A
+    if block_size is None:
+        block_size = mx_specs["block_size"]
+    scale_bits = mx_specs["scale_bits"] if mx_specs["scale_bits"] != 0 else 8
+    return quantize_mx(
+        A, scale_bits, elem_format, block_size=block_size, axes=axes,
+        round=round, shared_exp_method=mx_specs["shared_exp_method"],
+        flush_fp32_subnorms=mx_specs["mx_flush_fp32_subnorms"])

@@ -1,10 +1,9 @@
-"""MX quantization specs: the part that the packers and the serving path read.
+"""MX quantization specs.
 
-Counterpart of ``microscopiq_tpu/specs.py`` (``MxSpecs``,
-``finalize_mx_specs``, ``mx_assert_finite``, and the CLI's ``add_mx_args``
-and ``get_mx_specs``). The backward-pass specs and the other assert helpers
-belong to the training path (ROADMAP queue 1 item 9) and are not carried
-here.
+Counterpart of ``microscopiq_tpu/specs.py``: ``MxSpecs`` with dict-style
+access, ``finalize_mx_specs``, the backward-pass specs of the training path
+(``get_backwards_mx_specs``), the ``MX_ASSERT`` guards (``mx_assert_finite``,
+``mx_assert_test``), and the CLI's ``add_mx_args`` and ``get_mx_specs``.
 """
 
 from __future__ import annotations
@@ -12,11 +11,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import traceback
 from typing import Optional
 
 import torch
 
-# MX_ASSERT=True turns on the NaN guards of the outlier quantizer
+# MX_ASSERT=True turns on the NaN guards of the outlier quantizer and the
+# spec check of the MX layers
 _ASSERT_MODE = os.environ.get("MX_ASSERT", "False")
 
 _HELP = {
@@ -113,6 +114,9 @@ class MxSpecs:
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def get(self, key: str, default=None):
+        return getattr(self, key, default)
+
     def replace(self, **kwargs) -> "MxSpecs":
         return dataclasses.replace(self, **kwargs)
 
@@ -124,10 +128,15 @@ _FIELDS = {f.name for f in dataclasses.fields(MxSpecs)}
 _DEFAULTS = MxSpecs()
 
 
+def get_default_mx_specs() -> MxSpecs:
+    """Spec with quantization disabled."""
+    return MxSpecs()
+
+
 def apply_mx_specs(mx_specs, default_mx_specs: Optional[MxSpecs] = None
                    ) -> MxSpecs:
     """Overlay user-specified (non-None) entries onto the defaults."""
-    base = default_mx_specs or MxSpecs()
+    base = default_mx_specs or get_default_mx_specs()
     if not mx_specs:
         return base
     updates = {}
@@ -137,6 +146,20 @@ def apply_mx_specs(mx_specs, default_mx_specs: Optional[MxSpecs] = None
                 raise KeyError(f"Unknown key '{k}' passed to mx specs")
             updates[k] = v
     return base.replace(**updates)
+
+
+def get_backwards_mx_specs(specs: Optional[MxSpecs]) -> Optional[MxSpecs]:
+    """The spec of the backward pass: ``specs`` itself under
+    ``quantize_backprop``, else ``specs`` with every format, the block size
+    and the element containers cleared (a spec that quantizes nothing)."""
+    if specs is None:
+        return None
+    if not specs.quantize_backprop:
+        return specs.replace(
+            w_elem_format=None, a_elem_format=None, w_elem_format_bp=None,
+            a_elem_format_bp_os=None, a_elem_format_bp_ex=None,
+            block_size=0, bfloat=0, fp=0)
+    return specs
 
 
 def finalize_mx_specs(specs, early_exit: bool = True) -> Optional[MxSpecs]:
@@ -166,7 +189,7 @@ def finalize_mx_specs(specs, early_exit: bool = True) -> Optional[MxSpecs]:
               "round_mx_grad_output_grad_input", "round_mx_input_grad_weight",
               "round_mx_grad_output_grad_weight"):
         assign_if_none(r, "round_grad_input")
-    return apply_mx_specs(specs, MxSpecs())
+    return apply_mx_specs(specs, get_default_mx_specs())
 
 
 def add_mx_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -210,3 +233,15 @@ def get_mx_specs(parsed_args: argparse.Namespace) -> Optional[MxSpecs]:
             parsed[k] = getattr(parsed_args, k)
     early_exit = not getattr(parsed_args, "skip_early_exit", False)
     return finalize_mx_specs(parsed, early_exit=early_exit)
+
+
+def mx_assert_test(mx_specs) -> None:
+    """Under ``MX_ASSERT=True``, raise ValueError when an MX op was handed no
+    spec, naming the op and its caller; a no-op otherwise."""
+    if _ASSERT_MODE == "True" and mx_specs is None:
+        stack = traceback.extract_stack()
+        f1, f2 = stack[-2], stack[-3]
+        raise ValueError(
+            "MX assert test failed!\n"
+            f"mx_specs is None in function {f1.name}\n"
+            f"Called from {f2.filename}, line {f2.lineno}\n  {f2.line}")

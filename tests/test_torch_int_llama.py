@@ -10,6 +10,8 @@ Tolerance: float32 logits within 1e-4 of max |logit|, as
 tests/test_torch_llama.py; greedy tokens identical.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,11 +108,12 @@ def test_logits_and_32_greedy_tokens_match_jax(fmt):
 def test_int_weights_go_to_dequant_matmul_at_any_token_count(monkeypatch):
     """A PackedMX of any transport goes to the kernel wrapper, which picks
     the GEMV or the GEMM by token count (on the CPU: the twin)."""
-    from microscopiq_tpu_torch.models import llama
+    # the dispatch of every packed linear: nn.linear.packed_matmul
+    linear = importlib.import_module("microscopiq_tpu_torch.nn.linear")
 
     seen = []
-    fn = llama.dequant_matmul
-    monkeypatch.setattr(llama, "dequant_matmul", lambda *a, **k: (
+    fn = linear.dequant_matmul
+    monkeypatch.setattr(linear, "dequant_matmul", lambda *a, **k: (
         seen.append(a[1].transport), fn(*a, **k))[1])
     _, _, tm = model_pair("int4")
     for M in (1, 64, 65, 300):

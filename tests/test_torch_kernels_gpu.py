@@ -2427,3 +2427,132 @@ def test_safetensors_reader_onto_the_card(cuda, tmp_path):
     for k, v in ts.items():
         assert state[k].is_cuda and state[k].dtype == torch.float32
         assert torch.equal(state[k].cpu(), v.float())
+
+
+# ---------------------------------------------------------------------------
+# the MX fake-quant layers (the training path): the quantizers on the card
+# bit for bit against the CPU, and mx_linear's backward against its formula
+
+
+def _mx_specs(qbp=True, **kw):
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    return finalize_mx_specs(dict(dict(
+        w_elem_format="fp6_e3m2", a_elem_format="fp6_e3m2", scale_bits=4,
+        block_size=32, bfloat=16, quantize_backprop=qbp), **kw))
+
+
+def _mx_input(seed, shape=(256, 512), span=10):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * np.exp(rng.uniform(-span, span, shape))
+         ).astype(np.float32)
+    x.flat[:6] = [np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-42]
+    return torch.from_numpy(x)
+
+
+def _same_bits(a, b):
+    """Bit for bit, NaN equal to NaN (the devices propagate NaN payloads
+    and signs differently)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a) & torch.isnan(b)
+    return not bool(((a.view(torch.int32) != b.view(torch.int32))
+                     & ~nan).any())
+
+
+@pytest.mark.parametrize("round", ["nearest", "floor", "even"])
+@pytest.mark.parametrize("knob", [{"bfloat": 16}, {"fp": 16},
+                                  {"bfloat": 12, "bfloat_subnorms": False}])
+def test_mx_quantize_elemwise_op_card_is_cpu(cuda, round, knob):
+    from microscopiq_tpu_torch.ops.elemwise import quantize_elemwise_op
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    s = finalize_mx_specs(dict(knob, w_elem_format="int8"))
+    x = _mx_input(1)
+    assert _same_bits(quantize_elemwise_op(x.to(cuda), s, round=round),
+                      quantize_elemwise_op(x, s, round=round))
+
+
+@pytest.mark.parametrize("fmt", ["fp6_e3m2", "fp4_e2m1", "int4", "int8",
+                                 "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("axes", [[-1], [0]])
+def test_mx_quantize_mx_op_card_is_cpu(cuda, fmt, axes):
+    from microscopiq_tpu_torch.ops.mx import quantize_mx_op
+
+    x = _mx_input(2, span=4)
+    for s in (_mx_specs(scale_bits=8), _mx_specs()):
+        assert _same_bits(quantize_mx_op(x.to(cuda), s, fmt, axes=axes),
+                          quantize_mx_op(x, s, fmt, axes=axes))
+
+
+@pytest.mark.parametrize("fmts", [("fp6_e3m2", "fp6_e3m2"),
+                                  ("int4", "fp8_e4m3"), ("int2", "fp4_e2m1")])
+def test_mx_quantize_mx_outlier_op_card_is_cpu(cuda, fmts):
+    from microscopiq_tpu_torch.ops.outlier import quantize_mx_outlier_op
+
+    s = _mx_specs()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (256, 512)).astype(np.float32))
+    f = lambda t: quantize_mx_outlier_op(t, s, *fmts, axes=[-1])
+    assert _same_bits(f(x.to(cuda)), f(x))
+
+
+@pytest.mark.parametrize("fmt", ["fp6_e3m2", "int4", "bfloat16"])
+def test_mx_dither_with_given_draws_card_is_cpu(cuda, fmt):
+    from microscopiq_tpu_torch.formats import get_format_params
+    from microscopiq_tpu_torch.ops.elemwise import quantize_elemwise_core
+
+    ebits, mbits, _, max_norm, _ = get_format_params(fmt)
+    x = _mx_input(4)
+    u = torch.rand(x.shape, generator=torch.Generator().manual_seed(4))
+    f = lambda t: quantize_elemwise_core(t, mbits, ebits, max_norm,
+                                         "dither", rand=u.to(t.device))
+    assert _same_bits(f(x.to(cuda)), f(x))
+
+
+@pytest.mark.parametrize("qbp", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+def test_mx_linear_backward_on_card_is_its_formula(cuda, qbp, bias):
+    """grad_in, grad_w and grad_b of nn.mx_linear through torch.autograd on
+    the card, against nn/linear.py's backward formula
+    (``mx_linear_backward``, which the CPU tests hold to JAX's VJP) on the
+    operands its forward saves: the bfloat-quantized ones under
+    quantize_backprop, else the raw ones. Within 1e-6 of max."""
+    from microscopiq_tpu_torch.nn import mx_linear
+    from microscopiq_tpu_torch.nn.linear import (mx_linear_backward,
+                                                 mx_linear_forward)
+
+    s = _mx_specs(qbp, scale_bits=8)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 64, 512, generator=gen, device=cuda,
+                    requires_grad=True)
+    w = (torch.randn(768, 512, generator=gen, device=cuda) * 0.05
+         ).requires_grad_()
+    b = (torch.randn(768, generator=gen, device=cuda) if bias else None)
+    if b is not None:
+        b.requires_grad_()
+    g = torch.randn(2, 64, 768, generator=gen, device=cuda)
+    mx_linear(x, w, b, s).backward(g)
+
+    xs, ws = x.detach(), w.detach()
+    if qbp:
+        _, xs, ws = mx_linear_forward(xs, ws, None, s)
+    want_in, want_w, want_b = mx_linear_backward(g, xs, ws, bias, s)
+    pairs = [(w.grad, want_w), (x.grad, want_in)]
+    if bias:
+        pairs.append((b.grad, want_b))
+    for got, want in pairs:
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), err
+
+
+def test_mx_ffn_trains_on_the_card(cuda):
+    """scripts.mx_ffn, 20 steps from one numpy start on the card against
+    the CPU: the mse within 1% each step."""
+    from microscopiq_tpu_torch.scripts import mx_ffn
+
+    start = mx_ffn.numpy_start(64, 3, rows=128)
+    card = mx_ffn.train(start, 20, device=cuda)
+    cpu = mx_ffn.train(start, 20, device="cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-2)
+    assert card[-1] < card[0]

@@ -233,9 +233,17 @@ def test_out_of_slice_branches_name_their_roadmap_item():
         LlamaForCausalLM(LlamaConfig.tiny(num_local_experts=4,
                                           fused_projections=True),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        LlamaForCausalLM(LlamaConfig.tiny(), mx_specs={"block_size": 32},
-                         device="cpu")
+    # the fake-quant branch (queue 1 item 9) is ported: it builds and runs
+    from microscopiq_tpu_torch.models.llama import build_params
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+    specs = finalize_mx_specs({"w_elem_format": "fp6_e3m2",
+                               "a_elem_format": "fp6_e3m2", "block_size": 32,
+                               "bfloat": 16})
+    fq = LlamaForCausalLM(LlamaConfig.tiny(), mx_specs=specs,
+                          device="cpu").load_params(
+        build_params(LlamaConfig.tiny(), device="cpu"))
+    logits = fq(torch.zeros(1, 4, dtype=torch.long))
+    assert logits.shape == (1, 4, 256) and bool(torch.isfinite(logits).all())
     # the outlier formats are in the slice now: an incomplete outlier leaf
     # names what it lacks, and a kernel of no known type raises
     with pytest.raises(KeyError, match="out_pos"):

@@ -12,6 +12,7 @@ the last ulp of pow/sin/cos); greedy tokens identical.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -237,14 +238,15 @@ def test_outlier_formats_go_to_their_wrapper_at_any_token_count(
     """With use_kernels the outlier formats go to their kernel wrapper at
     every token count (on the CPU: its twin; on a card the wrapper picks the
     GEMV or the GEMM); without, to the plain twin."""
-    from microscopiq_tpu_torch.models import llama
+    # the dispatch of every packed linear: nn.linear.packed_matmul
+    linear = importlib.import_module("microscopiq_tpu_torch.nn.linear")
 
     seen = []
     for name in ("dequant_matmul_nb", "dequant_matmul_nb_reference",
                  "dequant_matmul_outlier",
                  "dequant_matmul_outlier_reference"):
-        fn = getattr(llama, name)
-        monkeypatch.setattr(llama, name, lambda *a, _f=fn, _n=name, **k: (
+        fn = getattr(linear, name)
+        monkeypatch.setattr(linear, name, lambda *a, _f=fn, _n=name, **k: (
             seen.append(_n), _f(*a, **k))[1])
     for arm in ("compact", "sideband"):
         _, _, tm = model_pair(arm)

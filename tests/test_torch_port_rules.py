@@ -113,8 +113,25 @@ def test_cuda_entry_points_raise_without_a_card():
         init_train_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kv_accuracy.model_and_task(n=8)
+    from microscopiq_tpu_torch.scripts import mx_ffn
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx_ffn.train(mx_ffn.numpy_start(32, rows=8), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mx_ffn.main(["--steps", "1", "--dim", "32"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_copy(LlamaForCausalLM(cfg), CopyTask(n=4), steps=1)
+    from microscopiq_tpu_torch import nn as tnn
+
+    for make in (lambda d: tnn.MXLinear(8, 8, device=d),
+                 lambda d: tnn.Conv2d(4, 4, 3, device=d),
+                 lambda d: tnn.LSTMCell(4, 4, device=d),
+                 lambda d: tnn.LSTM(4, 4, device=d),
+                 lambda d: tnn.GroupNorm(2, 4, device=d),
+                 lambda d: tnn.BatchNorm(4, device=d)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make("cuda")
+        make("cpu")                                   # the CPU when asked
     cpu_model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchEngine(cpu_model)
