@@ -59,8 +59,8 @@ the package is missing. Phases, each of which raises on failure:
 10. ``outlier_kernels_vs_plain``: the MicroScopiQ outlier formats (int2
     inliers, fp4 outliers, block 16, 2-sigma rule) on N(0, 0.02) weights
     with 3% of the elements scaled by 10, at every Llama-3-8B shape: the
-    compact NB (budget 2) and side-band (budget 4) GEMVs at M = 1, 8, 64,
-    255 (the side-band one with its HBM rate, plan and occupancy) and their
+    compact NB (budget 2) and side-band (budget 4) GEMVs at M = 8, 64,
+    255, and 1 at gate_up (the side-band one with its HBM rate, plan and occupancy) and their
     GEMMs at M = 256, 1024, and the merged emi8m stream
     through the GEMV (M = 1, 8, 64) and the GEMM (M = 128, 1024), each
     against its plain version, timed beside the bound, the plain version
@@ -76,8 +76,8 @@ the package is missing. Phases, each of which raises on failure:
 12. ``outlier_two_layer_logits``: per transport, a 2-layer full-width
     model, 4 x 120-token prompt (a GEMM prefill) and 8 decode steps,
     through the kernels against the plain versions;
-13. ``int_kernels_vs_plain``: the GEMV (M = 1, 8, 64) and GEMM (M = 128,
-    1024) in every other transport of the TPU kernels at the Llama-3-8B
+13. ``int_kernels_vs_plain``: the GEMV (M = 8, 64; 1 at gate_up) and GEMM
+    (M = 128, 1024) in every other transport of the TPU kernels at the Llama-3-8B
     shapes (int4/sb4, int8 and int2 in the int8 container, int2/sb2 at
     block 16, fp6/pf6, fp4/pf4; the bf16 and fp16 containers (qkv and
     gate_up), 2-D
@@ -111,7 +111,8 @@ the package is missing. Phases, each of which raises on failure:
     run, with exact launch counts;
 17. ``sad_s8_vs_plain`` (run right after the build, while the profiler's
     windows are whole): the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
-    shape, M = 1, 8, 64, against ``dequant_matmul_sad_s8_reference``, the
+    shape, M = 8, 64 (1 at gate_up), against
+    ``dequant_matmul_sad_s8_reference``, the
     whole call and its GEMV alone (a profiler window checked against the
     wrappers' launch counts), beside the bf16-activation GEMV,
     ``torch.matmul`` and ``torch._int_mm``; the one-launch activation
@@ -196,10 +197,10 @@ Then, still on that model:
     tokenizer; every engine-backed answer equal to a 1-slot engine's
     tokens for its prompt, every ``generate``-backed one to ``generate`` at
     B = 1; requests/s, tokens/s and the time to the first streamed chunk;
-29. ``cot_evals``: ``evaluate_gsm8k`` (synthetic rows, limit 8, 48 new
+29. ``cot_evals``: ``evaluate_gsm8k`` (synthetic rows, limit 4, 48 new
     tokens) over ``engine_generate_fn`` with the dense engine and with the
     4-bit quantized one, and ``evaluate_cot_task`` for bbh, mmlu and aqua
-    (limit 8); an oracle scores 1.0 on each; two prompts' generations equal
+    (limit 4); an oracle scores 1.0 on each; two prompts' generations equal
     a 1-slot engine's; the accuracies (random weights: ~0).
 
 After phase 4's model is freed:
@@ -262,6 +263,39 @@ the three phases' seconds:
     equal to nn/linear.py's backward formula (``mx_linear_backward``, from
     ``quantize_mx_op`` on the card) on the operands its forward saves,
     within 1e-6 of max.
+36. ``tp_main_path``: Llama-3-8B at full width, 32 layers, seeded MX-FP6
+    emi8 weights, over two ranks in two processes on the one card joined
+    by gloo (``--tp-rank``): (data=2, model=1), half the batch a rank,
+    stitched by ``global_batch`` and compared with the one-process rows;
+    then (data=1, model=2), each rank on its shards (``shard_params``),
+    against a one-process run of the same weights here: every linear of
+    all 32 layers (and the lm_head) fed the one-process input of it, in
+    the prefill and a decode step, within 2^-7 of max with at most 1% of
+    its elements differing (the row-parallel sums' bf16 roundings);
+    a prefill of 4 x 128 tokens and 16 eager steps teacher-forced on the
+    one-process tokens over the dense and the 4-bit KIVI cache (KVH 4 a
+    rank), at 32 layers (logits and tokens reported beside the plain
+    versions' own distance: the seeded reference is chaotic there) and at
+    the first 2 layers (prefill and step logits within 4e-2 of max, the
+    plain versions there too, every differing token a near-tie, >= 90%
+    equal); 129 GEMVs a step (+ 32 attention launches) and 128 GEMMs + 1
+    GEMV a prefill on each rank; weight and peak GB, eager ms a step and
+    the collectives' share (host clock).
+37. ``tp_check``: ``scripts.check_tp``'s check at world 1 (NCCL, in this
+    process) and world 2 (gloo, in the two ranks of ``tp_main_path``): the
+    TP GEMV, GEMM and quantized attention against the plain versions
+    (1e-5, 2e-3, 2e-2 of max).
+38. ``posit_vq``: posit8 (es 0, 1, 2) and posit16 (es 1, 2) encode,
+    decode and fake-quant on a full-width activation and the gate_up
+    weight, card = CPU bit for bit; VQQuantizer (bits 3, vec_dim 2) on a
+    4096 x 4096 q_proj with the CPU's k-means++ draws: equal assignments
+    (>= 99%), MSE within 1%. The CPU side runs in a second background
+    process (``--cpu-references-19``), with the parity grid's dense and
+    RTN configs.
+39. ``parity_grid``: ``scripts.parity``'s eight configs (12 layers,
+    vocabulary 4096, hidden 512) on the card from seeded weights: dense
+    and RTN MX-FP6 (fake and packed) within 0.1 perplexity of the CPU,
+    GPTQ and activation quantization reported.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -354,7 +388,18 @@ F32_FLOPS = 67e12                # float32 outside the tensor cores
 SHAPES = [("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
           ("down", 14336, 4096), ("lm_head", 4096, 128256)]
 GEMV_M = (1, 8, 64)
+# the W8A8, integer and outlier GEMV rows take M = 1 at one shape a kernel
+# (M1_LINEAR): it runs M = 8's plan (one n8 tile of x rows), masking seven
+# of its rows, and the other shapes' M = 1 rows are left out for the run's
+# time
+S8_M = (8, 64)
+M1_LINEAR = "gate_up"
 GEMM_M = (128, 1024)
+
+
+def with_m1(lin: str, ms) -> tuple:
+    """``ms``, with M = 1 first at the M1_LINEAR shape."""
+    return ((1,) + tuple(ms)) if lin == M1_LINEAR else tuple(ms)
 
 
 def log(**rec):
@@ -1443,10 +1488,10 @@ def quant_engine_phase(model, card: str):
 # H2O and sink caches, the GEAR codecs, the trace readers and the
 # host codec, on the 32-layer MX-FP6 model of phase 4
 # ---------------------------------------------------------------------------
-H2O_BUDGET, H2O_RECENT = 160, 16     # main path: 128 + 96 tokens, 64 evicted
-H2O_ENGINE = dict(n_slots=4, budget=192, recent=16, new=128, requests=6,
-                  prompt=(96, 128))  # 224-256 tokens a request: all evict
-SINK_TOKENS, SINK_SLOTS = 4, 256     # 128 + 192 tokens: 64 evictions
+H2O_BUDGET, H2O_RECENT = 144, 16     # main path: 128 + 48 tokens, 32 evicted
+H2O_ENGINE = dict(n_slots=4, budget=144, recent=16, new=64, requests=6,
+                  prompt=(96, 128))  # 160-192 tokens a request: all evict
+SINK_TOKENS, SINK_SLOTS = 4, 192     # 128 + 96 tokens: 32 evictions
 GEAR_SHAPE = (4, 8, 3072, 128)       # the quant-KV arm's K/V, (B, H, S, D)
 GEAR_CFG = dict(quantize_bit=4, group_size=64, rank=2, loop=3, left=0.02)
 GEAR_METHODS = ("channelQfixed", "tokenQfixed", "kcvtQfixed", "KIVI",
@@ -1514,7 +1559,7 @@ def cache_decode(model, ids, steps: int, state, wrap, positions=None,
             tok = torch.argmax(logits[:, -1], dim=-1)
             toks.append(tok)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / steps * 1e3
+        ms = (time.perf_counter() - t0) / steps * 1e3 if steps else None
     return torch.stack(toks, 1), ms, state, logits, first
 
 
@@ -1529,7 +1574,7 @@ def _check_tokens(name, toks, logits, vocab):
 
 def h2o_engine_phase(model, card: str):
     """``BatchEngine(cache_kind="h2o")``: six requests of 96-128 prompt
-    tokens asking for 128 new ones through 4 slots of a 192-token budget
+    tokens asking for 64 new ones through 4 slots of a 144-token budget
     (every slot evicts), each answered in full; one of them token-identical
     to a 1-slot H2O engine; and with a budget no request outgrows, the H2O
     engine token-identical to the dense one. Returns the launch counts."""
@@ -1606,9 +1651,9 @@ def h2o_engine_phase(model, card: str):
 
 
 def h2o_main_path(model, card: str):
-    """B = 4, a 128-token prompt and 96 eager greedy steps through
+    """B = 4, a 128-token prompt and 48 eager greedy steps through
     ``H2OCache``: with the budget at the dense run's length, the dense
-    cache's tokens; at a budget of 160 (64 evictions a layer), the slots
+    cache's tokens; at a budget of 144 (32 evictions a layer), the slots
     kept in layers 0 and 31 equal a CPU replay of the cache fed the (k, v,
     probs) recorded on the card; ``QuantH2OCache`` (4 bits) at that budget
     beside it. Returns the launch counts."""
@@ -1617,7 +1662,7 @@ def h2o_main_path(model, card: str):
     from microscopiq_tpu_torch.kv import h2o
 
     cfg = model.cfg
-    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 96
+    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 48
     kv = (cfg.num_key_value_heads, cfg.head_dim)
     ids = torch.as_tensor(np.random.default_rng(16).integers(
         0, cfg.vocab_size, (B, S0)), device="cuda")
@@ -1691,8 +1736,8 @@ def h2o_main_path(model, card: str):
 
 
 def sink_main_path(model, card: str):
-    """B = 4, ``SinkDecodeCache`` (4 sink tokens, 256 slots), a 128-token
-    prompt and 192 decode steps at the clamped slot positions (64
+    """B = 4, ``SinkDecodeCache`` (4 sink tokens, 192 slots), a 128-token
+    prompt and 96 decode steps at the clamped slot positions (32
     evictions): the first evicting step's re-rotated keys (layer 0) against
     ``_rope_delta`` of the same keys on the CPU. Returns the launch
     counts."""
@@ -1701,7 +1746,7 @@ def sink_main_path(model, card: str):
     from microscopiq_tpu_torch.kv import sink as sk
 
     cfg = model.cfg
-    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 192
+    L, B, S0, STEPS = cfg.num_hidden_layers, 4, 128, 96
     C, ns = SINK_SLOTS, SINK_TOKENS
     ids = torch.as_tensor(np.random.default_rng(17).integers(
         0, cfg.vocab_size, (B, S0)), device="cuda")
@@ -1933,6 +1978,7 @@ OUTLIER_ARMS = {
                       outlier_budget=SIDEBAND_BUDGET), False),
     "emi8m": (dict(outlier_budget=SIDEBAND_BUDGET), True)}
 OUTLIER_M = (1, 8, 64, 255)
+OUTLIER_PHASE_M = (8, 64, 255)   # and M = 1 at M1_LINEAR (with_m1)
 OUTLIER_GEMM_M = (256, 1024)
 # outlier GEMVs vs plain: exact weights and products, f32 sums in another
 # order -> the GEMV's 1e-5 (no tensor cores); the outlier GEMMs feed the
@@ -2070,7 +2116,8 @@ def weight_stats(model):
 
 def outlier_kernel_phase(card: str):
     """The NB and side-band GEMVs against their plain twins at every
-    Llama-3-8B shape and M = 1, 8, 64, 200, their GEMMs at M = 256, 1024;
+    Llama-3-8B shape and M = 8, 64, 255 (and 1 at M1_LINEAR), their GEMMs
+    at M = 256, 1024;
     the emi8m stream at block 16 through the GEMV (M = 1, 8, 64) and the
     GEMM (M = 128, 1024)."""
     import torch
@@ -2092,11 +2139,13 @@ def outlier_kernel_phase(card: str):
         nb_dense = lambda: pk.dequantize_outlier_nb(nb, torch.bfloat16).T
         sb_dense = lambda: pk.dequantize_mx_outlier(sb, torch.bfloat16)
         arms = (
-            ("dequant_gemv_nb", "nb", nb, OUTLIER_M, om.dequant_gemv_nb,
+            ("dequant_gemv_nb", "nb", nb, with_m1(lin, OUTLIER_PHASE_M),
+             om.dequant_gemv_nb,
              om.dequant_matmul_nb_reference, OUTLIER_REL_TOL, nb_dense),
             ("dequant_gemm_nb", "nb", nb, OUTLIER_GEMM_M, om.dequant_gemm_nb,
              om.dequant_matmul_nb_reference, GEMM_REL_TOL, nb_dense),
-            ("dequant_gemv_outlier", "sideband", sb, OUTLIER_M,
+            ("dequant_gemv_outlier", "sideband", sb,
+             with_m1(lin, OUTLIER_PHASE_M),
              om.dequant_gemv_outlier, om.dequant_matmul_outlier_reference,
              OUTLIER_REL_TOL, sb_dense),
             ("dequant_gemm_outlier", "sideband", sb, OUTLIER_GEMM_M,
@@ -2458,10 +2507,10 @@ def row_bound(nbytes, M, N, K, peak=None):
 
 
 def int_kernel_phase(card: str):
-    """The GEMV (M = 1, 8, 64) and GEMM (M = 128, 1024) in every other
-    transport at the Llama-3-8B shapes, each against dequant_matmul_reference,
-    timed beside the bound, the plain version and torch.matmul on the
-    dequantized bf16 weight."""
+    """The GEMV (M = 8, 64; 1 at M1_LINEAR) and GEMM (M = 128, 1024) in
+    every other transport at the Llama-3-8B shapes, each against
+    dequant_matmul_reference, timed beside the bound, the plain version and
+    torch.matmul on the dequantized bf16 weight."""
     import torch
 
     from microscopiq_tpu_torch.ops import packing as pk
@@ -2483,7 +2532,8 @@ def int_kernel_phase(card: str):
             nd = copies_for(dense.numel() * 2)
             ds = [dense] + [dense.clone() for _ in range(nd - 1)]
             for kind, Ms, fn, tol in (
-                    ("gemv", GEMV_M, dm.dequant_gemv, GEMV_REL_TOL),
+                    ("gemv", with_m1(lin, S8_M), dm.dequant_gemv,
+                     GEMV_REL_TOL),
                     ("matmul", GEMM_M, dm.dequant_gemm, GEMM_REL_TOL)):
                 kname = f"dequant_{kind}_{decode}"
                 for M in Ms:
@@ -2799,8 +2849,9 @@ def s8_timing(x, ps, nc) -> dict:
 
 def s8_phase(card: str):
     """The W8A8 GEMV against dequant_matmul_sad_s8_reference at every
-    Llama-3-8B shape and M = 1, 8, 64, beside the bf16-activation GEMV on
-    the same weight, torch.matmul on the dequantized bf16 weight and, where
+    Llama-3-8B shape and M = 8, 64 (S8_M; M = 1 too at M1_LINEAR), beside
+    the bf16-activation GEMV on the same weight, torch.matmul on the
+    dequantized bf16 weight and, where
     it takes the shape (M > 16), torch._int_mm on int8 operands of the same
     shape. The W8A8 times are :func:`s8_timing`'s (whole call and
     kernel-only device times); the bf16 GEMV's a CUDA graph's. Then the
@@ -2829,7 +2880,7 @@ def s8_phase(card: str):
             wi8 = [torch.randint(-127, 128, (K, N), generator=gen,
                                  device="cuda", dtype=torch.int8)
                    for _ in range(copies_for(K * N))]
-            for M in GEMV_M:
+            for M in with_m1(lin, S8_M):
                 x = torch.randn((M, K), generator=gen, device="cuda",
                                 dtype=torch.bfloat16)
                 dm.reset_launch_counts()
@@ -3467,7 +3518,7 @@ def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
 
 def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                  icounts, tcounts, srows, scounts, mrows, mcounts, prows,
-                 pcounts, grows, gcounts, rrows, rcounts):
+                 pcounts, grows, gcounts, rrows, rcounts, extra_flat=None):
     """One record per kernel (and per decode of the GEMV and GEMM), at its
     heaviest main-path call (gate_up: M = 8 for the GEMVs, M = 1024 for the
     GEMMs; B = 4 x 3136 live tokens for the quantized-KV attention), with
@@ -3496,7 +3547,7 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     paths = {"mxfp6": counts, "quant_kv": qcounts, **ocounts, **icounts}
     flat = {**{f"two_layer_{c}": n for c, n in tcounts.items()},
             "w8a8_entry_point": scounts, "quantizer_entry_point": mcounts,
-            "block_routes_entry_point": rcounts}
+            "block_routes_entry_point": rcounts, **(extra_flat or {})}
 
     def by_path(name):
         got = {p: c["prefill"][name] + c["decode"][name]
@@ -4377,7 +4428,7 @@ def frontends_phase(model, card: str):
     return {"prefill": want_counts(), "decode": counts}
 
 
-COT_LIMIT, COT_NEW = 8, 48
+COT_LIMIT, COT_NEW = 4, 48
 
 
 def cot_evals_phase(model, card: str):
@@ -5493,6 +5544,842 @@ def slice18_phases(card: str, refs) -> dict:
     return secs
 
 
+# ---------------------------------------------------------------------------
+# Slice 19: tensor- and data-parallel serving, the TP kernel check, posit
+# and VQ, the parity grid
+# ---------------------------------------------------------------------------
+TP_SEED = 19
+TP_B, TP_S0, TP_STEPS = 4, 128, 16
+TP_QKV = dict(bits=4, gap=64, v_group=128)
+TP_TIMEOUT_S = 600
+# Every linear of the TP model fed the one-process run's input of it
+# (prefill and a decode step, all 32 layers): a row-parallel product is two
+# f32 partial sums over the K halves, summed and rounded once to bf16,
+# against one f32 sum rounded once. The two f32 sums differ in their last
+# bits, so a bf16 rounding flips only where a sum lies that close to a
+# rounding boundary: on N(0, 1) activations and N(0, 0.02) weights ~0.02%
+# of the elements flip, 1.1e-3 of max (a float64 model of both sums on the
+# CPU). A bf16 all-reduce of the partials flips ~37% at 4.6e-3 of max,
+# which 2^-7 alone would let pass: the share is held too. Column-parallel
+# products (this rank's columns, the lm_head's gathered) take the same
+# path a column as one process.
+TP_LINEAR_REL_TOL = 2.0 ** -7
+TP_LINEAR_DIFFER_MAX = 1e-2
+# The logits: at 32 seeded layers the one-process reference is chaotic (the
+# same weights through the plain versions in one process lie 0.058 of max
+# from the kernels over the dense cache, 0.15 over the 4-bit one), so there
+# they are reported. At TP_SHALLOW layers of the same tree, where that
+# control stays within LOGIT_REL_TOL (held), the TP logits of the prefill
+# and of every step, teacher-forced on the one-process tokens, are held to
+# LOGIT_REL_TOL, every token that differs must be a near-tie of the
+# one-process logits (within LOGIT_REL_TOL of max, as the families phase
+# holds Mixtral's router), and at least TP_TOKENS_AGREE of them equal.
+TP_SHALLOW = 2
+TP_TOKENS_AGREE = 0.9
+POSIT_CONFIGS = ((8, 0), (8, 1), (8, 2), (16, 1), (16, 2))
+POSIT_ACT = (512, 4096)              # a prefill's activations, 4 x 128 rows
+POSIT_WEIGHT = (4096, 28672)         # gate_up
+VQ_SHAPE = (4096, 4096)              # q_proj
+VQ_AGREE = 0.99                      # share of equal assignments, card/CPU
+VQ_MSE_REL_TOL = 1e-2
+PARITY_DPPL = 0.1
+# configs held to the CPU's perplexity on the card (the others reported)
+PARITY_HELD = ("dense", "rtn_mxfp6_block32", "rtn_mxfp6_block32_packed",
+               "llama_dense")
+
+
+def tp_config(layers: int = 32):
+    import torch
+
+    from microscopiq_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(dtype=torch.bfloat16, fused_projections=True,
+                                 num_hidden_layers=layers)
+
+
+def tp_ids(cfg) -> np.ndarray:
+    return np.random.default_rng(TP_SEED).integers(
+        0, cfg.vocab_size, (TP_B, TP_S0)).astype(np.int64)
+
+
+def tp_weights(cfg):
+    """The seeded MX-FP6 emi8 (block 32) Llama-3-8B tree (TP_SEED) on the
+    card, fused. Returns (tree, GB of the linears' packed weights)."""
+    from microscopiq_tpu_torch.models.llama import build_params
+    from microscopiq_tpu_torch.nn import fuse_projections
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+
+    specs = finalize_mx_specs({"w_elem_format": "fp6_e3m2",
+                               "scale_bits": 8, "block_size": 32})
+    tree = fuse_projections(build_params(cfg, seed=TP_SEED,
+                                         packed_specs=specs,
+                                         device="cuda")["params"])
+    return tree, _linear_gb(tree)
+
+
+def first_layers(tree: dict, n: int) -> dict:
+    """``tree`` with its first ``n`` decoder layers only (the same
+    leaves)."""
+    return {**tree, "model": {
+        k: v for k, v in tree["model"].items()
+        if not k.startswith("layers_") or int(k[len("layers_"):]) < n}}
+
+
+def _linear_gb(tree) -> float:
+    return sum(leaf.nbytes() for leaf in _tree_leaves(tree)
+               if hasattr(leaf, "nbytes") and callable(leaf.nbytes)) / 1e9
+
+
+def _tree_leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _tree_leaves(v)
+    else:
+        yield node
+
+
+def tp_decode(model, ids: np.ndarray, quant_cfg, steps: int,
+              keep_logits: bool = False, force=None) -> dict:
+    """A ``last_only`` prefill and ``steps`` eager greedy steps over a dense
+    or quantized cache of the model's (local) KV heads; returns the
+    prefill's last logits (float32, host), the tokens (B, steps + 1), the
+    launches of the prefill and of the steps, the eager ms a step and, with
+    ``keep_logits``, every step's logits (float32, host). ``force`` (B,
+    steps + 1) teacher-forces the steps: step i is fed ``force[:, i]``
+    instead of the token before it, so each token out is the model's
+    choice after the history that ``force`` gives."""
+    import torch
+
+    from microscopiq_tpu_torch.eval.generate import DecodeStep
+    from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
+                                                QuantizedDecodeCache,
+                                                init_dense_cache,
+                                                init_quant_cache)
+
+    cfg = model.cfg
+    B, S0 = ids.shape
+    gap = quant_cfg.gap if quant_cfg is not None else 64
+    max_len = -(-(S0 + steps) // gap) * gap + gap
+    dims = (cfg.num_hidden_layers, B, max_len, model.kv_heads, cfg.head_dim)
+    if quant_cfg is None:
+        state, wrap = init_dense_cache(*dims, device="cuda"), DenseDecodeCache
+    else:
+        state = init_quant_cache(*dims, quant_cfg, device="cuda")
+        wrap = lambda st: QuantizedDecodeCache(st, quant_cfg)  # noqa: E731
+    x = torch.as_tensor(ids, device="cuda")
+    pos = torch.arange(S0, device="cuda")[None, :].expand(B, S0)
+    fed = None if force is None else torch.as_tensor(force, device="cuda")
+    reset_counts()
+    with torch.inference_mode():
+        cache = wrap(state)
+        logits = model(x, positions=pos, cache=cache, last_only=True)
+        state = cache.finalize()
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        prefill = logits[:, -1].float().cpu()
+        at_prefill = launches()
+        toks, steps_logits = [tok.clone()], []
+        step = DecodeStep(model, state, tok, quant_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if fed is not None:
+                step.tok.copy_(fed[:, i])
+            toks.append(step.eager().clone())
+            if keep_logits:
+                steps_logits.append(step.logits[:, -1].float())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3 if steps else None
+    after = launches()
+    out = dict(prefill_logits=prefill,
+               tokens=torch.stack(toks, 1).cpu().numpy(),
+               launches_prefill={k: v for k, v in at_prefill.items() if v},
+               launches_decode={k: after[k] - at_prefill[k] for k in after
+                                if after[k] - at_prefill[k]},
+               eager_ms_per_step=ms)
+    if keep_logits:
+        out["step_logits"] = [t.cpu() for t in steps_logits]
+    return out
+
+
+def _linears(model) -> dict:
+    from microscopiq_tpu_torch.models.llama import QLinear
+
+    return {n: m for n, m in model.named_modules() if isinstance(m, QLinear)}
+
+
+def capture_linears(model, ids: np.ndarray):
+    """The one-process model's prefill and first decode step over the dense
+    cache, keeping every linear's input and output (on the card); returns
+    ({module name: [(x, y) of the prefill, of the step]}, tp_decode's
+    result)."""
+    caps = {}
+
+    def keep(name):
+        def hook(mod, inp, out):        # returns None: the output stays
+            caps.setdefault(name, []).append((inp[0].clone(), out.clone()))
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n))
+             for n, m in _linears(model).items()]
+    try:
+        res = tp_decode(model, ids, None, 1)
+    finally:
+        for h in hooks:
+            h.remove()
+    return caps, res
+
+
+def tp_linear_check(model, caps) -> dict:
+    """Each linear of this rank's TP ``model`` fed the one-process input of
+    it from ``caps`` (a row-parallel one this rank's K slice of it), its
+    output against the one-process output (a column-parallel one's columns
+    of this rank, section by section): {"name|phase": (max |diff| / max
+    |one process|, share of elements that differ)}. Row-parallel linears
+    all-reduce: every rank runs the same calls in the same order."""
+    import torch
+
+    mods, out = _linears(model), {}
+    tp = model.tp
+    with torch.inference_mode():
+        for name, calls in caps.items():
+            mod = mods[name]
+            for phase, (x, ref) in zip(("prefill", "decode"), calls):
+                if mod.parallel == "row":
+                    k = x.shape[-1] // tp.size
+                    x = x[..., tp.rank * k:(tp.rank + 1) * k].contiguous()
+                y = mod(x)
+                if mod.parallel == "column":
+                    parts, s0 = [], 0
+                    for n in mod.sections or [ref.shape[-1]]:
+                        w = n // tp.size
+                        parts.append(ref[..., s0 + tp.rank * w:
+                                         s0 + (tp.rank + 1) * w])
+                        s0 += n
+                    ref = torch.cat(parts, dim=-1)
+                d = (y.float() - ref.float()).abs().max()
+                out[f"{name}|{phase}"] = (
+                    float(d / ref.float().abs().max()),
+                    float((y != ref).float().mean()))
+    return out
+
+
+def _linear_summary(checks: dict) -> dict:
+    """{"kind|phase": worst rel err, worst share, linears, bit-equal ones}
+    over the layers, ``kind`` the module's last name (``o_proj``, ...)."""
+    out = {}
+    for key, (rel, share) in checks.items():
+        name, phase = key.split("|")
+        s = out.setdefault(f"{name.split('.')[-1]}|{phase}",
+                           dict(rel_err_max=0.0, differ_share_max=0.0,
+                                linears=0, bit_equal=0))
+        s["rel_err_max"] = max(s["rel_err_max"], rel)
+        s["differ_share_max"] = max(s["differ_share_max"], share)
+        s["linears"] += 1
+        s["bit_equal"] += share == 0.0
+    return out
+
+
+class CollectiveClock:
+    """Host seconds inside the model's collectives (``all_reduce``,
+    ``all_gather`` of ``models/llama.py``): the wrapped calls include the
+    wait for the other rank and, under gloo, the copies through the host
+    (which wait for the card's queued work, so the clock cannot tell the
+    collectives' own time from the card's)."""
+
+    def __init__(self):
+        from microscopiq_tpu_torch.models import llama
+
+        self.mod, self.seconds, self.calls = llama, 0.0, 0
+        self.orig = (llama.all_reduce, llama.all_gather)
+
+        def timed(fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+            return call
+
+        llama.all_reduce, llama.all_gather = (timed(f) for f in self.orig)
+
+    def reset(self):
+        self.seconds, self.calls = 0.0, 0
+
+    def close(self):
+        self.mod.all_reduce, self.mod.all_gather = self.orig
+
+
+def tp_rank_main(rank: int, port: int, out_dir: str) -> int:
+    """One rank of ``tp_main_path`` (``chip_smoke.py --tp-rank R PORT
+    DIR``): joins a 2-rank gloo group, builds the seeded tree, runs the
+    (data=2, model=1) arm over the dense cache on half of the batch, then
+    the one-process model on the whole batch keeping every linear's input
+    and output (:func:`capture_linears`); keeps its shards of the tree for
+    the (data=1, model=2) arm: each linear fed those inputs
+    (:func:`tp_linear_check`), then over the dense and the 4-bit cache the
+    32-layer model and its first TP_SHALLOW layers, teacher-forced on the
+    one-process tokens of DIR/force.npz; runs ``scripts.check_tp``'s check
+    on the group, and writes its record (rank 0: logits and tokens too)
+    into DIR."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.models.llama import LlamaForCausalLM
+    from microscopiq_tpu_torch.parallel import (Mesh, global_batch,
+                                                init_distributed,
+                                                shard_params, sync)
+    from microscopiq_tpu_torch.scripts import check_tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    cfg = tp_config()
+    ids = tp_ids(cfg)
+    force = dict(np.load(os.path.join(out_dir, "force.npz")))
+    rec, arrays = {"rank": rank}, {}
+    clock = CollectiveClock()
+    try:
+        t0 = time.perf_counter()
+        tree, full_gb = tp_weights(cfg)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        # (data=2, model=1): the whole model, half of the batch a rank
+        mesh = Mesh(2, 1)
+        rows = TP_B // 2
+        model = LlamaForCausalLM(cfg, device="cuda",
+                                 tp_group=mesh.group("model")
+                                 ).load_params(tree)
+        res = tp_decode(model, ids[rank * rows:(rank + 1) * rows], None,
+                        TP_STEPS, keep_logits=True)
+        rec["dp"] = dict(weight_gb=full_gb,
+                         eager_ms_per_step=res["eager_ms_per_step"],
+                         launches_prefill=res["launches_prefill"],
+                         launches_decode=res["launches_decode"])
+        arrays["dp_logits"] = global_batch(res["prefill_logits"],
+                                           mesh).numpy()
+        arrays["dp_last_logits"] = global_batch(res["step_logits"][-1],
+                                                mesh).numpy()
+        arrays["dp_tokens"] = global_batch(res["tokens"], mesh)
+        # the same whole model on the whole batch: every linear's input
+        # and output, the references of the linears' check
+        t0 = time.perf_counter()
+        caps, res = capture_linears(model, ids)
+        arrays["capture_logits"] = res["prefill_logits"].numpy()
+        rec["capture_gb"] = sum(x.nbytes + y.nbytes for calls in
+                                caps.values() for x, y in calls) / 1e9
+        del model
+        # (data=1, model=2): this rank's shards of the same tree
+        mesh = Mesh(1, 2)
+        tree = shard_params(tree, mesh, cfg=cfg)
+        torch.cuda.empty_cache()
+        group = mesh.group("model")
+        model = LlamaForCausalLM(cfg, device="cuda",
+                                 tp_group=group).load_params(tree)
+        shallow = LlamaForCausalLM(
+            tp_config(TP_SHALLOW), device="cuda", tp_group=group
+        ).load_params(first_layers(tree, TP_SHALLOW))
+        torch.cuda.synchronize()
+        rec["tp_weight_gb"] = _linear_gb(tree)
+        rec["tp_build_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["linears"] = tp_linear_check(model, caps)
+        torch.cuda.synchronize()
+        rec["capture_shard_check_s"] = time.perf_counter() - t0
+        del caps
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for arm, qcfg in (("dense", None),
+                          ("quant", QuantKVConfig(**TP_QKV))):
+            tp_decode(model, ids, qcfg, 2)                  # warm-up
+            sync()
+            clock.reset()
+            t0 = time.perf_counter()
+            res = tp_decode(model, ids, qcfg, TP_STEPS, keep_logits=True,
+                            force=force[arm])
+            wall = time.perf_counter() - t0
+            rec[arm] = dict(
+                eager_ms_per_step=res["eager_ms_per_step"],
+                collective_s=clock.seconds, collective_calls=clock.calls,
+                collective_share=clock.seconds / wall, wall_s=wall,
+                launches_prefill=res["launches_prefill"],
+                launches_decode=res["launches_decode"])
+            res2 = tp_decode(shallow, ids, qcfg, TP_STEPS, keep_logits=True,
+                             force=force[f"{arm}_shallow"])
+            for key, r in ((f"tp_{arm}", res), (f"tp2_{arm}", res2)):
+                arrays[f"{key}_logits"] = r["prefill_logits"].numpy()
+                arrays[f"{key}_step_logits"] = np.stack(
+                    [t.numpy() for t in r["step_logits"]])
+                arrays[f"{key}_tokens"] = r["tokens"]
+        rec["tp_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, shallow, tree
+        torch.cuda.empty_cache()
+        # scripts/check_tp.py's check on this 2-rank gloo group
+        t0 = time.perf_counter()
+        rec["tp_check"] = check_tp.check(torch.device("cuda"), 2)
+        rec["tp_check_s"] = time.perf_counter() - t0
+        sync()
+    finally:
+        clock.close()
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "rank0.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+def _divergences(got, want, ref_logits):
+    """(share of equal tokens, every (row, step) where they differ with the
+    one-process logits' gap there between its token and the other's,
+    relative to max |logits|). ``ref_logits[t]`` are the one-process logits
+    that chose token t."""
+    rows = []
+    for b, t in zip(*np.nonzero(got != want)):
+        lg = ref_logits[t][b].numpy().astype(np.float64)
+        gap = (lg[want[b, t]] - lg[got[b, t]]) / np.abs(lg).max()
+        rows.append(dict(row=int(b), step=int(t), gap=float(gap)))
+    return float((got == want).mean()), rows
+
+
+def _forced(got, key: str, want: dict) -> dict:
+    """The teacher-forced TP run ``key`` of rank0.npz against the
+    one-process run ``want``: the prefill's and the steps' logits, the
+    share of equal tokens and every divergence."""
+    ref = [want["prefill_logits"]] + want["step_logits"]
+    mine = [got[f"{key}_logits"]] + list(got[f"{key}_step_logits"])
+    rels = [_rel(g, w.numpy()) for g, w in zip(mine, ref)]
+    share, div = _divergences(got[f"{key}_tokens"], want["tokens"], ref)
+    return dict(prefill_logits_rel_err=rels[0],
+                step_logits_rel_err_max=max(rels[1:]),
+                tokens_equal_share=share, divergences=div,
+                divergence_gap_max=max((d["gap"] for d in div), default=0.0))
+
+
+def tp_main_path(card: str) -> dict:
+    """Llama-3-8B at full width, 32 layers, seeded MX-FP6 emi8 weights,
+    over two ranks in two processes on the one card, joined by gloo (NCCL
+    takes no two ranks on one device): (data=2, model=1), then (data=1,
+    model=2) over the dense and the 4-bit cache (KVH 4 a rank); each
+    against a one-process run of the same weights here (and its first
+    TP_SHALLOW layers). The ranks also run ``scripts.check_tp``'s check on
+    their group. Returns (the ranks' launch counts by path, their check_tp
+    records, its seconds)."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.models.llama import LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    cfg = tp_config()
+    ids = tp_ids(cfg)
+    tree, gb = tp_weights(cfg)
+    cfg2, tree2 = tp_config(TP_SHALLOW), first_layers(tree, TP_SHALLOW)
+    ref, control = {}, {}
+    for depth, c, t in (("", cfg, tree), ("_shallow", cfg2, tree2)):
+        one = LlamaForCausalLM(c, device="cuda").load_params(t)
+        plain = LlamaForCausalLM(c, use_kernels=False,
+                                 device="cuda").load_params(t)
+        for arm, qcfg in (("dense", None),
+                          ("quant", QuantKVConfig(**TP_QKV))):
+            ref[arm + depth] = tp_decode(one, ids, qcfg, TP_STEPS,
+                                         keep_logits=True)
+            control[arm + depth] = tp_decode(plain, ids, qcfg, 0)[
+                "prefill_logits"].numpy()
+        del one, plain
+    del tree, tree2
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    out_dir = tempfile.mkdtemp(prefix="tp_main_path_")
+    np.savez(os.path.join(out_dir, "force.npz"),
+             **{k: v["tokens"] for k, v in ref.items()})
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         str(port), out_dir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=TP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        raise RuntimeError("tp_main_path: a rank failed: " + " | ".join(
+            e[-2000:] for _, e in outs))
+    ranks_s = time.perf_counter() - t1
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(2)]
+    got = np.load(os.path.join(out_dir, "rank0.npz"))
+
+    L = cfg.num_hidden_layers
+    line, bad = dict(config="llama3_8b, 32 layers, MX-FP6 emi8 b32, fused",
+                     batch=TP_B, prompt=TP_S0, steps=TP_STEPS,
+                     shallow_layers=TP_SHALLOW,
+                     backend="gloo (host copies around each collective)",
+                     one_process_weight_gb=gb), []
+    # the ranks' one-process reference of the linears is this process's
+    if not np.array_equal(got["capture_logits"],
+                          ref["dense"]["prefill_logits"].numpy()):
+        bad.append("the ranks' one-process prefill differs from this "
+                   "process's")
+    linears = {}
+    for r in recs:
+        for key, (rel, share) in r["linears"].items():
+            if not (rel <= TP_LINEAR_REL_TOL
+                    and share <= TP_LINEAR_DIFFER_MAX):
+                bad.append(f"rank {r['rank']} {key}: {rel} of max, "
+                           f"{share} of the elements differ")
+        linears[f"rank{r['rank']}"] = _linear_summary(r["linears"])
+    line["linears"] = dict(summary=linears, tol=TP_LINEAR_REL_TOL,
+                           differ_max=TP_LINEAR_DIFFER_MAX,
+                           capture_shard_check_s=[
+                               r["capture_shard_check_s"] for r in recs],
+                           capture_gb=recs[0]["capture_gb"])
+    for arm in ("dense", "quant"):
+        want, want2 = ref[arm], ref[f"{arm}_shallow"]
+        deep, shallow = _forced(got, f"tp_{arm}", want), _forced(
+            got, f"tp2_{arm}", want2)
+        ctl = _rel(control[arm], want["prefill_logits"].numpy())
+        ctl2 = _rel(control[f"{arm}_shallow"],
+                    want2["prefill_logits"].numpy())
+        steps = {k: v / TP_STEPS for k, v in
+                 recs[0][arm]["launches_decode"].items()}
+        want_steps = {"dequant_gemv_emi8": 4 * L + 1.0}
+        if arm == "quant":
+            want_steps["quant_attention"] = float(L)
+        want_pre = {"dequant_matmul_emi8": 4 * L, "dequant_gemv_emi8": 1}
+        for r in recs:
+            got_steps = {k: v / TP_STEPS for k, v in
+                         r[arm]["launches_decode"].items()}
+            if got_steps != want_steps or r[arm]["launches_prefill"] != \
+                    want_pre:
+                bad.append(f"{arm} rank {r['rank']} launches "
+                           f"{r[arm]['launches_prefill']} / {got_steps}")
+        if not ctl2 <= LOGIT_REL_TOL:
+            bad.append(f"{arm} {TP_SHALLOW}-layer control {ctl2}")
+        if not max(shallow["prefill_logits_rel_err"],
+                   shallow["step_logits_rel_err_max"]) <= LOGIT_REL_TOL:
+            bad.append(f"{arm} {TP_SHALLOW}-layer logits {shallow}")
+        if not (shallow["divergence_gap_max"] <= LOGIT_REL_TOL
+                and shallow["tokens_equal_share"] >= TP_TOKENS_AGREE):
+            bad.append(f"{arm} {TP_SHALLOW}-layer tokens {shallow}")
+        line[arm] = dict(
+            shallow=dict(shallow, plain_prefill_logits_rel_err=ctl2,
+                         tol=LOGIT_REL_TOL, tokens_agree=TP_TOKENS_AGREE),
+            deep_reported=dict(deep, plain_prefill_logits_rel_err=ctl),
+            launches_per_step=steps,
+            eager_ms_per_step=[r[arm]["eager_ms_per_step"] for r in recs],
+            one_process_eager_ms_per_step=want["eager_ms_per_step"],
+            collective_share=[r[arm]["collective_share"] for r in recs],
+            collective_calls=recs[0][arm]["collective_calls"])
+    want = ref["dense"]
+    dp_tok = np.array_equal(got["dp_tokens"], want["tokens"])
+    dp_pre = np.array_equal(got["dp_logits"],
+                            want["prefill_logits"].numpy())
+    dp_last = np.array_equal(got["dp_last_logits"],
+                             want["step_logits"][-1].numpy())
+    dp_rel = _rel(got["dp_logits"], want["prefill_logits"].numpy())
+    share, div = _divergences(got["dp_tokens"], want["tokens"],
+                              [want["prefill_logits"]] + want["step_logits"])
+    if not dp_rel <= LOGIT_REL_TOL or any(d["gap"] > LOGIT_REL_TOL
+                                          for d in div):
+        bad.append(f"data-parallel rows {dp_rel} {div}")
+    line["data_parallel"] = dict(
+        tokens_identical=dp_tok, prefill_logits_identical=dp_pre,
+        last_step_logits_identical=dp_last, prefill_logits_rel_err=dp_rel,
+        tokens_equal_share=share, divergences=div,
+        eager_ms_per_step=[r["dp"]["eager_ms_per_step"] for r in recs],
+        weight_gb=recs[0]["dp"]["weight_gb"])
+    line.update(
+        tp_weight_gb=[r["tp_weight_gb"] for r in recs],
+        tp_peak_gb=[r["tp_peak_gb"] for r in recs],
+        tp_build_peak_gb=[r["tp_build_peak_gb"] for r in recs],
+        build_s=[r["build_s"] for r in recs],
+        one_process_s=ref_s, ranks_s=ranks_s,
+        seconds=time.perf_counter() - t0, card=card)
+    log(phase="tp_main_path", **line)
+    if bad:
+        raise AssertionError(f"tp_main_path: {bad}")
+    every = launches()
+    full = lambda c: {k: c.get(k, 0) for k in every}  # noqa: E731
+    counts = {}
+    for r in recs:
+        for arm in ("dense", "quant"):
+            counts[f"tp_{arm}_rank{r['rank']}"] = {
+                "prefill": full(r[arm]["launches_prefill"]),
+                "decode": full(r[arm]["launches_decode"])}
+        counts[f"dp_rank{r['rank']}"] = {
+            "prefill": full(r["dp"]["launches_prefill"]),
+            "decode": full(r["dp"]["launches_decode"])}
+    return counts, [r["tp_check"] for r in recs], recs[0]["tp_check_s"]
+
+
+def tp_check_phase(card: str, world2: list, world2_s: float) -> dict:
+    """``scripts.check_tp`` at world 1 (NCCL, the degenerate mesh, in this
+    process) and world 2 (gloo, the records the two ranks of
+    ``tp_main_path`` made on their group); returns the launches of both,
+    by rank."""
+    from microscopiq_tpu_torch.scripts import check_tp
+
+    t0 = time.perf_counter()
+    one = check_tp.run_rank(0, 1, _free_port(), "nccl", "cuda")
+    one.pop("card", None)
+    log(phase="tp_check", seconds=time.perf_counter() - t0, card=card, **one)
+    two = check_tp.merge(world2, 2, "gloo", "cuda")
+    two.pop("card", None)
+    log(phase="tp_check", seconds=world2_s, card=card, **two)
+    bad = [r["world"] for r in (one, two) if not r["ok"]]
+    if bad:
+        raise AssertionError(f"tp_check: bounds missed at world {bad}")
+    return {f"tp_check_w{r['world']}_rank{i}": c for r in (one, two)
+            for i, c in enumerate(r["launches_by_rank"])}
+
+
+def posit_inputs():
+    """(activation (512, 4096), gate_up weight (4096, 28672)) float32 from
+    seeded CPU generators, each with zeros, -0, NaN, +-inf and values past
+    maxpos and below minpos of every config at its head."""
+    import torch
+
+    g = torch.Generator().manual_seed(TP_SEED)
+    act = torch.randn(POSIT_ACT, generator=g) * torch.exp(
+        torch.rand(POSIT_ACT, generator=g) * 8 - 4)
+    w = torch.randn(POSIT_WEIGHT, generator=g) * 0.02
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            -float("inf"), 1e30, -1e30, 1e-30, -1e-30,
+                            2.0 ** 60, 2.0 ** -60, 3.0e38])
+    for t in (act, w):
+        t.view(-1)[:special.numel()] = special
+    return act, w
+
+
+def _digest(t) -> str:
+    """Two position-weighted int64 checksums (wrapping) of a tensor's bits,
+    NaN canonical, computed where the tensor lies: equal bits give equal
+    checksums on the card and the CPU, and a change of any element or a
+    swap of two changes them."""
+    import torch
+
+    if t.is_floating_point():
+        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+        t = t.view(torch.int32) if t.dtype == torch.float32 else t
+    b = t.reshape(-1).to(torch.int64)
+    w = torch.arange(1, b.numel() + 1, dtype=torch.int64, device=b.device)
+    s1 = int((b * w).sum())
+    s2 = int((b * ((w * 2654435761) % 4294967296 + 1)).sum())
+    return f"{s1}:{s2}"
+
+
+def posit_digests(device) -> dict:
+    """Per config and input, the digests of ``quantize_posit``,
+    ``encode_posit`` and ``decode_posit(encode_posit(x))`` on ``device``
+    (the CPU computes the codes once: its fake-quant values are the decoded
+    codes bit for bit, tests/test_torch_posit.py)."""
+    from microscopiq_tpu_torch.posit import (decode_posit, encode_posit,
+                                             quantize_posit)
+
+    out = {}
+    for name, x in zip(("act", "gate_up"), posit_inputs()):
+        x = x.to(device)
+        for nb, es in POSIT_CONFIGS:
+            c = encode_posit(x, nb, es)
+            d = decode_posit(c, nb, es)
+            rec = {"encode": _digest(c), "decode": _digest(d)}
+            if device != "cpu":
+                rec["quantize"] = _digest(quantize_posit(x, nb, es))
+            out[f"{name}_{nb}_{es}"] = rec
+    return out
+
+
+def vq_weight():
+    import torch
+
+    return torch.randn(VQ_SHAPE, generator=torch.Generator().manual_seed(
+        TP_SEED + 1)) * 0.02
+
+
+def vq_run(device, draws=None) -> dict:
+    """VQQuantizer (bits 3, vec_dim 2, whole rows) on the seeded q_proj:
+    with ``draws`` the k-means++ draws given, else a CPU generator's."""
+    import torch
+
+    from microscopiq_tpu_torch.quant.vq import VQQuantizer
+
+    W = vq_weight().to(device)
+    q = VQQuantizer(vec_dim=2, bits=3)
+    t0 = time.perf_counter()
+    Wq = q.quantize(W, generator=torch.Generator().manual_seed(TP_SEED),
+                    draws=draws)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return dict(assign=q.assignments, centroids=q.centroids.cpu(),
+                draws=q.draws, seconds=s, mse=float(((Wq - W) ** 2).mean()))
+
+
+def cpu_references_19(out_dir: str) -> dict:
+    """The CPU runs the slice-19 phases hold the card against: the posit
+    digests, VQ on the q_proj (its draws, centroids, MSE; the assignments
+    as ``vq_assign.npy`` in ``out_dir``) and the parity grid's dense and
+    RTN configs, with their seconds."""
+    from microscopiq_tpu_torch.scripts import parity
+
+    t0 = time.perf_counter()
+    posit = posit_digests("cpu")
+    t1 = time.perf_counter()
+    vq = vq_run("cpu")
+    np.save(os.path.join(out_dir, "vq_assign.npy"),
+            vq["assign"].numpy().astype(np.uint8))
+    t2 = time.perf_counter()
+    calib, eval_ids = parity.make_tokens()
+    grid = parity.run(parity.seeded_state_dicts(0), calib, eval_ids, "cpu",
+                      only=("dense", "rtn_mxfp6_block32", "llama_dense"),
+                      log=lambda s: None)
+    return dict(posit=posit, posit_s=t1 - t0, vq_draws=vq["draws"],
+                vq_centroids=vq["centroids"].tolist(), vq_mse=vq["mse"], vq_s=vq["seconds"], parity=grid,
+                parity_s=time.perf_counter() - t2,
+                threads=CPU_REFERENCE_THREADS)
+
+
+def start_cpu_references_19():
+    """``chip_smoke.py --cpu-references-19 DIR`` in a process of its own,
+    on CPU_REFERENCE_THREADS threads; returns (process, DIR)."""
+    import atexit
+    import subprocess
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="cpu_references_19_")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-references-19",
+         out_dir], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS=str(CPU_REFERENCE_THREADS)))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out_dir
+
+
+def posit_vq_phase(card: str, ref: dict, ref_dir: str) -> None:
+    """Posit codecs on the card against the CPU bit for bit (checksums of
+    the bits, :func:`_digest`; NaN as NaN): posit8 es 0, 1, 2 and posit16 es 1, 2 on a full-width
+    activation and the gate_up weight, the card's fake-quant values against
+    the CPU's decoded codes too. VQQuantizer (bits 3, vec_dim 2) on a
+    4096 x 4096 q_proj on the card with the CPU's k-means++ draws: the
+    share of equal assignments (>= VQ_AGREE) and the MSE (within 1%)."""
+    import torch
+
+    t0 = time.perf_counter()
+    card_d = posit_digests("cuda")
+    torch.cuda.synchronize()
+    posit_s = time.perf_counter() - t0
+    bad = []
+    for key, c in card_d.items():
+        cpu = ref["posit"][key]
+        for what in ("encode", "decode"):
+            if c[what] != cpu[what]:
+                bad.append(f"{key} {what}")
+        if c["quantize"] != cpu["decode"]:
+            bad.append(f"{key} quantize")
+    t1 = time.perf_counter()
+    vq = vq_run("cuda", draws=ref["vq_draws"])
+    cpu_assign = np.load(os.path.join(ref_dir, "vq_assign.npy"))
+    agree = float((vq["assign"].cpu().numpy() == cpu_assign).mean())
+    mse_rel = abs(vq["mse"] - ref["vq_mse"]) / ref["vq_mse"]
+    cpu_c = np.asarray(ref["vq_centroids"], np.float32)
+    card_c = vq["centroids"].numpy()
+    log(phase="posit_vq", posit_configs=[list(c) for c in POSIT_CONFIGS],
+        posit_inputs={"act": list(POSIT_ACT), "gate_up": list(POSIT_WEIGHT)},
+        posit_equal=not bad, posit_card_s=posit_s,
+        posit_cpu_s=ref["posit_s"], vq_shape=list(VQ_SHAPE),
+        vq_assign_equal_share=agree, vq_mse_card=vq["mse"],
+        vq_mse_cpu=ref["vq_mse"], vq_mse_rel=mse_rel,
+        vq_centroids_card=card_c.tolist(), vq_centroids_cpu=cpu_c.tolist(),
+        vq_centroids_max_abs_diff=float(np.abs(card_c - cpu_c).max()),
+        vq_card_s=vq["seconds"], vq_cpu_s=ref["vq_s"],
+        vq_phase_s=time.perf_counter() - t1, card=card)
+    if bad:
+        raise AssertionError(f"posit_vq: card differs from the CPU: {bad}")
+    if not (agree >= VQ_AGREE and mse_rel <= VQ_MSE_REL_TOL):
+        raise AssertionError(f"posit_vq: VQ assignments {agree} equal, MSE "
+                             f"{mse_rel} apart")
+
+
+def parity_grid_phase(card: str, ref: dict) -> dict:
+    """The eight parity configs (``scripts.parity``) on the card from one
+    set of seeded weights: each perplexity against the CPU's where the CPU
+    references ran it (dense, RTN MX-FP6 fake and packed, Llama dense:
+    |Δppl| <= 0.1); the GPTQ and activation-quantized ones reported.
+    Returns the launches of the run."""
+    from microscopiq_tpu_torch.scripts import parity
+
+    t0 = time.perf_counter()
+    calib, eval_ids = parity.make_tokens()
+    reset_counts()
+    res = parity.run(parity.seeded_state_dicts(0), calib, eval_ids, "cuda",
+                     log=lambda s: None)
+    counts = {k: v for k, v in launches().items() if v}
+    cpu = ref["parity"]
+    deltas = {k: res[k] - cpu[k] for k in cpu if not k.endswith("_s")}
+    bad = {k: d for k, d in deltas.items() if k in PARITY_HELD
+           and not abs(d) <= PARITY_DPPL}
+    if set(PARITY_HELD) - set(deltas):
+        bad["missing"] = sorted(set(PARITY_HELD) - set(deltas))
+    log(phase="parity_grid", ppl_card=res, ppl_cpu=cpu, delta=deltas,
+        held=list(PARITY_HELD), tol=PARITY_DPPL, launches=counts,
+        seconds=time.perf_counter() - t0, card=card)
+    if bad or not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"parity_grid: {bad}")
+    return counts
+
+
+def slice19_phases(card: str, refs19) -> tuple:
+    """``tp_main_path``, ``tp_check``, ``posit_vq`` and ``parity_grid``;
+    returns (each phase's seconds, the launch counts by path for the
+    kernels line, flat launch counts)."""
+    secs, paths, flat = {}, {}, {}
+    t0 = time.perf_counter()
+    tp_paths, world2, world2_s = tp_main_path(card)
+    paths.update(tp_paths)
+    secs["tp_main_path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat.update(tp_check_phase(card, world2, world2_s))
+    secs["tp_check"] = time.perf_counter() - t0
+    proc, ref_dir = refs19
+    t0 = time.perf_counter()
+    ref = await_cpu_references(proc)
+    secs["cpu_references_19_wait"] = time.perf_counter() - t0
+    log(phase="cpu_references_19", posit_s=ref["posit_s"], vq_s=ref["vq_s"],
+        parity_s=ref["parity_s"], threads=ref["threads"],
+        waited_s=ref["waited_s"], card=card)
+    t0 = time.perf_counter()
+    posit_vq_phase(card, ref, ref_dir)
+    secs["posit_vq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat["parity_grid"] = parity_grid_phase(card, ref)
+    secs["parity_grid"] = time.perf_counter() - t0
+    return secs, paths, flat
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -5500,6 +6387,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--tp-rank"] and len(argv) == 4:
+        return tp_rank_main(int(argv[1]), int(argv[2]), argv[3])
+    if argv[:1] == ["--cpu-references-19"] and len(argv) == 2:
+        torch.set_num_threads(CPU_REFERENCE_THREADS)
+        print(json.dumps(cpu_references_19(argv[1])), flush=True)
+        return 0
     if argv not in ([], ["--gemm-times"], ["--gemv-times"],
                     ["--qattn-times"], ["--quant-times"],
                     ["--cpu-references"]):
@@ -5538,6 +6431,7 @@ def main(argv=None) -> int:
     log(phase="build", seconds=build_s, ptxas=build.ptxas_report(),
         card=card)
     refs = start_cpu_references()       # read by the slice-18 phases
+    refs19 = start_cpu_references_19()  # read by the slice-19 phases
     sm90_build_line(card)
     # first, while the process is young: the profiler's windows lose
     # more kernel records at their start the older the process is
@@ -5582,6 +6476,9 @@ def main(argv=None) -> int:
     log(phase="slice18_phases", seconds=secs18,
         total_s=sum(secs18.values()), card=card)
     torch.cuda.empty_cache()
+    secs19, tp_paths, flat19 = slice19_phases(card, refs19)
+    log(phase="slice19_phases", seconds=secs19,
+        total_s=sum(secs19.values()), card=card)
 
     orows = outlier_kernel_phase(card)
     ocounts = outlier_main_path(card)
@@ -5601,10 +6498,10 @@ def main(argv=None) -> int:
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
                                   {**ocounts, "gptq": gptq_counts,
-                                   **kvcounts, **newcounts}, irows,
-                                  icounts, tcounts, srows,
+                                   **kvcounts, **newcounts, **tp_paths},
+                                  irows, icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
-                                  grows, gcounts, rrows, rcounts)),
+                                  grows, gcounts, rrows, rcounts, flat19)),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

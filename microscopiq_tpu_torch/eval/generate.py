@@ -22,7 +22,8 @@ names before each step. The prefill stays eager (one call, with M = B x S
 rows on the GEMMs). Sampled steps (temperature > 0) run eagerly too: a
 replayed draw would need the generator's state registered with each graph,
 and an eager step draws from the generator in the same order on the card
-as on the CPU.
+as on the CPU. So does every step of a tensor-parallel model (one with a
+process group): its collectives are not captured.
 
 This is the single-sequence reference the serving engine is checked
 against, and the prefill + decode loop ``chip_smoke.py`` times.
@@ -59,10 +60,13 @@ def _holding_device_lock(fn):
     return locked
 
 
-def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device):
-    """(initial state, cache wrapper) for ``kind`` "dense" or "quant"."""
+def _make_cache(kind, cfg_model, batch, max_len, quant_cfg, offset, device,
+                kv_heads=None):
+    """(initial state, cache wrapper) for ``kind`` "dense" or "quant";
+    ``kv_heads`` (a tensor-parallel rank's local heads) defaults to the
+    config's."""
     args = (cfg_model.num_hidden_layers, batch, max_len,
-            cfg_model.num_key_value_heads, cfg_model.head_dim)
+            kv_heads or cfg_model.num_key_value_heads, cfg_model.head_dim)
     if kind == "dense":
         return (init_dense_cache(*args, offset=offset, device=device),
                 DenseDecodeCache)
@@ -190,7 +194,8 @@ class DecodeStep:
     def __call__(self) -> torch.Tensor:
         v = self.variant()
         if (self.tok.device.type != "cuda" or v not in self._eager_variants
-                or (self.temps > 0).any()):
+                or (self.temps > 0).any()
+                or getattr(self.model, "tp", None) is not None):
             return self.eager()
         if v not in self.graphs:
             self.capture(v)
@@ -242,7 +247,7 @@ def generate(model, prompt_ids, max_new_tokens: int,
         gap = (quant_cfg or QuantKVConfig()).gap
         max_len = -(-(S + max_new_tokens) // gap) * gap + gap
     state, wrap = _make_cache(cache_kind, model.cfg, B, max_len, quant_cfg,
-                              offset, dev)
+                              offset, dev, getattr(model, "kv_heads", None))
 
     ids = torch.as_tensor(prompt_ids, device=dev)
     # real position of prompt column j in row b is j - offset[b]; pads

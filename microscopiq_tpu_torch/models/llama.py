@@ -26,6 +26,19 @@ qkv_proj/kernel``, ``model/layers_{i}/block_sparse_moe/experts_{e}/...``,
 params_from_jax` or ``models/loading.py`` and installed with
 :meth:`LlamaForCausalLM.load_params`.
 
+With ``tp_group`` (a ``torch.distributed`` process group of the mesh's
+``model`` axis) the model is this rank's part of a tensor-parallel model
+whose weights ``parallel.mesh.shard_params`` split: q/k/v (fused or not),
+gate/up and the lm_head are column-parallel, attention runs on the local
+query and KV heads (both must divide by the group's size), ``o_proj`` and
+``down_proj`` are row-parallel with their partial products summed in
+float32 across the group and rounded once, the lm_head's logits are
+gathered, and embeddings and norms are replicated. A layer whose split the
+rules refused (a replicated weight) multiplies the whole weight: a
+column-parallel one keeps this rank's columns, a row-parallel one gathers
+its input and sums nothing. Without a group the model is the single-card
+one.
+
 With ``mx_specs`` (the fake-quant training path) every linear with a dense
 kernel, the lm_head apart, is ``nn.linear``'s MX linear (its bias through
 it too), and the norms quantize every intermediate; packed kernels still
@@ -51,6 +64,8 @@ from ..nn.norms import LayerNorm, RMSNorm
 from ..ops.cuda.quant_attention import decode_route, quant_attention_decode
 from ..ops.packing import (PackedMX, PackedMXOutlier, PackedOutlierNB,
                            pack_mx, to_serving_layout)
+from ..parallel.distributed import all_gather, all_reduce
+from ..parallel.mesh import packed_kn
 
 _PACKED = (PackedMX, PackedMXOutlier, PackedOutlierNB)
 
@@ -184,6 +199,29 @@ def alibi_slopes(num_heads: int, bias_max: float = 8.0,
     return slopes
 
 
+class TensorParallel:
+    """The ``model`` axis's process group as a model sees it: its size and
+    this rank's index in it."""
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+
+    def split(self, n: int, what: str) -> int:
+        if n % self.size:
+            raise ValueError(f"{what} ({n}) does not split over "
+                             f"{self.size} ranks")
+        return n // self.size
+
+
+def kernel_kn(w):
+    """The logical (K, N) of a dense or packed kernel."""
+    return tuple(w.shape) if isinstance(w, torch.Tensor) else packed_kn(w)
+
+
 class QLinear(nn.Module):
     """Linear whose kernel is a dense (K, N) tensor or a packed weight.
 
@@ -194,50 +232,113 @@ class QLinear(nn.Module):
     twins. A
     ``bias`` (OPT's linears) is added to the product. With ``mx_specs`` a
     dense kernel goes through the MX linear, the bias with it.
+
+    Under tensor parallelism (``tp``) ``parallel`` is ``"column"`` (the
+    output's local columns; a fused kernel's ``sections`` in the rank's
+    order), ``"vocab"`` (column-parallel, the outputs gathered) or
+    ``"row"`` (the local input features; the float32 partial products
+    summed over the group, rounded once to the output dtype, the bias added
+    once). ``full_kn`` is the unsplit (K, N): a kernel of that size is a
+    replicated one.
     """
 
-    def __init__(self, dtype, use_kernels: bool = True, mx_specs=None):
+    def __init__(self, dtype, use_kernels: bool = True, mx_specs=None,
+                 tp: Optional[TensorParallel] = None, parallel=None,
+                 full_kn=None, sections=None):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.mx_specs = mx_specs
         self.kernel = None          # set by load_params
         self.bias = None            # (N,), added after the product (OPT)
+        self.tp = tp if parallel is not None else None
+        self.parallel = parallel if tp is not None else None
+        self.full_kn = full_kn
+        self.sections = sections
+
+    def _product(self, x, out_dtype=None):
+        w = self.kernel
+        if isinstance(w, _PACKED):
+            return packed_matmul(x, w, out_dtype or self.dtype,
+                                 self.use_kernels)
+        if isinstance(w, torch.Tensor):
+            dt = torch.promote_types(x.dtype, w.dtype)
+            if out_dtype is None or out_dtype == dt:
+                return torch.matmul(x.to(dt), w.to(dt))
+            if (x.is_cuda and dt in (torch.bfloat16, torch.float16)
+                    and out_dtype == torch.float32):
+                # the half-precision product on the tensor cores, its f32
+                # accumulator returned unrounded (CUDA only in PyTorch)
+                y = torch.mm(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt),
+                             out_dtype=out_dtype)
+                return y.reshape(*x.shape[:-1], w.shape[-1])
+            return torch.matmul(x.to(out_dtype), w.to(out_dtype))
+        raise TypeError(f"kernel of type {type(w).__name__} is neither a "
+                        "dense tensor nor a packed weight")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel
-        if isinstance(w, _PACKED):
-            y = packed_matmul(x, w, self.dtype, self.use_kernels)
+        if self.parallel is not None:
+            y = self._tp_forward(x)
         elif isinstance(w, torch.Tensor) and self.mx_specs is not None:
             return mx_linear(x, w.T, self.bias, self.mx_specs)
-        elif isinstance(w, torch.Tensor):
-            dt = torch.promote_types(x.dtype, w.dtype)
-            y = torch.matmul(x.to(dt), w.to(dt))
         else:
-            raise TypeError(f"kernel of type {type(w).__name__} is neither a "
-                            "dense tensor nor a packed weight")
+            y = self._product(x)
         return y if self.bias is None else y + self.bias
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp, (K, N) = self.tp, kernel_kn(self.kernel)
+        if self.parallel == "row":
+            if K == self.full_kn[0]:       # replicated: the whole input
+                return self._product(all_gather(x, tp.group, dim=-1))
+            w = self.kernel
+            out = (self.dtype if isinstance(w, _PACKED)
+                   else torch.promote_types(x.dtype, w.dtype))
+            y = all_reduce(self._product(x, torch.float32), tp.group)
+            return y.to(out)
+        y = self._product(x)
+        if N != self.full_kn[1]:
+            return (all_gather(y, tp.group, dim=-1)
+                    if self.parallel == "vocab" else y)
+        if self.parallel == "vocab":       # replicated: every logit here
+            return y
+        # replicated column-parallel kernel: this rank's columns
+        secs = self.sections or [N]
+        parts, s0 = [], 0
+        for n in secs:
+            w = tp.split(n, "a section of columns")
+            parts.append(y[..., s0 + tp.rank * w:s0 + (tp.rank + 1) * w])
+            s0 += n
+        return torch.cat(parts, dim=-1)
 
 
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
-                 mx_specs=None):
+                 mx_specs=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
-        mk = lambda: QLinear(cfg.dtype, use_kernels, mx_specs)
+        self.tp = tp
+        H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        D = cfg.hidden_size
+        # the heads this rank attends over (all without a group)
+        self.heads = H if tp is None else tp.split(H, "query heads")
+        self.kv_heads = KVH if tp is None else tp.split(KVH, "KV heads")
+        mk = lambda kind=None, kn=None, secs=None: QLinear(
+            cfg.dtype, use_kernels, mx_specs, tp, kind, kn, secs)
         if cfg.fused_projections:
-            self.qkv_proj = mk()
+            self.qkv_proj = mk("column", (D, (H + 2 * KVH) * hd),
+                               [H * hd, KVH * hd, KVH * hd])
         else:
-            self.q_proj = mk()
-            self.k_proj = mk()
-            self.v_proj = mk()
-        self.o_proj = mk()
+            self.q_proj = mk("column", (D, H * hd))
+            self.k_proj = mk("column", (D, KVH * hd))
+            self.v_proj = mk("column", (D, KVH * hd))
+        self.o_proj = mk("row", (H * hd, D))
 
     def forward(self, x, positions, mask, cache=None, layer_idx: int = 0):
         cfg = self.cfg
-        H, KVH, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                      cfg.head_dim)
+        H, KVH, hd = self.heads, self.kv_heads, cfg.head_dim
         B, S, _ = x.shape
         if cfg.fused_projections:
             qkv = self.qkv_proj(x)
@@ -253,6 +354,9 @@ class Attention(nn.Module):
 
         scale = hd ** -0.5
         if cache is not None:
+            if self.tp is not None and hasattr(cache, "observe"):
+                raise ValueError("an H2O cache scores every head: it does "
+                                 "not run tensor-parallel")
             if (S == 1 and self.use_kernels and cfg.pos_emb == "rope"
                     and isinstance(cache, (QuantizedDecodeCache,
                                            SlotQuantizedDecodeCache))
@@ -284,7 +388,11 @@ class Attention(nn.Module):
             # key slot, so softmax's shift invariance makes it the
             # -slope * distance bias for every query row under any
             # left-padding or append-order cache; float32, as in JAX
-            alibi = alibi_slopes(H, cfg.alibi_bias_max, q.device)[:, None] * (
+            slopes = alibi_slopes(cfg.num_attention_heads, cfg.alibi_bias_max,
+                                  q.device)
+            if self.tp is not None:
+                slopes = slopes[self.tp.rank * H:(self.tp.rank + 1) * H]
+            alibi = slopes[:, None] * (
                 torch.arange(L, dtype=torch.float32, device=q.device)
                 - (L - 1))[None, :]                              # (H, L)
         if rep > 1:
@@ -319,21 +427,24 @@ class MLP(nn.Module):
     with the exact-erf GELU and no gate."""
 
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
-                 mx_specs=None):
+                 mx_specs=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
-        mk = lambda: QLinear(cfg.dtype, use_kernels, mx_specs)
+        D, I = cfg.hidden_size, cfg.intermediate_size
+        self.inter = I if tp is None else tp.split(I, "intermediate size")
+        mk = lambda kind, kn, secs=None: QLinear(
+            cfg.dtype, use_kernels, mx_specs, tp, kind, kn, secs)
         if cfg.mlp_type == "gelu":
-            self.up_proj = mk()
+            self.up_proj = mk("column", (D, I))
         elif cfg.fused_projections:
-            self.gate_up_proj = mk()
+            self.gate_up_proj = mk("column", (D, 2 * I), [I, I])
         else:
-            self.gate_proj = mk()
-            self.up_proj = mk()
-        self.down_proj = mk()
+            self.gate_proj = mk("column", (D, I))
+            self.up_proj = mk("column", (D, I))
+        self.down_proj = mk("row", (I, D))
 
     def forward(self, x):
-        I = self.cfg.intermediate_size
+        I = self.inter
         if self.cfg.mlp_type == "gelu":
             return self.down_proj(F.gelu(self.up_proj(x), approximate="none"))
         if self.cfg.fused_projections:
@@ -391,15 +502,15 @@ def _make_norm(cfg: LlamaConfig, mx_specs=None):
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
-                 mx_specs=None):
+                 mx_specs=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.input_layernorm = _make_norm(cfg, mx_specs)
-        self.self_attn = Attention(cfg, use_kernels, mx_specs)
+        self.self_attn = Attention(cfg, use_kernels, mx_specs, tp)
         self.post_attention_layernorm = _make_norm(cfg, mx_specs)
         if cfg.num_local_experts > 0:
             self.block_sparse_moe = MoEBlock(cfg, use_kernels, mx_specs)
         else:
-            self.mlp = MLP(cfg, use_kernels, mx_specs)
+            self.mlp = MLP(cfg, use_kernels, mx_specs, tp)
 
     def forward(self, x, positions, mask, cache=None, layer_idx: int = 0):
         x = x + self.self_attn(self.input_layernorm(x), positions, mask,
@@ -424,12 +535,12 @@ def causal_mask(S: int, positions,
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
-                 mx_specs=None):
+                 mx_specs=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = None        # (vocab, D), set by load_params
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, use_kernels, mx_specs)
+            [DecoderLayer(cfg, use_kernels, mx_specs, tp)
              for _ in range(cfg.num_hidden_layers)])
         self.norm = _make_norm(cfg, mx_specs)
 
@@ -460,11 +571,23 @@ class LlamaForCausalLM(nn.Module):
     experts would have no ``gate_up_proj`` (the JAX module fails there at
     ``apply``). ``mx_specs`` (a finalized ``MxSpecs``) turns on the
     fake-quant linears and norms; the lm_head stays plain, as in JAX.
+    ``tp_group`` makes this rank's part of a tensor-parallel model (module
+    docstring); ``kv_heads`` is then the local KV heads a cache holds.
     """
 
     def __init__(self, cfg: LlamaConfig, use_kernels: bool = True,
-                 mx_specs=None, device="cuda"):
+                 mx_specs=None, device="cuda", tp_group=None):
         super().__init__()
+        tp = None
+        if tp_group is not None:
+            tp = TensorParallel(tp_group)
+            if tp.size == 1:
+                tp = None
+        if tp is not None and (cfg.num_local_experts > 0
+                               or mx_specs is not None):
+            raise ValueError("tensor parallelism covers the dense and "
+                             "packed serving models: no MoE experts, no "
+                             "fake-quant training")
         if cfg.num_local_experts > 0 and cfg.fused_projections:
             raise ValueError(
                 "fused_projections with MoE experts: fuse_projections fuses "
@@ -473,9 +596,17 @@ class LlamaForCausalLM(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mx_specs = mx_specs
-        self.model = LlamaModel(cfg, use_kernels, mx_specs)
+        self.tp = tp
+        self.model = LlamaModel(cfg, use_kernels, mx_specs, tp)
         self.lm_head = (None if cfg.tie_word_embeddings
-                        else QLinear(cfg.dtype, use_kernels))
+                        else QLinear(cfg.dtype, use_kernels, None, tp,
+                                     "vocab",
+                                     (cfg.hidden_size, cfg.vocab_size)))
+
+    @property
+    def kv_heads(self) -> int:
+        """KV heads of this rank's cache (all of them without a group)."""
+        return self.model.layers[0].self_attn.kv_heads
 
     def load_params(self, params) -> "LlamaForCausalLM":
         """Install a flax-named weight tree (``{"params": ...}`` or bare)."""

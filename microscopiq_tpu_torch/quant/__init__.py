@@ -1,5 +1,5 @@
 """Calibration: the GPTQ engine, its quantizer configs and the
-layer-sequential driver."""
+layer-sequential driver; the vector quantizer is ``quant.vq``."""
 
 from .gptq import GPTQ
 from .quantizer import MXQuantizer, UniformQuantizer, quantize_uniform

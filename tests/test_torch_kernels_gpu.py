@@ -2556,3 +2556,128 @@ def test_mx_ffn_trains_on_the_card(cuda):
     cpu = mx_ffn.train(start, 20, device="cpu")
     np.testing.assert_allclose(card, cpu, rtol=1e-2)
     assert card[-1] < card[0]
+
+
+# ---------------------------------------------------------------------------
+# Posit, VQ and the tensor-parallel wrappers (slice 19)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("nbits,es", [(8, 0), (8, 1), (8, 2), (16, 1),
+                                      (16, 2)])
+def test_posit_card_equals_cpu_bit_for_bit(cuda, nbits, es):
+    """Codes, fake-quant values, decoded values and the sigmoid of seeded
+    values (ties, +-0, NaN, +-inf, past maxpos, below minpos) on the card
+    equal the CPU's, NaN as NaN."""
+    from microscopiq_tpu_torch import posit
+
+    vals = posit.posit_table(nbits, es)
+    v = np.sort(vals[~np.isnan(vals)])
+    x = np.concatenate([
+        v, (v[1:] + v[:-1]) / 2,
+        np.random.default_rng(0).standard_normal(8192) * 10,
+        [0.0, -0.0, np.nan, np.inf, -np.inf, v[-1] * 4, v[v > 0][0] / 4]
+    ]).astype(np.float32)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(cuda)
+
+    def same(a, b):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype
+        if a.is_floating_point():
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            a, b = a[~torch.isnan(a)], b[~torch.isnan(b)]
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+
+    same(posit.quantize_posit(xg, nbits, es), posit.quantize_posit(xc, nbits,
+                                                                   es))
+    cg, cc = posit.encode_posit(xg, nbits, es), posit.encode_posit(xc, nbits,
+                                                                   es)
+    same(cg, cc)
+    same(posit.decode_posit(cg, nbits, es), posit.decode_posit(cc, nbits,
+                                                               es))
+    same(posit.posit_sigmoid(xg, nbits, es), posit.posit_sigmoid(xc, nbits,
+                                                                 es))
+    same(posit.posit_mul(xg, xg.flip(0), nbits, es),
+         posit.posit_mul(xc, xc.flip(0), nbits, es))
+
+
+def test_vq_assignments_on_the_card(cuda):
+    """get_assignments and a k-means from the CPU's draws on the card: the
+    assignments as the CPU's (>= 99.9% on a 2^18-point set); the k-means++
+    centroids within 1e-5, the EM's within 1e-3 (the card's ``index_add_``
+    sums each cluster by atomics in another order, and the points it
+    reassigns at the margins move a centroid by ~1e-4)."""
+    from microscopiq_tpu_torch.quant import vq
+
+    g = torch.Generator().manual_seed(0)
+    X = torch.randn((1 << 18, 2), generator=g)
+    C = torch.randn((64, 2), generator=g)
+    W = torch.rand((1 << 18, 2), generator=g) + 0.5
+    for w in (None, W):
+        a = vq.get_assignments(X, C, w, chunk=1 << 16)
+        b = vq.get_assignments(X.to(cuda), C.to(cuda),
+                               None if w is None else w.to(cuda)).cpu()
+        assert (a == b).float().mean() >= 0.999
+    c_cpu, draws = vq.kpp_init(X, 16, torch.Generator().manual_seed(1),
+                               return_draws=True)
+    c_card = vq.kpp_init(X.to(cuda), 16, draws=draws)
+    assert float((c_card.cpu() - c_cpu).abs().max()) <= 1e-5
+    cc, ac = vq.kmeans_vq(X, 16, 5, draws=draws)
+    cg, ag = vq.kmeans_vq(X.to(cuda), 16, 5, draws=draws)
+    assert (ac == ag.cpu()).float().mean() >= 0.999
+    assert float((cg.cpu() - cc).abs().max()) <= 1e-3
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A one-rank NCCL group (the degenerate mesh), torn down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from microscopiq_tpu_torch.parallel import distributed as dd
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dd.init_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+    yield cuda
+    dist.destroy_process_group()
+
+
+def test_tp_wrappers_at_world1_over_nccl(nccl_world1):
+    """tp_dequant_matmul (GEMV and GEMM) and tp_quant_attention_decode on
+    the (1, 1) mesh launch their kernels and meet their bounds (GEMV 1e-5,
+    GEMM 2e-3, attention 2e-2 of max)."""
+    from microscopiq_tpu_torch.scripts import check_tp
+
+    rec = check_tp.check(nccl_world1, 1)
+    assert rec["gemv_rel_err"] <= check_tp.GEMV_TOL
+    assert rec["gemm_rel_err"] <= check_tp.GEMM_TOL
+    assert rec["attention_rel_err"] <= check_tp.ATTN_TOL
+    assert rec["launches"]["dequant_gemv_emi8"] == 1
+    assert rec["launches"]["dequant_matmul_emi8"] == 1
+    assert rec["launches"]["quant_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tp_wrappers_dense_row_partial_in_float32(cuda, dtype):
+    """A dense half-precision row-parallel partial product (QLinear's
+    float32 product) multiplies on the tensor cores and returns the
+    accumulator unrounded: within f32 sums of the exact product, its dtype
+    float32, not rounded to ``dtype``."""
+    from microscopiq_tpu_torch.models.llama import QLinear
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(3, 5, 2048, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(2048, 4096, generator=g, device=cuda) * 0.02).to(dtype)
+    lin = QLinear(dtype)
+    lin.kernel = w
+    y = lin._product(x, torch.float32)
+    want = (x.double() @ w.double())
+    assert y.dtype == torch.float32 and y.shape == (3, 5, 4096)
+    assert float((y.double() - want).abs().max()
+                 / want.abs().max()) <= 1e-5
+    # unrounded: most values are no half-precision number
+    assert float((y.to(dtype).float() != y).float().mean()) > 0.5

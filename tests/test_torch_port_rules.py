@@ -38,6 +38,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == "[]", bad
 
 
+_SLICE19 = ("microscopiq_tpu_torch.posit", "microscopiq_tpu_torch.posit.posit",
+            "microscopiq_tpu_torch.quant.vq", "microscopiq_tpu_torch.parallel",
+            "microscopiq_tpu_torch.parallel.distributed",
+            "microscopiq_tpu_torch.parallel.mesh",
+            "microscopiq_tpu_torch.parallel.tp_kernels",
+            "microscopiq_tpu_torch.scripts.check_tp",
+            "microscopiq_tpu_torch.scripts.parity")
+
+
+def test_posit_vq_parallel_and_their_scripts_import_no_jax():
+    """The rule holds for the subpackages and scripts of posit, VQ and the
+    parallel layer, each imported alone."""
+    code = ("import importlib, sys\n"
+            f"for n in {_SLICE19!r}:\n"
+            "    importlib.import_module(n)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'flax')) or "
+            "m == 'microscopiq_tpu' or m.startswith('microscopiq_tpu.'))\n"
+            "print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _need_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -132,6 +158,16 @@ def test_cuda_entry_points_raise_without_a_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make("cuda")
         make("cpu")                                   # the CPU when asked
+    from microscopiq_tpu_torch.posit import Posit
+    from microscopiq_tpu_torch.scripts import check_tp, parity
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Posit(8, 1)
+    Posit(8, 1, device="cpu")                         # the CPU when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        check_tp.run_rank(0, 1, 0, "gloo", "cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parity.run(({}, {}), None, None)
     cpu_model = LlamaForCausalLM(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchEngine(cpu_model)
