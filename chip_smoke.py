@@ -41,8 +41,9 @@ the package is missing. Phases, each of which raises on failure:
    residual window, combine), at the Llama-3-8B geometry (B = 4 at 3136
    live tokens, B = 8 at 1024, timed beside the byte bound, the plain
    versions and ``scaled_dot_product_attention`` on the dequantized bf16
-   K/V), and untimed at 2 and 8 bits, grouped V scales, GEAR-L rank 2 and
-   ragged per-slot lengths. Its times are device times (torch.profiler)
+   K/V), and untimed at 2 and 8 bits, grouped V scales, GEAR-L rank 2,
+   ragged per-slot lengths and LLaVA-1.5-7B's multi-head decode (32 KV
+   heads, rep 1, 10 chunks and 19 residual tokens). Its times are device times (torch.profiler)
    and CUDA-graph times: the wrapper's host time per call exceeds the
    kernel's, and CUDA events around back-to-back calls would time the
    host; that wrapper time is printed beside them;
@@ -292,10 +293,60 @@ the three phases' seconds:
     (>= 99%), MSE within 1%. The CPU side runs in a second background
     process (``--cpu-references-19``), with the parity grid's dense and
     RTN configs.
-39. ``parity_grid``: ``scripts.parity``'s eight configs (12 layers,
-    vocabulary 4096, hidden 512) on the card from seeded weights: dense
-    and RTN MX-FP6 (fake and packed) within 0.1 perplexity of the CPU,
-    GPTQ and activation quantization reported.
+39. ``parity_grid``: ``scripts.parity``'s eight configs (vocabulary
+    4096, hidden 512) on the card from seeded weights: dense, Llama dense
+    and RTN MX-FP6 (fake and packed) at 12 layers within 0.1 perplexity of
+    the CPU; the GPTQ (plain, act-order, static groups, with its emi8m and
+    compact-NB serving trees; Llama) and activation-quantized configs
+    reported, finite, at their first 4 layers (cut for the run's time).
+
+Slice 20, the LLaVA-1.5 stack at LLaVA-1.5-7B width (``LlavaConfig()``:
+the Vicuna-7B text tower in bf16 with fused projections, its linears
+MX-FP6 emi8 block 32 by ``pack_llava_lm``, the lm_head dense; the
+ViT-L/14-336 tower and the 2-linear GELU projector float32, TF32 off;
+seeded N(0, 0.02) weights, the tower's drawn on the host so that the CPU
+reference draws the same), then ``slice20_phases`` with each phase's
+seconds. The prompt is the ``llava_v1`` template around ``"<image>\n"``
+and a question, tokenized by ``serve.stack.Crc32Tok(32000)`` and expanded
+to 576 image slots; the image a seeded uint8 480 x 640 x 3 array
+(``process_images`` pads it square, then resizes it to 336):
+
+40. ``vlm_tower``: one image through the tower and the projector on the
+    card against the port's CPU run of the same weights and pixels (the
+    second background process, ``--cpu-references-19``, makes it after
+    the slice-19 references): features within 1e-4, projected features
+    within 2^-7 of max |CPU|; their CUDA-event times;
+41. ``vlm_main_path``: 32 layers, B = 1, a prefill with the image and 32
+    greedy decode steps replayed from a CUDA graph (``DecodeStep``), held
+    bit for bit to an eager run (``graph_vs_eager``, arm ``llava``) and to
+    ``vlm.generate_mm`` (the entry point: its tokens, and its launches as
+    the wrappers count them, 128 GEMMs and 2 x 128 GEMVs: the eager step
+    and the captured one); exact launches (prefill 128 emi8 GEMMs and no
+    GEMV, 128 emi8 GEMVs a step); TTFT split into tower + projector and
+    the language model's prefill, image-prefill tokens/s, ms a step (graph
+    and eager), packed GB and bits a weight, peak GB, the dense bf16
+    language model's prefill; the 4-bit KV arm (``QuantKVConfig(bits=4,
+    gap=64)``): 32 quantized attention launches a step more, its tokens
+    equal to ``generate_mm``'s over the same cache, agreement with the
+    dense arm's;
+42. ``vlm_eval``: ``vlm.eval_vqa`` on that model, 3 seeded questions and
+    images, 8 new tokens, ``num_chunks=2`` merged by
+    ``merge_answer_chunks``: each answer's tokens equal to a
+    ``generate_mm`` call of its own;
+43. ``vlm_two_layer_logits``: its first 2 layers through the kernels
+    against the plain versions: the prefill's logits with the image and
+    one teacher-forced decode step over the dense cache and over the 4-bit
+    one (the kernels' step 8 GEMVs and 2 quantized attentions, the plain
+    model's ``cache.update``) within LOGIT_REL_TOL; doubled pixels move
+    the last logits; a text-only forward is finite;
+44. ``vlm_gptq``: ``vlm.llava_sequential`` on one layer of the full-width
+    model (float32 text tower, 2 calibration prompts with images,
+    ``nsamples_batch=2``): tower and projector bit-unchanged, every layer-0
+    kernel changed, the result's forward finite, seconds by stage;
+45. ``vlm_probe``: ``scripts.vlm_probe`` on the card at its 1200 steps: six
+    accuracies, five ordering checks (a check that fails there fails the
+    phase only where the CPU run of the same seed passes it; that run is
+    made only then, on every core), seconds.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -342,7 +393,17 @@ has too, so copy it into a parent checkout to compare the two on one card.
 computes only the CPU runs that ``actquant_ppl`` and ``train_main_path``
 hold the card against and prints them as one JSON line; the whole run
 starts it in a process of its own after the build, on 2 of the host's
-cores, so that it overlaps the card's phases.
+cores, so that it overlaps the card's phases (``--cpu-references-19
+DIR`` likewise for the slice-19 phases and the slice-20 tower).
+
+    python3 chip_smoke.py --only slice17|slice18|slice19|slice20 [--tests]
+
+runs one slice's phases alone (quicker than the whole script while
+iterating): builds the sources they launch, starts the CPU references
+they read, and logs their lines and seconds; with ``--tests``, first that
+slice's card tests in ``tests/test_torch_kernels_gpu.py``. It prints no
+kernels line and no ``ok`` line.
+
 """
 
 from __future__ import annotations
@@ -622,10 +683,14 @@ def kernel_phase(card: str):
 
 def prefill_decode(model, ids, steps: int, max_len: int,
                    decode_ctx=contextlib.nullcontext, quant_cfg=None,
-                   feed=None, graph=True, info=None):
+                   feed=None, graph=True, info=None, prefill_kw=None):
     """bench.py's main path: last_only prefill, then greedy decode steps,
     over a dense bf16 KV cache or, with ``quant_cfg``, a quantized one.
     ``feed`` (B, steps) replaces the greedy tokens fed to the decode steps.
+    ``prefill_kw`` goes to the prefill's call only (a LLaVA model's
+    ``pixel_values`` and ``image_token_mask``; its decode steps are text
+    steps), and a model whose config has a ``text`` part sizes the cache
+    by it.
 
     The decode runs as ``generate`` runs it (``DecodeStep``): the first step
     eagerly (the warm-up that builds the kernels; its token is kept), then
@@ -653,7 +718,7 @@ def prefill_decode(model, ids, steps: int, max_len: int,
                                                 init_quant_cache,
                                                 quant_fold_step)
 
-    cfg = model.cfg
+    cfg = getattr(model.cfg, "text", model.cfg)
     B, S0 = ids.shape
     dims = (cfg.num_hidden_layers, B, max_len, cfg.num_key_value_heads,
             cfg.head_dim)
@@ -669,7 +734,8 @@ def prefill_decode(model, ids, steps: int, max_len: int,
     with torch.inference_mode():
         t0 = time.perf_counter()
         cache = wrap(state)
-        logits = model(ids, positions=pos, cache=cache, last_only=True)
+        logits = model(ids, positions=pos, cache=cache, last_only=True,
+                       **(prefill_kw or {}))
         tok = torch.argmax(logits[:, -1], dim=-1)
         state = cache.finalize()
         torch.cuda.synchronize()
@@ -726,7 +792,8 @@ def prefill_decode(model, ids, steps: int, max_len: int,
 
 
 def graph_vs_eager(model, ids, steps: int, max_len: int, arm: str,
-                   graph_run, card: str, quant_cfg=None) -> float:
+                   graph_run, card: str, quant_cfg=None,
+                   prefill_kw=None) -> float:
     """The decode (over the dense cache, or the quantized one of
     ``quant_cfg``) run eagerly, in this process and on the prompt of
     ``graph_run`` (a graph run's prefill_decode result): its tokens and
@@ -737,7 +804,7 @@ def graph_vs_eager(model, ids, steps: int, max_len: int, arm: str,
     import torch
 
     eager = prefill_decode(model, ids, steps, max_len, graph=False,
-                           quant_cfg=quant_cfg)
+                           quant_cfg=quant_cfg, prefill_kw=prefill_kw)
     same = dict(tokens_identical=bool(torch.equal(eager[0], graph_run[0])),
                 logits_identical=bool(torch.equal(eager[3], graph_run[3])),
                 launches_equal=eager[5] == graph_run[5])
@@ -1008,15 +1075,22 @@ QATTN_CHECKED = {
     # 0, gap - 1 (residual only), exact multiples of gap (residual empty)
     "ragged": dict(B=6, C=8, bits=4, v_group=128, rank=0,
                    lengths=[0, 63, 192, 337, 1, 448]),
+    # LLaVA-1.5-7B's 4-bit KV decode (vlm_main_path): multi-head attention
+    # (KVH = H = 32, rep 1) at the last step's 659 live tokens, 10 chunks
+    # and 19 in the residual window, in the arm's 12-chunk cache
+    "llava_mha_rep1": dict(B=1, C=12, bits=4, v_group=128, rank=0,
+                           lengths=[659], KVH=32, H=32),
 }
 QKV_GAP, QKV_KVH, QKV_H, QKV_HD = 64, 8, 32, 128
 
 
-def qattn_state(B, C, bits, v_group, rank, lengths, seed):
+def qattn_state(B, C, bits, v_group, rank, lengths, seed, KVH=QKV_KVH,
+                **_):
     """One layer of a quantized cache on the card, as the decode path holds
     it: random K/V quantized by the port's chunk codec (``_compress_chunks``)
-    into C chunks, a bf16 residual window, and per-slot live lengths.
-    Returns (state_full tuple with a leading layer axis of 1, lengths)."""
+    into C chunks of KVH heads, a bf16 residual window, and per-slot live
+    lengths. Returns (state_full tuple with a leading layer axis of 1,
+    lengths)."""
     import torch
 
     from microscopiq_tpu_torch.kv.cache import (QuantKVConfig,
@@ -1027,12 +1101,12 @@ def qattn_state(B, C, bits, v_group, rank, lengths, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device="cuda")
     cfg = QuantKVConfig(bits=bits, gap=QKV_GAP, v_group=v_group, rank=rank)
-    shape = (B, QKV_KVH, C, QKV_GAP, QKV_HD)
+    shape = (B, KVH, C, QKV_GAP, QKV_HD)
     # channel-wise magnitudes, as real keys have (KIVI's premise)
-    kc = rn(*shape) * torch.exp(rn(B, QKV_KVH, 1, 1, QKV_HD))
+    kc = rn(*shape) * torch.exp(rn(B, KVH, 1, 1, QKV_HD))
     pieces = _compress_chunks(kc, rn(*shape), cfg)
     del kc
-    res = lambda: rn(B, QKV_GAP, QKV_KVH, QKV_HD).to(torch.bfloat16)
+    res = lambda: rn(B, QKV_GAP, KVH, QKV_HD).to(torch.bfloat16)
     pieces.update(res_k=res(), res_v=res())
     names = _FUSED_FIELDS + (_LOWRANK_FIELDS if rank else ())
     full = tuple(pieces[n][None].contiguous() for n in names)
@@ -1165,17 +1239,17 @@ def quant_attention_phase(card: str):
     from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
 
     rows = []
-    rep, scale = QKV_H // QKV_KVH, QKV_HD ** -0.5
+    scale = QKV_HD ** -0.5
     cases = {**QATTN_TIMED, **QATTN_CHECKED}
     for i, (name, c) in enumerate(cases.items()):
         full, lengths = qattn_state(**c, seed=100 + i)
         kq, kmn, ksc, vq, vmn, vsc = (t[0] for t in full[:6])
         lowrank = tuple(t[0] for t in full[8:]) or None
-        B = c["B"]
+        B, KVH, H = c["B"], c.get("KVH", QKV_KVH), c.get("H", QKV_H)
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
-        q = torch.randn((B, QKV_H, QKV_HD), generator=gen, device="cuda"
+        q = torch.randn((B, H, QKV_HD), generator=gen, device="cuda"
                         ).to(torch.bfloat16)
-        qg = q.reshape(B, QKV_KVH, rep, QKV_HD).contiguous()
+        qg = q.reshape(B, KVH, H // KVH, QKV_HD).contiguous()
         nfull = (lengths // QKV_GAP).to(torch.int32)
         args = (kq, kmn, ksc, vq, vmn, vsc, nfull, scale, QKV_GAP, c["bits"])
         got = qa.chunk_attention(qg, *args, lowrank=lowrank)
@@ -1205,6 +1279,7 @@ def quant_attention_phase(card: str):
             raise AssertionError(f"quant_attention_decode {name}: rel err "
                                  f"{dec_rel}")
         row = dict(kernel="quant_attention", config=name, B=B,
+                   kv_heads=KVH, rep=H // KVH,
                    live_tokens=c["lengths"], chunks=c["C"], bits=c["bits"],
                    v_group=c["v_group"], rank=c["rank"],
                    max_abs_err=abs_err, rel_err=rel,
@@ -5586,6 +5661,18 @@ PARITY_DPPL = 0.1
 # configs held to the CPU's perplexity on the card (the others reported)
 PARITY_HELD = ("dense", "rtn_mxfp6_block32", "rtn_mxfp6_block32_packed",
                "llama_dense")
+# the configs (``scripts.parity`` names) the CPU reference computes and the
+# card runs at the grid's 12 layers: the held ones
+PARITY_RUN = ("dense", "rtn_mxfp6_block32", "llama_dense")
+# the others, only reported (GPTQ plain, act-order, static groups, with its
+# emi8m and compact-NB serving trees; actquant; Llama GPTQ), run on the
+# card at the first PARITY_REPORTED_LAYERS layers: at 12 they took ~163 s
+# of the phase's 169.4 on an H100, cut for the run's time
+PARITY_REPORTED = ("gptq_int2_fp4_block16", "gptq_int2_fp4_block16_actorder",
+                   "gptq_int2_fp4_g128_static",
+                   "actquant_fp4w_int4a_block128",
+                   "llama_gptq_int2_fp4_block16")
+PARITY_REPORTED_LAYERS = 4
 
 
 def tp_config(layers: int = 32):
@@ -6243,7 +6330,8 @@ def cpu_references_19(out_dir: str) -> dict:
     """The CPU runs the slice-19 phases hold the card against: the posit
     digests, VQ on the q_proj (its draws, centroids, MSE; the assignments
     as ``vq_assign.npy`` in ``out_dir``) and the parity grid's dense and
-    RTN configs, with their seconds."""
+    RTN configs, with their seconds; then the slice-20 tower's
+    (:func:`vlm_tower_reference`, in ``out_dir`` too)."""
     from microscopiq_tpu_torch.scripts import parity
 
     t0 = time.perf_counter()
@@ -6255,11 +6343,11 @@ def cpu_references_19(out_dir: str) -> dict:
     t2 = time.perf_counter()
     calib, eval_ids = parity.make_tokens()
     grid = parity.run(parity.seeded_state_dicts(0), calib, eval_ids, "cpu",
-                      only=("dense", "rtn_mxfp6_block32", "llama_dense"),
-                      log=lambda s: None)
+                      only=PARITY_RUN, log=lambda s: None)
+    parity_s = time.perf_counter() - t2
     return dict(posit=posit, posit_s=t1 - t0, vq_draws=vq["draws"],
                 vq_centroids=vq["centroids"].tolist(), vq_mse=vq["mse"], vq_s=vq["seconds"], parity=grid,
-                parity_s=time.perf_counter() - t2,
+                parity_s=parity_s, vlm_tower_s=vlm_tower_reference(out_dir),
                 threads=CPU_REFERENCE_THREADS)
 
 
@@ -6326,17 +6414,21 @@ def posit_vq_phase(card: str, ref: dict, ref_dir: str) -> None:
 
 def parity_grid_phase(card: str, ref: dict) -> dict:
     """The eight parity configs (``scripts.parity``) on the card from one
-    set of seeded weights: each perplexity against the CPU's where the CPU
-    references ran it (dense, RTN MX-FP6 fake and packed, Llama dense:
-    |Δppl| <= 0.1); the GPTQ and activation-quantized ones reported.
-    Returns the launches of the run."""
+    set of seeded weights: the held ones (PARITY_RUN) at 12 layers, each
+    perplexity against the CPU's (dense, RTN MX-FP6 fake and packed, Llama
+    dense: |Δppl| <= 0.1); the others reported, at PARITY_REPORTED_LAYERS
+    layers, finite. Returns the launches of the run."""
     from microscopiq_tpu_torch.scripts import parity
 
     t0 = time.perf_counter()
     calib, eval_ids = parity.make_tokens()
+    sds = parity.seeded_state_dicts(0)
     reset_counts()
-    res = parity.run(parity.seeded_state_dicts(0), calib, eval_ids, "cuda",
+    res = parity.run(sds, calib, eval_ids, "cuda", only=PARITY_RUN,
                      log=lambda s: None)
+    held_s = time.perf_counter() - t0
+    reported = parity.run(sds, calib, eval_ids, "cuda", only=PARITY_REPORTED,
+                          log=lambda s: None, layers=PARITY_REPORTED_LAYERS)
     counts = {k: v for k, v in launches().items() if v}
     cpu = ref["parity"]
     deltas = {k: res[k] - cpu[k] for k in cpu if not k.endswith("_s")}
@@ -6345,10 +6437,13 @@ def parity_grid_phase(card: str, ref: dict) -> dict:
     if set(PARITY_HELD) - set(deltas):
         bad["missing"] = sorted(set(PARITY_HELD) - set(deltas))
     log(phase="parity_grid", ppl_card=res, ppl_cpu=cpu, delta=deltas,
-        held=list(PARITY_HELD), tol=PARITY_DPPL, launches=counts,
+        held=list(PARITY_HELD), tol=PARITY_DPPL,
+        ppl_card_reported=reported, reported_layers=PARITY_REPORTED_LAYERS,
+        launches=counts, held_s=held_s,
         seconds=time.perf_counter() - t0, card=card)
-    if bad or not all(np.isfinite(v) for v in res.values()):
-        raise AssertionError(f"parity_grid: {bad}")
+    if bad or not all(np.isfinite(v) for v in (*res.values(),
+                                               *reported.values())):
+        raise AssertionError(f"parity_grid: {bad}, reported {reported}")
     return counts
 
 
@@ -6369,7 +6464,8 @@ def slice19_phases(card: str, refs19) -> tuple:
     ref = await_cpu_references(proc)
     secs["cpu_references_19_wait"] = time.perf_counter() - t0
     log(phase="cpu_references_19", posit_s=ref["posit_s"], vq_s=ref["vq_s"],
-        parity_s=ref["parity_s"], threads=ref["threads"],
+        parity_s=ref["parity_s"], vlm_tower_s=ref["vlm_tower_s"],
+        threads=ref["threads"],
         waited_s=ref["waited_s"], card=card)
     t0 = time.perf_counter()
     posit_vq_phase(card, ref, ref_dir)
@@ -6378,6 +6474,649 @@ def slice19_phases(card: str, refs19) -> tuple:
     flat["parity_grid"] = parity_grid_phase(card, ref)
     secs["parity_grid"] = time.perf_counter() - t0
     return secs, paths, flat
+
+
+# ---------------------------------------------------------------------------
+# Slice 20: the LLaVA-1.5 stack at LLaVA-1.5-7B width
+# ---------------------------------------------------------------------------
+VLM_SEED = 20
+VLM_STEPS = 32                    # greedy decode steps after the prefill
+VLM_QKV = dict(bits=4, gap=64)    # the 4-bit KV arm (v_group 128 = head_dim)
+VLM_IMAGE = (480, 640, 3)         # uint8: expand2square pads it first
+VLM_QUESTIONS = (
+    "Describe the picture in detail and say which objects lie on the left "
+    "side of the table and what colour each of them has",
+    "How many people can you see in this image and what are they doing",
+    "Is there any text written on the sign near the door and what does "
+    "it say",
+    "Which animal is closest to the camera")
+VLM_EVAL_NEW = 8                  # new tokens an eval_vqa answer
+# tower card vs CPU, float32 with TF32 off: sums in other orders
+VLM_TOWER_REL_TOL = 1e-4
+# the projector runs in the text dtype (bf16): a flipped bf16 rounding of
+# an element (2^-8) through the GELU and the second linear
+VLM_PROJ_REL_TOL = 2.0 ** -7
+VLM_EOS = 1                       # Crc32Tok.eos_token_id
+
+
+def vlm_config(layers: int = 32, dtype=None, fused: bool = True):
+    """LLaVA-1.5-7B (``LlavaConfig()``) with the text tower ``layers`` deep,
+    in ``dtype`` (bf16), projections fused."""
+    import torch
+
+    from microscopiq_tpu_torch.models.llama import LlamaConfig
+    from microscopiq_tpu_torch.vlm import LlavaConfig
+
+    return LlavaConfig(text=LlamaConfig(num_hidden_layers=layers,
+                                        dtype=dtype or torch.bfloat16,
+                                        fused_projections=fused))
+
+
+def vlm_image(seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, VLM_IMAGE,
+                                                dtype=np.uint8)
+
+
+def vlm_inputs(question: str, seed: int, pad_to=None, cfg=None):
+    """(ids (1, S), image mask (1, S), pixels (1, 336, 336, 3)) of the
+    llava_v1 prompt around ``question`` and the seeded image, as numpy,
+    for ``cfg`` (default :func:`vlm_config`'s)."""
+    from microscopiq_tpu_torch.serve.stack import Crc32Tok
+    from microscopiq_tpu_torch.vlm import (conv_templates,
+                                           expand_image_tokens,
+                                           process_images,
+                                           tokenizer_image_token)
+
+    conv = conv_templates["llava_v1"].copy()
+    conv.append_message(conv.roles[0], "<image>\n" + question)
+    conv.append_message(conv.roles[1], None)
+    cfg = cfg or vlm_config()
+    ids = tokenizer_image_token(conv.get_prompt(),
+                                Crc32Tok(cfg.text.vocab_size))
+    input_ids, mask = expand_image_tokens(ids, cfg.num_image_tokens,
+                                          pad_to=pad_to)
+    return input_ids[None], mask[None], process_images(
+        [vlm_image(seed)], cfg.vision.image_size)
+
+
+def _vlm_cuda(ids, mask, pix):
+    import torch
+
+    return (torch.as_tensor(ids, device="cuda").long(),
+            torch.as_tensor(mask, device="cuda"),
+            torch.as_tensor(pix, device="cuda"))
+
+
+def vlm_tower_reference(out_dir: str) -> float:
+    """The CPU run ``vlm_tower`` holds the card against: the tower and the
+    projector of LLaVA-1.5-7B (weights drawn on the host, as
+    :func:`vlm_build` draws them) on the main path's image, their outputs
+    saved as ``tower.npy`` and ``proj.npy`` in ``out_dir``; returns its
+    seconds."""
+    import torch
+
+    from microscopiq_tpu_torch.models.llama import install_tree
+    from microscopiq_tpu_torch.vlm.llava import (_vision_modules,
+                                                 build_vision_params)
+
+    t0 = time.perf_counter()
+    cfg = vlm_config()
+    tower, proj = _vision_modules(cfg)
+    w = build_vision_params(cfg, VLM_SEED + 1, device="cpu")
+    cpu = torch.device("cpu")
+    install_tree(tower, w["vision_tower"], cpu)
+    install_tree(proj, w["mm_projector"], cpu)
+    pix = vlm_inputs(VLM_QUESTIONS[0], VLM_SEED)[2]
+    with torch.inference_mode():
+        f = tower(torch.as_tensor(pix))
+        p = proj(f)
+    np.save(os.path.join(out_dir, "tower.npy"), f.numpy())
+    np.save(os.path.join(out_dir, "proj.npy"), p.float().numpy())
+    return time.perf_counter() - t0
+
+
+def vlm_build(card: str):
+    """The 32-layer LLaVA-1.5-7B on the card: (model, tree, build record)."""
+    import torch
+
+    from microscopiq_tpu_torch.nn import fuse_projections
+    from microscopiq_tpu_torch.parallel.mesh import packed_kn
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+    from microscopiq_tpu_torch.vlm import LlavaForCausalLM
+    from microscopiq_tpu_torch.vlm.llava import build_llava_params
+
+    t0 = time.perf_counter()
+    cfg = vlm_config()
+    specs = finalize_mx_specs({"w_elem_format": "fp6_e3m2",
+                               "scale_bits": 8, "block_size": 32})
+    tree = build_llava_params(cfg, VLM_SEED, packed_specs=specs,
+                              device="cuda", vision_device="cpu")["params"]
+    tree = fuse_projections(tree)
+    model = LlavaForCausalLM(cfg).load_params(tree)
+    torch.cuda.synchronize()
+    packed = [w for w in _tree_leaves(tree["model"]) if hasattr(w, "codes")]
+    elems = sum(int(np.prod(packed_kn(w))) for w in packed)
+    lm_bytes = sum(w.nbytes() for w in packed)
+
+    def gb(node):
+        return sum(t.nbytes for t in _tree_leaves(node)
+                   if isinstance(t, torch.Tensor)) / 1e9
+
+    rec = dict(build_s=time.perf_counter() - t0,
+               packed_lm_gb=lm_bytes / 1e9,
+               bits_per_weight=8 * lm_bytes / elems,
+               packed_linears=len(packed),
+               embed_lm_head_gb=(tree["model"]["embed_tokens"].nbytes
+                                 + tree["lm_head"]["kernel"].nbytes) / 1e9,
+               tower_gb=gb(tree["vision_tower"]),
+               projector_gb=gb(tree["mm_projector"]))
+    return model, tree, rec
+
+
+def vlm_tower_phase(model, card: str, ref_dir: str) -> dict:
+    """The tower and the projector on the card against the CPU reference;
+    their CUDA-event times. Returns (tower ms, projector ms)."""
+    import torch
+
+    pix = _vlm_cuda(*vlm_inputs(VLM_QUESTIONS[0], VLM_SEED))[2]
+    with torch.inference_mode():
+        f = model.vision_tower(pix)
+        p = model.mm_projector(f)
+        tower_ms = cuda_ms(lambda i: model.vision_tower(pix), 1)
+        proj_ms = cuda_ms(lambda i: model.mm_projector(f), 1)
+    fc = np.load(os.path.join(ref_dir, "tower.npy"))
+    pc = np.load(os.path.join(ref_dir, "proj.npy"))
+    f_err = float(np.abs(f.cpu().numpy() - fc).max())
+    p_err = float(np.abs(p.float().cpu().numpy() - pc).max())
+    f_rel = f_err / float(np.abs(fc).max())
+    p_rel = p_err / float(np.abs(pc).max())
+    log(phase="vlm_tower", features=list(f.shape), projected=list(p.shape),
+        tower_max_abs_err=f_err, tower_rel_err=f_rel,
+        tower_tol=VLM_TOWER_REL_TOL, projector_max_abs_err=p_err,
+        projector_rel_err=p_rel, projector_tol=VLM_PROJ_REL_TOL,
+        tower_ms=tower_ms, projector_ms=proj_ms, card=card)
+    cfg = model.cfg
+    want = (1, cfg.num_image_tokens, cfg.vision.hidden_size)
+    if tuple(f.shape) != want or tuple(p.shape) != want[:2] + (
+            cfg.text.hidden_size,):
+        raise AssertionError(f"vlm_tower: shapes {f.shape}, {p.shape}")
+    if not (f_rel <= VLM_TOWER_REL_TOL and p_rel <= VLM_PROJ_REL_TOL):
+        raise AssertionError(f"vlm_tower: card vs CPU {f_rel}, {p_rel}")
+    return {"tower_ms": tower_ms, "projector_ms": proj_ms}
+
+
+def _lm_prefill_ms(model, ids, mask, pix, max_len, reps: int = 3) -> float:
+    """Host-clock ms (synchronized, best of ``reps``, as TTFT is timed) of
+    the language model's prefill alone: the embedded prompt with the image
+    features spliced in, through a dense cache, the last position's
+    logits."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
+                                                init_dense_cache)
+    from microscopiq_tpu_torch.vlm.llava import splice_image_features
+
+    tc = model.cfg.text
+    with torch.inference_mode():
+        feats = model.image_features(pix)
+        x = splice_image_features(
+            model.model.embed_tokens[torch.where(mask, 0, ids)], feats, mask)
+        state = init_dense_cache(tc.num_hidden_layers, 1, max_len,
+                                 tc.num_key_value_heads, tc.head_dim,
+                                 device="cuda")
+        pos = torch.arange(ids.shape[1], device="cuda")[None]
+        best = float("inf")
+        for _ in range(reps + 1):            # the first call warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(None, positions=pos, cache=DenseDecodeCache(state),
+                  inputs_embeds=x, last_only=True)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0) if _ else best
+        return best * 1e3
+
+
+def vlm_main_path(model, tree, card: str, build: dict, tower: dict):
+    """Phase ``vlm_main_path``; returns the launches by path."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.models.llama import build_params
+    from microscopiq_tpu_torch.nn import fuse_projections
+    from microscopiq_tpu_torch.vlm import LlavaForCausalLM, generate_mm
+    from microscopiq_tpu_torch.vlm.eval_vqa import mm_cache_len
+
+    L, STEPS = model.cfg.text.num_hidden_layers, VLM_STEPS
+    ids_np, mask_np, pix_np = vlm_inputs(VLM_QUESTIONS[0], VLM_SEED)
+    ids, mask, pix = _vlm_cuda(ids_np, mask_np, pix_np)
+    S = ids.shape[1]
+    kw = dict(pixel_values=pix, image_token_mask=mask)
+    max_len = mm_cache_len(S, STEPS + 1)
+    prefill_decode(model, ids, 2, max_len, prefill_kw=kw)        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    main = prefill_decode(model, ids, STEPS, max_len, prefill_kw=kw)
+    toks, ttft, dec, last, pre_counts, dec_counts, _, logits = main
+    peak = torch.cuda.max_memory_allocated()
+    first = torch.argmax(logits[0][:, -1], dim=-1)
+    want_pre = want_counts(dequant_matmul_emi8=4 * L)
+    want_dec = want_counts(dequant_gemv_emi8=STEPS * 4 * L)
+    if pre_counts != want_pre or dec_counts != want_dec:
+        raise AssertionError(f"vlm_main_path: launches prefill "
+                             f"{pre_counts} (want {want_pre}), decode "
+                             f"{dec_counts} (want {want_dec})")
+    if not torch.isfinite(last.float()).all():
+        raise AssertionError("vlm_main_path: non-finite logits")
+    eager_ms = graph_vs_eager(model, ids, STEPS, max_len, "llava", main,
+                              card, prefill_kw=kw)
+    best_ttft, best_dec = ttft, dec
+    _, t, d, *_ = prefill_decode(model, ids, STEPS, max_len, prefill_kw=kw)
+    best_ttft, best_dec = min(best_ttft, t), min(best_dec, d)
+
+    # the entry point: generate_mm's tokens and launches
+    reset_counts()
+    gm = generate_mm(model, ids_np, mask_np, pix_np, STEPS + 1)
+    gm_all = launches()
+    gm_counts = {k: v for k, v in gm_all.items() if v}
+    want_gm = want_counts(dequant_matmul_emi8=4 * L,
+                          dequant_gemv_emi8=2 * 4 * L)
+    ours = np.concatenate([first.cpu().numpy()[:, None],
+                           toks.cpu().numpy()], axis=1)
+    if not np.array_equal(gm, ours) or gm_all != want_gm:
+        raise AssertionError(f"vlm_main_path: generate_mm {gm.tolist()} "
+                             f"{gm_counts} against {ours.tolist()} "
+                             f"{want_gm}")
+    lm_ms = _lm_prefill_ms(model, ids, mask, pix, max_len)
+
+    # the 4-bit KV arm
+    qcfg = QuantKVConfig(**VLM_QKV)
+    qmax = mm_cache_len(S, STEPS + 1, qcfg.gap)
+    prefill_decode(model, ids, 2, qmax, quant_cfg=qcfg, prefill_kw=kw)
+    reset_counts()
+    qrun = prefill_decode(model, ids, STEPS, qmax, quant_cfg=qcfg,
+                          prefill_kw=kw)
+    qtoks, qttft, qdec, qlast, qpre, qdecc, _, qlogits = qrun
+    want_qdec = want_counts(dequant_gemv_emi8=STEPS * 4 * L,
+                            quant_attention=STEPS * L)
+    if qpre != want_pre or qdecc != want_qdec:
+        raise AssertionError(f"vlm_main_path 4-bit KV: launches prefill "
+                             f"{qpre} (want {want_pre}), decode {qdecc} "
+                             f"(want {want_qdec})")
+    qfirst = torch.argmax(qlogits[0][:, -1], dim=-1)
+    qours = np.concatenate([qfirst.cpu().numpy()[:, None],
+                            qtoks.cpu().numpy()], axis=1)
+    qgm = generate_mm(model, ids_np, mask_np, pix_np, STEPS + 1,
+                      cache_kind="quant", quant_cfg=qcfg)
+    if not np.array_equal(qgm, qours):
+        raise AssertionError(f"vlm_main_path 4-bit KV: generate_mm "
+                             f"{qgm.tolist()} against {qours.tolist()}")
+    agree = float((qours == ours).mean())
+
+    # the dense bf16 language model's prefill: the same prompt and tower
+    t0 = time.perf_counter()
+    dtree = fuse_projections(build_params(vlm_config().text, VLM_SEED,
+                                          device="cuda")["params"])
+    dtree.update({k: tree[k] for k in ("vision_tower", "mm_projector")})
+    dense = LlavaForCausalLM(vlm_config()).load_params(dtree)
+    dense_lm_ms = _lm_prefill_ms(dense, ids, mask, pix, max_len)
+    dense_s = time.perf_counter() - t0
+    del dense, dtree
+    torch.cuda.empty_cache()
+
+    T = model.cfg.num_image_tokens
+    rec = dict(layers=L, batch=1, prompt=S, image_tokens=T,
+               text_tokens=S - T, steps=STEPS, graph=True,
+               ttft_ms=best_ttft * 1e3, tower_projector_ms=(
+                   tower["tower_ms"] + tower["projector_ms"]),
+               lm_prefill_ms=lm_ms,
+               image_prefill_tokens_per_s=S / best_ttft,
+               decode_ms_per_step=best_dec / STEPS * 1e3,
+               eager_decode_ms_per_step=eager_ms,
+               decode_tokens_per_s=STEPS / best_dec,
+               quant_kv_decode_ms_per_step=qdec / STEPS * 1e3,
+               quant_kv_ttft_ms=qttft * 1e3,
+               quant_kv_tokens_agree_with_dense=agree,
+               dense_bf16_lm_prefill_ms=dense_lm_ms,
+               dense_bf16_arm_s=dense_s, peak_mem_gb=peak / 1e9,
+               tokens=ours.tolist(), quant_kv_tokens=qours.tolist(),
+               launches_prefill={k: v for k, v in pre_counts.items() if v},
+               launches_decode={k: v for k, v in dec_counts.items() if v},
+               launches_decode_quant_kv={k: v for k, v in qdecc.items()
+                                         if v},
+               launches_generate_mm=gm_counts, **build, card=card)
+    log(phase="vlm_main_path", **rec)
+    return ({"vlm_main_path": {"prefill": pre_counts, "decode": dec_counts},
+             "vlm_quant_kv": {"prefill": qpre, "decode": qdecc}},
+            {"vlm_generate_mm": gm_counts})
+
+
+def vlm_eval_phase(model, card: str) -> dict:
+    """``eval_vqa`` over 3 seeded questions and images in two chunks,
+    merged; each answer's tokens equal to a ``generate_mm`` call of its
+    own. Returns the launches of the eval_vqa calls."""
+    import tempfile
+
+    from microscopiq_tpu_torch.serve.stack import Crc32Tok
+    from microscopiq_tpu_torch.vlm import (eval_vqa, generate_mm,
+                                           merge_answer_chunks)
+
+    t0 = time.perf_counter()
+    qs = [{"question_id": i, "image": f"img{i}",
+           "text": VLM_QUESTIONS[1 + i]} for i in range(3)]
+    loader = lambda name: vlm_image(VLM_SEED + 1 + int(name[3:]))  # noqa
+    tok = Crc32Tok(model.cfg.text.vocab_size)
+    with tempfile.TemporaryDirectory() as d:
+        parts = [os.path.join(d, f"chunk{k}.jsonl") for k in range(2)]
+        reset_counts()
+        for k, part in enumerate(parts):
+            eval_vqa(model, tok, qs, loader, part,
+                     max_new_tokens=VLM_EVAL_NEW, num_chunks=2, chunk_idx=k)
+        counts = {k: v for k, v in launches().items() if v}
+        merged = os.path.join(d, "answers.jsonl")
+        merge_answer_chunks(parts, merged)
+        with open(merged) as f:
+            recs = [json.loads(line) for line in f]
+    eval_s = time.perf_counter() - t0
+    bad = []
+    for q, rec in zip(qs, recs):
+        ids, mask, pix = vlm_inputs(q["text"], VLM_SEED + 1 + q["question_id"])
+        out = generate_mm(model, ids, mask, pix, VLM_EVAL_NEW,
+                          eos_token_id=VLM_EOS)
+        want = tok.decode([int(t) for t in out[0] if t != VLM_EOS]).strip()
+        if rec["question_id"] != q["question_id"] or rec["text"] != want:
+            bad.append((q["question_id"], rec["text"], want))
+    log(phase="vlm_eval", questions=len(qs), records=len(recs), chunks=2,
+        new_tokens=VLM_EVAL_NEW, equal_to_generate_mm=not bad,
+        answer_keys=sorted(recs[0]) if recs else [],
+        answers=[r["text"] for r in recs], eval_s=eval_s,
+        s_per_question=eval_s / len(qs), launches=counts, card=card)
+    if bad or len(recs) != len(qs):
+        raise AssertionError(f"vlm_eval: {len(recs)} answers, {bad}")
+    return counts
+
+
+def vlm_two_layer_phase(tree, card: str) -> dict:
+    """The first 2 layers of the main model through the kernels against
+    the plain versions: the prefill's logits with the image, and one
+    teacher-forced decode step over the dense cache and over the 4-bit one
+    (VLM_QKV: the kernel model's step takes quant_attention, rep 1; the
+    plain model's ``cache.update`` and its own attention); returns the
+    kernel run's launches."""
+    import torch
+
+    from microscopiq_tpu_torch.kv.cache import QuantKVConfig
+    from microscopiq_tpu_torch.vlm import LlavaForCausalLM
+    from microscopiq_tpu_torch.vlm.eval_vqa import mm_cache_len
+
+    cfg = dataclasses.replace(vlm_config(), text=dataclasses.replace(
+        vlm_config().text, num_hidden_layers=2))
+    two = first_layers(tree, 2)
+    two_k = LlavaForCausalLM(cfg).load_params(two)
+    two_p = LlavaForCausalLM(cfg, use_kernels=False).load_params(two)
+    ids, mask, pix = _vlm_cuda(*vlm_inputs(VLM_QUESTIONS[0], VLM_SEED))
+    kw = dict(pixel_values=pix, image_token_mask=mask)
+    S = ids.shape[1]
+    max_len = mm_cache_len(S, 2)
+    reset_counts()
+    with torch.inference_mode():
+        a = two_k(ids, **kw).float()
+        all_counts = launches()
+        counts = {k: v for k, v in all_counts.items() if v}
+        b = two_p(ids, **kw).float()
+        moved = two_k(ids, pixel_values=pix * 2, image_token_mask=mask)
+        text_only = two_k(ids)
+    prefill_rel = ((a - b).abs().max() / b.abs().max()).item()
+    # the decode step teacher-forced on the kernel prefill's token: at a
+    # near-tie of the seeded model's logits the plain prefill may pick
+    # another, and the step's logits would then compare two tokens
+    feed = a[:, -1].argmax(-1)[:, None]
+    la = prefill_decode(two_k, ids, 1, max_len, prefill_kw=kw,
+                        feed=feed)[3].float()
+    lb = prefill_decode(two_p, ids, 1, max_len, prefill_kw=kw,
+                        feed=feed)[3].float()
+    decode_rel = ((la - lb).abs().max() / lb.abs().max()).item()
+    qcfg = QuantKVConfig(**VLM_QKV)
+    qmax = mm_cache_len(S, 2, qcfg.gap)
+    reset_counts()
+    qk = prefill_decode(two_k, ids, 1, qmax, quant_cfg=qcfg, prefill_kw=kw,
+                        feed=feed)
+    qla = qk[3].float()
+    qlb = prefill_decode(two_p, ids, 1, qmax, quant_cfg=qcfg, prefill_kw=kw,
+                         feed=feed)[3].float()
+    quant_rel = ((qla - qlb).abs().max() / qlb.abs().max()).item()
+    want_qstep = want_counts(dequant_gemv_emi8=8, quant_attention=2)
+    move = ((moved[:, -1].float() - a[:, -1]).abs().max()
+            / a[:, -1].abs().max()).item()
+    finite = bool(torch.isfinite(text_only.float()).all())
+    log(phase="vlm_two_layer_logits", prompt=S, prefill_rel_err=prefill_rel,
+        decode_rel_err=decode_rel, quant_kv_decode_rel_err=quant_rel,
+        quant_kv=VLM_QKV, tol=LOGIT_REL_TOL,
+        doubled_pixels_last_logit_move=move, text_only_finite=finite,
+        launches_prefill=counts,
+        launches_quant_kv_step={k: v for k, v in qk[5].items() if v},
+        card=card)
+    if not (prefill_rel < LOGIT_REL_TOL and decode_rel < LOGIT_REL_TOL
+            and quant_rel < LOGIT_REL_TOL and move > 0 and finite
+            and all_counts == want_counts(dequant_matmul_emi8=8)
+            and qk[5] == want_qstep):
+        raise AssertionError(f"vlm_two_layer_logits: {prefill_rel}, "
+                             f"{decode_rel}, 4-bit KV {quant_rel}, move "
+                             f"{move}, finite {finite}, launches {counts}, "
+                             f"4-bit step {qk[5]}")
+    return counts
+
+
+def vlm_gptq_phase(card: str) -> None:
+    """``llava_sequential`` on one layer of the full-width model."""
+    import torch
+
+    from microscopiq_tpu_torch.quant.gptq import StageTimer
+    from microscopiq_tpu_torch.vlm import LlavaForCausalLM, llava_sequential
+    from microscopiq_tpu_torch.vlm.llava import build_llava_params
+
+    t0 = time.perf_counter()
+    cfg = vlm_config(1, dtype=torch.float32, fused=False)
+    tree = build_llava_params(cfg, VLM_SEED + 2, device="cuda")["params"]
+    model = LlavaForCausalLM(cfg).load_params(tree)
+    lens = [vlm_inputs(q, 0, cfg=cfg)[0].shape[1]
+            for q in VLM_QUESTIONS[:2]]
+    parts = [vlm_inputs(q, VLM_SEED + 10 + i, pad_to=max(lens), cfg=cfg)
+             for i, q in enumerate(VLM_QUESTIONS[:2])]
+    ids, mask, pix = (np.concatenate([p[j] for p in parts])
+                      for j in range(3))
+    timer = StageTimer("cuda")
+    build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    q = llava_sequential(model, {"params": tree}, ids, mask, pix,
+                         nsamples_batch=2, verbose=False, timer=timer)
+    gptq_s = time.perf_counter() - t1
+    qt = q["params"]
+    same_vision = all(
+        torch.equal(a, b) for k in ("vision_tower", "mm_projector")
+        for a, b in zip(_tree_leaves(tree[k]), _tree_leaves(qt[k])))
+    layer0 = {path: (old, new) for (path, old), (_, new) in zip(
+        _named_leaves(tree["model"]["layers_0"]),
+        _named_leaves(qt["model"]["layers_0"])) if path.endswith("kernel")}
+    changed = {p: not torch.equal(o, n) for p, (o, n) in layer0.items()}
+    cids, cmask, cpix = _vlm_cuda(ids, mask, pix)
+    with torch.inference_mode():
+        logits = LlavaForCausalLM(cfg).load_params(q)(
+            cids, pixel_values=cpix, image_token_mask=cmask, last_only=True)
+    finite = bool(torch.isfinite(logits).all())
+    log(phase="vlm_gptq", layers=1, calib=list(ids.shape), nsamples_batch=2,
+        vision_unchanged=same_vision, layer0_kernels_changed=changed,
+        forward_finite=finite, seconds_by_stage=timer.seconds,
+        gptq_s=gptq_s, build_s=build_s, card=card)
+    if not (same_vision and len(changed) == 7 and all(changed.values())
+            and finite):
+        raise AssertionError(f"vlm_gptq: vision {same_vision}, changed "
+                             f"{changed}, finite {finite}")
+
+
+def _named_leaves(node, path=""):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _named_leaves(node[k], f"{path}/{k}")
+    else:
+        yield path, node
+
+
+def vlm_probe_phase(card: str) -> None:
+    """``scripts.vlm_probe`` on the card at its default steps. A check that
+    fails there fails the phase only where the CPU run of the same seed
+    passes it: the CPU run (minutes, on every core of the host) is made
+    then, and not when every check passes on the card."""
+    import torch
+
+    from microscopiq_tpu_torch.scripts import vlm_probe
+
+    rec = vlm_probe.run("cuda", log=lambda s: None)
+    failed, cpu = {}, None
+    if not all(rec["ordering_checks"].values()):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(os.cpu_count() or threads)
+        try:
+            cpu = vlm_probe.run("cpu", log=lambda s: None)
+        finally:
+            torch.set_num_threads(threads)
+        failed = {k: v for k, v in rec["ordering_checks"].items()
+                  if not v and cpu["ordering_checks"][k]}
+    log(phase="vlm_probe", steps=rec["train_steps"],
+        accuracies={k: v["accuracy"] for k, v in rec["results"].items()},
+        ordering_checks=rec["ordering_checks"],
+        cpu_ordering_checks=(cpu["ordering_checks"] if cpu else
+                             "not run: every check passed on the card"),
+        cpu_accuracies=({k: v["accuracy"] for k, v in cpu["results"].items()}
+                        if cpu else None),
+        train_s=rec["train_s"], eval_s=rec["eval_s"],
+        final_loss=rec["final_loss"], card=card)
+    if failed:
+        raise AssertionError(f"vlm_probe: checks {sorted(failed)} fail on "
+                             "the card and pass on the CPU")
+
+
+def slice20_phases(card: str, ref_dir: str) -> tuple:
+    """The slice-20 phases, the tower's CPU reference in ``ref_dir``;
+    returns (each phase's seconds, the launch counts by path for the
+    kernels line, flat launch counts)."""
+    import torch
+
+    secs, paths, flat = {}, {}, {}
+    t0 = time.perf_counter()
+    model, tree, build_rec = vlm_build(card)
+    secs["vlm_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tower = vlm_tower_phase(model, card, ref_dir)
+    secs["vlm_tower"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    main_paths, gm = vlm_main_path(model, tree, card, build_rec, tower)
+    paths.update(main_paths)
+    flat.update(gm)
+    secs["vlm_main_path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat["vlm_eval"] = vlm_eval_phase(model, card)
+    secs["vlm_eval"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat["vlm_two_layer"] = vlm_two_layer_phase(tree, card)
+    secs["vlm_two_layer_logits"] = time.perf_counter() - t0
+    del model, tree
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlm_gptq_phase(card)
+    secs["vlm_gptq"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vlm_probe_phase(card)
+    secs["vlm_probe"] = time.perf_counter() - t0
+    return secs, paths, flat
+
+
+def slice17_served_phases(packed, card: str) -> tuple:
+    """``frontends`` and ``cot_evals`` on the 32-layer MX-FP6 model;
+    returns (each phase's seconds, their launches by path)."""
+    secs, counts = {}, {}
+    for name, fn in (("frontends", frontends_phase),
+                     ("cot_evals", cot_evals_phase)):
+        t0 = time.perf_counter()
+        counts[name] = fn(packed, card)
+        secs[name] = time.perf_counter() - t0
+    return secs, counts
+
+
+def slice17_model_phases(card: str, secs: dict, counts: dict) -> None:
+    """``kv_accuracy``, ``families`` and ``hf_loading``, each on models of
+    its own: their seconds join ``secs``, the families' launches
+    ``counts``; then the ``slice17_phases`` line."""
+    for name, fn in (("kv_accuracy", kv_accuracy_phase),
+                     ("families", families_phase),
+                     ("hf_loading", hf_loading_phase)):
+        t0 = time.perf_counter()
+        out = fn(card)
+        secs[name] = time.perf_counter() - t0
+        if name == "families":
+            counts.update(out)
+    log(phase="slice17_phases", seconds=secs, total_s=sum(secs.values()),
+        card=card)
+
+
+# ``--only``: the sources each slice's phases launch, and the -k expression
+# of its card tests in tests/test_torch_kernels_gpu.py
+ONLY_SLICES = {
+    "slice17": (("dequant_gemv", "dequant_matmul", "quant_attention"),
+                "moe_router or alibi or safetensors"),
+    "slice18": (("dequant_gemv", "dequant_matmul", "nb_matmul"), "mx_"),
+    "slice19": (("dequant_gemv", "dequant_matmul", "nb_matmul",
+                 "quant_attention"), "posit or vq or tp_wrappers"),
+    "slice20": (("dequant_gemv", "dequant_matmul", "quant_attention"),
+                "llava"),
+}
+
+
+def only_main(which: str, tests: bool) -> int:
+    """``chip_smoke.py --only SLICE [--tests]``: one slice's phases alone
+    on the card, after its sources' build and, with ``tests``, its card
+    tests (their last lines printed)."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import build as cuda_build
+
+    sources, k = ONLY_SLICES[which]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    refs = start_cpu_references() if which == "slice18" else None
+    refs19 = start_cpu_references_19() if which == "slice19" else None
+    log(phase="build", seconds=cuda_build.build_all(sources), card=card)
+    if tests:
+        r = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-k", k,
+             "-p", "no:cacheprovider", "tests/test_torch_kernels_gpu.py"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True)
+        print(r.stdout[-3000:], r.stderr[-2000:], flush=True)
+    if which == "slice17":
+        packed, _ = build(True)
+        secs, counts = slice17_served_phases(packed, card)
+        del packed
+        torch.cuda.empty_cache()
+        slice17_model_phases(card, secs, counts)
+        return 0
+    if which == "slice18":
+        secs = slice18_phases(card, refs)
+    elif which == "slice19":
+        secs = slice19_phases(card, refs19)[0]
+    else:
+        ref_dir = tempfile.mkdtemp(prefix="vlm_tower_reference_")
+        log(phase="vlm_tower_reference",
+            seconds=vlm_tower_reference(ref_dir))
+        secs = slice20_phases(card, ref_dir)[0]
+    log(phase=f"{which}_phases", seconds=secs, total_s=sum(secs.values()),
+        card=card)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -6389,6 +7128,9 @@ def main(argv=None) -> int:
         return 2
     if argv[:1] == ["--tp-rank"] and len(argv) == 4:
         return tp_rank_main(int(argv[1]), int(argv[2]), argv[3])
+    if (argv[:1] == ["--only"] and len(argv) in (2, 3)
+            and argv[1] in ONLY_SLICES and argv[2:] in ([], ["--tests"])):
+        return only_main(argv[1], argv[2:] == ["--tests"])
     if argv[:1] == ["--cpu-references-19"] and len(argv) == 2:
         torch.set_num_threads(CPU_REFERENCE_THREADS)
         print(json.dumps(cpu_references_19(argv[1])), flush=True)
@@ -6397,7 +7139,8 @@ def main(argv=None) -> int:
                     ["--qattn-times"], ["--quant-times"],
                     ["--cpu-references"]):
         print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
-              "--qattn-times | --quant-times | --cpu-references]",
+              "--qattn-times | --quant-times | --cpu-references | "
+              "--only slice17|slice18|slice19|slice20 [--tests]]",
               file=sys.stderr)
         return 2
     if argv == ["--cpu-references"]:
@@ -6454,24 +7197,10 @@ def main(argv=None) -> int:
     gear_codecs_phase(card)
     host_codec_phase(card)
     log(phase="kv_policy_phases", seconds=time.perf_counter() - t0, card=card)
-    secs = {}
-    t0 = time.perf_counter()
-    newcounts = {"frontends": frontends_phase(packed, card)}
-    secs["frontends"] = time.perf_counter() - t0
-    newcounts["cot_evals"] = cot_evals_phase(packed, card)
-    secs["cot_evals"] = time.perf_counter() - t0 - sum(secs.values())
+    secs, newcounts = slice17_served_phases(packed, card)
     del packed
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    kv_accuracy_phase(card)
-    secs["kv_accuracy"] = time.perf_counter() - t0
-    newcounts.update(families_phase(card))
-    secs["families"] = time.perf_counter() - t0 - secs["kv_accuracy"]
-    hf_loading_phase(card)
-    secs["hf_loading"] = (time.perf_counter() - t0 - secs["kv_accuracy"]
-                          - secs["families"])
-    log(phase="slice17_phases", seconds=secs, total_s=sum(secs.values()),
-        card=card)
+    slice17_model_phases(card, secs, newcounts)
     secs18 = slice18_phases(card, refs)
     log(phase="slice18_phases", seconds=secs18,
         total_s=sum(secs18.values()), card=card)
@@ -6479,6 +7208,11 @@ def main(argv=None) -> int:
     secs19, tp_paths, flat19 = slice19_phases(card, refs19)
     log(phase="slice19_phases", seconds=secs19,
         total_s=sum(secs19.values()), card=card)
+    torch.cuda.empty_cache()
+    secs20, vlm_paths, flat20 = slice20_phases(card, refs19[1])
+    log(phase="slice20_phases", seconds=secs20,
+        total_s=sum(secs20.values()), card=card)
+    torch.cuda.empty_cache()
 
     orows = outlier_kernel_phase(card)
     ocounts = outlier_main_path(card)
@@ -6498,10 +7232,12 @@ def main(argv=None) -> int:
 
     print(json.dumps(kernels_line(rows, counts, qrows, qcounts, orows,
                                   {**ocounts, "gptq": gptq_counts,
-                                   **kvcounts, **newcounts, **tp_paths},
+                                   **kvcounts, **newcounts, **tp_paths,
+                                   **vlm_paths},
                                   irows, icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
-                                  grows, gcounts, rrows, rcounts, flat19)),
+                                  grows, gcounts, rrows, rcounts,
+                                  {**flat19, **flat20})),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

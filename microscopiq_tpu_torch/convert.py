@@ -16,6 +16,12 @@ float8 and bfloat16 codes travel bit-exact. Names are kept
 (``model/layers_{i}/self_attn/qkv_proj/kernel``, ``input_layernorm/scale``,
 ...).
 
+A LLaVA tree (``vision_tower`` with the patch embedding's conv kernel,
+``mm_projector``, the packed or dense language model under ``model``, the
+``lm_head``) crosses as it is: the conv kernel keeps flax's (kh, kw, in,
+out) layout, which the port's CLIP tower multiplies as it stands
+(``vlm/clip.py``'s ``PatchEmbedding``), so no leaf is transposed here.
+
 A quantized KV-cache state arrives as a mapping of ``QuantKVState`` field
 names to numpy arrays (``None`` for a GEAR field that is off).
 

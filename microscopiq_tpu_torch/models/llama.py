@@ -544,16 +544,32 @@ class LlamaModel(nn.Module):
              for _ in range(cfg.num_hidden_layers)])
         self.norm = _make_norm(cfg, mx_specs)
 
-    def forward(self, input_ids, positions=None, mask=None, cache=None):
-        B, S = input_ids.shape
+    def forward(self, input_ids, positions=None, mask=None, cache=None,
+                inputs_embeds=None, image_feats=None, image_token_mask=None):
+        """Hidden states after the final norm. ``inputs_embeds`` (B, S, D)
+        replaces the embedding of ``input_ids``; with ``image_token_mask``
+        (B, S) the ids under the mask are embedded as id 0, and with
+        ``image_feats`` (B, T, D) the masked slots then take the image
+        features in order (``vlm.llava.splice_image_features``), before
+        layer 0, as the JAX module does."""
+        ref = input_ids if inputs_embeds is None else inputs_embeds
+        B, S = ref.shape[:2]
         if positions is None:
-            positions = torch.arange(S, device=input_ids.device
+            positions = torch.arange(S, device=ref.device
                                      )[None, :].expand(B, S)
         if mask is None and cache is None:
             # the sliding window applies only here, as in JAX: no cached
             # path applies it
             mask = causal_mask(S, positions, self.cfg.sliding_window)
-        x = self.embed_tokens[input_ids]
+        if inputs_embeds is None:
+            safe_ids = (input_ids if image_token_mask is None else
+                        torch.where(image_token_mask, 0, input_ids))
+            x = self.embed_tokens[safe_ids]
+        else:
+            x = inputs_embeds
+        if image_feats is not None:
+            from ..vlm.llava import splice_image_features
+            x = splice_image_features(x, image_feats, image_token_mask)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, mask, cache, i)
         return self.norm(x)

@@ -194,11 +194,12 @@ def make_quantizer():
 
 def run(state_dicts, calib: np.ndarray, eval_ids: np.ndarray,
         device="cuda", only: Optional[Iterable[str]] = None,
-        log=print) -> Dict[str, float]:
+        log=print, layers: Optional[int] = None) -> Dict[str, float]:
     """The perplexities of the configs in ``only`` (default all) on
     ``device``; keys as ``parity_ref.py``'s results (``<config>``,
     ``<config>_packed``, ``_nb_packed``, ``_nb_bits_per_element``), with
-    ``<config>_s`` the seconds of each config."""
+    ``<config>_s`` the seconds of each config. ``layers`` cuts both models
+    to their first ``layers`` decoder layers (default all 12)."""
     from .. import resolve_device
     from ..eval.ppl import perplexity
     from ..models import LlamaConfig, LlamaForCausalLM, OPTConfig
@@ -220,7 +221,8 @@ def run(state_dicts, calib: np.ndarray, eval_ids: np.ndarray,
         res[name] = val
         log(f"{name}: {val}")
 
-    ocfg = OPTConfig(**MODEL_OPT)
+    depth = {} if layers is None else {"num_hidden_layers": layers}
+    ocfg = OPTConfig(**{**MODEL_OPT, **depth})
     oparams = convert_opt(_torch_state(state_dicts[0], dev), ocfg)
     calib_t = torch.as_tensor(calib.astype(np.int64), device=dev)
 
@@ -281,7 +283,7 @@ def run(state_dicts, calib: np.ndarray, eval_ids: np.ndarray,
             mx_linear_only=True))
         record("actquant_fp4w_int4a_block128_s", time.perf_counter() - t0)
     if todo & {"llama_dense", "llama_gptq_int2_fp4_block16"}:
-        lcfg = LlamaConfig(**MODEL_LLAMA)
+        lcfg = LlamaConfig(**{**MODEL_LLAMA, **depth})
         lparams = convert_llama(_torch_state(state_dicts[1], dev), lcfg)
 
         def lppl(params):

@@ -593,6 +593,11 @@ QATTN_CASES = {
                              Gh=3, rank=1, nfull=[5, 2]),
     "rep16_gap128": dict(B=1, KVH=2, rep=16, hd=64, C=3, gap=128, bits=8,
                          Gh=1, rank=8, nfull=[3]),
+    # LLaVA-1.5-7B's 4-bit KV decode: multi-head (rep 1), the last step's
+    # 659 live tokens (10 chunks, 19 in the residual window) in a 12-chunk
+    # cache
+    "llava_mha_rep1": dict(B=1, KVH=32, rep=1, hd=128, C=12, gap=64, bits=4,
+                           Gh=1, rank=0, nfull=[10], res=[19]),
 }
 
 
@@ -600,6 +605,7 @@ QATTN_CASES = {
 def test_quant_attention_matches_twin(cuda, case):
     c = dict(QATTN_CASES[case])
     nfull = torch.tensor(c.pop("nfull"), dtype=torch.int32, device=cuda)
+    c.pop("res", None)
     ops, lowrank = qattn_operands(**c, seed=len(case), device=cuda)
     args = (*ops, nfull, c["hd"] ** -0.5, c["gap"], c["bits"])
     qa.reset_launch_counts()
@@ -716,10 +722,10 @@ def qattn_decode_state(B, KVH, rep, hd, C, gap, bits, Gh, rank, seed, device,
 
 
 def _decode_lengths(c):
-    """Live lengths of a QATTN_CASES case: its folded chunks plus a
-    residual count that varies by slot (0 included)."""
-    return [n * c["gap"] + (5 * i) % c["gap"]
-            for i, n in enumerate(c["nfull"])]
+    """Live lengths of a QATTN_CASES case: its folded chunks plus its
+    residual counts, or one that varies by slot (0 included)."""
+    res = c.get("res") or [(5 * i) % c["gap"] for i in range(c["B"])]
+    return [n * c["gap"] + r for n, r in zip(c["nfull"], res)]
 
 
 @pytest.mark.parametrize("case", sorted(QATTN_CASES))
@@ -730,7 +736,8 @@ def test_quant_decode_matches_twin(cuda, case, qdtype):
     lengths; one launch a call."""
     c = dict(QATTN_CASES[case])
     B, KVH, rep, hd = c["B"], c["KVH"], c["rep"], c["hd"]
-    full = qattn_decode_state(**{k: v for k, v in c.items() if k != "nfull"},
+    full = qattn_decode_state(**{k: v for k, v in c.items()
+                                 if k not in ("nfull", "res")},
                               seed=len(case) + 7, device=cuda)
     q = torch.randn((B, KVH * rep, hd), generator=torch.Generator(
         ).manual_seed(3)).to(qdtype).to(cuda)
@@ -2681,3 +2688,109 @@ def test_tp_wrappers_dense_row_partial_in_float32(cuda, dtype):
                  / want.abs().max()) <= 1e-5
     # unrounded: most values are no half-precision number
     assert float((y.to(dtype).float() != y).float().mean()) > 0.5
+
+
+def test_llava_tower_and_projector_on_card_match_cpu(cuda):
+    """The CLIP tower and projector (float32, plain matmuls, TF32 off) on
+    the card against the same weights and pixels on the CPU: tower
+    features within 1e-4 of max |CPU|, projected ones within 2^-7 of max
+    (the projector runs in the text dtype, bf16)."""
+    from microscopiq_tpu_torch.models.llama import LlamaConfig, install_tree
+    from microscopiq_tpu_torch.vlm import CLIPVisionConfig, LlavaConfig
+    from microscopiq_tpu_torch.vlm.llava import (_vision_modules,
+                                                 build_llava_params)
+
+    cfg = LlavaConfig(
+        text=LlamaConfig.tiny(hidden_size=256, dtype=torch.bfloat16),
+        vision=CLIPVisionConfig(num_hidden_layers=3, image_size=112))
+    tree = build_llava_params(cfg, seed=3, device="cpu")["params"]
+    pix = torch.randn((2, 112, 112, 3), generator=torch.Generator(
+    ).manual_seed(4))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tower, proj = _vision_modules(cfg)
+        def to(node):
+            return ({k: to(v) for k, v in node.items()}
+                    if isinstance(node, dict) else node.to(dev))
+        moved = to({k: tree[k] for k in ("vision_tower", "mm_projector")})
+        install_tree(tower, moved["vision_tower"], torch.device(dev))
+        install_tree(proj, moved["mm_projector"], torch.device(dev))
+        with torch.no_grad():
+            f = tower(pix.to(dev))
+            out[dev] = (f.cpu(), proj(f).float().cpu())
+    (fc, pc), (fg, pg) = out["cpu"], out["cuda"]
+    assert fg.shape == (2, 64, 1024)
+    assert (fg - fc).abs().max() <= 1e-4 * fc.abs().max()
+    assert (pg - pc).abs().max() <= 2.0 ** -7 * pc.abs().max()
+
+
+@pytest.mark.parametrize("kv", ["dense", "quant4"])
+def test_llava_two_layers_kernels_match_plain(cuda, kv):
+    """A 2-layer LLaVA at LLaVA-1.5-7B width (tower cut to 2 layers),
+    MX-FP6 emi8 language model: a prefill with the image through the emi8
+    GEMM and a decode step through the GEMV, over the dense cache or the
+    4-bit one (``QuantKVConfig(bits=4, gap=64)``: the kernels' step takes
+    quant_attention at rep 1, the plain model's ``cache.update``), both
+    models fed the kernels' greedy token, against the plain versions within
+    4e-2 of max |logit| (chip_smoke.py's LOGIT_REL_TOL), the launches
+    those paths imply."""
+    from microscopiq_tpu_torch.kv.cache import (DenseDecodeCache,
+                                                QuantizedDecodeCache,
+                                                QuantKVConfig,
+                                                init_dense_cache,
+                                                init_quant_cache)
+    from microscopiq_tpu_torch.models.llama import LlamaConfig
+    from microscopiq_tpu_torch.nn import fuse_projections
+    from microscopiq_tpu_torch.specs import finalize_mx_specs
+    from microscopiq_tpu_torch.vlm import (CLIPVisionConfig, LlavaConfig,
+                                           LlavaForCausalLM)
+    from microscopiq_tpu_torch.vlm.llava import build_llava_params
+
+    cfg = LlavaConfig(
+        text=LlamaConfig(num_hidden_layers=2, dtype=torch.bfloat16,
+                         fused_projections=True),
+        vision=CLIPVisionConfig(num_hidden_layers=2))
+    specs = finalize_mx_specs({"w_elem_format": "fp6_e3m2",
+                               "scale_bits": 8, "block_size": 32})
+    tree = fuse_projections(build_llava_params(
+        cfg, seed=5, packed_specs=specs, device="cuda")["params"])
+    S, T = 600, cfg.num_image_tokens
+    ids = torch.randint(3, 32000, (1, S), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+    mask = torch.zeros((1, S), dtype=torch.bool, device="cuda")
+    mask[0, 5:5 + T] = True
+    pix = torch.randn((1, 336, 336, 3), device="cuda")
+    qcfg = QuantKVConfig(bits=4, gap=64)
+    if kv == "dense":
+        make = lambda: DenseDecodeCache(  # noqa: E731
+            init_dense_cache(2, 1, S + 8, 32, 128, device="cuda"))
+        rewrap = DenseDecodeCache
+    else:
+        make = lambda: QuantizedDecodeCache(  # noqa: E731
+            init_quant_cache(2, 1, 704, 32, 128, qcfg, device="cuda"), qcfg)
+        rewrap = lambda st: QuantizedDecodeCache(st, qcfg)  # noqa: E731
+    logits, feed = {}, None
+    for use in (True, False):
+        m = LlavaForCausalLM(cfg, use_kernels=use).load_params(tree)
+        cache = make()
+        dm.reset_launch_counts()
+        qa.reset_launch_counts()
+        with torch.no_grad():
+            a = m(ids, cache=cache, pixel_values=pix, image_token_mask=mask,
+                  last_only=True)
+            pre = dict(dm.launch_counts)
+            feed = a[:, -1].argmax(-1)[:, None] if feed is None else feed
+            cache = rewrap(cache.finalize())
+            b = m(feed, cache=cache,
+                  positions=torch.full((1, 1), S, device="cuda"))
+        logits[use] = (a.float(), b.float(), pre, dict(dm.launch_counts),
+                       qa.launch_counts["quant_attention"])
+    (ka, kb, pre, post, kq), (pa, pb, ppre, ppost, pq) = (logits[True],
+                                                          logits[False])
+    assert pre["dequant_matmul_emi8"] == 8 and pre["dequant_gemv_emi8"] == 0
+    assert post["dequant_gemv_emi8"] == 8
+    assert kq == (2 if kv == "quant4" else 0)
+    assert sum(ppost.values()) == 0 and pq == 0
+    for k, p in ((ka, pa), (kb, pb)):
+        assert torch.isfinite(k).all()
+        assert (k - p).abs().max() <= 4e-2 * p.abs().max()

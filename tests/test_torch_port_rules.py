@@ -64,6 +64,29 @@ def test_posit_vq_parallel_and_their_scripts_import_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+_SLICE20 = tuple(f"microscopiq_tpu_torch.vlm.{m}" for m in (
+    "clip", "projector", "llava", "mm_utils", "eval_vqa", "driver", "delta",
+    "evaluators", "textvqa", "mmbench", "gpt_review", "conversation")) + (
+    "microscopiq_tpu_torch.vlm", "microscopiq_tpu_torch.scripts.vlm_probe")
+
+
+def test_vlm_modules_and_the_probe_import_no_jax():
+    """The rule holds for every module of the port's vlm package and the
+    VLM probe script, each imported alone."""
+    code = ("import importlib, sys\n"
+            f"for n in {_SLICE20!r}:\n"
+            "    importlib.import_module(n)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'flax')) or "
+            "m == 'microscopiq_tpu' or m.startswith('microscopiq_tpu.'))\n"
+            "print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def _need_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -174,6 +197,25 @@ def test_cuda_entry_points_raise_without_a_card():
     for kind in ("quant", "h2o"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BatchEngine(cpu_model, cache_kind=kind)
+    from microscopiq_tpu_torch.scripts import vlm_probe
+    from microscopiq_tpu_torch.vlm import LlavaConfig, LlavaForCausalLM
+    from microscopiq_tpu_torch.vlm.delta import main as delta_main
+    from microscopiq_tpu_torch.vlm.llava import build_llava_params
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlavaForCausalLM(LlavaConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlavaForCausalLM(LlavaConfig.tiny())
+    LlavaForCausalLM(LlavaConfig.tiny(), device="cpu")  # the CPU when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_llava_params(LlavaConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        delta_main(["consolidate", "--src", "checkpoint-that-is-never-read",
+                    "--dst", "never-written"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vlm_probe.main()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vlm_probe.main(["--steps", "1"])
 
 
 def test_kernel_wrappers_reject_cpu_weights_for_cuda_inputs():
