@@ -291,14 +291,7 @@ the three phases' seconds:
     weight, card = CPU bit for bit; VQQuantizer (bits 3, vec_dim 2) on a
     4096 x 4096 q_proj with the CPU's k-means++ draws: equal assignments
     (>= 99%), MSE within 1%. The CPU side runs in a second background
-    process (``--cpu-references-19``), with the parity grid's dense and
-    RTN configs.
-39. ``parity_grid``: ``scripts.parity``'s eight configs (vocabulary
-    4096, hidden 512) on the card from seeded weights: dense, Llama dense
-    and RTN MX-FP6 (fake and packed) at 12 layers within 0.1 perplexity of
-    the CPU; the GPTQ (plain, act-order, static groups, with its emi8m and
-    compact-NB serving trees; Llama) and activation-quantized configs
-    reported, finite, at their first 4 layers (cut for the run's time).
+    process (``--cpu-references-19``).
 
 Slice 20, the LLaVA-1.5 stack at LLaVA-1.5-7B width (``LlavaConfig()``:
 the Vicuna-7B text tower in bf16 with fused projections, its linears
@@ -311,12 +304,12 @@ and a question, tokenized by ``serve.stack.Crc32Tok(32000)`` and expanded
 to 576 image slots; the image a seeded uint8 480 x 640 x 3 array
 (``process_images`` pads it square, then resizes it to 336):
 
-40. ``vlm_tower``: one image through the tower and the projector on the
+39. ``vlm_tower``: one image through the tower and the projector on the
     card against the port's CPU run of the same weights and pixels (the
     second background process, ``--cpu-references-19``, makes it after
     the slice-19 references): features within 1e-4, projected features
     within 2^-7 of max |CPU|; their CUDA-event times;
-41. ``vlm_main_path``: 32 layers, B = 1, a prefill with the image and 32
+40. ``vlm_main_path``: 32 layers, B = 1, a prefill with the image and 32
     greedy decode steps replayed from a CUDA graph (``DecodeStep``), held
     bit for bit to an eager run (``graph_vs_eager``, arm ``llava``) and to
     ``vlm.generate_mm`` (the entry point: its tokens, and its launches as
@@ -329,24 +322,58 @@ to 576 image slots; the image a seeded uint8 480 x 640 x 3 array
     gap=64)``): 32 quantized attention launches a step more, its tokens
     equal to ``generate_mm``'s over the same cache, agreement with the
     dense arm's;
-42. ``vlm_eval``: ``vlm.eval_vqa`` on that model, 3 seeded questions and
+41. ``vlm_eval``: ``vlm.eval_vqa`` on that model, 3 seeded questions and
     images, 8 new tokens, ``num_chunks=2`` merged by
     ``merge_answer_chunks``: each answer's tokens equal to a
     ``generate_mm`` call of its own;
-43. ``vlm_two_layer_logits``: its first 2 layers through the kernels
+42. ``vlm_two_layer_logits``: its first 2 layers through the kernels
     against the plain versions: the prefill's logits with the image and
     one teacher-forced decode step over the dense cache and over the 4-bit
     one (the kernels' step 8 GEMVs and 2 quantized attentions, the plain
     model's ``cache.update``) within LOGIT_REL_TOL; doubled pixels move
     the last logits; a text-only forward is finite;
-44. ``vlm_gptq``: ``vlm.llava_sequential`` on one layer of the full-width
+43. ``vlm_gptq``: ``vlm.llava_sequential`` on one layer of the full-width
     model (float32 text tower, 2 calibration prompts with images,
     ``nsamples_batch=2``): tower and projector bit-unchanged, every layer-0
     kernel changed, the result's forward finite, seconds by stage;
-45. ``vlm_probe``: ``scripts.vlm_probe`` on the card at its 1200 steps: six
+44. ``vlm_probe``: ``scripts.vlm_probe`` on the card at its 1200 steps: six
     accuracies, five ordering checks (a check that fails there fails the
     phase only where the CPU run of the same seed passes it; that run is
     made only then, on every core), seconds.
+
+Slice 21, the parity models' trainer and the KV-method comparison, then
+``slice21_phases`` with each phase's seconds:
+
+45. ``parity_train`` (logged right after ``build``): ``scripts.parity.
+    prepare`` on the card: the grid's OPT (vocabulary 4096, hidden 512,
+    FFN 2048, 12 layers) and Llama (intermediate 1536, 4 KV heads) trained
+    from ``seeded_state_dicts(0)`` for 800 AdamW steps each on the Markov
+    stream's training split (16 crops of 256 tokens a step,
+    ``parity_ref.py prepare``'s recipe), in a process of its own
+    (``--parity-train DIR``) started before the build, so that it trains
+    on the card while nvcc runs (plain PyTorch: no kernel of the port's
+    own); the run waits for it before its first card phase. Each model's
+    loss every 100 steps, its seconds and the wait; the weights go to a
+    temporary directory, where a third background process
+    (``--cpu-references-21 DIR``, started with the slice-21 phases)
+    computes the grid's held configs on them on the CPU, and
+    ``gear_compare``'s CPU run.
+46. ``parity_grid``: ``scripts.parity``'s eight configs on the card on
+    the trained weights: dense, Llama dense and RTN MX-FP6 (fake and
+    packed) at 12 layers within 0.1 perplexity of the CPU on the same
+    weights; the canonical GPTQ config (int2 + fp4 outliers, block 16) at
+    12 layers, its emi8m GEMM and compact-NB GEMM serving trees within 0.1
+    of its fake-quant perplexity (the dequantized weights, plain matmuls);
+    act-order, g128 static groups, activation quantization and Llama GPTQ
+    reported, finite, at their first PARITY_REPORTED_LAYERS layers; the
+    trained dense perplexities beside ``PARITY_r05.json``'s (other
+    weights: a report); launches by kernel.
+47. ``gear_compare``: ``scripts.gear_compare`` at its toy size (eight KV
+    methods, teacher-forced decode through ``DecodeStep``, the GSM8K
+    pipeline) on the card against its CPU run on the same seeded weights:
+    each decode perplexity within GEAR_PPL_RTOL, both compression ratios
+    and every route equal, the quantized attention launched exactly by
+    the methods whose route is ``fused``, both GSM8K runs complete.
 
 The line before the last is the card's name and power limit, the one before
 it ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -394,9 +421,11 @@ computes only the CPU runs that ``actquant_ppl`` and ``train_main_path``
 hold the card against and prints them as one JSON line; the whole run
 starts it in a process of its own after the build, on 2 of the host's
 cores, so that it overlaps the card's phases (``--cpu-references-19
-DIR`` likewise for the slice-19 phases and the slice-20 tower).
+DIR`` likewise for the slice-19 phases and the slice-20 tower;
+``--cpu-references-21 DIR`` for the slice-21 phases, started once the
+trained weights are in DIR).
 
-    python3 chip_smoke.py --only slice17|slice18|slice19|slice20 [--tests]
+    python3 chip_smoke.py --only slice17|slice18|slice19|slice20|slice21 [--tests]
 
 runs one slice's phases alone (quicker than the whole script while
 iterating): builds the sources they launch, starts the CPU references
@@ -5335,13 +5364,14 @@ def start_cpu_references():
     return proc
 
 
-def await_cpu_references(proc) -> dict:
-    """The JSON line of the process :func:`start_cpu_references` began;
-    raises if it failed."""
+def await_cpu_references(proc, what: str = "the CPU references") -> dict:
+    """The JSON line of a process that :func:`start_cpu_references` (or
+    another ``start_*``) began, with the seconds waited; raises if it
+    failed."""
     t0 = time.perf_counter()
     out, _ = proc.communicate(timeout=900)
     if proc.returncode:
-        raise RuntimeError(f"the CPU references exited {proc.returncode}")
+        raise RuntimeError(f"{what} exited {proc.returncode}")
     ref = json.loads(out.strip().splitlines()[-1])
     ref["waited_s"] = time.perf_counter() - t0
     return ref
@@ -5658,21 +5688,33 @@ VQ_SHAPE = (4096, 4096)              # q_proj
 VQ_AGREE = 0.99                      # share of equal assignments, card/CPU
 VQ_MSE_REL_TOL = 1e-2
 PARITY_DPPL = 0.1
-# configs held to the CPU's perplexity on the card (the others reported)
+# configs held to the CPU's perplexity on the card, on the same weights
 PARITY_HELD = ("dense", "rtn_mxfp6_block32", "rtn_mxfp6_block32_packed",
                "llama_dense")
 # the configs (``scripts.parity`` names) the CPU reference computes and the
 # card runs at the grid's 12 layers: the held ones
 PARITY_RUN = ("dense", "rtn_mxfp6_block32", "llama_dense")
-# the others, only reported (GPTQ plain, act-order, static groups, with its
-# emi8m and compact-NB serving trees; actquant; Llama GPTQ), run on the
-# card at the first PARITY_REPORTED_LAYERS layers: at 12 they took ~163 s
-# of the phase's 169.4 on an H100, cut for the run's time
-PARITY_REPORTED = ("gptq_int2_fp4_block16", "gptq_int2_fp4_block16_actorder",
+# the canonical GPTQ config, at 12 layers on the card: its serving trees
+# (emi8m GEMM, compact-NB GEMM) held to its fake-quant perplexity
+PARITY_CANONICAL = "gptq_int2_fp4_block16"
+PARITY_SERVING = ("_packed", "_nb_packed")
+# the others, only reported (act-order, static groups, actquant, Llama
+# GPTQ), run on the card at the first PARITY_REPORTED_LAYERS layers, cut
+# for the run's time: on an H100 these four took 53.4 s at 4 layers and
+# 32.6 s at 2 in whole runs (the five GPTQ and actquant configs ~163 s at
+# 12)
+PARITY_REPORTED = ("gptq_int2_fp4_block16_actorder",
                    "gptq_int2_fp4_g128_static",
                    "actquant_fp4w_int4a_block128",
                    "llama_gptq_int2_fp4_block16")
-PARITY_REPORTED_LAYERS = 4
+PARITY_REPORTED_LAYERS = 1
+# the JAX package's trained dense perplexities (PARITY_r05.json; its own
+# trained weights, so a report beside the card's, not a bound)
+PARITY_R05_DENSE = {"dense": 274.88, "llama_dense": 25.20}
+GEAR_SEED = 0
+# gear_compare's decode perplexities, card against CPU (relative): float32
+# sums in other orders, the fused route's query in bf16 on both
+GEAR_PPL_RTOL = 1e-4
 
 
 def tp_config(layers: int = 32):
@@ -6328,26 +6370,19 @@ def vq_run(device, draws=None) -> dict:
 
 def cpu_references_19(out_dir: str) -> dict:
     """The CPU runs the slice-19 phases hold the card against: the posit
-    digests, VQ on the q_proj (its draws, centroids, MSE; the assignments
-    as ``vq_assign.npy`` in ``out_dir``) and the parity grid's dense and
-    RTN configs, with their seconds; then the slice-20 tower's
-    (:func:`vlm_tower_reference`, in ``out_dir`` too)."""
-    from microscopiq_tpu_torch.scripts import parity
-
+    digests and VQ on the q_proj (its draws, centroids, MSE; the
+    assignments as ``vq_assign.npy`` in ``out_dir``), with their seconds;
+    then the slice-20 tower's (:func:`vlm_tower_reference`, in ``out_dir``
+    too)."""
     t0 = time.perf_counter()
     posit = posit_digests("cpu")
     t1 = time.perf_counter()
     vq = vq_run("cpu")
     np.save(os.path.join(out_dir, "vq_assign.npy"),
             vq["assign"].numpy().astype(np.uint8))
-    t2 = time.perf_counter()
-    calib, eval_ids = parity.make_tokens()
-    grid = parity.run(parity.seeded_state_dicts(0), calib, eval_ids, "cpu",
-                      only=PARITY_RUN, log=lambda s: None)
-    parity_s = time.perf_counter() - t2
     return dict(posit=posit, posit_s=t1 - t0, vq_draws=vq["draws"],
-                vq_centroids=vq["centroids"].tolist(), vq_mse=vq["mse"], vq_s=vq["seconds"], parity=grid,
-                parity_s=parity_s, vlm_tower_s=vlm_tower_reference(out_dir),
+                vq_centroids=vq["centroids"].tolist(), vq_mse=vq["mse"],
+                vq_s=vq["seconds"], vlm_tower_s=vlm_tower_reference(out_dir),
                 threads=CPU_REFERENCE_THREADS)
 
 
@@ -6412,43 +6447,8 @@ def posit_vq_phase(card: str, ref: dict, ref_dir: str) -> None:
                              f"{mse_rel} apart")
 
 
-def parity_grid_phase(card: str, ref: dict) -> dict:
-    """The eight parity configs (``scripts.parity``) on the card from one
-    set of seeded weights: the held ones (PARITY_RUN) at 12 layers, each
-    perplexity against the CPU's (dense, RTN MX-FP6 fake and packed, Llama
-    dense: |Δppl| <= 0.1); the others reported, at PARITY_REPORTED_LAYERS
-    layers, finite. Returns the launches of the run."""
-    from microscopiq_tpu_torch.scripts import parity
-
-    t0 = time.perf_counter()
-    calib, eval_ids = parity.make_tokens()
-    sds = parity.seeded_state_dicts(0)
-    reset_counts()
-    res = parity.run(sds, calib, eval_ids, "cuda", only=PARITY_RUN,
-                     log=lambda s: None)
-    held_s = time.perf_counter() - t0
-    reported = parity.run(sds, calib, eval_ids, "cuda", only=PARITY_REPORTED,
-                          log=lambda s: None, layers=PARITY_REPORTED_LAYERS)
-    counts = {k: v for k, v in launches().items() if v}
-    cpu = ref["parity"]
-    deltas = {k: res[k] - cpu[k] for k in cpu if not k.endswith("_s")}
-    bad = {k: d for k, d in deltas.items() if k in PARITY_HELD
-           and not abs(d) <= PARITY_DPPL}
-    if set(PARITY_HELD) - set(deltas):
-        bad["missing"] = sorted(set(PARITY_HELD) - set(deltas))
-    log(phase="parity_grid", ppl_card=res, ppl_cpu=cpu, delta=deltas,
-        held=list(PARITY_HELD), tol=PARITY_DPPL,
-        ppl_card_reported=reported, reported_layers=PARITY_REPORTED_LAYERS,
-        launches=counts, held_s=held_s,
-        seconds=time.perf_counter() - t0, card=card)
-    if bad or not all(np.isfinite(v) for v in (*res.values(),
-                                               *reported.values())):
-        raise AssertionError(f"parity_grid: {bad}, reported {reported}")
-    return counts
-
-
 def slice19_phases(card: str, refs19) -> tuple:
-    """``tp_main_path``, ``tp_check``, ``posit_vq`` and ``parity_grid``;
+    """``tp_main_path``, ``tp_check`` and ``posit_vq``;
     returns (each phase's seconds, the launch counts by path for the
     kernels line, flat launch counts)."""
     secs, paths, flat = {}, {}, {}
@@ -6464,15 +6464,12 @@ def slice19_phases(card: str, refs19) -> tuple:
     ref = await_cpu_references(proc)
     secs["cpu_references_19_wait"] = time.perf_counter() - t0
     log(phase="cpu_references_19", posit_s=ref["posit_s"], vq_s=ref["vq_s"],
-        parity_s=ref["parity_s"], vlm_tower_s=ref["vlm_tower_s"],
+        vlm_tower_s=ref["vlm_tower_s"],
         threads=ref["threads"],
         waited_s=ref["waited_s"], card=card)
     t0 = time.perf_counter()
     posit_vq_phase(card, ref, ref_dir)
     secs["posit_vq"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flat["parity_grid"] = parity_grid_phase(card, ref)
-    secs["parity_grid"] = time.perf_counter() - t0
     return secs, paths, flat
 
 
@@ -7031,6 +7028,241 @@ def slice20_phases(card: str, ref_dir: str) -> tuple:
     return secs, paths, flat
 
 
+# ---------------------------------------------------------------------------
+# Slice 21: the parity models' trainer and the KV-method comparison
+# ---------------------------------------------------------------------------
+def parity_train(out_dir: str) -> dict:
+    """``chip_smoke.py --parity-train DIR``: ``scripts.parity.prepare`` on
+    the card into ``out_dir`` (both grid models, TRAIN_STEPS steps each);
+    returns prepare's record."""
+    import torch
+
+    from microscopiq_tpu_torch.scripts import parity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return parity.prepare(out_dir, "cuda",
+                          log=lambda s: print(s, file=sys.stderr, flush=True))
+
+
+def start_parity_train():
+    """:func:`parity_train` in a process of its own, started before the
+    kernels build: the training runs plain PyTorch only, on a card that
+    is idle while nvcc runs. Returns (process, its directory)."""
+    import atexit
+    import subprocess
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="parity_trained_")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parity-train",
+         out_dir], stdout=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out_dir
+
+
+def parity_train_phase(card: str, started) -> tuple:
+    """Waits for :func:`start_parity_train`'s process and logs each
+    model's loss every 100 steps (and at the last), its seconds and the
+    wait; raises unless both losses fell. Returns (the weights' directory,
+    the seconds waited)."""
+    from microscopiq_tpu_torch.scripts import parity
+
+    proc, out_dir = started
+    rec = await_cpu_references(proc, "the parity training")
+    every = {}
+    for name in ("opt", "llama"):
+        losses = rec[name + "_losses"]
+        every[name] = {i: losses[i] for i in (*range(0, len(losses), 100),
+                                               len(losses) - 1)}
+    log(phase="parity_train", steps=rec["steps"], batch=parity.TRAIN_BATCH,
+        seqlen=parity.SEQLEN, opt_s=rec["opt_s"], llama_s=rec["llama_s"],
+        loss_every_100=every, waited_s=rec["waited_s"],
+        overlapped="the kernels' build", card=card)
+    bad = [n for n in every if not (np.isfinite(list(every[n].values())).all()
+                                    and every[n][rec["steps"] - 1]
+                                    < every[n][0])]
+    if bad:
+        raise AssertionError(f"parity_train: {bad} did not train: {every}")
+    return out_dir, rec["waited_s"]
+
+
+def cpu_references_21(weights_dir: str) -> dict:
+    """The CPU runs the slice-21 phases hold the card against: the grid's
+    held configs (PARITY_RUN, 12 layers) on the trained weights in
+    ``weights_dir``, and ``scripts.gear_compare`` on its seeded weights,
+    with their seconds."""
+    from microscopiq_tpu_torch.scripts import gear_compare, parity
+
+    t0 = time.perf_counter()
+    _, calib, eval_ids = parity.make_tokens()
+    grid = parity.run(parity.load_state_dicts(weights_dir), calib, eval_ids,
+                      "cpu", only=PARITY_RUN, log=lambda s: None)
+    t1 = time.perf_counter()
+    gear = gear_compare.run("cpu", GEAR_SEED)
+    return dict(parity=grid, parity_s=t1 - t0, gear=gear,
+                gear_s=time.perf_counter() - t1,
+                threads=CPU_REFERENCE_THREADS)
+
+
+def start_cpu_references_21(weights_dir: str):
+    """``chip_smoke.py --cpu-references-21 DIR`` in a process of its own,
+    on CPU_REFERENCE_THREADS threads."""
+    import atexit
+    import subprocess
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-references-21",
+         weights_dir], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS=str(CPU_REFERENCE_THREADS)))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def gear_compare_card() -> tuple:
+    """``scripts.gear_compare`` on the card: (its result, each method's
+    launches by kernel, the launches of the whole run)."""
+    from microscopiq_tpu_torch.scripts import gear_compare
+
+    by_method = {}
+
+    def after(name):
+        by_method[name] = {k: v for k, v in launches().items() if v}
+        reset_counts()
+
+    reset_counts()
+    res = gear_compare.run("cuda", GEAR_SEED, after=after)
+    total = {}
+    for counts in (*by_method.values(), launches()):
+        for k, v in counts.items():
+            if v:
+                total[k] = total.get(k, 0) + v
+    return res, by_method, total
+
+
+def gear_compare_phase(card: str, run: tuple, ref: dict) -> dict:
+    """Holds :func:`gear_compare_card`'s run to the CPU's (decode
+    perplexities within GEAR_PPL_RTOL, compression ratios and routes
+    equal, the quantized attention launched by exactly the ``fused``
+    methods, both GSM8K runs complete); returns its launches."""
+    res, by_method, total = run
+    card_rows = res["teacher_forced_decode"]
+    cpu_rows = ref["gear"]["teacher_forced_decode"]
+    rel = {m: abs(r["decode_ppl"] - cpu_rows[m]["decode_ppl"])
+           / cpu_rows[m]["decode_ppl"] for m, r in card_rows.items()}
+    qattn = {m: c.get("quant_attention", 0) for m, c in by_method.items()}
+    bad = [m for m in cpu_rows if m not in card_rows]
+    for m, r in card_rows.items():
+        c = cpu_rows[m]
+        if not rel[m] <= GEAR_PPL_RTOL:
+            bad.append(f"{m} decode_ppl")
+        for k in ("kv_compression_ratio", "ratio_at_llama8b_dims", "route"):
+            if r[k] != c[k]:
+                bad.append(f"{m} {k}")
+        if (qattn.get(m, 0) > 0) != (r["route"] == "fused"):
+            bad.append(f"{m} quant_attention launches {qattn.get(m)}")
+    gsm = res["gsm8k_synthetic"]
+    if sorted(gsm) != sorted(ref["gear"]["gsm8k_synthetic"]) or any(
+            g["n"] != ref["gear"]["gsm8k_synthetic"][m]["n"]
+            for m, g in gsm.items()):
+        bad.append(f"gsm8k {gsm}")
+    log(phase="gear_compare", card_rows=card_rows, cpu_rows=cpu_rows,
+        decode_ppl_rel=rel, tol=GEAR_PPL_RTOL,
+        routes={m: r["route"] for m, r in card_rows.items()},
+        quant_attention_launches=qattn, launches_by_method=by_method,
+        gsm8k_card=gsm, gsm8k_cpu=ref["gear"]["gsm8k_synthetic"],
+        decode_s=res["decode_s"], gsm8k_s=res["gsm8k_s"],
+        cpu_s=ref["gear_s"], card=card)
+    if bad:
+        raise AssertionError(f"gear_compare: {bad}")
+    return total
+
+
+def parity_grid_card(weights_dir: str) -> dict:
+    """The grid on the card on the trained weights in ``weights_dir``: the
+    held configs and the canonical GPTQ config at 12 layers, the others
+    at PARITY_REPORTED_LAYERS; with the launches and the seconds."""
+    from microscopiq_tpu_torch.scripts import parity
+
+    sds = parity.load_state_dicts(weights_dir)
+    _, calib, eval_ids = parity.make_tokens()
+    out = {}
+    reset_counts()
+    for key, only, layers in (("held", PARITY_RUN, None),
+                              ("canonical", (PARITY_CANONICAL,), None),
+                              ("reported", PARITY_REPORTED,
+                               PARITY_REPORTED_LAYERS)):
+        t0 = time.perf_counter()
+        out[key] = parity.run(sds, calib, eval_ids, "cuda", only=only,
+                              log=lambda s: None, layers=layers)
+        out[key + "_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in launches().items() if v}
+    return out
+
+
+def parity_grid_phase(card: str, grid: dict, ref: dict) -> dict:
+    """Holds :func:`parity_grid_card`'s run: the held configs within
+    PARITY_DPPL of the CPU's on the same weights; the canonical config's
+    emi8m and compact-NB serving trees within PARITY_DPPL of its
+    fake-quant perplexity; every perplexity finite. Returns the
+    launches."""
+    cpu, held = ref["parity"], grid["held"]
+    deltas = {k: held[k] - cpu[k] for k in cpu if not k.endswith("_s")}
+    bad = {k: d for k, d in deltas.items() if k in PARITY_HELD
+           and not abs(d) <= PARITY_DPPL}
+    if set(PARITY_HELD) - set(deltas):
+        bad["missing"] = sorted(set(PARITY_HELD) - set(deltas))
+    canon = grid["canonical"]
+    fake = canon[PARITY_CANONICAL]
+    serving = {k: canon[PARITY_CANONICAL + k] - fake for k in PARITY_SERVING}
+    bad.update({k: d for k, d in serving.items()
+                if not abs(d) <= PARITY_DPPL})
+    ppls = [v for part in ("held", "canonical", "reported")
+            for k, v in grid[part].items()
+            if not k.endswith("_s") and not k.endswith("_per_element")]
+    log(phase="parity_grid", weights="trained on the card (parity_train)",
+        ppl_card=held, ppl_cpu=cpu, delta=deltas, held=list(PARITY_HELD),
+        tol=PARITY_DPPL, canonical=canon, serving_minus_fake=serving,
+        ppl_card_reported=grid["reported"],
+        reported_layers=PARITY_REPORTED_LAYERS,
+        trained_dense={k: held[k] for k in PARITY_R05_DENSE},
+        jax_r05_dense=PARITY_R05_DENSE, launches=grid["launches"],
+        held_s=grid["held_s"], canonical_s=grid["canonical_s"],
+        reported_s=grid["reported_s"], cpu_s=ref["parity_s"], card=card)
+    if bad or not all(np.isfinite(v) for v in ppls):
+        raise AssertionError(f"parity_grid: {bad}, {grid}")
+    return grid["launches"]
+
+
+def slice21_phases(card: str, trained: tuple) -> tuple:
+    """On the card ``gear_compare`` and the grid on the weights that
+    :func:`parity_train_phase` gave (``trained``: their directory and the
+    seconds waited for them), while the CPU references of both run in a
+    third process on those weights, then the checks of both; returns
+    (each phase's seconds, flat launch counts for the kernels line)."""
+    import torch
+
+    weights_dir, waited = trained
+    secs, flat = {"parity_train_wait": waited}, {}
+    proc = start_cpu_references_21(weights_dir)
+    t0 = time.perf_counter()
+    gear = gear_compare_card()
+    secs["gear_compare_card"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid = parity_grid_card(weights_dir)
+    secs["parity_grid_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = await_cpu_references(proc)
+    secs["cpu_references_21_wait"] = time.perf_counter() - t0
+    log(phase="cpu_references_21", parity_s=ref["parity_s"],
+        gear_s=ref["gear_s"], threads=ref["threads"],
+        waited_s=ref["waited_s"], card=card)
+    flat["gear_compare"] = gear_compare_phase(card, gear, ref)
+    flat["parity_grid"] = parity_grid_phase(card, grid, ref)
+    return secs, flat
+
+
 def slice17_served_phases(packed, card: str) -> tuple:
     """``frontends`` and ``cot_evals`` on the 32-layer MX-FP6 model;
     returns (each phase's seconds, their launches by path)."""
@@ -7069,6 +7301,9 @@ ONLY_SLICES = {
                  "quant_attention"), "posit or vq or tp_wrappers"),
     "slice20": (("dequant_gemv", "dequant_matmul", "quant_attention"),
                 "llava"),
+    "slice21": (("dequant_gemv", "dequant_matmul", "nb_matmul",
+                 "quant_attention", "mx_quant"),
+                "parity_train or gear_compare"),
 }
 
 
@@ -7090,7 +7325,9 @@ def only_main(which: str, tests: bool) -> int:
     print(card, flush=True)
     refs = start_cpu_references() if which == "slice18" else None
     refs19 = start_cpu_references_19() if which == "slice19" else None
+    train21 = start_parity_train() if which == "slice21" else None
     log(phase="build", seconds=cuda_build.build_all(sources), card=card)
+    trained = parity_train_phase(card, train21) if train21 else None
     if tests:
         r = subprocess.run(
             [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-k", k,
@@ -7109,6 +7346,8 @@ def only_main(which: str, tests: bool) -> int:
         secs = slice18_phases(card, refs)
     elif which == "slice19":
         secs = slice19_phases(card, refs19)[0]
+    elif which == "slice21":
+        secs = slice21_phases(card, trained)[0]
     else:
         ref_dir = tempfile.mkdtemp(prefix="vlm_tower_reference_")
         log(phase="vlm_tower_reference",
@@ -7131,16 +7370,19 @@ def main(argv=None) -> int:
     if (argv[:1] == ["--only"] and len(argv) in (2, 3)
             and argv[1] in ONLY_SLICES and argv[2:] in ([], ["--tests"])):
         return only_main(argv[1], argv[2:] == ["--tests"])
-    if argv[:1] == ["--cpu-references-19"] and len(argv) == 2:
-        torch.set_num_threads(CPU_REFERENCE_THREADS)
-        print(json.dumps(cpu_references_19(argv[1])), flush=True)
-        return 0
+    for flag, fn in (("--cpu-references-19", cpu_references_19),
+                     ("--cpu-references-21", cpu_references_21),
+                     ("--parity-train", parity_train)):
+        if argv[:1] == [flag] and len(argv) == 2:
+            torch.set_num_threads(CPU_REFERENCE_THREADS)
+            print(json.dumps(fn(argv[1])), flush=True)
+            return 0
     if argv not in ([], ["--gemm-times"], ["--gemv-times"],
                     ["--qattn-times"], ["--quant-times"],
                     ["--cpu-references"]):
         print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
               "--qattn-times | --quant-times | --cpu-references | "
-              "--only slice17|slice18|slice19|slice20 [--tests]]",
+              "--only slice17|slice18|slice19|slice20|slice21 [--tests]]",
               file=sys.stderr)
         return 2
     if argv == ["--cpu-references"]:
@@ -7170,11 +7412,13 @@ def main(argv=None) -> int:
     log(phase="device", name=name, count=count,
         torch=torch.__version__, cuda=torch.version.cuda)
 
+    train21 = start_parity_train()      # on the card while nvcc runs
     build_s = build.build_all()
     log(phase="build", seconds=build_s, ptxas=build.ptxas_report(),
         card=card)
     refs = start_cpu_references()       # read by the slice-18 phases
     refs19 = start_cpu_references_19()  # read by the slice-19 phases
+    trained21 = parity_train_phase(card, train21)
     sm90_build_line(card)
     # first, while the process is young: the profiler's windows lose
     # more kernel records at their start the older the process is
@@ -7213,6 +7457,10 @@ def main(argv=None) -> int:
     log(phase="slice20_phases", seconds=secs20,
         total_s=sum(secs20.values()), card=card)
     torch.cuda.empty_cache()
+    secs21, flat21 = slice21_phases(card, trained21)
+    log(phase="slice21_phases", seconds=secs21,
+        total_s=sum(secs21.values()), card=card)
+    torch.cuda.empty_cache()
 
     orows = outlier_kernel_phase(card)
     ocounts = outlier_main_path(card)
@@ -7237,7 +7485,7 @@ def main(argv=None) -> int:
                                   irows, icounts, tcounts, srows,
                                   scounts, mrows, mcounts, prows, pcounts,
                                   grows, gcounts, rrows, rcounts,
-                                  {**flat19, **flat20})),
+                                  {**flat19, **flat20, **flat21})),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,6 +29,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import resolve_device
+from .gear import _top_k
 
 _OVERFLOW_MSG = "cache holds {cap} chunks; a write at chunk {at} overflows it"
 
@@ -371,12 +372,13 @@ def _extract_outliers(chunk: torch.Tensor, k_out: int):
     """Zero the k_out smallest + k_out largest values of each (batch, head,
     chunk) window (GEAR-S). chunk: (B, KVH, nch, gap, hd) f32. Returns
     (cleaned, vals (B, KVH, nch, 2k), idx int32 of the same shape); idx is
-    flat into the chunk's row-major (gap * hd) window. Ties may be broken in
-    another order than ``lax.top_k``; the restored values are the same."""
+    flat into the chunk's row-major (gap * hd) window. Ties go to the lower
+    index, as in ``lax.top_k``: a chunk folded from the bf16 residual window
+    holds ties, and the value zeroed decides what the codes hold."""
     B, KVH, nch, gap, hd = chunk.shape
     flat = chunk.reshape(B, KVH, nch, gap * hd)
-    sval, sidx = torch.topk(-flat, k_out, dim=-1)
-    lval, lidx = torch.topk(flat, k_out, dim=-1)
+    sval, sidx = _top_k(-flat, k_out)
+    lval, lidx = _top_k(flat, k_out)
     vals = torch.cat([-sval, lval], dim=-1)
     idx = torch.cat([sidx, lidx], dim=-1).to(torch.int32)
     cleaned = _scatter_chunk_flat(flat, idx, torch.zeros_like(vals))

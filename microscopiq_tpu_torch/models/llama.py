@@ -336,6 +336,24 @@ class Attention(nn.Module):
             self.v_proj = mk("column", (D, KVH * hd))
         self.o_proj = mk("row", (H * hd, D))
 
+    def decode_route(self, cache) -> str:
+        """The route of a decode step over ``cache``: ``"fused"``, the
+        flash-decode kernel, where the model runs its kernels, the cache
+        is quantized with one K group a chunk, no residual window and no
+        GEAR-S outliers, and ``decode_route`` takes the geometry; else
+        ``"update"`` (``cache.update`` and the einsum attention)."""
+        cfg, c = self.cfg, getattr(cache, "cfg", None)
+        if (self.use_kernels and cfg.pos_emb == "rope"
+                and isinstance(cache, (QuantizedDecodeCache,
+                                       SlotQuantizedDecodeCache))
+                and c.n_k_groups == 1 and c.residual_len == 0
+                and c.out_k == 0
+                and decode_route(cfg.head_dim, self.heads // self.kv_heads,
+                                 c.gap, c.bits, c.v_group,
+                                 c.rank) == "fused"):
+            return "fused"
+        return "update"
+
     def forward(self, x, positions, mask, cache=None, layer_idx: int = 0):
         cfg = self.cfg
         H, KVH, hd = self.heads, self.kv_heads, cfg.head_dim
@@ -357,15 +375,7 @@ class Attention(nn.Module):
             if self.tp is not None and hasattr(cache, "observe"):
                 raise ValueError("an H2O cache scores every head: it does "
                                  "not run tensor-parallel")
-            if (S == 1 and self.use_kernels and cfg.pos_emb == "rope"
-                    and isinstance(cache, (QuantizedDecodeCache,
-                                           SlotQuantizedDecodeCache))
-                    and cache.cfg.n_k_groups == 1
-                    and cache.cfg.residual_len == 0
-                    and cache.cfg.out_k == 0
-                    and decode_route(hd, H // KVH, cache.cfg.gap,
-                                     cache.cfg.bits, cache.cfg.v_group,
-                                     cache.cfg.rank) == "fused"):
+            if S == 1 and self.decode_route(cache) == "fused":
                 # fused flash decode over the packed KV cache, where the
                 # kernel takes the geometry: the dense K/V of the chunks
                 # never exist in device memory

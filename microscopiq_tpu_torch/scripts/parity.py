@@ -2,8 +2,11 @@
 
     python -m microscopiq_tpu_torch.scripts.parity [--device cuda] \
         [--weights DIR] [--seed 0] [--only dense,llama_dense] [--out DIR]
+    python -m microscopiq_tpu_torch.scripts.parity --prepare \
+        [--device cuda] [--seed 0] [--steps N] [--out DIR]
 
-Counterpart of ``scripts/parity_ref.py``'s ``ours`` stage on the port: OPT
+Counterpart of ``scripts/parity_ref.py``'s ``prepare`` and ``ours`` stages
+on the port: OPT
 (vocabulary 4096, hidden 512, FFN 2048, 12 layers, 8 heads) and Llama
 (hidden 512, intermediate 1536, 12 layers, 8 heads, 4 KV heads) models,
 the calibration crops (16 of 256 tokens) and the eval stream (32 windows of
@@ -23,11 +26,17 @@ configs:
 
 Weights are HF-named float32 state dicts: ``weights_opt.npz`` and
 ``weights_llama.npz`` in ``--weights`` (the layout ``parity_ref.py
-prepare`` exports), or seeded at these shapes by :func:`seeded_state_dicts`
-(no training). The models run on the card unless ``--device cpu``: the
-packed trees through the GEMM kernels there. Writes
+prepare`` exports and ``--prepare`` writes), or seeded at these shapes by
+:func:`seeded_state_dicts` (untrained). ``--prepare`` trains both models
+from :func:`seeded_state_dicts` on the stream's training split
+(:func:`train_lm`: AdamW, a cosine decay from 1e-3 to 1e-4, weight decay
+0.01, batches of 16 crops of 256 tokens; OPT from seed 1, Llama from seed
+2) for TRAIN_STEPS steps on the card or a quarter of them on the CPU, and
+writes the two state dicts and ``prepare_<device>.json`` into ``--out``.
+The models run on the card unless ``--device cpu``: the packed trees
+through the GEMM kernels there. The grid writes
 ``<out>/results_<device>.json`` (``--out`` defaults to ``parity_torch/``
-at the working directory, git-ignored) and prints one JSON line.
+at the working directory, git-ignored); either mode prints one JSON line.
 """
 
 from __future__ import annotations
@@ -54,6 +63,12 @@ SEQLEN = 256
 NSAMPLES = 16          # calibration crops
 EVAL_WINDOWS = 32
 PPL_BATCH = 4
+TRAIN_STEPS = 800      # a model on the card; a quarter of them on the CPU
+TRAIN_BATCH = 16
+TRAIN_TOKENS = 2_000_000   # the stream's training split
+TRAIN_LR = 1e-3
+TRAIN_ALPHA = 0.1          # the cosine decay's floor, of TRAIN_LR
+TRAIN_WEIGHT_DECAY = 0.01
 
 # the canonical GPTQ config (reference llm/opt.py:87-94)
 GPTQ_CFG = dict(inlier="int2", outlier="fp4_e2m1", scale_bits=8,
@@ -100,14 +115,15 @@ def markov_stream(n_tokens: int, vocab: int, seed: int = 7,
 
 def make_tokens(vocab: int = 4096, nsamples: int = NSAMPLES,
                 windows: int = EVAL_WINDOWS):
-    """(calibration crops (nsamples, SEQLEN), eval stream) as
-    ``parity_ref.py::make_tokens`` cuts them from its 2.2M-token stream."""
+    """(training split, calibration crops (nsamples, SEQLEN), eval stream)
+    as ``parity_ref.py::make_tokens`` cuts them from its 2.2M-token
+    stream."""
     stream = markov_stream(2_200_000, vocab, seed=7)
     rng = np.random.default_rng(0)
-    tail = stream[2_000_000:]
+    tail = stream[TRAIN_TOKENS:]
     starts = rng.integers(0, len(tail) - SEQLEN - 1, size=nsamples)
     calib = np.stack([tail[s:s + SEQLEN] for s in starts])
-    return calib, tail[-(windows * SEQLEN + 1):-1]
+    return stream[:TRAIN_TOKENS], calib, tail[-(windows * SEQLEN + 1):-1]
 
 
 def seeded_state_dicts(seed: int = 0):
@@ -177,8 +193,124 @@ def load_state_dicts(weights_dir: str):
 
 
 def _torch_state(sd: Dict[str, np.ndarray], dev) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in sd.items()}
+
+
+def train_lm(model, params, train: np.ndarray, steps: int, seed: int = 1,
+             batch: int = TRAIN_BATCH, seqlen: int = SEQLEN, log=print,
+             log_every: int = 100):
+    """Train ``params`` (a weight tree of ``model``'s, on its device) as
+    ``parity_ref.py::_train_lm`` does: at each step ``batch`` crops of
+    ``seqlen`` tokens drawn by ``np.random.default_rng(seed).integers(0,
+    n_crops, batch)`` from ``train``, the mean float32 NLL of ``ids[:,
+    1:]`` under ``logits[:, :-1]``, one AdamW update of every leaf
+    (weight decay 0.01) under optax's ``cosine_decay_schedule(1e-3,
+    steps, 0.1)``.
+
+    Returns (the trained tree, detached and left installed in ``model``;
+    the float32 losses of the steps, a numpy array). On the CPU the
+    steps run under ``torch.use_deterministic_algorithms`` (the
+    embeddings' backward accumulates in thread order otherwise), so that
+    a run gives the same tree every time."""
+    dev = model.device
+    if dev.type != "cpu":
+        return _train_lm(model, params, train, steps, seed, batch, seqlen,
+                         log, log_every)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _train_lm(model, params, train, steps, seed, batch, seqlen,
+                         log, log_every)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _train_lm(model, params, train, steps, seed, batch, seqlen, log,
+              log_every):
+    from ..eval.retrieval import _leaves, _map_tree, cosine_decay, optimizer
+
+    dev = model.device
+    tree = _map_tree(params.get("params", params), lambda t: t.detach().to(
+        dev).clone().requires_grad_(True))
+    model.load_params(tree)
+    opt, rate = optimizer(list(_leaves(tree)),
+                          cosine_decay(TRAIN_LR, steps, TRAIN_ALPHA),
+                          TRAIN_WEIGHT_DECAY)
+    rng = np.random.default_rng(seed)
+    n_crops = len(train) // seqlen
+    # the crops and every step's draw go to the device once: a copy from
+    # pageable host memory each step would wait for the previous step
+    crops = torch.as_tensor(np.asarray(train[:n_crops * seqlen], np.int64
+                                       ).reshape(n_crops, seqlen), device=dev)
+    draws = torch.as_tensor(np.stack([rng.integers(0, n_crops, batch)
+                                      for _ in range(steps)]), device=dev)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ids = crops[draws[i]]
+        opt.zero_grad(set_to_none=True)
+        logp = torch.log_softmax(model(ids)[:, :-1].to(torch.float32), -1)
+        loss = -torch.gather(logp, -1, ids[:, 1:, None]).mean()
+        loss.backward()
+        opt.step()
+        rate.step()
+        losses.append(loss.detach())
+        if log_every and (i % log_every == 0 or i == steps - 1):
+            v = float(losses[-1])
+            log(f"  step {i}: loss {v:.4f} (ppl {np.exp(v):.1f}) "
+                f"[{time.perf_counter() - t0:.0f}s]")
+    out = _map_tree(tree, lambda t: t.detach())
+    model.load_params(out)
+    return {"params": out}, torch.stack(losses).cpu().numpy()
+
+
+def prepare(out_dir: str = "parity_torch", device="cuda", seed: int = 0,
+            steps: Optional[int] = None, log=print) -> dict:
+    """``parity_ref.py prepare`` on the port: train the OPT (seed 1) and
+    the Llama (seed 2) of the grid from :func:`seeded_state_dicts` (seed
+    ``seed``) with :func:`train_lm`, TRAIN_STEPS steps on the card and a
+    quarter of them on the CPU unless ``steps`` says; write
+    ``weights_opt.npz`` and ``weights_llama.npz`` (HF-named float32, the
+    layout :func:`load_state_dicts` reads) and ``prepare_<device
+    type>.json`` (steps, seconds, the losses) into ``out_dir``. Returns
+    that record."""
+    from .. import resolve_device
+    from ..models import LlamaConfig, LlamaForCausalLM, OPTConfig
+    from ..models.loading import (convert_llama, convert_opt,
+                                  export_llama_state_dict,
+                                  export_opt_state_dict)
+    from ..models.opt import OPTForCausalLM
+
+    dev = resolve_device(device)
+    if steps is None:
+        steps = TRAIN_STEPS if dev.type == "cuda" else TRAIN_STEPS // 4
+    os.makedirs(out_dir, exist_ok=True)
+    train = make_tokens(MODEL_OPT["vocab_size"])[0]
+    sd_opt, sd_llama = seeded_state_dicts(seed)
+    ocfg, lcfg = OPTConfig(**MODEL_OPT), LlamaConfig(**MODEL_LLAMA)
+    rec = dict(device=dev.type, steps=steps, seed=seed)
+    for name, cfg, model, sd, convert, export, train_seed in (
+            ("opt", ocfg, OPTForCausalLM(ocfg, use_kernels=False, device=dev),
+             sd_opt, convert_opt, export_opt_state_dict, 1),
+            ("llama", lcfg,
+             LlamaForCausalLM(lcfg, use_kernels=False, device=dev),
+             sd_llama, convert_llama, export_llama_state_dict, 2)):
+        log(f"training {name} {steps} steps on {dev}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, losses = train_lm(model, convert(_torch_state(sd, dev), cfg),
+                                train, steps, seed=train_seed, log=log)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rec[name + "_s"] = time.perf_counter() - t0
+        rec[name + "_losses"] = losses.tolist()
+        np.savez(os.path.join(out_dir, f"weights_{name}.npz"), **{
+            k: v.cpu().numpy() for k, v in export(tree, cfg).items()})
+        del model, tree
+    with open(os.path.join(out_dir, f"prepare_{dev.type}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec
 
 
 def make_quantizer():
@@ -318,6 +450,11 @@ def _leaves(tree):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--prepare", action="store_true",
+                   help="train both models and write their weights to --out")
+    p.add_argument("--steps", type=int, default=None,
+                   help="--prepare's steps (default: 800 on the card, 200 "
+                        "on the CPU)")
     p.add_argument("--weights", default=None,
                    help="directory of weights_opt.npz / weights_llama.npz")
     p.add_argument("--seed", type=int, default=0,
@@ -326,13 +463,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="comma-separated configs (default: all eight)")
     p.add_argument("--out", default="parity_torch")
     a = p.parse_args(argv)
+    say = lambda s: print(s, file=sys.stderr, flush=True)
+    if a.prepare:
+        rec = prepare(a.out, a.device, a.seed, a.steps, log=say)
+        print(json.dumps({k: v for k, v in rec.items()
+                          if not k.endswith("_losses")}), flush=True)
+        return 0
     only = a.only.split(",") if a.only else None
     sds = (load_state_dicts(a.weights) if a.weights
            else seeded_state_dicts(a.seed))
-    calib, eval_ids = make_tokens(MODEL_OPT["vocab_size"])
+    _, calib, eval_ids = make_tokens(MODEL_OPT["vocab_size"])
     t0 = time.perf_counter()
-    res = run(sds, calib, eval_ids, a.device, only,
-              log=lambda s: print(s, file=sys.stderr, flush=True))
+    res = run(sds, calib, eval_ids, a.device, only, log=say)
     out = dict(results=res, device=a.device,
                weights=a.weights or f"seeded {a.seed}",
                seconds=time.perf_counter() - t0)

@@ -2794,3 +2794,75 @@ def test_llava_two_layers_kernels_match_plain(cuda, kv):
     for k, p in ((ka, pa), (kb, pb)):
         assert torch.isfinite(k).all()
         assert (k - p).abs().max() <= 4e-2 * p.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The parity models' trainer and the KV-method comparison (slice 21)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["opt", "llama"])
+def test_parity_train_step_on_card_matches_cpu(cuda, kind, monkeypatch):
+    """One ``scripts.parity.train_lm`` step of a small OPT / Llama (2
+    layers, hidden 64, vocabulary 256) from one numpy init on the same
+    crops, card against CPU: the loss within rtol 1e-4; every weight
+    within 2 x the peak rate (a first Adam step is +-rate where the
+    gradient is far from eps, so a gradient near eps may step otherwise),
+    at most 0.1% of each leaf's elements more than 1e-6 apart, OPT's
+    key-projection biases apart (their exact gradient is 0)."""
+    from microscopiq_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                              OPTConfig)
+    from microscopiq_tpu_torch.models import loading
+    from microscopiq_tpu_torch.models.opt import OPTForCausalLM
+    from microscopiq_tpu_torch.scripts import parity
+
+    monkeypatch.setattr(parity, "MODEL_OPT", dict(
+        vocab_size=256, hidden_size=64, ffn_dim=256, num_hidden_layers=2,
+        num_attention_heads=4, max_position_embeddings=512))
+    monkeypatch.setattr(parity, "MODEL_LLAMA", dict(
+        vocab_size=256, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=512, rms_norm_eps=1e-5, rope_theta=1e4))
+    sd = parity.seeded_state_dicts(0)[0 if kind == "opt" else 1]
+    train = parity.markov_stream(50_000, 256)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        if kind == "opt":
+            cfg = OPTConfig(**parity.MODEL_OPT)
+            model = OPTForCausalLM(cfg, use_kernels=False, device=dev)
+            conv, export = loading.convert_opt, loading.export_opt_state_dict
+        else:
+            cfg = LlamaConfig(**parity.MODEL_LLAMA)
+            model = LlamaForCausalLM(cfg, use_kernels=False, device=dev)
+            conv = loading.convert_llama
+            export = loading.export_llama_state_dict
+        tree, losses = parity.train_lm(model, conv(
+            parity._torch_state(sd, dev), cfg), train, 1, seed=1,
+            log_every=0)
+        out[dev.type] = (losses, {k: v.cpu().numpy()
+                                  for k, v in export(tree, cfg).items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for k, w in out["cpu"][1].items():
+        d = np.abs(out["cuda"][1][k] - w)
+        assert d.max() <= 2 * parity.TRAIN_LR, k
+        if not k.endswith("k_proj.bias"):
+            assert (d > 1e-6).mean() <= 1e-3, (k, (d > 1e-6).mean())
+
+
+def test_gear_compare_routes_on_the_card(cuda):
+    """``scripts.gear_compare``'s methods on the card: the quantized
+    attention kernel launches exactly for the methods whose route is
+    ``fused`` (one launch a layer and step), and every decode perplexity
+    is finite."""
+    from microscopiq_tpu_torch.ops.cuda import quant_attention as qa
+    from microscopiq_tpu_torch.scripts import gear_compare as gc
+
+    launches = {}
+
+    def after(name):
+        launches[name] = qa.launch_counts["quant_attention"]
+        qa.reset_launch_counts()
+
+    qa.reset_launch_counts()
+    res = gc.run(cuda, seed=0, after=after)["teacher_forced_decode"]
+    for name, row in res.items():
+        assert np.isfinite(row["decode_ppl"]), name
+        assert (launches[name] > 0) == (row["route"] == "fused"), name

@@ -1,13 +1,20 @@
 """The parity grid at model scale (``scripts/parity_ref.py``'s eight
-configs) through both packages on the CPU, from the same seeded 12-layer
-OPT and Llama weights (``microscopiq_tpu_torch.scripts.parity.
-seeded_state_dicts``) and the same Markov calibration crops and eval
-windows: each config's perplexity, and its packed serving trees' where
-the JAX stage computes them, within |Δppl| <= 0.1 of JAX's.
+configs) through both packages on the CPU, from the same 12-layer OPT and
+Llama weights and the same Markov calibration crops and eval windows:
+each config's perplexity, and its packed serving trees' where the JAX
+stage computes them, within |Δppl| <= 0.1 of JAX's. Two sets of weights:
+seeded (``microscopiq_tpu_torch.scripts.parity.seeded_state_dicts``,
+untrained, perplexities near the vocabulary of 4096) and trained by the
+port's ``parity.prepare`` on the CPU (TRAIN_STEPS // 4 steps a model, as
+``parity_ref.py prepare`` trains off the TPU; one worker trains, the
+others wait for its files).
 
-Marked slow (each GPTQ config takes minutes on the CPU in each package);
-the fast tier deselects it.
+Marked slow (each GPTQ config takes minutes on the CPU in each package,
+the training ~25 minutes); the fast tier deselects it.
 """
+
+import fcntl
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +28,34 @@ pytestmark = pytest.mark.slow
 DPPL = 0.1
 
 
+TRAIN_THREADS = 6      # the training worker's threads (the others wait)
+
+
 @pytest.fixture(scope="module")
 def inputs():
     torch.set_num_threads(2)
-    calib, eval_ids = parity.make_tokens(parity.MODEL_OPT["vocab_size"])
+    _, calib, eval_ids = parity.make_tokens(parity.MODEL_OPT["vocab_size"])
     return parity.seeded_state_dicts(0), calib, eval_ids
+
+
+@pytest.fixture(scope="module")
+def trained_inputs(tmp_path_factory, inputs):
+    """The grid models trained by ``parity.prepare`` on the CPU, shared by
+    the xdist workers of one run through a locked directory."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    out = base / "parity_trained"
+    out.mkdir(exist_ok=True)
+    with open(base / "parity_trained.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (out / "prepare_cpu.json").exists():
+            torch.set_num_threads(TRAIN_THREADS)
+            try:
+                parity.prepare(str(out), device="cpu", log=print)
+            finally:
+                torch.set_num_threads(2)
+    return parity.load_state_dicts(str(out)), inputs[1], inputs[2]
 
 
 def jax_results(name, sds, calib, eval_ids):
@@ -129,14 +159,22 @@ def test_tokens_are_parity_refs():
                                   ref.markov_stream(5000, 4096))
 
 
-@pytest.mark.parametrize("name", parity.ALL_CONFIGS)
-def test_config_ppl_matches_jax(inputs, name):
-    sds, calib, eval_ids = inputs
+def _hold(name, sds, calib, eval_ids, tag):
     want = jax_results(name, sds, calib, eval_ids)
     got = parity.run(sds, calib, eval_ids, device="cpu", only=[name],
                      log=lambda s: None)
     deltas = {k: got[k] - v for k, v in want.items()}
-    print(f"PARITY {name}: port {[got[k] for k in want]} "
+    print(f"PARITY{tag} {name}: port {[got[k] for k in want]} "
           f"jax {list(want.values())} delta {deltas}")
     for k, d in deltas.items():
         assert abs(d) <= DPPL, (k, got[k], want[k])
+
+
+@pytest.mark.parametrize("name", parity.ALL_CONFIGS)
+def test_config_ppl_matches_jax(inputs, name):
+    _hold(name, *inputs, "")
+
+
+@pytest.mark.parametrize("name", parity.ALL_CONFIGS)
+def test_trained_config_ppl_matches_jax(trained_inputs, name):
+    _hold(name, *trained_inputs, " trained")

@@ -192,6 +192,19 @@ def test_compress_chunks_gear_matches_jax(rank, out_k):
                 np.sort(got[f"{side}_ov"].numpy(), -1), np.sort(ext, -1))
 
 
+def test_extract_outliers_ties_take_the_lower_index():
+    """GEAR-S on a chunk folded from the bf16 residual window, whose values
+    tie: the same indices as ``lax.top_k`` (the lower one first), so the
+    same values are zeroed before the codes are made."""
+    rng = np.random.default_rng(33)
+    kc = _chunks(rng, 2)
+    kc = np.round(kc * 4) / 4        # coarse values: many ties at the ends
+    want = jax.jit(lambda a: jc._extract_outliers(a, 3))(jnp.asarray(kc))
+    got = tc._extract_outliers(_t(kc), 3)
+    for g, w, name in zip(got, want, ("cleaned", "vals", "idx")):
+        _eq(g.numpy(), w, name)
+
+
 def test_init_layouts_match_jax():
     for kw in (dict(), dict(k_group=4, v_group=4),
                dict(rank=2, out_k=3, residual_len=4)):
