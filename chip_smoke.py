@@ -102,14 +102,15 @@ the package is missing. Phases, each of which raises on failure:
     kernels against the plain versions;
 16. ``gemm_block_routes``: the GEMMs at the MX blocks that the JAX
     packers take and no other phase packs (pf6 at 64 and 128, pf4 at 16,
-    64 and 48, the fp16 container at 8, 64 and 48, the side-band format at
-    8, 64 and 48 with 4 slots and at 8 with 8, emi8 at 8, 64 and 48, sb4
-    at 2, 8, 64 and 48, sb2 at 4, 64 and 48, the int8 container and the
-    float8 containers at 8, 64, 2 and 48), at gate_up, M = 1024, each
-    on the kernel that ``dequant_matmul.gemm_route`` names (the sm90 loop,
-    or ``gemm_tile`` where the block does not divide its K step) and held
-    to its plain twin, timed; then one call a case as the entry point's
-    run, with exact launch counts;
+    64 and 48, the fp16 and bf16 containers at 8, 64 and 48, the side-band
+    format at 8, 64 and 48 with 4 slots and at 8 with 8, emi8 at 8, 64, 48
+    and 128, sb4 at 2, 8, 64 and 48, sb2 at 4, 64, 48 and 12, the int8
+    container and the float8 containers at 8, 64, 2 and 48), at gate_up,
+    M = 1024, each on the kernel that ``dequant_matmul.gemm_route`` names
+    (the sm90 loop: compiled for the block, or ``csrc/gemm_any.cu``'s
+    kernel, which takes it at run time) and held to its plain twin, timed;
+    then one call a case as the entry point's run, with exact launch
+    counts (gemm_any.cu's apart);
 17. ``sad_s8_vs_plain`` (run right after the build, while the profiler's
     windows are whole): the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
     shape, M = 8, 64 (1 at gate_up), against
@@ -387,6 +388,13 @@ M = 1024 at every Llama-3-8B shape on seeded operands and prints them as
 one JSON line (``sm90_gemm_times``), to compare two checkouts on one
 card.
 
+    python3 chip_smoke.py --route-times
+
+times only the GEMMs of ``gemm_block_routes`` (ROUTE_CASES at gate_up,
+M = 1024, on seeded operands) and prints them as one JSON line
+(``route_times``); it calls only wrappers that the previous tree has too:
+copy it into a parent checkout to compare the two on one card.
+
     python3 chip_smoke.py --qattn-times
 
 times only the quantized-KV decode attention (``chunk_attention`` and the
@@ -451,6 +459,9 @@ import numpy as np
 from microscopiq_tpu_torch.utils.observability import (card_line, copies_for,
                                                        cuda_ms)
 
+# the script's start, for the ``t_s`` of every logged line
+_START = time.perf_counter()
+
 # Tolerances of kernel vs plain version, relative to max |plain|:
 # - GEMV: both sum exact f32 products of bf16 x and emi8 integers in f32 and
 #   differ only in summation order -> the 1e-5 bound of
@@ -492,8 +503,18 @@ def with_m1(lin: str, ms) -> tuple:
     return ((1,) + tuple(ms)) if lin == M1_LINEAR else tuple(ms)
 
 
+def at_m1_linear(lin: str, ms, m_record: int) -> tuple:
+    """``ms`` at the M1_LINEAR shape, else ``m_record`` alone (the M that
+    the kernels line's records read): the integer and outlier phases' other
+    rows at one shape a kernel, for the run's time."""
+    return tuple(ms) if lin == M1_LINEAR else (m_record,)
+
+
 def log(**rec):
-    print(json.dumps(rec), flush=True)
+    """One JSON line, with ``t_s``: the seconds since the script started
+    (the run's timeline, phase by phase)."""
+    print(json.dumps({**rec, "t_s": time.perf_counter() - _START}),
+          flush=True)
 
 
 def _wrappers():
@@ -2243,16 +2264,19 @@ def outlier_kernel_phase(card: str):
         nb_dense = lambda: pk.dequantize_outlier_nb(nb, torch.bfloat16).T
         sb_dense = lambda: pk.dequantize_mx_outlier(sb, torch.bfloat16)
         arms = (
-            ("dequant_gemv_nb", "nb", nb, with_m1(lin, OUTLIER_PHASE_M),
+            ("dequant_gemv_nb", "nb", nb,
+             with_m1(lin, at_m1_linear(lin, OUTLIER_PHASE_M, 8)),
              om.dequant_gemv_nb,
              om.dequant_matmul_nb_reference, OUTLIER_REL_TOL, nb_dense),
-            ("dequant_gemm_nb", "nb", nb, OUTLIER_GEMM_M, om.dequant_gemm_nb,
+            ("dequant_gemm_nb", "nb", nb,
+             at_m1_linear(lin, OUTLIER_GEMM_M, 1024), om.dequant_gemm_nb,
              om.dequant_matmul_nb_reference, GEMM_REL_TOL, nb_dense),
             ("dequant_gemv_outlier", "sideband", sb,
-             with_m1(lin, OUTLIER_PHASE_M),
+             with_m1(lin, at_m1_linear(lin, OUTLIER_PHASE_M, 8)),
              om.dequant_gemv_outlier, om.dequant_matmul_outlier_reference,
              OUTLIER_REL_TOL, sb_dense),
-            ("dequant_gemm_outlier", "sideband", sb, OUTLIER_GEMM_M,
+            ("dequant_gemm_outlier", "sideband", sb,
+             at_m1_linear(lin, OUTLIER_GEMM_M, 1024),
              om.dequant_gemm_outlier, om.dequant_matmul_outlier_reference,
              GEMM_REL_TOL, sb_dense),
             ("dequant_gemv_emi8", "emi8m", em, GEMV_M, dm.dequant_gemv,
@@ -2636,9 +2660,10 @@ def int_kernel_phase(card: str):
             nd = copies_for(dense.numel() * 2)
             ds = [dense] + [dense.clone() for _ in range(nd - 1)]
             for kind, Ms, fn, tol in (
-                    ("gemv", with_m1(lin, S8_M), dm.dequant_gemv,
-                     GEMV_REL_TOL),
-                    ("matmul", GEMM_M, dm.dequant_gemm, GEMM_REL_TOL)):
+                    ("gemv", with_m1(lin, at_m1_linear(lin, S8_M, 8)),
+                     dm.dequant_gemv, GEMV_REL_TOL),
+                    ("matmul", at_m1_linear(lin, GEMM_M, 1024),
+                     dm.dequant_gemm, GEMM_REL_TOL)):
                 kname = f"dequant_{kind}_{decode}"
                 for M in Ms:
                     x = torch.randn((M, K), generator=gen, device="cuda",
@@ -3620,6 +3645,17 @@ def _shape_rows(rows, keys=("linear", "M", "K", "N", "ms", "bound_ms",
     return [{k: r[k] for k in keys} for r in rows]
 
 
+def launches_by_path(paths, flat, name) -> dict:
+    """A kernel's nonzero launches by path: ``paths`` map a path to its
+    prefill and decode counts, ``flat`` a path to its counts; a name that a
+    path does not count (gemm_any.cu's kernels, which only the block
+    routes' ``by_route_kernel`` names) has none there."""
+    got = {p: c["prefill"].get(name, 0) + c["decode"].get(name, 0)
+           for p, c in paths.items()}
+    got.update({p: c.get(name, 0) for p, c in flat.items()})
+    return {p: n for p, n in got.items() if n}
+
+
 def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                  icounts, tcounts, srows, scounts, mrows, mcounts, prows,
                  pcounts, grows, gcounts, rrows, rcounts, extra_flat=None):
@@ -3638,13 +3674,13 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
     ``sink_main_path``, ``frontends``, ``cot_evals``) and the 2-layer
     full-width families (``family_<name>``) for the emi8 GEMV and GEMM
     (``cot_evals`` for the quantized-KV attention too); for
-    the GEMMs at the MX blocks that no model path packs (the gemm_tile
-    routes of pf6, pf4, fp16, emi8, sb4, sb2, int8, float8 and the
-    side-band format, and the sm90 ones at the other blocks of
-    ROUTE_CASES), the block-route entry point's run. The GEMMs that run on
-    the wgmma + TMA mainloop (pf6, pf4, sb4, sb2, fp16, emi8/emi8m, int8,
-    float8, side-band, compact NB) carry ``mainloop``; the bf16 GEMM runs
-    on ``gemm_tile``.
+    the GEMMs at the MX blocks that no model path packs (gemm_any.cu's
+    kernels, which take the block at run time, records of their own:
+    ANY_KERNELS, their launches gemm_any.cu's alone; and the kernels
+    compiled per block at the other blocks of ROUTE_CASES), the block-route
+    entry point's run. The GEMMs that run on the wgmma + TMA mainloop
+    (pf6, pf4, sb4, sb2, the fp16 and bf16 containers, emi8/emi8m, int8,
+    float8, side-band, compact NB, gemm_any.cu's) carry ``mainloop``.
     The emi8 GEMV and GEMM run on three paths: their timed numbers and
     ``shapes`` are MX-FP6 emi8 at block 32, ``shapes_emi8m_block16`` the
     emi8m stream."""
@@ -3654,10 +3690,7 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
             "block_routes_entry_point": rcounts, **(extra_flat or {})}
 
     def by_path(name):
-        got = {p: c["prefill"][name] + c["decode"][name]
-               for p, c in paths.items()}
-        got.update({p: c.get(name, 0) for p, c in flat.items()})
-        return {p: n for p, n in got.items() if n}
+        return launches_by_path(paths, flat, name)
 
     meta = (
         ("dequant_gemv_emi8", "dequant_gemv.cu", 162, 8),
@@ -3824,23 +3857,58 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
               "every format and shape; no single PyTorch call computes it",
         "shapes": [[r[k] for k in qkeys] for r in mrows],
         "shape_keys": list(qkeys)})
-    for name, (src, line) in ROUTE_KERNELS.items():
-        mine = [r for r in rrows if r["kernel"] == name]
+    out += block_route_records(rrows, by_path)
+    out += prefill_kernel_records(prows, pcounts)
+    out += gemv_kernel_records(grows, gcounts)
+    return {"kernels": out}
+
+
+def block_route_records(rrows, by_path) -> list:
+    """The kernels line's records of the block-route entry point's kernels
+    (``route_phase`` rows ``rrows``; ``by_path(name)`` their launches by
+    path): gemm_any.cu's kernels (ANY_KERNELS), the W8A8 and bf16-x GEMVs'
+    CUDA-core kernels at the blocks no multiple of 16."""
+    out = []
+    for kind, (name, line) in ANY_KERNELS.items():
+        mine = [r for r in rrows if r.get("any") and r["kind"] == kind
+                and r["M"] == SM90_M]
         at = mine[0]
         launches = by_path(name)
         out.append({
             "name": name, "route": "cuda",
-            "source": f"microscopiq_tpu_torch/ops/cuda/csrc/{src}",
+            "source": "microscopiq_tpu_torch/ops/cuda/csrc/gemm_any.cu",
             "replaces": f"microscopiq_tpu/ops/pallas/dequant_matmul.py:{line}",
             "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"],
+            "library_ms": at["library_ms"], "mainloop": SM90_SOURCE,
             "at": f"gate_up (4096, 28672) M={SM90_M}, {at['kind']} block "
                   f"{at['block']}" + (f", budget {at['budget']}"
-                                      if at["kind"] == "sideband" else ""),
+                                      if at["kind"] == "sideband" else "")
+                  + "; the block taken at run time",
+            "blocks": [[r[k] for k in ROUTE_KEYS] for r in mine],
+            "block_keys": list(ROUTE_KEYS)})
+    for decode in S8_CC_DECODES:
+        name = f"dequant_gemv_s8_{decode}_cc"
+        mine = [r for r in rrows if r["kernel"] == name]
+        at = mine[0]
+        launches = by_path(name)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "microscopiq_tpu_torch/ops/cuda/csrc/dequant_gemv_s8.cu",
+            "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:267",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "at": f"gate_up (4096, 28672) M=8, {at['kind']} block "
+                  f"{at['block']}: s8_partial on CUDA cores after the "
+                  "activation quantizer (the whole call), the blocks that "
+                  "are no multiple of 16; library: torch.matmul on bf16",
             "blocks": _route_rows(rrows, name),
             "block_keys": list(ROUTE_KEYS)})
     for decode in GEMV_CC_DECODES:
@@ -3864,9 +3932,7 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
                   "that are no multiple of 16",
             "blocks": _route_rows(rrows, name),
             "block_keys": list(ROUTE_KEYS)})
-    out += prefill_kernel_records(prows, pcounts)
-    out += gemv_kernel_records(grows, gcounts)
-    return {"kernels": out}
+    return out
 
 
 def script_kernel_records(rows, counts, meta, source, path, shape):
@@ -3948,14 +4014,16 @@ def sm90_build_line(card: str) -> None:
     """The wgmma + TMA GEMMs' ptxas lines (registers, spills: pf6, pf4,
     fp16, emi8, sb4, sb2, int8 and float8 in dequant_matmul.cu, with the
     B-tile test hook's kernels, the side-band GEMM in
-    outlier_matmul.cu, the compact NB GEMM in nb_matmul.cu) and the dynamic
-    shared memory that their host-side plan gives each compiled ring
-    (ptxas reports static shared memory only)."""
+    outlier_matmul.cu, the compact NB GEMM in nb_matmul.cu, gemm_any.cu's
+    kernels at the blocks taken at run time) and the dynamic shared memory
+    that their host-side plan gives each compiled ring (ptxas reports
+    static shared memory only)."""
     from microscopiq_tpu_torch.ops.cuda import build
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
 
     lines = [ln for ln in build.ptxas_report(("dequant_matmul",
-                                              "outlier_matmul", "nb_matmul"))
+                                              "outlier_matmul", "nb_matmul",
+                                              "gemm_any"))
              if "_sm90" in ln]
     slot_classes = {"sideband": (1, 2, 4, 8), "nb": dm.NB_SLOT_CLASSES}
     smem = {}
@@ -3967,6 +4035,10 @@ def sm90_build_line(card: str) -> None:
                                                 else "")
                     smem[key] = dm.sm90_plan(kind, 4096, 4096, b,
                                              slots)["smem_bytes"]
+    for kind, block, slots in (("emi8", 48, 0), ("fp16", 48, 0),
+                               ("pf6", 128, 0), ("sideband", 8, 8)):
+        smem[f"{kind}_any"] = dm.sm90_plan(kind, 4096, 4096, block,
+                                           slots)["smem_bytes"]
     log(phase="build_sm90", ptxas=lines, smem_bytes=smem, card=card)
 
 
@@ -4187,14 +4259,15 @@ def gemv_times() -> list:
 # ---------------------------------------------------------------------------
 # (kind, format, block, budget): the blocks that no other phase packs, for
 # pf6 (fp6_e3m2; packers: block % 32 == 0), pf4 (fp4_e2m1; % 16), the fp16
-# container, emi8 (fp6_e3m2, any block), the side-band format (int2 +
-# fp4, any block), sb4 (int4; % 2), sb2 (int2; % 4), the int8 container
-# (kind "native", its decode) and the float8 containers (any block): the
-# sm90 loop at 8 and 64 (sb4 also at 2, sb2 at 4), gemm_tile at 48 and 128
-# (int8 and float8 at 2 and 48) and for the side-band format at block 8
-# with 8 slots. The compact NB format
-# (block 16) takes the sm90 loop at every budget its packer makes (up to
-# 16): it has no gemm_tile case here.
+# and bf16 containers, emi8 (fp6_e3m2, any block), the side-band format
+# (int2 + fp4, any block), sb4 (int4; % 2), sb2 (int2; % 4), the int8
+# container (kind "native", its decode) and the float8 containers (any
+# block), every one on the sm90 loop: compiled for the block at 8 and 64
+# (sb4 also at 2, sb2 at 4, pf4 at 16), gemm_any.cu's kernel, which takes
+# the block at run time, at 48 and 128 (emi8 at both, sb2 also at 12; int8
+# and float8 at 2 and 48) and for the side-band format at block 8 with 8
+# slots. The compact NB format (block 16) takes the sm90 loop at every
+# budget its packer makes (up to 16): it has no case here.
 ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
                ("pf4", "fp4_e2m1", 16, 0), ("pf4", "fp4_e2m1", 64, 0),
                ("pf4", "fp4_e2m1", 48, 0), ("fp16", "fp16", 8, 0),
@@ -4204,55 +4277,129 @@ ROUTE_CASES = (("pf6", "fp6_e3m2", 64, 0), ("pf6", "fp6_e3m2", 128, 0),
                ("sideband", "int2", 8, 4), ("sideband", "int2", 64, 4),
                ("sideband", "int2", 48, 4), ("sideband", "int2", 8, 8),
                ("emi8", "fp6_e3m2", 8, 0), ("emi8", "fp6_e3m2", 64, 0),
-               ("emi8", "fp6_e3m2", 48, 0), ("sb4", "int4", 2, 0),
-               ("sb4", "int4", 8, 0), ("sb4", "int4", 64, 0),
-               ("sb4", "int4", 48, 0), ("sb2", "int2", 4, 0),
-               ("sb2", "int2", 64, 0), ("sb2", "int2", 48, 0))
+               ("emi8", "fp6_e3m2", 48, 0), ("emi8", "fp6_e3m2", 128, 0),
+               ("sb4", "int4", 2, 0), ("sb4", "int4", 8, 0),
+               ("sb4", "int4", 64, 0), ("sb4", "int4", 48, 0),
+               ("sb2", "int2", 4, 0), ("sb2", "int2", 64, 0),
+               ("sb2", "int2", 48, 0), ("sb2", "int2", 12, 0))
 ROUTE_CASES += tuple((kind, fmt, block, 0)
                      for kind, fmt in (("native", "int8"),
                                        ("fp8_e4m3", "fp8_e4m3"),
                                        ("fp8_e5m2", "fp8_e5m2"))
                      for block in (8, 64, 2, 48))
-# the gemm_tile routes' kernel records: counter -> (source, TPU kernel line)
-ROUTE_KERNELS = {"dequant_matmul_pf6_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_pf4_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_fp16_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_bf16_tile": ("dequant_matmul.cu", 71),
-                 "dequant_gemm_outlier_tile": ("outlier_matmul.cu", 111),
-                 "dequant_matmul_emi8_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_sb4_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_sb2_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_native_tile": ("dequant_matmul.cu", 71),
-                 "dequant_matmul_fp8_e4m3_tile": ("dequant_matmul.cu", 80),
-                 "dequant_matmul_fp8_e5m2_tile": ("dequant_matmul.cu", 80)}
+# gemm_any.cu's kernels' records: kind -> (record name, TPU kernel line);
+# each launch counts under its wrapper's counter, and by_route_kernel
+# gives it to these names by its row's ``any`` (the route is the weight's)
+ANY_KERNELS = {**{k: (f"gemm_any_sm90_{k}", 80 if k.startswith("fp8")
+                      else 71)
+                  for k in ("pf6", "pf4", "fp16", "bf16", "emi8", "sb4",
+                            "sb2", "native", "fp8_e4m3", "fp8_e5m2")},
+               "sideband": ("sideband_any_sm90", 111)}
 ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
               "library_ms", "rel_err")
 # the decodes whose GEMV takes the CUDA-core kernel at a block of
 # ROUTE_CASES (blocks no multiple of 16): emi8 and the 16-bit containers at
-# 8, sb4 at 2 and 8, sb2 at 4, the int8 and float8 containers at 8 and 2
+# 8, sb4 at 2 and 8, sb2 at 4 and 12, the int8 and float8 containers at 8
+# and 2
 GEMV_CC_DECODES = ("emi8", "fp16", "bf16", "sb4", "sb2", "native",
                    "fp8_e4m3", "fp8_e5m2")
+# the W8A8 GEMV's decodes whose CUDA-core kernel (s8_partial) a block of
+# ROUTE_CASES reaches: the int8 container at 8 and sb4 at 8 (the W8A8
+# kernel reads 4 packed rows at a time: int8 at 2, sb4 at 2 and sb2 at 4
+# and 12 have fewer)
+S8_CC_DECODES = ("native", "sb4")
+
+
+def _route_case(kind, fmt, block, budget, shape, gen):
+    """A ROUTE_CASES weight of ``shape`` from ``gen`` and (GEMM wrapper,
+    plain twin, dense bf16 weight, launch counter)."""
+    from microscopiq_tpu_torch.ops import packing as pk
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
+
+    import torch
+
+    if kind == "sideband":
+        p = pk.pack_mx_outlier(outlier_weight(shape, gen), 8, 8, fmt,
+                               "fp4_e2m1", std_dev=2.0, block_size=block,
+                               outlier_budget=budget, axis=0)
+        return (p, om.dequant_gemm_outlier,
+                om.dequant_matmul_outlier_reference,
+                pk.dequantize_mx_outlier(p, dtype=torch.bfloat16),
+                om.gemm_counter(block, budget))
+    transport = ("native" if kind in ("fp16", "bf16", "native", "fp8_e4m3",
+                                      "fp8_e5m2") else kind)
+    # bfloat16 blocks of 8 need 16x BF16_GAIN for amax > 2 in every block
+    # (none at the -127 exponent the kernels clamp)
+    W = int_weight(fmt, shape, gen).float()
+    p = pk.to_serving_layout(pk.pack_mx(
+        W * 16 if fmt == "bfloat16" and block < 32 else W, 8, fmt, block,
+        axis=0, transport=transport))
+    del W
+    return (p, dm.dequant_gemm, dm.dequant_matmul_reference,
+            pk.dequantize_mx(p, dtype=torch.bfloat16),
+            dm.gemm_counter(kind, block))
+
+
+def route_times() -> list:
+    """Each case of ROUTE_CASES at gate_up, M = 1024, through its GEMM
+    wrapper alone (the route that ``gemm_route`` names), CUDA events over
+    L2-cold operand copies, on weights and x made from fixed seeds, beside
+    the operation bound: ``python3 chip_smoke.py --route-times`` prints
+    the rows as one JSON line; it calls only wrappers that the previous
+    tree has too, so run it in two checkouts in one call (this script
+    copied into the other one) to compare their kernels."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    _, K, N = next(s for s in SHAPES if s[0] == "gate_up")
+    gen = torch.Generator(device="cuda").manual_seed(808)
+    x = torch.randn((SM90_M, K), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    rows = []
+    for kind, fmt, block, budget in ROUTE_CASES:
+        p, fn, _, dense, name = _route_case(kind, fmt, block, budget, (K, N),
+                                            gen)
+        del dense
+        nc = copies_for(p.nbytes())
+        ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
+        ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
+        bound, by = row_bound(p.nbytes() + x.numel() * 2 + SM90_M * N * 4,
+                              SM90_M, N, K)
+        any_block = getattr(dm, "block_is_any", lambda *a: False)
+        rows.append(dict(kind=kind, block=block, budget=budget, kernel=name,
+                         route=dm.gemm_route(kind, block, budget),
+                         any=any_block(kind, block, budget), ms=ms,
+                         bound_ms=bound, bound_by=by))
+        del ps, p
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _route_rows(rrows, name):
+    """The block-route rows of the kernel compiled per block that counts
+    under ``name`` (gemm_any.cu's rows have records of their own)."""
     return [[r[k] for k in ROUTE_KEYS] for r in rrows
-            if r["kernel"] == name]
+            if r["kernel"] == name and not r.get("any")]
 
 
 def route_phase(card: str):
     """Each case of ROUTE_CASES at gate_up, M = 1024, through the GEMM
     wrapper against its plain twin (2e-3 of max |twin|), on the kernel that
-    ``gemm_route`` names, and (all but the side-band format) at M = 8
-    through the GEMV on the kernel that ``gemv_route`` names (1e-5), timed
-    beside the bound, the plain version and torch.matmul on the
-    dequantized bf16 weight; then the entry point's own run: one call a
-    case, counts zeroed just before and read just after. Returns (rows,
-    launches)."""
+    ``gemm_route`` names (always the sm90 loop: compiled for the block, or
+    gemm_any.cu's kernel, ``block_is_any``), and (all but the side-band
+    format) at M = 8 through the GEMV on the kernel that ``gemv_route``
+    names (1e-5), and for the decodes of S8_CC_DECODES at the blocks that
+    ``s8_route`` sends to the CUDA-core kernel the W8A8 GEMV at M = 8
+    (1e-5), timed beside the bound, the plain version and torch.matmul on
+    the dequantized bf16 weight; then the entry point's own run: one call
+    a case, counts zeroed just before and read just after, each launch of
+    a case on gemm_any.cu's kernel (its row's ``any``) given to its
+    ANY_KERNELS name. Returns (rows, launches)."""
     import torch
 
-    from microscopiq_tpu_torch.ops import packing as pk
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
-    from microscopiq_tpu_torch.ops.cuda import outlier_matmul as om
 
     _, K, N = next(s for s in SHAPES if s[0] == "gate_up")
     gen = torch.Generator(device="cuda").manual_seed(808)
@@ -4261,29 +4408,10 @@ def route_phase(card: str):
     rows, weights = [], []
     for kind, fmt, block, budget in ROUTE_CASES:
         route = dm.gemm_route(kind, block, budget)
-        if kind == "sideband":
-            p = pk.pack_mx_outlier(outlier_weight((K, N), gen), 8, 8, fmt,
-                                   "fp4_e2m1", std_dev=2.0,
-                                   block_size=block, outlier_budget=budget,
-                                   axis=0)
-            fn, ref = om.dequant_gemm_outlier, \
-                om.dequant_matmul_outlier_reference
-            dense = pk.dequantize_mx_outlier(p, dtype=torch.bfloat16)
-            name = om.gemm_counter(block, budget)
-        else:
-            transport = ("native" if kind in ("fp16", "bf16", "native",
-                                              "fp8_e4m3", "fp8_e5m2")
-                         else kind)
-            # bfloat16 blocks of 8 need 16x BF16_GAIN for amax > 2 in every
-            # block (none at the -127 exponent the kernels clamp)
-            W = int_weight(fmt, (K, N), gen).float()
-            p = pk.to_serving_layout(pk.pack_mx(
-                W * 16 if fmt == "bfloat16" and block < 32 else W, 8, fmt,
-                block, axis=0, transport=transport))
-            del W
-            fn, ref = dm.dequant_gemm, dm.dequant_matmul_reference
-            dense = pk.dequantize_mx(p, dtype=torch.bfloat16)
-            name = dm.gemm_counter(kind, block)
+        if route != "sm90":
+            raise AssertionError(f"{kind} block {block}: route {route}")
+        p, fn, ref, dense, name = _route_case(kind, fmt, block, budget,
+                                              (K, N), gen)
         reset_counts()
         got = fn(x, p, torch.float32)
         want = ref(x, p, torch.float32)
@@ -4304,9 +4432,10 @@ def route_phase(card: str):
         lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
         bound, by = row_bound(p.nbytes() + x.numel() * 2 + SM90_M * N * 4,
                               SM90_M, N, K)
-        row = dict(kernel=name, route=route, kind=kind, format=fmt,
-                   block=block, budget=budget, linear="gate_up", M=SM90_M,
-                   K=K, N=N, max_abs_err=err, rel_err=rel,
+        any_block = dm.block_is_any(kind, block, budget)
+        row = dict(kernel=name, route=route, any=any_block, kind=kind,
+                   format=fmt, block=block, budget=budget, linear="gate_up",
+                   M=SM90_M, K=K, N=N, max_abs_err=err, rel_err=rel,
                    tol=GEMM_REL_TOL, ms=ms, bound_ms=bound, bound_by=by,
                    plain_ms=plain_ms, library_ms=lib_ms, card=card)
         rows.append(row)
@@ -4327,22 +4456,57 @@ def route_phase(card: str):
             rel = err / want.abs().max().item()
             if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
                 raise AssertionError(f"{gname} block {block}: rel err {rel}")
-            ms = cuda_ms(lambda i: dm.dequant_gemv(xg, ps[i], torch.float32),
-                         nc)
-            plain_ms = cuda_ms(lambda i: ref(xg, p, torch.float32), 1,
-                               target_ms=20.0)
-            lib_ms = cuda_ms(lambda i: torch.matmul(xg, ds[i]), nd)
             bound, by = row_bound(p.nbytes() + xg.numel() * 2 + 8 * N * 4,
                                   8, N, K)
             row = dict(kernel=gname, kind=kind, format=fmt, block=block,
                        budget=0,
                        linear="gate_up", M=8, K=K, N=N, max_abs_err=err,
-                       rel_err=rel, tol=GEMV_REL_TOL, ms=ms, bound_ms=bound,
-                       bound_by=by, plain_ms=plain_ms, library_ms=lib_ms,
-                       **gemv_stats(p, 8, K, N, ms), card=card)
+                       rel_err=rel, tol=GEMV_REL_TOL, bound_ms=bound,
+                       bound_by=by, card=card)
+            if gname.endswith("_cc"):
+                # timed where its kernels line record reads it (the
+                # tensor-core GEMV is timed at block 32 by the other
+                # phases; not here, for the run's time)
+                ms = cuda_ms(lambda i: dm.dequant_gemv(xg, ps[i],
+                                                       torch.float32), nc)
+                row.update(ms=ms, plain_ms=cuda_ms(
+                    lambda i: ref(xg, p, torch.float32), 1, target_ms=20.0),
+                    library_ms=cuda_ms(lambda i: torch.matmul(xg, ds[i]),
+                                       nd),
+                    **gemv_stats(p, 8, K, N, ms))
             rows.append(row)
             log(phase="gemv_block_routes", **row)
             weights.append((dm.dequant_gemv, p, xg))
+        if (kind in S8_CC_DECODES and dm.s8_route(kind, block) == "cc"
+                and p.codes.shape[1] % 4 == 0):
+            # the W8A8 GEMV at the same block on its CUDA-core kernel
+            # (s8_partial), after the one-launch activation quantizer
+            xg = x[:8]
+            sname = dm.s8_counter(kind, block)
+            reset_counts()
+            got = dm.dequant_matmul_sad_s8(xg, p, torch.float32)
+            want = dm.dequant_matmul_sad_s8_reference(xg, p, torch.float32)
+            torch.cuda.synchronize()
+            if launches()[sname] != 1:
+                raise AssertionError(f"{kind} block {block}: no {sname}")
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+                raise AssertionError(f"{sname} block {block}: rel err {rel}")
+            ms = cuda_ms(lambda i: dm.dequant_matmul_sad_s8(
+                xg, ps[i], torch.float32), nc)
+            plain_ms = cuda_ms(lambda i: dm.dequant_matmul_sad_s8_reference(
+                xg, p, torch.float32), 1, target_ms=20.0)
+            lib_ms = cuda_ms(lambda i: torch.matmul(xg, ds[i]), nd)
+            bound, by = row_bound(p.nbytes() + 8 * K + 8 * N * 4, 8, N, K)
+            row = dict(kernel=sname, kind=kind, format=fmt, block=block,
+                       budget=0, linear="gate_up", M=8, K=K, N=N,
+                       max_abs_err=err, rel_err=rel, tol=GEMV_REL_TOL,
+                       ms=ms, bound_ms=bound, bound_by=by,
+                       plain_ms=plain_ms, library_ms=lib_ms, card=card)
+            rows.append(row)
+            log(phase="s8_block_routes", **row)
+            weights.append((dm.dequant_matmul_sad_s8, p, xg))
         del ps, ds, dense, got, want
         torch.cuda.empty_cache()
     reset_counts()
@@ -4353,12 +4517,29 @@ def route_phase(card: str):
     want = {}
     for r in rows:
         want[r["kernel"]] = want.get(r["kernel"], 0) + 1
+        if r["kernel"].startswith("dequant_gemv_s8_"):
+            want["quantize_x_int8"] = want.get("quantize_x_int8", 0) + 1
     if counts != want:
         raise AssertionError(f"block-route entry point launches {counts}, "
                              f"want {want}")
     del weights
     torch.cuda.empty_cache()
-    return rows, counts
+    return rows, by_route_kernel(rows, counts)
+
+
+def by_route_kernel(rows, counts) -> dict:
+    """The block-route entry point's launch ``counts`` (one a row of
+    ``rows``, under the wrappers' counters) with each launch of a row on
+    gemm_any.cu's kernel (``any``) moved from its counter to its
+    ANY_KERNELS name: the route is chosen from the weight alone, so the
+    row says which kernel its one launch ran."""
+    out = dict(counts)
+    for r in rows:
+        if r.get("any"):
+            name = ANY_KERNELS[r["kind"]][0]
+            out[r["kernel"]] -= 1
+            out[name] = out.get(name, 0) + 1
+    return {k: v for k, v in out.items() if v}
 
 
 # ---------------------------------------------------------------------------
@@ -7378,10 +7559,11 @@ def main(argv=None) -> int:
             print(json.dumps(fn(argv[1])), flush=True)
             return 0
     if argv not in ([], ["--gemm-times"], ["--gemv-times"],
-                    ["--qattn-times"], ["--quant-times"],
+                    ["--route-times"], ["--qattn-times"], ["--quant-times"],
                     ["--cpu-references"]):
         print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
-              "--qattn-times | --quant-times | --cpu-references | "
+              "--route-times | --qattn-times | --quant-times | "
+              "--cpu-references | "
               "--only slice17|slice18|slice19|slice20|slice21 [--tests]]",
               file=sys.stderr)
         return 2
@@ -7396,6 +7578,8 @@ def main(argv=None) -> int:
         card = card_line()
         if argv == ["--gemm-times"]:
             log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
+        elif argv == ["--route-times"]:
+            log(phase="route_times", rows=route_times(), card=card)
         elif argv == ["--qattn-times"]:
             log(phase="qattn_times", **qattn_times(), card=card)
         elif argv == ["--quant-times"]:

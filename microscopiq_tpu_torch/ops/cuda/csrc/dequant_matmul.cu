@@ -43,9 +43,10 @@
 // block that divides its 64-deep K step and whose ring fits (pf6: 16, 32,
 // 64; pf4: 16, 32, 64; sb4: 2 to 64; sb2: 4 to 64; fp16 and bf16: 8, 16,
 // 32, 64; emi8, int8 and float8: 4, 8, 16, 32, 64); other blocks (48, 96,
-// 128, ...) take gemm_dq's tile loop. dequant_matmul.py::gemm_route
-// chooses by block size before the launch
-// and passes the choice here. Each decoder reads the TMA-loaded raw copy of
+// 128, ...) run on gemm_any.cu's kernels, which take the block at run
+// time, and gemm_dq's tile loop is left to the tests that force it (and
+// the oracle of the b_tile hook). dequant_matmul.py::gemm_route chooses by
+// block size before the launch and passes the choice here. Each decoder reads the TMA-loaded raw copy of
 // a step's packed rows and exponents in shared memory and writes the bf16
 // B tile, every value being the twin's bf16 weight bit for bit:
 // - pf6: a column of one MX block a thread (half a block at B = 64): one

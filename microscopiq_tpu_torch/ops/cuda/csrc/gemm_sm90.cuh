@@ -13,9 +13,12 @@
 //   tokens on (JAX: XLA), at blocks of 8 to 64: outlier_matmul.cu's
 //   outlier_gemm_sm90;
 // - ::_nb_kernel, the compact PackedOutlierNB from 256 tokens on (JAX:
-//   XLA), up to 16 slots: nb_matmul.cu's nb_gemm_sm90.
-// The bf16 container's GEMM, and these transports at other blocks, stay on
-// common.cuh's gemm_tile.
+//   XLA), up to 16 slots: nb_matmul.cu's nb_gemm_sm90;
+// - the first two at every other block that a packer makes (and the
+//   side-band format at block 8 with 8 slots): gemm_any.cu's kernels,
+//   which take the block at run time through the unit loop below.
+// common.cuh's gemm_tile is left to the NB format above 16 slots, which
+// no packer makes, and to the tests that force it.
 //
 // What bounds it on the H100: operations. At M = 1024 each weight byte
 // feeds ~1000 flops, far above the ~295 flop/byte balance point, so the
@@ -71,7 +74,25 @@
 //   template <int DWG> void decode(const int8_t* raw, uint8_t* b, int t);
 //       write that step's B tile from the raw copy (zeros outside the
 //       weight) with store_b_words / store_b_elem.
+//
+// A decoder derived from UnitDecoder (the GEMMs at the MX blocks taken at
+// run time, gemm_any.cu) copies "units" of U K rows instead of 64-row
+// steps: U = 64 * S (S stages a unit: the lcm of the block and 64, whole
+// blocks of a planar transport; S = 1 where that copy would not fit) or
+// U = 64 / H (H units a stage: the side-band format's slots at small
+// blocks or large budgets). It provides
+//   int unit_rows();                   U, taken at run time
+//   copy_tma / copy as above, k0 being the unit's first K row;
+//   template <int DWG> void decode(const int8_t* raw, uint8_t* b, int t,
+//                                  int k0, int part);
+//       write B-tile rows from unit k0's raw copy: S > 1, the whole tile
+//       from unit rows 64 * part..; H > 1, tile rows U * part.. from the
+//       whole unit.
+// The decoders wait for a unit's copy and free its buffer at the unit's
+// first call, and release a stage after its last.
 #pragma once
+
+#include <type_traits>
 
 #include <cuda.h>          // CUtensorMap and its enums (no driver linking)
 #include "common.cuh"
@@ -94,6 +115,9 @@ __host__ __device__ constexpr int decode_regs(int dwg) {
   return dwg == 1 ? 136 : 96;
 }
 constexpr int kEmptyArrivals = 8;             // one lane per consumer warp
+
+// The base of the decoders that copy units of a run-time number of K rows.
+struct UnitDecoder {};
 
 // Dynamic shared memory of a ring: 1024 bytes of alignment slack, the
 // stages, RAWBUFS raw buffers of RAW bytes, the mbarriers (full and empty
@@ -332,17 +356,61 @@ __device__ __forceinline__ void gemm(const CUtensorMap* xmap, void* out,
     };
     if (t == 0)
       for (int j = 0; j < X && j < nk; ++j) load_x(j);
-    for (int j = 0; j < L && j < nk; ++j) load_raw(j);
-    for (int d = 0; d < nk; ++d) {
-      if (dec.tma) mbar_wait(raw_full(d), (d / RAWBUFS) & 1);
-      decode_sync<DWG>();               // step d's raw copy is in, and
-      if (d + L < nk) load_raw(d + L);  // every decoder is done with d - 1
-      if (t == 0 && d + X < nk) load_x(d + X);
-      const int s = d % STAGES;
-      mbar_wait(empty(s), ((d / STAGES) & 1) ^ 1);
-      dec.template decode<DWG>(raw(d), b_tile(s), t);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      mbar_arrive(full(s));
+    if constexpr (!std::is_base_of_v<UnitDecoder, Decoder>) {
+      for (int j = 0; j < L && j < nk; ++j) load_raw(j);
+      for (int d = 0; d < nk; ++d) {
+        if (dec.tma) mbar_wait(raw_full(d), (d / RAWBUFS) & 1);
+        decode_sync<DWG>();               // step d's raw copy is in, and
+        if (d + L < nk) load_raw(d + L);  // every decoder is done with d - 1
+        if (t == 0 && d + X < nk) load_x(d + X);
+        const int s = d % STAGES;
+        mbar_wait(empty(s), ((d / STAGES) & 1) ^ 1);
+        dec.template decode<DWG>(raw(d), b_tile(s), t);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(full(s));
+      }
+    } else {
+      // units of U K rows: call i decodes into stage i / H from unit i / S
+      const int U = dec.unit_rows();
+      const int H = U < kBK ? kBK / U : 1, S = U > kBK ? U / kBK : 1;
+      const int nu = (nk * H + S - 1) / S;      // units over the nk stages
+      auto load_unit = [&](int u) {
+        if (dec.tma) {
+          if (t == 0) {
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            mbar_expect_tx(raw_full(u), dec.tx_bytes());
+            dec.copy_tma(raw(u), u * U, n_blk, raw_full(u));
+          }
+        } else {
+          dec.template copy<DWG>(raw(u), u * U, n_blk, t);
+        }
+      };
+      for (int j = 0; j < L && j < nu; ++j) load_unit(j);
+      // call (stage d, part ph of H) = (unit u, part ps of S), counted
+      // without a division
+      for (int d = 0, u = 0, ph = 0, ps = 0; d < nk;) {
+        const int s = d % STAGES;
+        if (ps == 0) {                    // a unit's first call
+          if (dec.tma) mbar_wait(raw_full(u), (u / RAWBUFS) & 1);
+          decode_sync<DWG>();             // unit u is in; u - 1 is done
+          if (u + L < nu) load_unit(u + L);
+        }
+        if (ph == 0) {                    // a stage's first call
+          if (t == 0 && d + X < nk) load_x(d + X);
+          mbar_wait(empty(s), ((d / STAGES) & 1) ^ 1);
+        }
+        dec.template decode<DWG>(raw(u), b_tile(s), t, u * U, ph + ps);
+        if (++ph == H) {                  // a stage's last call
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_arrive(full(s));
+          ph = 0;
+          ++d;
+        }
+        if (++ps == S) {
+          ps = 0;
+          ++u;
+        }
+      }
     }
   } else {
     // ---- consumer warpgroups: wgmma over 128 rows each ----

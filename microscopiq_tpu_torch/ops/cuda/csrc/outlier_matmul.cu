@@ -3,7 +3,8 @@
 // - dequant_gemv_outlier, for M < 256 tokens: every linear of a decode step
 //   of the side-band format, the last_only lm_head and engine prefills;
 // - dequant_gemm_outlier, for M >= 256: every linear of a long prefill
-//   (outlier_gemm_sm90, or outlier_gemm at the blocks it does not take).
+//   (outlier_gemm_sm90; gemm_any.cu's sideband_any_sm90 at the blocks it
+//   does not take; outlier_gemm where a test forces it).
 //
 // Both replace microscopiq_tpu/ops/pallas/dequant_matmul.py::
 // _dq_matmul_outlier_kernel (wrapper dequant_matmul_outlier). The JAX
@@ -74,12 +75,14 @@
 // for the rows of its half, and no configuration that the port serves uses
 // the side-band format at block 64. Blocks that do not divide the K step
 // (48, 96, 128, ...), and B = 8 with 8 slots, whose raw copy (51 KB a
-// step) leaves no room for a ring, take outlier_gemm: common.cuh's bf16
+// step) leaves no room for a ring, run on gemm_any.cu's sideband_any_sm90
+// (the block at run time, smaller copies). outlier_gemm, common.cuh's bf16
 // wmma tile loop (128 x 128 output tile, 32-deep K steps) with the weight
 // tile built in f32 in shared memory, the slots added by one thread per
-// (K-block, column), then rounded to the bf16 B tile.
-// outlier_matmul.py::dequant_gemm_outlier chooses the kernel by block and
-// slot count before the launch (dequant_matmul.py::gemm_route).
+// (K-block, column), then rounded to the bf16 B tile, is left to the tests
+// that force it. outlier_matmul.py::dequant_gemm_outlier chooses the
+// kernel by block and slot count before the launch
+// (dequant_matmul.py::gemm_route, sm90_plan's "any").
 // The weights are the GEMV's bf16 weights; the tensor cores' f32
 // accumulation differs from a CUDA-core sum in order and internal rounding
 // (the emi8 GEMM's 2e-3 tolerance).
@@ -1150,7 +1153,8 @@ extern "C" int outlier_gemv_occupancy(int M, int codes_fp8, int smem,
 // out: (M, N) bf16 or f32; budget <= 8; sm90: the route that
 // dequant_matmul.py::gemm_route chose, 1 for outlier_gemm_sm90 (B = 8, 16,
 // 32 or 64, not 8 slots at B = 8; x with K % 8 == 0, 16-byte aligned), 0
-// for outlier_gemm (any B). Returns the cudaError_t of the launch (0 on
+// for outlier_gemm (any B; gemm_any.cu takes the blocks that the first
+// does not). Returns the cudaError_t of the launch (0 on
 // success; cudaErrorInvalidValue for operands the kernel refuses).
 extern "C" int dequant_gemm_outlier(
     const void* x, const void* codes, const void* se, const void* seo,

@@ -8,9 +8,10 @@ with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
 (``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
 the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, sb4, sb2, the fp16,
 bf16, int8 and float8 containers and emi8/emi8m on the wgmma + TMA
-mainloop of ``csrc/gemm_sm90.cuh`` at the blocks that :func:`gemm_route`
-gives them, whose host-side plan is :func:`sm90_plan`; their other blocks
-on ``csrc/common.cuh``'s ``gemm_tile``).
+mainloop of ``csrc/gemm_sm90.cuh``, whose host-side plan is
+:func:`sm90_plan`: compiled per block at the blocks of ``SM90_BLOCKS``,
+and at every other block that a packer makes by ``csrc/gemm_any.cu``'s
+kernels, which take the block at run time (:func:`sm90_unit`)).
 Both
 take every transport that the TPU kernels decode: emi8 and emi8m, the int8
 container (pre-blocked or 2-D, which reaches the serving layout by a view),
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -80,8 +82,9 @@ SM90_MAX_SMEM = 232448
 _SM90_STAGE_BYTES = (SM90_TILE[0] + SM90_TILE[1]) * SM90_TILE[2] * 2
 NB_BLOCK = 16                     # the compact NB transport's one block
 # the GEMMs with a decoder on that mainloop -> the MX blocks it is compiled
-# for (those that divide the 64-deep K step and whose ring fits; pf6 at 16
-# is one that no packer makes); "fp16" and "bf16" are the 16-bit
+# for one by one (those that divide the 64-deep K step and whose ring fits;
+# pf6 at 16 is one that no packer makes; gemm_any.cu's kernels take the
+# other blocks); "fp16" and "bf16" are the 16-bit
 # containers, "emi8" emi8 and emi8m, "native" the int8 container, "fp8_e4m3" and "fp8_e5m2" the
 # float8 containers, "sideband" the PackedMXOutlier GEMM and "nb" the
 # compact PackedOutlierNB GEMM (block 16 only) of outlier_matmul.py
@@ -95,6 +98,18 @@ SM90_BLOCKS = {"pf6": (16, 32, 64), "pf4": (16, 32, 64),
                "sideband": (8, 16, 32, 64), "nb": (NB_BLOCK,)}
 MAX_OUTLIER_BUDGET = 8            # kMaxBudget in outlier_matmul.cu
 NB_SLOT_CLASSES = (1, 2, 4, 8, 16)   # the rings of nb_matmul.cu's NbSm90
+# csrc/gemm_any.cu's decoders at the blocks taken at run time: (stages, raw
+# buffers, raw bytes) of RowAny (one-byte and two-byte codes), PlanarAny
+# (pf6, pf4, sb4, sb2) and SidebandAny, and the planar transports
+_ANY_RINGS = {"row1": (4, 2, (64 + 64) * 128),
+              "row2": (3, 3, (128 + 64) * 128),
+              "planar": (3, 2, 327 * 128), "sideband": (3, 2, 327 * 128)}
+_PLANAR = ("pf6", "pf4", "sb4", "sb2")
+# the planar transports' blocks at run time: a multiple of (pf6 32, pf4 16,
+# sb4 2, sb2 4), at least (sb4 6, sb2 8: a chunk of 8 K rows then crosses
+# at most one block edge)
+_PLANAR_MULTIPLE = {"pf6": 32, "pf4": 16, "sb4": 2, "sb2": 4}
+_PLANAR_MIN = {"pf6": 32, "pf4": 16, "sb4": 6, "sb2": 8}
 
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
@@ -124,17 +139,94 @@ def _ring_bytes(stages: int, raw: int, raw_bufs: int) -> int:
             + raw_bufs * (-(-raw // 128) * 128) + (2 * stages + raw_bufs) * 8)
 
 
+def _exp_rows(U: int, B: int) -> int:
+    """gemm_any.cu's exp_rows: the exponent rows of a unit of U K rows
+    (starting at a multiple of U) in blocks of B: U / B where B divides U,
+    else at most ceil((U - 1) / B) + 1."""
+    return U // B if U % B == 0 else (U + B - 2) // B + 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_unit(kind: str, block: int, budget: int = 0):
+    """The raw copy ("unit") of ``csrc/gemm_any.cu``'s kernel for ``kind``
+    at ``block`` (and ``budget`` slots), mirroring ``dq_unit`` and
+    ``sideband_unit``: ``unit_rows`` (U, the K rows a copy covers),
+    ``code_rows`` (packed rows of the (NB * rows, N) codes; the side-band
+    format's code rows are K rows), ``exp_rows`` (exponent rows from block
+    k0 // block), ``unit_bytes`` (one copy's bytes) and ``stages`` (64-row
+    stages a unit, S) or ``parts`` (units a stage, H). None where no unit
+    fits.
+
+    - one-byte and two-byte codes (emi8, the int8 and float8 containers,
+      fp16, bf16): U = 64, every block;
+    - pf6, pf4, sb4, sb2: U = lcm(block, 64), whole blocks, decoded in
+      U / 64 stages, where that copy fits (at most 256 code rows, 327 rows
+      with the exponents), else U = 64 and the whole blocks that hold the
+      stage (copied from block k0 // block; a straddling block is copied
+      for each stage it holds rows of);
+    - the side-band format: the largest U of 64, 32, 16 and 8 whose copy
+      (codes, se, seo, the slots' codes and int32 positions) fits 41,856
+      bytes."""
+    BN, BK = SM90_TILE[1:]
+    if kind in _PLANAR:
+        if block % _PLANAR_MULTIPLE[kind] or block < _PLANAR_MIN[kind]:
+            return None
+        lcm = block // math.gcd(block, BK) * BK
+        for U in (lcm, BK):
+            nb = lcm // block if U == lcm else _exp_rows(BK, block)
+            cr = nb * pk.transport_rows_per_block(kind, block)
+            raw = (cr + nb) * BN
+            if cr <= 256 and nb <= 256 and raw <= _ANY_RINGS["planar"][2]:
+                return {"unit_rows": U, "code_rows": cr, "exp_rows": nb,
+                        "unit_bytes": raw, "stages": U // BK, "parts": 1}
+        return None
+    if kind == "sideband":
+        for U in (64, 32, 16, 8):
+            E = _exp_rows(U, block)
+            raw = BN * (U + E * (2 + 5 * budget))
+            if E <= 256 and raw <= _ANY_RINGS["sideband"][2]:
+                return {"unit_rows": U, "code_rows": U, "exp_rows": E,
+                        "unit_bytes": raw, "stages": 1, "parts": BK // U}
+        return None
+    if kind not in _DECODES:
+        return None
+    E = _exp_rows(BK, block)
+    cb = 2 if kind in ("fp16", "bf16") else 1
+    return {"unit_rows": BK, "code_rows": BK, "exp_rows": E,
+            "unit_bytes": (cb * BK + E) * BN, "stages": 1, "parts": 1}
+
+
+def _any_ring(kind: str):
+    """(stages, raw buffers, raw bytes) of gemm_any.cu's decoder of
+    ``kind``."""
+    if kind in _PLANAR or kind == "sideband":
+        return _ANY_RINGS["planar" if kind in _PLANAR else "sideband"]
+    return _ANY_RINGS["row2" if kind in ("fp16", "bf16") else "row1"]
+
+
 def _sm90_ring(kind: str, block: int, budget: int):
-    """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
-    for ``kind`` at ``block`` (and ``budget`` slots), mirroring its
-    decoder (``Pf6Sm90``, ``Pf4Sm90``, ``Fp16Sm90``, ``Bf16Sm90``,
-    ``Emi8Sm90``,
-    ``Int8Sm90``, ``Fp8Sm90``, ``Sb4Sm90``, ``Sb2Sm90``, ``SidebandSm90``,
-    ``NbSm90``); None where no such kernel is compiled or its ring would
-    not fit. Raises ValueError for a budget that no
-    kernel takes."""
+    """(slots, stages, raw buffers, raw bytes, any) of the sm90 kernel for
+    ``kind`` at ``block`` (and ``budget`` slots): the kernel compiled for
+    that block, mirroring its decoder (``Pf6Sm90``, ``Pf4Sm90``,
+    ``Fp16Sm90``, ``Bf16Sm90``, ``Emi8Sm90``, ``Int8Sm90``, ``Fp8Sm90``,
+    ``Sb4Sm90``, ``Sb2Sm90``, ``SidebandSm90``, ``NbSm90``; any False),
+    else gemm_any.cu's (``RowAny``, ``PlanarAny``, ``SidebandAny``; any
+    True, slots the budget); None where neither takes it. Raises
+    ValueError for a budget that no kernel takes."""
     if kind == "sideband" and not 0 <= budget <= MAX_OUTLIER_BUDGET:
         raise ValueError(f"budget {budget} > {MAX_OUTLIER_BUDGET}")
+    ring = _sm90_block_ring(kind, block, budget)
+    if ring is not None:
+        return ring + (False,)
+    if sm90_unit(kind, block, budget) is None:
+        return None
+    return (budget if kind == "sideband" else 0,) + _any_ring(kind) + (True,)
+
+
+def _sm90_block_ring(kind: str, block: int, budget: int):
+    """(slots, stages, raw buffers, raw bytes) of the sm90 kernel compiled
+    for ``kind`` at ``block``; None where none is or its ring would not
+    fit."""
     if block not in SM90_BLOCKS.get(kind, ()):
         return None
     BN, BK = SM90_TILE[1:]
@@ -196,13 +288,40 @@ def sm90_plan(kind: str, K: int, N: int, block: int,
     if ring is None:
         raise ValueError(f"no sm90 {kind} GEMM takes block {block}"
                          + (f" with {budget} slots" if budget else ""))
-    slots, stages, raw_bufs, raw = ring
+    slots, stages, raw_bufs, raw, any_block = ring
     k_x = -(-K // 8) * 8
     return {"tile": SM90_TILE, "stages": stages, "raw_buffers": raw_bufs,
             "slots": slots, "raw_bytes": raw,
             "smem_bytes": _ring_bytes(stages, raw, raw_bufs),
             "tma": (K if kind == "nb" else N) % 16 == 0, "k_x": k_x,
-            "pad_x": k_x != K}
+            "pad_x": k_x != K, "any": any_block,
+            "unit": sm90_unit(kind, block, budget) if any_block else None}
+
+
+def sm90_copies(kind: str, K: int, block: int, budget: int = 0) -> list:
+    """The raw copies of gemm_any.cu's kernel over a weight of K rows (x's
+    row length k_x): for each, its K rows, code rows and exponent rows as
+    (first, stop) and its bytes; every copy covers U K rows from a multiple
+    of U, whole 64-row stages or a part of one. The host-side mirror of
+    ``copy_tma``; K rows past the weight are zeros of the copy."""
+    unit = sm90_unit(kind, block, budget)
+    if unit is None:
+        raise ValueError(f"no gemm_any.cu {kind} kernel takes block {block}")
+    U, BK = unit["unit_rows"], SM90_TILE[2]
+    k_x = -(-K // 8) * 8
+    nk = -(-k_x // BK)
+    n_units = -(-nk * unit["parts"] // unit["stages"])
+    planar = kind in _PLANAR
+    rows = pk.transport_rows_per_block(kind, block) if planar else 0
+    out = []
+    for u in range(n_units):
+        k0 = u * U
+        r0 = k0 // block * rows if planar else k0
+        out.append({"k_rows": (k0, k0 + U),
+                    "code_rows": (r0, r0 + unit["code_rows"]),
+                    "exp_rows": (k0 // block, k0 // block + unit["exp_rows"]),
+                    "bytes": unit["unit_bytes"]})
+    return out
 
 
 def gemm_route(kind: str, block: int, budget: int = 0) -> str:
@@ -210,18 +329,25 @@ def gemm_route(kind: str, block: int, budget: int = 0) -> str:
     formats from 256 rows) of a weight of transport or decode ``kind`` in
     blocks of ``block`` (``budget`` outlier slots for ``"sideband"`` and
     ``"nb"``): ``"sm90"``, the wgmma + TMA mainloop (:func:`sm90_plan`),
-    for pf6 and pf4 at blocks 16, 32 and 64, sb4 at 2, 4, 8, 16, 32 and
-    64, sb2 at 4, 8, 16, 32 and 64, the fp16 and bf16 containers and the
-    side-band format at 8, 16, 32 and 64 (not the side-band format at 8
-    with more than 4 slots, whose ring does not fit), emi8/emi8m, the int8
-    container (``"native"``) and the float8 containers (``"fp8_e4m3"``,
-    ``"fp8_e5m2"``) at 4, 8, 16, 32 and 64, and the compact NB format
-    (block 16) with up to 16 slots; else ``"tile"``, common.cuh's
-    ``gemm_tile``, which takes every block and budget. Every decode of
-    ``_DECODES`` has an sm90 kernel; ``gemm_tile`` serves only the other
-    blocks. Chosen from the weight alone, before the launch.
-    Raises ValueError for a side-band budget above 8."""
+    for every decode of ``_DECODES`` at every block that its packer makes
+    (compiled per block at ``SM90_BLOCKS``, else gemm_any.cu's kernel:
+    :func:`sm90_unit`; every block up to 256 but pf6 at 224, and beyond
+    256 where a unit fits), the side-band format at every block from 2 and
+    every budget up to 8, and the compact NB format (block 16) with up to
+    16 slots; else ``"tile"``, common.cuh's ``gemm_tile``, which takes
+    every block and budget: NB above 16 slots, which no packer makes, and
+    planar blocks whose unit would not fit (pf6 at 224: two blocks of 168
+    packed rows). Chosen from the weight alone, before the launch. Raises
+    ValueError for a side-band budget above 8."""
     return "sm90" if _sm90_ring(kind, block, budget) is not None else "tile"
+
+
+def block_is_any(kind: str, block: int, budget: int = 0) -> bool:
+    """Whether gemm_any.cu's kernel (the block at run time) runs the sm90
+    GEMM of ``kind`` at ``block``: the route is "sm90" and no kernel is
+    compiled for that block."""
+    ring = _sm90_ring(kind, block, budget)
+    return ring is not None and ring[-1]
 
 
 def gemm_counter(decode: str, block: int) -> str:
@@ -263,7 +389,11 @@ _ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 16
             "quantize_x_int8": ("dequant_gemv_s8", [_ptr, _int, _ptr, _ptr,
                                                     _int, _int, _ptr]),
             "dequant_b_tile": ("dequant_matmul", [_ptr] * 3 + [_int] * 8
-                               + [_ptr])}
+                               + [_ptr]),
+            "dequant_matmul_any": ("gemm_any", [_ptr] * 4 + [_int] * 11
+                                   + [_ptr]),
+            "dequant_b_tile_any": ("gemm_any", [_ptr] * 3 + [_int] * 7
+                                   + [_ptr])}
 
 
 def _kernel(name: str):
@@ -575,15 +705,21 @@ def dequant_gemm(x: torch.Tensor, w: pk.PackedMX,
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
     sm90 = gemm_route(decode, ww.block_size) == "sm90"
+    plan = sm90_plan(decode, K, N, ww.block_size) if sm90 else None
     if sm90:
-        K = sm90_plan(decode, K, N, ww.block_size)["k_x"]
+        K = plan["k_x"]
         x2 = sm90_x(x2, K)
     counter = gemm_counter(decode, ww.block_size)
-    err = _kernel("dequant_matmul")(
-        x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
-        out.data_ptr(), M, K, N, NB * ww.block_size, ww.block_size,
-        _DECODES[decode], mw, ebits, fold, int(out_dtype == torch.bfloat16),
-        int(sm90), torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x2.data_ptr(), ww.codes.data_ptr(), ww.scale_exp.data_ptr(),
+            out.data_ptr(), M, K, N, NB * ww.block_size, ww.block_size,
+            _DECODES[decode], mw, ebits, fold,
+            int(out_dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if sm90 and plan["any"]:
+        err = _kernel("dequant_matmul_any")(
+            *args, plan["unit"]["unit_rows"], stream)
+    else:
+        err = _kernel("dequant_matmul")(*args, int(sm90), stream)
     build.check(err, counter)
     launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))
@@ -607,10 +743,14 @@ def decoded_b_tile(w: pk.PackedMX, route: str) -> torch.Tensor:
     NB, _, N = ww.codes.shape
     bits = torch.empty((NB * ww.block_size, N), dtype=torch.int16,
                        device=x.device)
-    err = _kernel("dequant_b_tile")(
-        ww.codes.data_ptr(), ww.scale_exp.data_ptr(), bits.data_ptr(), N,
-        NB * ww.block_size, ww.block_size, _DECODES[decode], mw, ebits, fold,
-        int(route == "sm90"), torch.cuda.current_stream(x.device).cuda_stream)
+    args = (ww.codes.data_ptr(), ww.scale_exp.data_ptr(), bits.data_ptr(), N,
+            NB * ww.block_size, ww.block_size, _DECODES[decode], mw, ebits,
+            fold)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "sm90" and block_is_any(decode, ww.block_size):
+        err = _kernel("dequant_b_tile_any")(*args, stream)
+    else:
+        err = _kernel("dequant_b_tile")(*args, int(route == "sm90"), stream)
     build.check(err, f"dequant_b_tile_{decode}")
     return bits[:w.orig_dim]
 

@@ -13,8 +13,10 @@ Counterpart of the outlier parts of
 * :func:`dequant_matmul_outlier` (``csrc/outlier_matmul.cu``, replaces
   ``_dq_matmul_outlier_kernel``): the side-band :class:`PackedMXOutlier`,
   stored (K, N); its GEMM runs on the wgmma + TMA mainloop of
-  ``csrc/gemm_sm90.cuh`` (plan: ``dequant_matmul.sm90_plan``) at the blocks
-  that ``dequant_matmul.gemm_route`` gives it, else on ``gemm_tile``.
+  ``csrc/gemm_sm90.cuh`` (plan: ``dequant_matmul.sm90_plan``) at every
+  block and budget up to 8: compiled per block (8, 16, 32, 64) where its
+  ring fits, else ``csrc/gemm_any.cu``'s kernel, which takes the block at
+  run time.
 
 Each format has two kernels: a K-split GEMV for fewer than ``GEMM_FROM_M``
 rows (the side-band one a persistent TMA stream, planned by
@@ -84,7 +86,9 @@ _ENTRIES = {
                              [_ptr] * 8 + [_int] * 17 + [_ptr]),
     "outlier_gemv_occupancy": ("outlier_matmul", [_int] * 3 + [_ptr]),
     "dequant_gemm_outlier": ("outlier_matmul",
-                             [_ptr] * 7 + [_int] * 11 + [_ptr])}
+                             [_ptr] * 7 + [_int] * 11 + [_ptr]),
+    "dequant_gemm_outlier_any": ("gemm_any",
+                                 [_ptr] * 7 + [_int] * 11 + [_ptr])}
 
 
 def reset_launch_counts() -> None:
@@ -459,17 +463,24 @@ def dequant_gemm_outlier(x: torch.Tensor, w: PackedMXOutlier,
     if M == 0:
         return out.reshape(x.shape[:-1] + (N,))
     sm90 = gemm_route("sideband", inl.block_size, w.budget) == "sm90"
+    plan = sm90_plan("sideband", K, N, inl.block_size, w.budget) if sm90 \
+        else None
     if sm90:
-        K = sm90_plan("sideband", K, N, inl.block_size, w.budget)["k_x"]
+        K = plan["k_x"]
         x2 = sm90_x(x2, K)
     counter = gemm_counter(inl.block_size, w.budget)
-    err = _kernel("dequant_gemm_outlier")(
-        x2.data_ptr(), _view8(inl.codes).data_ptr(),
-        inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),
-        _view8(w.out_codes).data_ptr(), w.out_pos.data_ptr(), out.data_ptr(),
-        M, K, N, Kp, inl.block_size, w.budget, _scale_fold(inl.elem_format),
-        codes_fp8, oc_fp8, int(out_dtype == torch.bfloat16), int(sm90),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x2.data_ptr(), _view8(inl.codes).data_ptr(),
+            inl.scale_exp.data_ptr(), w.out_scale_exp.data_ptr(),
+            _view8(w.out_codes).data_ptr(), w.out_pos.data_ptr(),
+            out.data_ptr(), M, K, N, Kp, inl.block_size, w.budget,
+            _scale_fold(inl.elem_format), codes_fp8, oc_fp8,
+            int(out_dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if sm90 and plan["any"]:
+        err = _kernel("dequant_gemm_outlier_any")(
+            *args, plan["unit"]["unit_rows"], stream)
+    else:
+        err = _kernel("dequant_gemm_outlier")(*args, int(sm90), stream)
     build.check(err, counter)
     launch_counts[counter] += 1
     return out.reshape(x.shape[:-1] + (N,))

@@ -103,3 +103,75 @@ def test_device_ms_raises_on_a_short_window(monkeypatch):
     with pytest.raises(AssertionError, match="plain_x: .*twice short"):
         cs.device_ms(lambda i: None, 1, calls=16, phase="plain_x")
     assert taken == [16, 8]
+
+
+def _route_row(kernel, kind, block, M, any_block=False):
+    return dict(kernel=kernel, kind=kind, block=block, budget=0, M=M,
+                any=any_block, max_abs_err=1e-3, rel_err=1e-7, ms=0.7,
+                bound_ms=0.24, bound_by="operations", plain_ms=8.0,
+                library_ms=0.3)
+
+
+def test_block_route_records_name_the_run_time_block_kernels():
+    """The kernels line's block-route records: one a gemm_any.cu kernel
+    (ANY_KERNELS), timed at its first run-time-block row and listing only
+    those rows, and one a CUDA-core GEMV (bf16 x and W8A8), each with the
+    contract's keys and its launches from ``by_path``; the records of the
+    kernels compiled per block list none of gemm_any.cu's rows."""
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    rows = []
+    for kind, (name, _) in cs.ANY_KERNELS.items():
+        counter = ("dequant_gemm_outlier" if kind == "sideband"
+                   else f"dequant_matmul_{kind}")
+        rows += [_route_row(counter, kind, 64, cs.SM90_M),
+                 _route_row(counter, kind, 48, cs.SM90_M, True)]
+    rows += [_route_row(f"dequant_gemv_{d}_cc", d, 8, 8)
+             for d in cs.GEMV_CC_DECODES]
+    rows += [_route_row(f"dequant_gemv_s8_{d}_cc", d, 2, 8)
+             for d in cs.S8_CC_DECODES]
+    # the main paths count what the wrappers' launch_counts hold;
+    # gemm_any.cu's names only the block routes' entry point counts, as
+    # by_route_kernel gives them its rows' launches
+    zero = {k: 0 for k in cs.launches()}
+    paths = {"mxfp6": {"prefill": dict(zero), "decode": dict(zero)}}
+    counts = {}
+    for r in rows:
+        counts[r["kernel"]] = counts.get(r["kernel"], 0) + 1
+    flat = {"block_routes": cs.by_route_kernel(rows, counts)}
+    recs = cs.block_route_records(
+        rows, lambda n: cs.launches_by_path(paths, flat, n))
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    assert [r["name"] for r in recs] == (
+        [n for n, _ in cs.ANY_KERNELS.values()]
+        + [f"dequant_gemv_s8_{d}_cc" for d in cs.S8_CC_DECODES]
+        + [f"dequant_gemv_{d}_cc" for d in cs.GEMV_CC_DECODES])
+    for r in recs:
+        assert keys <= set(r) and r["launches"] == 1, r["name"]
+    for r in recs[:len(cs.ANY_KERNELS)]:
+        assert r["source"].endswith("csrc/gemm_any.cu")
+        assert [b[1] for b in r["blocks"]] == [48]
+    assert [b[1] for b in cs._route_rows(rows, "dequant_matmul_emi8")] \
+        == [64]
+    assert set(cs.ANY_KERNELS) - {"sideband"} == set(dm._DECODES)
+
+
+def test_by_route_kernel_gives_run_time_block_launches_their_kernel():
+    """The block-route entry point's counts: a row on gemm_any.cu's kernel
+    (``any``) moves its one launch from the wrapper's counter to its
+    ANY_KERNELS name; the other rows keep theirs, and nothing is lost."""
+    rows = [_route_row("dequant_matmul_emi8", "emi8", 64, cs.SM90_M),
+            _route_row("dequant_matmul_emi8", "emi8", 48, cs.SM90_M, True),
+            _route_row("dequant_matmul_emi8", "emi8", 128, cs.SM90_M, True),
+            _route_row("dequant_gemm_outlier", "sideband", 8, cs.SM90_M,
+                       True),
+            _route_row("dequant_gemv_emi8_cc", "emi8", 8, 8)]
+    counts = {"dequant_matmul_emi8": 3, "dequant_gemm_outlier": 1,
+              "dequant_gemv_emi8_cc": 1}
+    got = cs.by_route_kernel(rows, counts)
+    assert got == {"dequant_matmul_emi8": 1, "gemm_any_sm90_emi8": 2,
+                   "sideband_any_sm90": 1, "dequant_gemv_emi8_cc": 1}
+    assert sum(got.values()) == sum(counts.values())
+    assert counts["dequant_matmul_emi8"] == 3

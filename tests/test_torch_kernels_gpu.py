@@ -1519,7 +1519,7 @@ def _emi8_bytes(mw):
     return c[keep].to(torch.int8)
 
 
-@pytest.mark.parametrize("block", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("block", [4, 8, 16, 32, 64, 2, 128])
 @pytest.mark.parametrize("mw", [2, 3, 4, 5, 6, 7])
 def test_sm90_emi8_b_tile_is_gemm_tile_s_on_every_byte(cuda, monkeypatch,
                                                        mw, block):
@@ -1585,7 +1585,7 @@ BYTE_KINDS = {"int8": ("int8", torch.int8, 6),
               "fp8_e5m2": ("fp8_e5m2", torch.float8_e5m2, 0)}
 
 
-@pytest.mark.parametrize("block", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("block", [4, 8, 16, 32, 64, 2, 128])
 @pytest.mark.parametrize("kind", sorted(BYTE_KINDS))
 def test_sm90_int8_and_float8_b_tile_is_gemm_tile_s_on_every_byte(
         cuda, monkeypatch, kind, block):
@@ -1658,7 +1658,7 @@ def test_sm90_bf16_gemm_at_llama_shapes(cuda, lin):
     assert _rel(got, want) < 2e-3
 
 
-@pytest.mark.parametrize("block", [8, 16, 32, 64])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 2, 4, 128])
 def test_sm90_bf16_b_tile_is_gemm_tile_s_on_every_code(cuda, monkeypatch,
                                                         block):
     """A (512, 128) bf16-container weight that holds all 65536 bf16 bit
@@ -1714,8 +1714,8 @@ SUBBYTE = {"sb4": ("int4", 2, 4, 2), "sb2": ("int2", 4, 2, 0)}
 
 
 @pytest.mark.parametrize("kind,block",
-                         [("sb4", b) for b in (2, 4, 8, 16, 32, 64)]
-                         + [("sb2", b) for b in (4, 8, 16, 32, 64)])
+                         [("sb4", b) for b in (2, 4, 8, 16, 32, 64, 128)]
+                         + [("sb2", b) for b in (4, 8, 16, 32, 64, 128)])
 def test_sm90_sb_b_tile_is_gemm_tile_s_on_every_code(cuda, monkeypatch, kind,
                                                      block):
     """An sb4 (sb2) weight that holds every 4-bit (2-bit) code in every
@@ -1768,25 +1768,59 @@ def _sideband_shared_rows(K, N, seed, device, block=16):
     return dataclasses.replace(w, out_pos=pos, out_codes=oc)
 
 
+SM90_KINDS = ["pf6", "sideband", "pf4", "fp16", "emi8", "emi8m", "nb", "sb4",
+              "sb2", "int8", "fp8_e4m3", "fp8_e5m2"]
+# the block multiples that the packers require, where they require one
+PACKER_MULTIPLE = {"pf6": 32, "pf4": 16, "sb2": 4}
+# (kind, block, budget): every kind at block 32 (the side-band format at 16
+# with 4 slots, two of them naming one row; NB at its block 16 with 4), and
+# those of blocks 2, 12, 48 and 128 that each packer takes, which
+# gemm_any.cu's kernels run where no kernel is compiled for the block; the
+# side-band format at 8 with 8 slots and at 48 with 4
+BIT_CASES = ([(k, {"sideband": 16, "nb": 16}.get(k, 32), 4)
+              for k in SM90_KINDS]
+             + [(k, b, 0) for k in SM90_KINDS if k not in ("sideband", "nb")
+                for b in (2, 12, 48, 128)
+                if b % PACKER_MULTIPLE.get(k, 1) == 0]
+             + [("sideband", 8, 8), ("sideband", 48, 4)])
+
+
 @pytest.mark.parametrize("N", [384, 130])
 @pytest.mark.parametrize("K", [256, 512])
-@pytest.mark.parametrize("kind", ["pf6", "sideband", "pf4", "fp16", "emi8",
-                                  "emi8m", "nb", "sb4", "sb2", "int8",
-                                  "fp8_e4m3", "fp8_e5m2"])
-def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, K, N):
+@pytest.mark.parametrize("kind,block,budget", BIT_CASES)
+def test_sm90_b_tile_is_the_twin_weight_bit_for_bit(cuda, kind, block,
+                                                    budget, K, N):
     """x = I: every output row is one row of the decoded B tile (products
     with 1 and 0 are exact in f32), so the GEMM's f32 output is the twin's
     bf16 weight at every element; a swizzle or fragment-layout error shows
-    where it occurs. torch.equal, since the f32 sum turns -0 into +0."""
+    where it occurs. torch.equal, since the f32 sum turns -0 into +0. One
+    launch of the sm90 kernel's counter (gemm_any.cu's at the blocks that
+    no kernel is compiled for), none of a gemm_tile one."""
     x = torch.eye(K, device=cuda)
+    dm.reset_launch_counts()
+    om.reset_launch_counts()
     if kind == "sideband":
-        w = _sideband_shared_rows(K, N, K + N, cuda)
+        w = (_sideband_shared_rows(K, N, K + N, cuda, block=block)
+             if budget == 4 else _sideband(K, N, budget, K + N, cuda,
+                                           block=block))
         got = om.dequant_gemm_outlier(x, w)
         dense = _sideband_dense(w)
+        counter, counts = om.gemm_counter(block, w.budget), om.launch_counts
+        assert counter == "dequant_gemm_outlier"
     else:
-        w, fn, _, dense = _sm90_weight(kind, K, N, K + N, cuda)
+        w, fn, _, dense = _sm90_weight(kind, K, N, K + N, cuda, block=block,
+                                       budget=budget)
         got = fn(x, w)
+        if kind == "nb":
+            counter, counts = om.nb_gemm_counter(w.budget), om.launch_counts
+        else:
+            decode = dm.sad_decode_params(w)[0]
+            counter, counts = dm.gemm_counter(decode, block), dm.launch_counts
+            assert counter == f"dequant_matmul_{decode}"
     torch.cuda.synchronize()
+    assert counts[counter] == 1
+    assert sum(dm.launch_counts.values()) + sum(om.launch_counts.values()) \
+        == 1
     assert torch.equal(got.cpu(), dense.float().cpu())
 
 
@@ -1807,11 +1841,13 @@ def test_sm90_k_not_a_multiple_of_8_pads_x(cuda, kind):
         assert _rel(got.float(), ref(x, w)) < tol
 
 
-# every block the JAX packers take for these formats, on its route: the
-# sm90 kernel where the block divides the K step and its ring fits (pf4 48,
-# pf6 128, fp16 48, emi8 48, sb4 48, sb2 48, int8 and float8 at 2 and 48,
-# and the side-band format at 48, or at 8 with 8 slots: gemm_tile); the NB
-# format at its largest budget
+# blocks the JAX packers take for these formats, on the sm90 route: the
+# kernel compiled for the block where it divides the K step and its ring
+# fits, else gemm_any.cu's (pf4 48 and 128, pf6 128 and 256, fp16 2, 12,
+# 48 and 128, emi8 2, 12, 48 and 128, emi8m 48, sb4 12, 48 and 128, sb2
+# 12, 48 and 128, int8 and float8 at 2, 12, 48 and 128, and the side-band
+# format at 2, 12, 48 and 128, or at 8 with 8 slots; sb4 at 18 and pf4 at
+# 144, whose copies straddle blocks); the NB format at its largest budget
 SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
                     ("pf4", 48, 0), ("pf6", 64, 0), ("pf6", 128, 0),
                     ("fp16", 8, 0), ("fp16", 64, 0), ("fp16", 48, 0),
@@ -1826,7 +1862,16 @@ SM90_BLOCK_CASES = [("pf4", 16, 0), ("pf4", 32, 0), ("pf4", 64, 0),
                     ("fp8_e4m3", 64, 0), ("fp8_e4m3", 2, 0),
                     ("fp8_e4m3", 48, 0), ("fp8_e5m2", 8, 0),
                     ("fp8_e5m2", 64, 0), ("fp8_e5m2", 2, 0),
-                    ("fp8_e5m2", 48, 0)]
+                    ("fp8_e5m2", 48, 0), ("pf4", 128, 0), ("pf6", 256, 0),
+                    ("fp16", 2, 0), ("fp16", 12, 0), ("fp16", 128, 0),
+                    ("emi8", 2, 0), ("emi8", 12, 0), ("emi8", 128, 0),
+                    ("emi8m", 48, 0), ("sb4", 12, 0), ("sb4", 128, 0),
+                    ("sb2", 12, 0), ("sb2", 128, 0), ("int8", 12, 0),
+                    ("int8", 128, 0), ("fp8_e4m3", 12, 0),
+                    ("fp8_e4m3", 128, 0), ("fp8_e5m2", 12, 0),
+                    ("fp8_e5m2", 128, 0), ("sideband", 2, 8),
+                    ("sideband", 12, 4), ("sideband", 128, 4),
+                    ("sideband", 48, 8), ("sb4", 18, 0), ("pf4", 144, 0)]
 
 
 @pytest.mark.parametrize("kind,block,budget", SM90_BLOCK_CASES)
@@ -1839,10 +1884,13 @@ def test_sm90_every_packer_block_runs_its_route(cuda, kind, block, budget):
                                      budget=budget)
     if kind == "sideband":
         counter, counts = om.gemm_counter(block, budget), om.launch_counts
+        assert counter == "dequant_gemm_outlier"
     elif kind == "nb":
         counter, counts = om.nb_gemm_counter(budget), om.launch_counts
     else:
-        counter = dm.gemm_counter(dm.sad_decode_params(w)[0], block)
+        decode = dm.sad_decode_params(w)[0]
+        counter = dm.gemm_counter(decode, block)
+        assert counter == f"dequant_matmul_{decode}"
         counts = dm.launch_counts
     x = _x(M, K, 5, cuda)
     dm.reset_launch_counts()
@@ -1918,13 +1966,19 @@ def test_graph_decode_is_bit_identical_to_eager(cuda, arm):
 def test_sm90_kernels_do_not_spill(cuda):
     from microscopiq_tpu_torch.ops.cuda import build
 
-    sources = ("dequant_matmul", "outlier_matmul", "nb_matmul")
+    sources = ("dequant_matmul", "outlier_matmul", "nb_matmul", "gemm_any")
     build.build_all(sources)
-    lines = [ln for ln in build.ptxas_report(sources) if "_sm90" in ln]
+    lines = [ln for ln in build.ptxas_report(sources)
+             if "_sm90" in ln or "b_tile_any" in ln]
     assert sum("gemm_dq_sm90" in ln for ln in lines) == 45
     assert sum("b_tile_sm90" in ln for ln in lines) == 45
     assert sum("outlier_gemm_sm90" in ln for ln in lines) == 15
     assert sum("nb_gemm_sm90" in ln for ln in lines) == 5
+    # gemm_any.cu: one kernel a decode (int8 runs emi8's), its test hooks,
+    # and the side-band format's
+    assert sum("gemm_any_sm90" in ln for ln in lines) == 9
+    assert sum("b_tile_any" in ln for ln in lines) == 9
+    assert sum("sideband_any_sm90" in ln for ln in lines) == 1
     gemv = [ln for ln in build.ptxas_report(("outlier_matmul",))
             if "sideband_gemv" in ln]
     assert len(gemv) == 16     # MT 1, 2, 4, 8; int8, float8; TMA, plain
