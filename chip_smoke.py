@@ -109,8 +109,14 @@ the package is missing. Phases, each of which raises on failure:
     M = 1024, each on the kernel that ``dequant_matmul.gemm_route`` names
     (the sm90 loop: compiled for the block, or ``csrc/gemm_any.cu``'s
     kernel, which takes it at run time) and held to its plain twin, timed;
-    then one call a case as the entry point's run, with exact launch
-    counts (gemm_any.cu's apart);
+    ``gemv_block_routes``, the GEMV at M = 8 at the same blocks (held to
+    its twin, 1e-5; timed on ``csrc/gemv_any.cu``'s kernel, the blocks no
+    multiple of 16), and ``s8_block_routes``, the W8A8 call at those
+    blocks and at sb4 4 and sb2 8 (every one on gemv_any.cu's
+    ``gemv_s8_any``; timed as CUDA-graph device time), then each of their
+    decodes at block 16 on the tensor-core GEMVs as yardsticks (rows with
+    ``yardstick``); then one call a case (not the yardsticks) as the entry
+    point's run, with exact launch counts (gemm_any.cu's apart);
 17. ``sad_s8_vs_plain`` (run right after the build, while the profiler's
     windows are whole): the W8A8 GEMV (int8, int4/sb4, int2/sb2) at every
     shape, M = 8, 64 (1 at gate_up), against
@@ -393,6 +399,16 @@ card.
 times only the GEMMs of ``gemm_block_routes`` (ROUTE_CASES at gate_up,
 M = 1024, on seeded operands) and prints them as one JSON line
 (``route_times``); it calls only wrappers that the previous tree has too:
+copy it into a parent checkout to compare the two on one card.
+
+    python3 chip_smoke.py --gemv-route-times
+
+times only the GEMVs of ``gemv_block_routes`` and ``s8_block_routes``
+(GEMV_ROUTE_TIME_CASES at gate_up, M = 1, 8, 64: the dequant GEMV and the
+W8A8 call at the blocks no multiple of 16, the 16-bit containers at 256,
+and each decode at block 16 on the tensor-core GEMVs) and prints them as
+one JSON line (``gemv_route_times``); it calls only wrappers that the
+previous tree has too (a block that tree refuses is a ``refused`` row):
 copy it into a parent checkout to compare the two on one card.
 
     python3 chip_smoke.py --qattn-times
@@ -3866,8 +3882,10 @@ def kernels_line(rows, counts, qrows, qcounts, orows, ocounts, irows,
 def block_route_records(rrows, by_path) -> list:
     """The kernels line's records of the block-route entry point's kernels
     (``route_phase`` rows ``rrows``; ``by_path(name)`` their launches by
-    path): gemm_any.cu's kernels (ANY_KERNELS), the W8A8 and bf16-x GEMVs'
-    CUDA-core kernels at the blocks no multiple of 16."""
+    path): gemm_any.cu's kernels (ANY_KERNELS), then gemv_any.cu's W8A8
+    and bf16-x GEMVs at the blocks no multiple of 16, each beside its
+    yardstick (``yardstick_ms``: the same decode at block 16 on the
+    tensor-core GEMV of its kind)."""
     out = []
     for kind, (name, line) in ANY_KERNELS.items():
         mine = [r for r in rrows if r.get("any") and r["kind"] == kind
@@ -3890,48 +3908,40 @@ def block_route_records(rrows, by_path) -> list:
                   + "; the block taken at run time",
             "blocks": [[r[k] for k in ROUTE_KEYS] for r in mine],
             "block_keys": list(ROUTE_KEYS)})
-    for decode in S8_CC_DECODES:
-        name = f"dequant_gemv_s8_{decode}_cc"
-        mine = [r for r in rrows if r["kernel"] == name]
-        at = mine[0]
-        launches = by_path(name)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "microscopiq_tpu_torch/ops/cuda/csrc/dequant_gemv_s8.cu",
-            "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:267",
-            "launches": sum(launches.values()),
-            "launches_by_path": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": at["ms"], "plain_ms": at["plain_ms"],
-            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"],
-            "at": f"gate_up (4096, 28672) M=8, {at['kind']} block "
-                  f"{at['block']}: s8_partial on CUDA cores after the "
-                  "activation quantizer (the whole call), the blocks that "
-                  "are no multiple of 16; library: torch.matmul on bf16",
-            "blocks": _route_rows(rrows, name),
-            "block_keys": list(ROUTE_KEYS)})
-    for decode in GEMV_CC_DECODES:
-        name = f"dequant_gemv_{decode}_cc"
-        mine = [r for r in rrows if r["kernel"] == name]
-        at = mine[0]
-        launches = by_path(name)
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "microscopiq_tpu_torch/ops/cuda/csrc/dequant_gemv.cu",
-            "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:"
-                        + str(80 if decode.startswith("fp8") else 162),
-            "launches": sum(launches.values()),
-            "launches_by_path": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": at["ms"], "plain_ms": at["plain_ms"],
-            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": at["library_ms"],
-            "at": f"gate_up (4096, 28672) M=8, {at['kind']} block "
-                  f"{at['block']}: gemv_partial on CUDA cores, the blocks "
-                  "that are no multiple of 16",
-            "blocks": _route_rows(rrows, name),
-            "block_keys": list(ROUTE_KEYS)})
+    for s8, decodes, line in ((True, S8_ANY_DECODES, None),
+                              (False, GEMV_ANY_DECODES, 162)):
+        for decode in decodes:
+            name = (f"dequant_gemv_s8_{decode}_any" if s8
+                    else f"dequant_gemv_{decode}_any")
+            mine = [r for r in rrows if r["kernel"] == name]
+            at = mine[0]
+            yard = next(r for r in rrows if r.get("yardstick")
+                        and r["kernel"] == name[:-len("_any")])
+            launches = by_path(name)
+            what = ("gemv_s8_any on the tensor cores after the activation "
+                    "quantizer (the whole call)" if s8 else
+                    "gemv_any on the tensor cores")
+            out.append({
+                "name": name, "route": "cuda",
+                "source": "microscopiq_tpu_torch/ops/cuda/csrc/gemv_any.cu",
+                "replaces": "microscopiq_tpu/ops/pallas/dequant_matmul.py:"
+                            + str(267 if s8 else 80 if
+                                  decode.startswith("fp8") else line),
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": at["ms"], "plain_ms": at["plain_ms"],
+                "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+                "library_ms": at["library_ms"],
+                "yardstick_ms": yard["ms"],
+                "at": f"gate_up (4096, 28672) M=8, {at['format']} "
+                      f"{at['kind']} block {at['block']}: {what}, the "
+                      "block taken at run time; yardstick_ms: the same "
+                      f"decode at block {YARDSTICK_BLOCK} on "
+                      + ("gemv_s8_tc" if s8 else "gemv_tc")
+                      + "; library: torch.matmul on bf16",
+                "blocks": [[r[k] for k in ROUTE_KEYS] for r in mine],
+                "block_keys": list(ROUTE_KEYS)})
     return out
 
 
@@ -4297,17 +4307,21 @@ ANY_KERNELS = {**{k: (f"gemm_any_sm90_{k}", 80 if k.startswith("fp8")
                "sideband": ("sideband_any_sm90", 111)}
 ROUTE_KEYS = ("kind", "block", "budget", "ms", "bound_ms", "plain_ms",
               "library_ms", "rel_err")
-# the decodes whose GEMV takes the CUDA-core kernel at a block of
-# ROUTE_CASES (blocks no multiple of 16): emi8 and the 16-bit containers at
-# 8, sb4 at 2 and 8, sb2 at 4 and 12, the int8 and float8 containers at 8
-# and 2
-GEMV_CC_DECODES = ("emi8", "fp16", "bf16", "sb4", "sb2", "native",
-                   "fp8_e4m3", "fp8_e5m2")
-# the W8A8 GEMV's decodes whose CUDA-core kernel (s8_partial) a block of
-# ROUTE_CASES reaches: the int8 container at 8 and sb4 at 8 (the W8A8
-# kernel reads 4 packed rows at a time: int8 at 2, sb4 at 2 and sb2 at 4
-# and 12 have fewer)
-S8_CC_DECODES = ("native", "sb4")
+# the decodes whose GEMV takes gemv_any.cu's kernel (the block at run
+# time) at a block of ROUTE_CASES (blocks no multiple of 16): emi8 and the
+# 16-bit containers at 8, sb4 at 2 and 8, sb2 at 4 and 12, the int8 and
+# float8 containers at 8 and 2
+GEMV_ANY_DECODES = ("emi8", "fp16", "bf16", "sb4", "sb2", "native",
+                    "fp8_e4m3", "fp8_e5m2")
+# the W8A8 GEMV's decodes, on gemv_any.cu's gemv_s8_any at the blocks of
+# ROUTE_CASES no multiple of 16 (int8 at 8 and 2, sb4 at 2 and 8, sb2 at 4
+# and 12) and at S8_EXTRA_CASES (sb4 at 4, sb2 at 8), which no GEMM case
+# packs
+S8_ANY_DECODES = ("native", "sb4", "sb2")
+S8_EXTRA_CASES = (("sb4", "int4", 4, 0), ("sb2", "int2", 8, 0))
+# the yardstick of the block routes' GEMVs: the same decodes at block 16,
+# on the tensor-core GEMVs (gemv_tc, gemv_s8_tc), in the same phase
+YARDSTICK_BLOCK = 16
 
 
 def _route_case(kind, fmt, block, budget, shape, gen):
@@ -4377,11 +4391,176 @@ def route_times() -> list:
     return rows
 
 
+# (kind, format, block) of --gemv-route-times: the GEMVs of the block
+# routes at the blocks no multiple of 16 (ROUTE_CASES, S8_EXTRA_CASES) and
+# the 16-bit containers at 256 (gemv_partial's and s8_partial's before
+# gemv_any.cu, or refused by the W8A8 wrapper), and each decode at block 16
+# on the tensor-core GEMVs
+GEMV_ROUTE_TIME_CASES = tuple(
+    (k, f, b) for k, f, b, _ in ROUTE_CASES + S8_EXTRA_CASES
+    if k in GEMV_ANY_DECODES and b % 16) + (
+    ("bf16", "bfloat16", 256), ("fp16", "fp16", 256)) + tuple(
+    (k, next(f for kk, f, _, _ in ROUTE_CASES if kk == k), YARDSTICK_BLOCK)
+    for k in GEMV_ANY_DECODES)
+GEMV_ROUTE_TIME_M = (1, 8, 64)
+
+
+def gemv_route_times() -> list:
+    """Each case of GEMV_ROUTE_TIME_CASES at gate_up, M = 1, 8, 64: the
+    dequant GEMV and, for the int decodes, the W8A8 call (activation
+    quantizer, GEMV, reduce), each through its wrapper alone (the route
+    that ``gemv_route`` / ``s8_route`` names), CUDA events over L2-cold
+    operand copies (the W8A8 call replayed from a CUDA graph of 16 calls,
+    ``graph_ms``: its host time exceeds its device time), on weights and
+    x made from fixed seeds, beside the
+    byte bound and torch.matmul on a bf16 weight of the shape; a call that
+    the wrapper refuses, or whose launch fails, is a row with ``refused``
+    (the previous tree: the W8A8 wrapper below 4 packed rows a block,
+    gemv_partial's 64 KB of x above block 192 at M >= 8). ``python3 chip_smoke.py
+    --gemv-route-times`` prints the rows as one JSON line; it calls only
+    wrappers that the previous tree has too, so run it in two checkouts
+    in one call (this script copied into the other one) to compare their
+    kernels."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    _, K, N = next(s for s in SHAPES if s[0] == "gate_up")
+    gen = torch.Generator(device="cuda").manual_seed(808)
+    xs = {M: torch.randn((M, K), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for M in GEMV_ROUTE_TIME_M}
+    dense = torch.randn((K, N), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 0.02
+    ds = [dense] + [dense.clone()
+                    for _ in range(copies_for(dense.numel() * 2) - 1)]
+    lib = {M: cuda_ms(lambda i: torch.matmul(x, ds[i]), len(ds))
+           for M, x in xs.items()}
+    del ds, dense
+    rows = []
+    for kind, fmt, block in GEMV_ROUTE_TIME_CASES:
+        p, _, _, dense, _ = _route_case(kind, fmt, block, 0, (K, N), gen)
+        del dense
+        ps = [p] + [_clone_packed(p)
+                    for _ in range(copies_for(p.nbytes()) - 1)]
+        calls = [("dequant_gemv", dm.gemv_route(kind, block),
+                  dm.dequant_gemv, 2, cuda_ms)]
+        if kind in S8_ANY_DECODES:
+            calls.append(("dequant_matmul_sad_s8", dm.s8_route(kind, block),
+                          dm.dequant_matmul_sad_s8, 1, graph_ms))
+        for call, route, fn, xb, timer in calls:
+            for M, x in xs.items():
+                row = dict(call=call, kind=kind, format=fmt, block=block,
+                           M=M, route=route, library_ms=lib[M],
+                           bound_ms=(p.nbytes() + M * K * xb + M * N * 4)
+                           / HBM_BYTES_PER_S * 1e3)
+                try:
+                    row["ms"] = timer(
+                        lambda i: fn(x, ps[i], torch.float32), len(ps))
+                except (ValueError, RuntimeError) as e:
+                    # the previous tree's refusal or failed launch
+                    row["refused"] = f"{type(e).__name__}: {e}"
+                rows.append(row)
+        del ps, p
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _route_rows(rrows, name):
     """The block-route rows of the kernel compiled per block that counts
     under ``name`` (gemm_any.cu's rows have records of their own)."""
     return [[r[k] for k in ROUTE_KEYS] for r in rrows
             if r["kernel"] == name and not r.get("any")]
+
+
+def _block_gemv_row(p, fmt, xg, ps, ds, card, mode="full") -> dict:
+    """One GEMV row of the block routes: the dequant GEMV of ``p`` at M =
+    len(xg) on the kernel that ``gemv_route`` names, one launch of its
+    counter, held to the plain twin (1e-5); ``mode`` "full": the kernel
+    timed over the L2-cold copies ``ps`` beside the bound, the plain
+    version and torch.matmul over the dense copies ``ds``; "yardstick":
+    the kernel alone (the row's ``yardstick``); "check": no time."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    decode, M, K, N = (dm.sad_decode_params(p)[0], len(xg), p.orig_dim,
+                       p.codes.shape[-1])
+    block = p.block_size
+    name = dm.gemv_counter(decode, block)
+    reset_counts()
+    got = dm.dequant_gemv(xg, p, torch.float32)
+    want = dm.dequant_matmul_reference(xg, p, torch.float32)
+    torch.cuda.synchronize()
+    if launches()[name] != 1:
+        raise AssertionError(f"{decode} block {block}: no {name}")
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+        raise AssertionError(f"{name} block {block}: rel err {rel}")
+    bound, by = row_bound(p.nbytes() + xg.numel() * 2 + M * N * 4, M, N, K)
+    row = dict(kernel=name, route=dm.gemv_route(decode, block), kind=decode,
+               format=fmt, block=block, budget=0, linear="gate_up", M=M,
+               K=K, N=N, max_abs_err=err, rel_err=rel, tol=GEMV_REL_TOL,
+               bound_ms=bound, bound_by=by, card=card)
+    if mode == "check":
+        return row
+    ms = cuda_ms(lambda i: dm.dequant_gemv(xg, ps[i], torch.float32),
+                 len(ps))
+    row.update(ms=ms, **gemv_stats(p, M, K, N, ms))
+    if mode == "yardstick":
+        return dict(row, yardstick=True)
+    return dict(row, plain_ms=cuda_ms(
+        lambda i: dm.dequant_matmul_reference(xg, p, torch.float32), 1,
+        target_ms=20.0),
+        library_ms=cuda_ms(lambda i: torch.matmul(xg, ds[i]), len(ds)))
+
+
+def _block_s8_row(p, fmt, xg, ps, ds, card, mode="full") -> dict:
+    """One W8A8 row of the block routes: dequant_matmul_sad_s8 of ``p`` at M
+    = len(xg) (the activation quantizer, then the GEMV that ``s8_route``
+    names: one launch of each), held to its plain twin (1e-5); the whole
+    call's device time (``graph_ms``: its host time exceeds it) over the
+    L2-cold copies ``ps``, and in ``mode`` "full" the plain version and
+    torch.matmul beside it."""
+    import torch
+
+    from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    decode, M, K, N = (dm.sad_decode_params(p)[0], len(xg), p.orig_dim,
+                       p.codes.shape[-1])
+    block = p.block_size
+    name = dm.s8_counter(decode, block)
+    reset_counts()
+    got = dm.dequant_matmul_sad_s8(xg, p, torch.float32)
+    want = dm.dequant_matmul_sad_s8_reference(xg, p, torch.float32)
+    torch.cuda.synchronize()
+    if launches()[name] != 1 or launches()["quantize_x_int8"] != 1:
+        raise AssertionError(f"{decode} block {block}: no {name}")
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
+        raise AssertionError(f"{name} block {block}: rel err {rel}")
+    ms = graph_ms(lambda i: dm.dequant_matmul_sad_s8(xg, ps[i],
+                                                     torch.float32), len(ps))
+    bound, by = row_bound(p.nbytes() + M * K + M * N * 4, M, N, K)
+    row = dict(kernel=name, route=dm.s8_route(decode, block), kind=decode,
+               format=fmt, block=block, budget=0, linear="gate_up", M=M,
+               K=K, N=N, max_abs_err=err, rel_err=rel, tol=GEMV_REL_TOL,
+               ms=ms, bound_ms=bound, bound_by=by, card=card)
+    if mode == "yardstick":
+        return dict(row, yardstick=True)
+    return dict(row, plain_ms=cuda_ms(
+        lambda i: dm.dequant_matmul_sad_s8_reference(xg, p, torch.float32),
+        1, target_ms=20.0),
+        library_ms=cuda_ms(lambda i: torch.matmul(xg, ds[i]), len(ds)))
+
+
+def _copies(p, dense):
+    """L2-cold copies of a packed weight and of its dense bf16 weight."""
+    ps = [p] + [_clone_packed(p) for _ in range(copies_for(p.nbytes()) - 1)]
+    ds = [dense] + [dense.clone()
+                    for _ in range(copies_for(dense.numel() * 2) - 1)]
+    return ps, ds
 
 
 def route_phase(card: str):
@@ -4390,13 +4569,17 @@ def route_phase(card: str):
     ``gemm_route`` names (always the sm90 loop: compiled for the block, or
     gemm_any.cu's kernel, ``block_is_any``), and (all but the side-band
     format) at M = 8 through the GEMV on the kernel that ``gemv_route``
-    names (1e-5), and for the decodes of S8_CC_DECODES at the blocks that
-    ``s8_route`` sends to the CUDA-core kernel the W8A8 GEMV at M = 8
-    (1e-5), timed beside the bound, the plain version and torch.matmul on
-    the dequantized bf16 weight; then the entry point's own run: one call
-    a case, counts zeroed just before and read just after, each launch of
-    a case on gemm_any.cu's kernel (its row's ``any``) given to its
-    ANY_KERNELS name. Returns (rows, launches)."""
+    names (1e-5: ``_block_gemv_row``; timed where it is gemv_any.cu's
+    kernel, the blocks no multiple of 16), and for the decodes of
+    S8_ANY_DECODES at the blocks that ``s8_route`` gives gemv_any.cu's
+    kernel the W8A8 GEMV at M = 8 (1e-5: ``_block_s8_row``), with
+    S8_EXTRA_CASES besides, each timed beside the bound, the plain version
+    and torch.matmul on the dequantized bf16 weight; then the same decodes
+    at block 16 on the tensor-core GEMVs, timed as yardsticks (rows with
+    ``yardstick``); then the entry point's own run: one call a case (not
+    the yardsticks), counts zeroed just before and read just after, each
+    launch of a case on gemm_any.cu's kernel (its row's ``any``) given to
+    its ANY_KERNELS name. Returns (rows, launches)."""
     import torch
 
     from microscopiq_tpu_torch.ops.cuda import dequant_matmul as dm
@@ -4405,109 +4588,77 @@ def route_phase(card: str):
     gen = torch.Generator(device="cuda").manual_seed(808)
     x = torch.randn((SM90_M, K), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
+    xg = x[:8]
     rows, weights = [], []
-    for kind, fmt, block, budget in ROUTE_CASES:
-        route = dm.gemm_route(kind, block, budget)
-        if route != "sm90":
-            raise AssertionError(f"{kind} block {block}: route {route}")
+    for kind, fmt, block, budget in ROUTE_CASES + S8_EXTRA_CASES:
+        gemm = (kind, fmt, block, budget) in ROUTE_CASES
         p, fn, ref, dense, name = _route_case(kind, fmt, block, budget,
                                               (K, N), gen)
-        reset_counts()
-        got = fn(x, p, torch.float32)
-        want = ref(x, p, torch.float32)
-        torch.cuda.synchronize()
-        if launches()[name] != 1:
-            raise AssertionError(f"{kind} block {block}: no {name}")
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        if not (np.isfinite(rel) and rel < GEMM_REL_TOL):
-            raise AssertionError(f"{name} block {block}: rel err {rel}")
-        nc = copies_for(p.nbytes())
-        ps = [p] + [_clone_packed(p) for _ in range(nc - 1)]
-        nd = copies_for(dense.numel() * 2)
-        ds = [dense] + [dense.clone() for _ in range(nd - 1)]
-        ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), nc)
-        plain_ms = cuda_ms(lambda i: ref(x, p, torch.float32), 1,
-                           target_ms=20.0)
-        lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), nd)
-        bound, by = row_bound(p.nbytes() + x.numel() * 2 + SM90_M * N * 4,
-                              SM90_M, N, K)
-        any_block = dm.block_is_any(kind, block, budget)
-        row = dict(kernel=name, route=route, any=any_block, kind=kind,
-                   format=fmt, block=block, budget=budget, linear="gate_up",
-                   M=SM90_M, K=K, N=N, max_abs_err=err, rel_err=rel,
-                   tol=GEMM_REL_TOL, ms=ms, bound_ms=bound, bound_by=by,
-                   plain_ms=plain_ms, library_ms=lib_ms, card=card)
-        rows.append(row)
-        log(phase="gemm_block_routes", **row)
-        weights.append((fn, p, x))
-        if kind != "sideband":
-            # the GEMV at the same block, on the kernel gemv_route names
-            # (gemv_tc, or the CUDA-core one: its "_cc" counter)
-            xg = x[:8]
-            gname = dm.gemv_counter(kind, block)
+        ps, ds = _copies(p, dense)
+        if gemm:
+            route = dm.gemm_route(kind, block, budget)
+            if route != "sm90":
+                raise AssertionError(f"{kind} block {block}: route {route}")
             reset_counts()
-            got = dm.dequant_gemv(xg, p, torch.float32)
-            want = ref(xg, p, torch.float32)
+            got = fn(x, p, torch.float32)
+            want = ref(x, p, torch.float32)
             torch.cuda.synchronize()
-            if launches()[gname] != 1:
-                raise AssertionError(f"{kind} block {block}: no {gname}")
+            if launches()[name] != 1:
+                raise AssertionError(f"{kind} block {block}: no {name}")
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
-            if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
-                raise AssertionError(f"{gname} block {block}: rel err {rel}")
-            bound, by = row_bound(p.nbytes() + xg.numel() * 2 + 8 * N * 4,
-                                  8, N, K)
-            row = dict(kernel=gname, kind=kind, format=fmt, block=block,
-                       budget=0,
-                       linear="gate_up", M=8, K=K, N=N, max_abs_err=err,
-                       rel_err=rel, tol=GEMV_REL_TOL, bound_ms=bound,
-                       bound_by=by, card=card)
-            if gname.endswith("_cc"):
-                # timed where its kernels line record reads it (the
-                # tensor-core GEMV is timed at block 32 by the other
-                # phases; not here, for the run's time)
-                ms = cuda_ms(lambda i: dm.dequant_gemv(xg, ps[i],
-                                                       torch.float32), nc)
-                row.update(ms=ms, plain_ms=cuda_ms(
-                    lambda i: ref(xg, p, torch.float32), 1, target_ms=20.0),
-                    library_ms=cuda_ms(lambda i: torch.matmul(xg, ds[i]),
-                                       nd),
-                    **gemv_stats(p, 8, K, N, ms))
+            if not (np.isfinite(rel) and rel < GEMM_REL_TOL):
+                raise AssertionError(f"{name} block {block}: rel err {rel}")
+            ms = cuda_ms(lambda i: fn(x, ps[i], torch.float32), len(ps))
+            plain_ms = cuda_ms(lambda i: ref(x, p, torch.float32), 1,
+                               target_ms=20.0)
+            lib_ms = cuda_ms(lambda i: torch.matmul(x, ds[i]), len(ds))
+            bound, by = row_bound(
+                p.nbytes() + x.numel() * 2 + SM90_M * N * 4, SM90_M, N, K)
+            any_block = dm.block_is_any(kind, block, budget)
+            row = dict(kernel=name, route=route, any=any_block, kind=kind,
+                       format=fmt, block=block, budget=budget,
+                       linear="gate_up", M=SM90_M, K=K, N=N,
+                       max_abs_err=err, rel_err=rel, tol=GEMM_REL_TOL, ms=ms,
+                       bound_ms=bound, bound_by=by, plain_ms=plain_ms,
+                       library_ms=lib_ms, card=card)
+            rows.append(row)
+            log(phase="gemm_block_routes", **row)
+            weights.append((fn, p, x))
+            del got, want
+        if gemm and kind != "sideband":
+            # the GEMV at the same block, on the kernel gemv_route names
+            # (gemv_tc, timed at block 32 by the other phases, not here;
+            # or gemv_any.cu's: its "_any" counter, timed)
+            row = _block_gemv_row(p, fmt, xg, ps, ds, card,
+                                  "full" if dm.gemv_route(kind, block)
+                                  == "any" else "check")
             rows.append(row)
             log(phase="gemv_block_routes", **row)
             weights.append((dm.dequant_gemv, p, xg))
-        if (kind in S8_CC_DECODES and dm.s8_route(kind, block) == "cc"
-                and p.codes.shape[1] % 4 == 0):
-            # the W8A8 GEMV at the same block on its CUDA-core kernel
-            # (s8_partial), after the one-launch activation quantizer
-            xg = x[:8]
-            sname = dm.s8_counter(kind, block)
-            reset_counts()
-            got = dm.dequant_matmul_sad_s8(xg, p, torch.float32)
-            want = dm.dequant_matmul_sad_s8_reference(xg, p, torch.float32)
-            torch.cuda.synchronize()
-            if launches()[sname] != 1:
-                raise AssertionError(f"{kind} block {block}: no {sname}")
-            err = (got - want).abs().max().item()
-            rel = err / want.abs().max().item()
-            if not (np.isfinite(rel) and rel < GEMV_REL_TOL):
-                raise AssertionError(f"{sname} block {block}: rel err {rel}")
-            ms = cuda_ms(lambda i: dm.dequant_matmul_sad_s8(
-                xg, ps[i], torch.float32), nc)
-            plain_ms = cuda_ms(lambda i: dm.dequant_matmul_sad_s8_reference(
-                xg, p, torch.float32), 1, target_ms=20.0)
-            lib_ms = cuda_ms(lambda i: torch.matmul(xg, ds[i]), nd)
-            bound, by = row_bound(p.nbytes() + 8 * K + 8 * N * 4, 8, N, K)
-            row = dict(kernel=sname, kind=kind, format=fmt, block=block,
-                       budget=0, linear="gate_up", M=8, K=K, N=N,
-                       max_abs_err=err, rel_err=rel, tol=GEMV_REL_TOL,
-                       ms=ms, bound_ms=bound, bound_by=by,
-                       plain_ms=plain_ms, library_ms=lib_ms, card=card)
+        if kind in S8_ANY_DECODES and dm.s8_route(kind, block) == "any":
+            # the W8A8 GEMV at the same block on gemv_any.cu's gemv_s8_any,
+            # after the one-launch activation quantizer
+            row = _block_s8_row(p, fmt, xg, ps, ds, card)
             rows.append(row)
             log(phase="s8_block_routes", **row)
             weights.append((dm.dequant_matmul_sad_s8, p, xg))
-        del ps, ds, dense, got, want
+        del ps, ds, dense
+        torch.cuda.empty_cache()
+    # the yardsticks: each decode at block 16 on gemv_tc (and gemv_s8_tc)
+    for decode in GEMV_ANY_DECODES:
+        fmt = next(f for k, f, _, _ in ROUTE_CASES if k == decode)
+        p, _, _, dense, _ = _route_case(decode, fmt, YARDSTICK_BLOCK, 0,
+                                        (K, N), gen)
+        ps, _ = _copies(p, dense[:1])
+        row = _block_gemv_row(p, fmt, xg, ps, None, card, "yardstick")
+        rows.append(row)
+        log(phase="gemv_block_routes", **row)
+        if decode in S8_ANY_DECODES:
+            row = _block_s8_row(p, fmt, xg, ps, None, card, "yardstick")
+            rows.append(row)
+            log(phase="s8_block_routes", **row)
+        del p, ps, dense
         torch.cuda.empty_cache()
     reset_counts()
     for fn, p, xi in weights:
@@ -4516,6 +4667,8 @@ def route_phase(card: str):
     counts = {k: v for k, v in launches().items() if v}
     want = {}
     for r in rows:
+        if r.get("yardstick"):
+            continue
         want[r["kernel"]] = want.get(r["kernel"], 0) + 1
         if r["kernel"].startswith("dequant_gemv_s8_"):
             want["quantize_x_int8"] = want.get("quantize_x_int8", 0) + 1
@@ -7559,10 +7712,12 @@ def main(argv=None) -> int:
             print(json.dumps(fn(argv[1])), flush=True)
             return 0
     if argv not in ([], ["--gemm-times"], ["--gemv-times"],
-                    ["--route-times"], ["--qattn-times"], ["--quant-times"],
+                    ["--route-times"], ["--gemv-route-times"],
+                    ["--qattn-times"], ["--quant-times"],
                     ["--cpu-references"]):
         print("usage: chip_smoke.py [--gemm-times | --gemv-times | "
-              "--route-times | --qattn-times | --quant-times | "
+              "--route-times | --gemv-route-times | --qattn-times | "
+              "--quant-times | "
               "--cpu-references | "
               "--only slice17|slice18|slice19|slice20|slice21 [--tests]]",
               file=sys.stderr)
@@ -7580,6 +7735,9 @@ def main(argv=None) -> int:
             log(phase="sm90_gemm_times", rows=sm90_gemm_times(), card=card)
         elif argv == ["--route-times"]:
             log(phase="route_times", rows=route_times(), card=card)
+        elif argv == ["--gemv-route-times"]:
+            log(phase="gemv_route_times", rows=gemv_route_times(),
+                card=card)
         elif argv == ["--qattn-times"]:
             log(phase="qattn_times", **qattn_times(), card=card)
         elif argv == ["--quant-times"]:

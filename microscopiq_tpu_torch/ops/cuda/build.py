@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("dequant_gemv", "dequant_matmul", "quant_attention", "nb_matmul",
            "outlier_matmul", "dequant_gemv_s8", "mx_quant", "exp_prefill",
-           "exp_gemv", "gemm_any")
+           "exp_gemv", "gemm_any", "gemv_any")
 # the sources whose nvcc sets the build's wall time (quant_attention.cu
 # ~90-150 s, dequant_matmul.cu ~70-100 s on the H100 machine's 8 cores);
 # the others start at a lower priority, so that ten processes on eight

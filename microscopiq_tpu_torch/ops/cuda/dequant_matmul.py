@@ -5,7 +5,9 @@ Counterpart of ``microscopiq_tpu/ops/pallas/dequant_matmul.py``
 (``dequant_matmul_sad``, ``dequant_matmul``, ``dequant_matmul_reference``,
 ``dequant_matmul_sad_s8`` and its reference, ``quantize_activations_int8``),
 with the same dispatch: M <= 64 tokens go to the scale-after-dot GEMV
-(``csrc/dequant_gemv.cu``), larger M to the tiled GEMM that decodes inside
+(``csrc/dequant_gemv.cu``'s ``gemv_tc`` at the blocks that are multiples of
+16, ``csrc/gemv_any.cu`` at the others: :func:`gemv_route`), larger M to
+the tiled GEMM that decodes inside
 the kernel (``csrc/dequant_matmul.cu``; pf6, pf4, sb4, sb2, the fp16,
 bf16, int8 and float8 containers and emi8/emi8m on the wgmma + TMA
 mainloop of ``csrc/gemm_sm90.cuh``, whose host-side plan is
@@ -22,8 +24,10 @@ to XLA's dequantize-then-dot, the port's GEMM decodes them too. JAX sends
 2-D float8 codes to ``_dq_matmul_kernel``'s ``native2d`` branch at every M
 and serving-layout float8 codes to XLA; the port routes both as every other
 transport, the GEMV for M <= 64 and the GEMM above (the same function, f32
-sums in another order). The W8A8 GEMV (``csrc/dequant_gemv_s8.cu``) takes
-int8 activations against the int transports (int8 container, sb4, sb2).
+sums in another order). The W8A8 GEMV (``csrc/dequant_gemv_s8.cu``, and
+``csrc/gemv_any.cu`` at the blocks no multiple of 16: :func:`s8_route`)
+takes int8 activations against the int transports (int8 container, sb4,
+sb2).
 
 Tensors on the CPU go to the plain version. Tensors on a CUDA device go to a
 kernel or raise: there is no silent fallback.
@@ -67,6 +71,10 @@ _GEMV_SUB_W = 128
 _DECODES = {"emi8": 0, "native": 1, "sb4": 2, "sb2": 3, "pf4": 4, "pf6": 5,
             "bf16": 6, "fp16": 7, "fp8_e4m3": 8, "fp8_e5m2": 9}
 _S8_DECODES = ("native", "sb4", "sb2")
+# the decodes of csrc/gemv_any.cu's kernels (pf4 and pf6 blocks are
+# multiples of 16: gemv_tc's), and the K rows a packed row carries
+_ANY_DECODES = tuple(d for d in _DECODES if d not in ("pf4", "pf6"))
+_FIELDS = {"sb4": 2, "sb2": 4, "pf4": 2, "pf6": 4}
 # decode -> the transport whose packed rows it reads
 _TRANSPORT_OF = {d: d if d in ("sb4", "sb2", "pf4", "pf6") else "native"
                  for d in _DECODES}
@@ -114,18 +122,23 @@ _PLANAR_MIN = {"pf6": 32, "pf4": 16, "sb4": 6, "sb2": 8}
 # launches per kernel and decode, for showing that a run went through the
 # kernels; chip_smoke.py zeroes them before the main path and reads them
 # after. dequant_gemv_<decode> counts the tensor-core GEMV (gemv_route's
-# "tc" blocks), dequant_gemv_<decode>_cc the CUDA-core one at the other
-# blocks; dequant_gemv_s8_<decode> and dequant_gemv_s8_<decode>_cc the W8A8
-# GEMV's routes (s8_route), quantize_x_int8 its activation quantizer; dequant_matmul_<decode> counts the GEMM that gemm_route gives the
+# "tc" blocks), dequant_gemv_<decode>_any gemv_any.cu's kernel at the
+# other blocks a packer makes and dequant_gemv_<decode>_cc the CUDA-core
+# one (blocks no packer makes, tests that force it);
+# dequant_gemv_s8_<decode>, dequant_gemv_s8_<decode>_any and
+# dequant_gemv_s8_<decode>_cc the W8A8 GEMV's routes (s8_route),
+# quantize_x_int8 its activation quantizer; dequant_matmul_<decode> counts the GEMM that gemm_route gives the
 # default blocks (the sm90 kernel for pf6, pf4, sb4, sb2, fp16, bf16, emi8,
 # the int8 container and float8), and
 # dequant_matmul_<decode>_tile the gemm_tile kernel at the other blocks.
 launch_counts = {**{f"dequant_gemv_{d}": 0 for d in _DECODES},
+                 **{f"dequant_gemv_{d}_any": 0 for d in _ANY_DECODES},
                  **{f"dequant_gemv_{d}_cc": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}": 0 for d in _DECODES},
                  **{f"dequant_matmul_{d}_tile": 0 for d in SM90_BLOCKS
                     if d in _DECODES},
                  **{f"dequant_gemv_s8_{d}": 0 for d in _S8_DECODES},
+                 **{f"dequant_gemv_s8_{d}_any": 0 for d in _S8_DECODES},
                  **{f"dequant_gemv_s8_{d}_cc": 0 for d in _S8_DECODES},
                  "quantize_x_int8": 0}
 
@@ -380,6 +393,10 @@ _ENTRIES = {"dequant_gemv": ("dequant_gemv", [_ptr] * 5 + [_int] * 16
             "dequant_gemv_occupancy": ("dequant_gemv", [_int] * 3 + [_ptr]),
             "dequant_gemv_cc": ("dequant_gemv", [_ptr] * 5 + [_int] * 11
                                 + [_ptr]),
+            "dequant_gemv_any": ("gemv_any", [_ptr] * 5 + [_int] * 15
+                                 + [_ptr]),
+            "dequant_gemv_s8_any": ("gemv_any", [_ptr] * 6 + [_int] * 13
+                                    + [_ptr]),
             "dequant_matmul": ("dequant_matmul", [_ptr] * 4 + [_int] * 11
                                + [_ptr]),
             "dequant_gemv_s8": ("dequant_gemv_s8", [_ptr] * 6 + [_int] * 14
@@ -523,9 +540,14 @@ def gemv_route(decode: str, block: int) -> str:
     :func:`gemv_plan`), for blocks that are a multiple of 16 whose stage
     holds at most 256 packed rows and whose ring keeps two stages beside
     64 rows of x (16-256 for the one-byte decodes, 16-128 for the bf16
-    and fp16 containers); else ``"cc"``, ``gemv_partial`` on CUDA cores
-    (blocks 2, 4, 8, 6, 12, 20, ...). Chosen from the weight alone, before
-    the launch."""
+    and fp16 containers); else ``"any"``, ``csrc/gemv_any.cu``'s kernel,
+    which takes the block at run time (:func:`any_plan`), for the decodes
+    of ``_ANY_DECODES`` at every block of whole packed rows (blocks 2, 4,
+    8, 6, 12, 20, ... and the 16-bit containers at 208-256: every other
+    block a packer makes); else ``"cc"``, ``gemv_partial`` on CUDA cores
+    (blocks no packer makes: pf4 and pf6 off their multiples of 16 and
+    32, sb4 and sb2 off 2 and 4). Chosen from the weight alone, before the
+    launch."""
     if decode not in _DECODES:
         raise ValueError(f"unknown GEMV decode {decode!r}")
     return _tc_route(decode, block, 2)
@@ -534,20 +556,110 @@ def gemv_route(decode: str, block: int) -> str:
 def _tc_route(decode: str, block: int, xb: int) -> str:
     """"tc" where a tensor-core GEMV with x of xb bytes takes ``decode`` at
     ``block`` (a multiple of 16, at most 256 packed rows a stage, two
-    stages beside 64 rows of x), else "cc"."""
-    if block % 16 or block < 16:
-        return "cc"
-    rows, sb, _, stage_bytes = _gemv_stage(decode, block)
-    fits = _gemv_stages(_GEMV_FIXED_SMEM + _gemv_x_bytes(8, sb * block, xb),
-                        stage_bytes) >= 2
-    return "tc" if rows <= 256 and fits else "cc"
+    stages beside 64 rows of x), else "any" where gemv_any.cu's kernel
+    does (:func:`_any_takes`), else "cc"."""
+    if block % 16 == 0:
+        rows, sb, _, stage_bytes = _gemv_stage(decode, block)
+        fits = _gemv_stages(
+            _GEMV_FIXED_SMEM + _gemv_x_bytes(8, sb * block, xb),
+            stage_bytes) >= 2
+        if rows <= 256 and fits:
+            return "tc"
+    return "any" if _any_takes(decode, block, xb) else "cc"
+
+
+def _route_suffix(route: str) -> str:
+    return {"tc": "", "any": "_any", "cc": "_cc"}[route]
 
 
 def gemv_counter(decode: str, block: int) -> str:
     """The ``launch_counts`` key of the GEMV that ``dequant_gemv`` launches
     for ``decode`` at ``block``."""
-    cc = gemv_route(decode, block) == "cc"
-    return f"dequant_gemv_{decode}" + ("_cc" if cc else "")
+    return f"dequant_gemv_{decode}" + _route_suffix(gemv_route(decode, block))
+
+
+def _any_stage(decode: str, B: int) -> Tuple[int, int, int, int]:
+    """(positions S, packed rows, exponent rows E, stage_bytes) of a ring
+    stage of gemv_any.cu for ``decode`` at block B (its ``layout``): 128 /
+    code bytes packed rows, F positions each, in 2 * code bytes sub-tiles
+    of 128 bytes a row, each 1024-aligned, then the exponent rows of the
+    blocks S positions touch (S / B where B divides S, else at most
+    ceil((S - 1) / B) + 1) of 256 columns, 1024-aligned."""
+    cb = 2 if decode in ("bf16", "fp16") else 1
+    rows = _GEMV_SUB_W // cb
+    S = rows * _FIELDS.get(decode, 1)
+    E = S // B if S % B == 0 else (S + B - 2) // B + 1
+    stage_bytes = (2 * cb * _align(rows * _GEMV_SUB_W, 1024)
+                   + _align(E * GEMV_TC_TN, 1024))
+    return S, rows, E, stage_bytes
+
+
+def _any_x_pitch(positions: int, xb: int) -> int:
+    """gemv_any.cu's x row in shared memory: the split's positions rounded
+    up to 16 (bf16) or 32 (int8), plus 16 bytes."""
+    if xb == 2:
+        return _align(positions, 16) * 2 + 16
+    return _align(positions, 32) + 16
+
+
+def _any_takes(decode: str, block: int, xb: int) -> bool:
+    """Whether gemv_any.cu's kernel (x of xb bytes) takes ``decode`` at
+    ``block``: a decode of ``_ANY_DECODES`` (of ``_S8_DECODES`` for int8
+    x), whole packed rows a block, at most 256 exponent rows a stage and
+    two stages beside 64 rows of x over one block."""
+    if decode not in (_ANY_DECODES if xb == 2 else _S8_DECODES):
+        return False
+    if block < 1 or block % _FIELDS.get(decode, 1):
+        return False
+    _, _, E, stage_bytes = _any_stage(decode, block)
+    x_bytes = _align(8 * 8 * _any_x_pitch(block, xb), 128)
+    return E <= 256 and _gemv_stages(_GEMV_FIXED_SMEM + x_bytes,
+                                     stage_bytes) >= 2
+
+
+@functools.lru_cache(maxsize=None)
+def any_plan(decode: str, N: int, K: int, B: int, M: int,
+             xb: int = 2) -> dict:
+    """Host-side plan of ``csrc/gemv_any.cu``'s kernels (``gemv_any``, x
+    of xb = 2 bytes; ``gemv_s8_any``, xb = 1) for a (K, N) weight of
+    ``decode`` in blocks of B and M rows of x, mirroring the kernel's
+    ``layout`` and ``smem_bytes``:
+
+    - ``stage_positions`` (S), ``stage_rows`` (S / F packed rows: 128 / code
+      bytes), ``exp_rows`` (E) and ``stage_bytes`` (:func:`_any_stage`);
+    - ``ksplit`` and ``split_blocks``: :func:`gemv_split` over blocks (a
+      split is whole blocks, at most GEMV_SPLIT_ROWS K rows where a block
+      is shorter); they and the stage never depend on M;
+    - ``n8_tiles``, ``x_pitch`` (:func:`_any_x_pitch` of the split's
+      positions), ``stages`` (2-8, as many as fit beside x), ``smem_bytes``;
+    - ``col_tiles``, ``tiles``, ``ctas`` (one an SM, persistent) and
+      ``tma`` (N % 16 == 0, else plain copies).
+
+    Cached; the dict is shared, not to be changed. Raises ValueError where
+    :func:`_any_takes` says no."""
+    if not _any_takes(decode, B, xb):
+        raise ValueError(f"no gemv_any.cu {decode} GEMV takes block {B}")
+    S, rows, E, stage_bytes = _any_stage(decode, B)
+    NB = -(-K // B)
+    col_tiles = -(-N // GEMV_TC_TN)
+
+    def x_bytes(nt, blocks):
+        return _align(8 * nt * _any_x_pitch(blocks * B, xb), 128)
+
+    ksplit, nbps = gemv_split(
+        NB, B, col_tiles,
+        lambda per: _gemv_stages(_GEMV_FIXED_SMEM + x_bytes(8, per),
+                                 stage_bytes) >= 2)
+    nt = gemv_n8_tiles(M)
+    fixed = _GEMV_FIXED_SMEM + x_bytes(nt, nbps)
+    stages = _gemv_stages(fixed, stage_bytes)
+    tiles = col_tiles * ksplit
+    return {"n8_tiles": nt, "stage_positions": S, "stage_rows": rows,
+            "exp_rows": E, "stage_bytes": stage_bytes, "ksplit": ksplit,
+            "split_blocks": nbps, "x_pitch": _any_x_pitch(nbps * B, xb),
+            "stages": stages, "smem_bytes": fixed + stages * stage_bytes,
+            "col_tiles": col_tiles, "tiles": tiles,
+            "ctas": min(tiles, GEMV_SMS), "tma": N % 16 == 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -574,7 +686,7 @@ def gemv_plan(decode: str, N: int, K: int, B: int, M: int) -> dict:
 
     Cached (a decode step asks for the same few plans at every layer):
     the dict is shared, not to be changed. Raises ValueError for a block
-    that ``gemv_route`` sends to ``"cc"``."""
+    that ``gemv_route`` does not send to ``"tc"``."""
     if gemv_route(decode, B) != "tc":
         raise ValueError(f"no tensor-core {decode} GEMV takes block {B}")
     return _tc_plan(decode, N, K, B, M, 2)
@@ -649,9 +761,9 @@ def gemv_occupancy(decode: str, M: int, smem: int) -> int:
 def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
                  out_dtype=torch.float32) -> torch.Tensor:
     """Scale-after-dot GEMV (M <= 64) on the kernel that :func:`gemv_route`
-    names (``gemv_tc`` on the plan of :func:`gemv_plan`, or the CUDA-core
-    ``gemv_partial``); x is rounded to bf16 first, as the TPU kernel
-    does."""
+    names (``gemv_tc`` on the plan of :func:`gemv_plan`, gemv_any.cu's on
+    that of :func:`any_plan`, or the CUDA-core ``gemv_partial``); x is
+    rounded to bf16 first, as the TPU kernel does."""
     if x.device.type == "cpu":
         return dequant_matmul_reference(x, w, out_dtype)
     x2, ww, decode, fold, mw, ebits = _operands(x, w, out_dtype)
@@ -665,7 +777,8 @@ def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     common = (ww.codes.data_ptr(), ww.scale_exp.data_ptr())
     counter = gemv_counter(decode, B)
-    if gemv_route(decode, B) == "tc":
+    route = gemv_route(decode, B)
+    if route == "tc":
         plan = gemv_plan(decode, N, K, B, M)
         if x2.data_ptr() % 16:
             x2 = x2.clone()
@@ -677,6 +790,15 @@ def dequant_gemv(x: torch.Tensor, w: pk.PackedMX,
             plan["split_blocks"], plan["stage_blocks"], plan["stages"],
             plan["ctas"], plan["smem_bytes"],
             int(out_dtype == torch.bfloat16), stream)
+    elif route == "any":
+        plan = any_plan(decode, N, K, B, M)
+        ws = torch.empty((plan["ksplit"], M, N), dtype=torch.float32,
+                         device=x.device)
+        err = _kernel("dequant_gemv_any")(
+            x2.data_ptr(), *common, ws.data_ptr(), out.data_ptr(), M, K, N,
+            NB, B, _DECODES[decode], mw, ebits, fold, plan["ksplit"],
+            plan["split_blocks"], plan["stages"], plan["ctas"],
+            plan["smem_bytes"], int(out_dtype == torch.bfloat16), stream)
     else:
         ksplit, _ = gemv_ksplit(N, NB)
         ws = torch.empty((ksplit, M, N), dtype=torch.float32,
@@ -816,8 +938,11 @@ def s8_route(decode: str, block: int) -> str:
     "native", "sb4" or "sb2") in blocks of ``block``: ``"tc"``,
     ``gemv_s8_tc`` (int8 mma.sync behind a TMA ring; :func:`s8_gemv_plan`),
     for blocks that are a multiple of 16 whose stage and ring fit; else
-    ``"cc"``, ``s8_partial`` on CUDA cores. Chosen from the weight alone,
-    before the launch."""
+    ``"any"``, gemv_any.cu's ``gemv_s8_any`` (:func:`any_plan` with int8
+    x) at every other block of whole packed rows (every block a packer
+    makes); else ``"cc"``, ``s8_partial`` on CUDA cores, which only a test
+    that forces it reaches. Chosen from the weight alone, before the
+    launch."""
     if decode not in _S8_DECODES:
         raise ValueError(f"unknown W8A8 decode {decode!r}")
     return _tc_route(decode, block, 1)
@@ -825,8 +950,8 @@ def s8_route(decode: str, block: int) -> str:
 
 def s8_counter(decode: str, block: int) -> str:
     """The ``launch_counts`` key of the W8A8 GEMV at ``decode``, ``block``."""
-    cc = s8_route(decode, block) == "cc"
-    return f"dequant_gemv_s8_{decode}" + ("_cc" if cc else "")
+    return f"dequant_gemv_s8_{decode}" + _route_suffix(s8_route(decode,
+                                                                block))
 
 
 @functools.lru_cache(maxsize=None)
@@ -835,7 +960,8 @@ def s8_gemv_plan(decode: str, N: int, K: int, B: int, M: int) -> dict:
     and ring for int8 x (one byte a K row, so ``x_pitch`` is the split's K
     plus 16 and the ring may be deeper). Depends on M only through
     ``n8_tiles`` and what fits beside it, never the split. Raises
-    ValueError for a block that :func:`s8_route` sends to ``"cc"``."""
+    ValueError for a block that :func:`s8_route` does not send to
+    ``"tc"``."""
     if s8_route(decode, B) != "tc":
         raise ValueError(f"no tensor-core W8A8 {decode} GEMV takes block "
                          f"{B}")
@@ -875,15 +1001,12 @@ def dequant_matmul_sad_s8(x: torch.Tensor, w: pk.PackedMX,
     the per-token int8 activation grid. Int-format weights in the int8
     container, sb4 or sb2. On a CUDA device the activations are quantized
     by one launch (:func:`quantize_x_int8`), then the GEMV of
-    :func:`s8_route` runs, 64 rows at a time on its "tc" route."""
+    :func:`s8_route` runs, 64 rows at a time on its "tc" and "any"
+    routes."""
     decode, fold = _s8_check(w)
     if x.device.type == "cpu":
         return dequant_matmul_sad_s8_reference(x, w, out_dtype)
     x2, ww, _, _, _, _ = _operands(x, w, out_dtype)
-    rows = ww.codes.shape[1]
-    if rows % 4:
-        raise ValueError(f"the W8A8 kernel reads 4 packed rows at a time; "
-                         f"block {ww.block_size} gives {rows}")
     M, K = x2.shape
     NB, _, N = ww.codes.shape
     B = ww.block_size
@@ -896,21 +1019,36 @@ def dequant_matmul_sad_s8(x: torch.Tensor, w: pk.PackedMX,
     common = (ww.codes.data_ptr(), ww.scale_exp.data_ptr())
     counter = s8_counter(decode, B)
     out_bf16 = int(out_dtype == torch.bfloat16)
-    if s8_route(decode, B) == "tc":
+    route = s8_route(decode, B)
+    if route in ("tc", "any"):
         for m0 in range(0, M, GEMV_MAX_M):
             mt = min(GEMV_MAX_M, M - m0)
-            plan = s8_gemv_plan(decode, N, K, B, mt)
-            ws = torch.empty((plan["ksplit"], mt, N), dtype=torch.float32,
-                             device=x.device)
-            err = _kernel("dequant_gemv_s8")(
-                xq[m0:].data_ptr(), xscale[m0:].data_ptr(), *common,
-                ws.data_ptr(), out[m0:].data_ptr(), mt, K, N, NB, B,
-                _DECODES[decode], fold, plan["ksplit"],
-                plan["split_blocks"], plan["stage_blocks"], plan["stages"],
-                plan["ctas"], plan["smem_bytes"], out_bf16, stream)
+            rows = (xq[m0:].data_ptr(), xscale[m0:].data_ptr(), *common)
+            if route == "tc":
+                plan = s8_gemv_plan(decode, N, K, B, mt)
+                ws = torch.empty((plan["ksplit"], mt, N),
+                                 dtype=torch.float32, device=x.device)
+                err = _kernel("dequant_gemv_s8")(
+                    *rows, ws.data_ptr(), out[m0:].data_ptr(), mt, K, N, NB,
+                    B, _DECODES[decode], fold, plan["ksplit"],
+                    plan["split_blocks"], plan["stage_blocks"],
+                    plan["stages"], plan["ctas"], plan["smem_bytes"],
+                    out_bf16, stream)
+            else:
+                plan = any_plan(decode, N, K, B, mt, 1)
+                ws = torch.empty((plan["ksplit"], mt, N),
+                                 dtype=torch.float32, device=x.device)
+                err = _kernel("dequant_gemv_s8_any")(
+                    *rows, ws.data_ptr(), out[m0:].data_ptr(), mt, K, N, NB,
+                    B, _DECODES[decode], fold, plan["ksplit"],
+                    plan["split_blocks"], plan["stages"], plan["ctas"],
+                    plan["smem_bytes"], out_bf16, stream)
             build.check(err, counter)
             launch_counts[counter] += 1
     else:
+        if ww.codes.shape[1] % 4:
+            raise ValueError("s8_partial reads 4 packed rows at a time; "
+                             f"block {B} gives {ww.codes.shape[1]}")
         ksplit, _ = gemv_ksplit(N, NB)
         ws = torch.empty((ksplit, M, N), dtype=torch.float32,
                          device=x.device)

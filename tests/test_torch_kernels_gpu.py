@@ -311,16 +311,34 @@ def test_w8a8_tc_route_at_every_m(cuda, fmt, transport, bs, M):
     assert torch.equal(got, f32.to(torch.bfloat16))
 
 
+# the W8A8 blocks that are no multiple of 16: those the card took before
+# gemv_any.cu (4 packed rows a group) and those it refused (int8 at 2, sb4
+# at 2 and 4, sb2 at 4, 8 and 12)
+W8A8_ANY_BLOCKS = (("int8", "native", 8), ("int4", "sb4", 8),
+                   ("int8", "native", 2), ("int8", "native", 4),
+                   ("int4", "sb4", 2), ("int4", "sb4", 4),
+                   ("int2", "sb2", 4), ("int2", "sb2", 8),
+                   ("int2", "sb2", 12), ("int8", "native", 6),
+                   ("int4", "sb4", 6), ("int2", "sb2", 20))
+
+
 def test_w8a8_cc_route_takes_the_other_blocks(cuda):
-    for fmt, transport, bs in (("int8", "native", 8), ("int4", "sb4", 8)):
-        w = _packed_as(512, 384, fmt, transport, bs, 1.0, 3, cuda)
-        x = _x(5, 512, 4, cuda)
-        assert dm.s8_route(transport, bs) == "cc"
-        dm.reset_launch_counts()
-        got = dm.dequant_matmul_sad_s8(x, w)
-        torch.cuda.synchronize()
-        assert dm.launch_counts[f"dequant_gemv_s8_{transport}_cc"] == 1
-        assert _rel(got, dm.dequant_matmul_sad_s8_reference(x, w)) < 1e-5
+    """Every W8A8 block no multiple of 16 runs on gemv_any.cu's
+    gemv_s8_any ("any"), at a ragged N (plain copies), a K no multiple of
+    the block and M above 64 (two launches)."""
+    for fmt, transport, bs in W8A8_ANY_BLOCKS:
+        for K, N, M in ((512, 384, 5), (203, 1000, 8), (4096, 1040, 70)):
+            w = _packed_as(K, N, fmt, transport, bs, 1.0, 3, cuda)
+            x = _x(M, K, 4, cuda)
+            assert dm.s8_route(transport, bs) == "any"
+            dm.reset_launch_counts()
+            got = dm.dequant_matmul_sad_s8(x, w)
+            torch.cuda.synchronize()
+            assert dm.launch_counts[f"dequant_gemv_s8_{transport}_any"] == \
+                -(-M // 64)
+            assert dm.launch_counts["quantize_x_int8"] == 1
+            assert _rel(got, dm.dequant_matmul_sad_s8_reference(x, w)) < \
+                1e-5, (fmt, bs, K, N, M)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2026,8 +2044,9 @@ def test_tc_gemv_matches_twin(cuda, fmt, transport, scale):
                 assert _rel(got, want) < 1e-5, (fmt, block, K, N, M)
 
 
-# (format, transport, block) at the blocks where gemv_route names the
-# CUDA-core kernel ("_cc") and at other packer blocks of the tc kernel
+# (format, transport, block) at the blocks where gemv_route names
+# gemv_any.cu's kernel ("_any": no multiple of 16, and the 16-bit
+# containers at 256) and at other packer blocks of the tc kernel
 GEMV_ROUTE_BLOCKS = [("fp6_e3m2", "emi8", 8), ("fp6_e3m2", "emi8", 48),
                      ("int4", "sb4", 2), ("int4", "sb4", 8),
                      ("int2", "sb2", 4), ("int2", "sb2", 48),
@@ -2035,7 +2054,9 @@ GEMV_ROUTE_BLOCKS = [("fp6_e3m2", "emi8", 8), ("fp6_e3m2", "emi8", 48),
                      ("fp8_e4m3", "native", 8), ("fp8_e5m2", "native", 2),
                      ("fp16", "native", 8), ("bfloat16", "native", 8),
                      ("fp4_e2m1", "pf4", 48), ("fp6_e3m2", "pf6", 96),
-                     ("fp6_e3m2", "emi8", 256)]
+                     ("fp6_e3m2", "emi8", 256), ("int2", "sb2", 12),
+                     ("fp6_e3m2", "emi8", 1), ("int8", "native", 24),
+                     ("fp16", "native", 256), ("bfloat16", "native", 208)]
 
 
 @pytest.mark.parametrize("fmt,transport,block", GEMV_ROUTE_BLOCKS)
@@ -2045,8 +2066,9 @@ def test_every_gemv_route_block_runs_its_kernel(cuda, fmt, transport, block):
                    8.0 if fmt == "bfloat16" else 1.0, block, cuda)
     decode = dm.sad_decode_params(w)[0]
     counter = dm.gemv_counter(decode, block)
-    assert counter.endswith("_cc") == (block % 16 != 0)
-    for M in (1, 8, 64):
+    assert counter.endswith("_any") == (
+        block % 16 != 0 or (decode in ("bf16", "fp16") and block > 192))
+    for M in (1, 8, 13, 64):
         x = _x(M, K, M, cuda)
         dm.reset_launch_counts()
         got = dm.dequant_gemv(x, w)
@@ -2142,6 +2164,208 @@ def test_tc_gemvs_do_not_spill(cuda):
     nb = [ln for ln in lines if "nb_gemv" in ln]
     assert len(tc) == 40 and len(nb) == 4     # NT 1, 2, 4, 8 x decodes
     for ln in tc + nb:
+        assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
+
+
+# ---------------------------------------------------------------------------
+# gemv_any.cu: the tensor-core GEMVs at the blocks no multiple of 16, 1e-5
+# of max |twin| (exact products; the tensor core sums one block's slice of
+# a step, f32 sums in another order)
+# ---------------------------------------------------------------------------
+# (format, transport, weight scale) of every decode of _ANY_DECODES
+ANY_GEMV_DECODES = [c for c in TC_GEMV_DECODES if c[1] not in ("pf4", "pf6")]
+
+
+def _any_blocks(transport, blocks=(1, 2, 4, 6, 8, 12, 20, 24, 100)):
+    whole = dm._FIELDS.get(transport, 1)
+    return [b for b in blocks if b % whole == 0]
+
+
+def _any_packed(K, N, fmt, transport, block, scale, seed, device):
+    """A weight for the twin comparisons: the bf16 container drawn with
+    |w| >= 2 * scale, so that no block's exponent meets the 2^-126 clamp
+    that the kernels share with the TPU kernel and the twin does not have
+    (test_any_gemv_at_the_scale_clamps holds the clamp)."""
+    if fmt != "bfloat16":
+        return _packed_as(K, N, fmt, transport, block, scale, seed, device)
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((K, N))
+    W = (np.sign(z) * (2 + np.abs(z)) * scale).astype(np.float32)
+    return tpk.to_serving_layout(tpk.pack_mx(
+        torch.from_numpy(W).to(device), 8, fmt, block, axis=0,
+        transport=transport))
+
+
+@pytest.mark.parametrize("fmt,transport,scale", ANY_GEMV_DECODES)
+def test_any_gemv_matches_twin(cuda, fmt, transport, scale):
+    """Every decode at blocks 1-100 no multiple of 16 (of whole packed
+    rows), M = 1, 8, 13, 64, on a TMA shape, on an awkward one (N = 1000:
+    plain copies; K = 203, no multiple of the block), and on one whose
+    splits hold several 16-position steps (K = 4096: the folded steps)."""
+    for block in _any_blocks(transport):
+        for K, N in ((520, 1040), (203, 1000), (4096, 2048)):
+            w = _any_packed(K, N, fmt, transport, block, scale, block + N,
+                            cuda)
+            decode = dm.sad_decode_params(w)[0]
+            assert dm.gemv_route(decode, block) == "any"
+            for M in (1, 8, 13, 64):
+                x = _x(M, K, M + block, cuda)
+                dm.reset_launch_counts()
+                got = dm.dequant_gemv(x, w)
+                want = dm.dequant_matmul_reference(x, w)
+                torch.cuda.synchronize()
+                assert dm.launch_counts[f"dequant_gemv_{decode}_any"] == 1
+                assert sum(dm.launch_counts.values()) == 1
+                assert _rel(got, want) < 1e-5, (fmt, block, K, N, M)
+
+
+@pytest.mark.parametrize("fmt,transport,scale", ANY_GEMV_DECODES)
+@pytest.mark.parametrize("side", ["low", "high"])
+def test_any_gemv_at_the_scale_clamps(cuda, fmt, transport, scale, side):
+    """test_tc_gemv_at_the_scale_clamps at blocks 2, 8 and 12 (sb2: 4, 8,
+    12): block exponents -128..-120 and 118..127 against the unscaled
+    decoded weight times the clamped scales, in float64; K = 4096, so that
+    a split holds whole 16-position steps and the folded steps' range
+    check meets these exponents."""
+    K, N, M = 4096, 528, 8
+    for block in _any_blocks(transport, (2, 4, 8, 12)):
+        w = _packed_as(K, N, fmt, transport, block, scale, 5, cuda)
+        decode, fold, _, _ = dm.sad_decode_params(w)
+        assert dm.gemv_route(decode, block) == "any"
+        lo, hi = (-128, -119) if side == "low" else (118, 128)
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        se = torch.randint(lo, hi, w.scale_exp.shape, generator=gen,
+                           device=cuda).to(torch.int8)
+        unit = dataclasses.replace(
+            w, scale_exp=torch.full_like(w.scale_exp, fold))
+        U = tpk.dequantize_mx(unit, dtype=torch.bfloat16).double()
+        w = dataclasses.replace(w, scale_exp=se.contiguous())
+        e = torch.clamp(se.double() - fold, -126, 127).repeat_interleave(
+            block, 0)
+        x = _x(M, K, 7, cuda) * (2.0 ** (100 if side == "low" else -120))
+        xb = x.to(torch.bfloat16).double()
+        want = xb @ (U * torch.exp2(e[:K]))
+        got = dm.dequant_gemv(x, w)
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) < 1e-5, (fmt, block, side)
+
+
+@pytest.mark.parametrize("fmt,transport,scale", ANY_GEMV_DECODES)
+def test_any_gemv_folded_and_walked_steps_in_one_launch(cuda, fmt,
+                                                         transport, scale):
+    """Blocks 2 and 8 (sb2: 4 and 8): one block of the first 32 columns
+    (one warp) is given an exponent past the folded steps' range (its
+    weights would overflow bf16), so that warp walks the steps that touch
+    it block by block while every other step is folded; each 32-column
+    group against the unscaled decoded weight times the clamped scales in
+    float64, 1e-5 of the group's own max (x scaled by 2^-30 so that the
+    large columns stay finite)."""
+    K, N, M = 4096, 2048, 8
+    for block in _any_blocks(transport, (2, 4, 8)):
+        if transport != "sb2" and block == 4:
+            continue
+        assert dm.any_plan(dm.sad_decode_params(_packed_as(
+            64, 16, fmt, transport, block, scale, 0, cuda))[0], N, K,
+            block, M)["split_blocks"] * block >= 32   # whole steps a split
+        w = _packed_as(K, N, fmt, transport, block, scale, block, cuda)
+        decode, fold, _, _ = dm.sad_decode_params(w)
+        gen = torch.Generator(device=cuda).manual_seed(block)
+        se = torch.randint(-10, 11, w.scale_exp.shape, generator=gen,
+                           device=cuda) + fold
+        se[3, 5] = 127                   # past every decode's fold range
+        se = se.to(torch.int8)
+        unit = dataclasses.replace(
+            w, scale_exp=torch.full_like(w.scale_exp, fold))
+        U = tpk.dequantize_mx(unit, dtype=torch.bfloat16).double()
+        w = dataclasses.replace(w, scale_exp=se.contiguous())
+        e = torch.clamp(se.double() - fold, -126, 127).repeat_interleave(
+            block, 0)
+        x = _x(M, K, 7, cuda) * 2.0 ** -30
+        want = x.to(torch.bfloat16).double() @ (U * torch.exp2(e[:K]))
+        got = dm.dequant_gemv(x, w)
+        assert torch.isfinite(got).all()
+        for c0 in range(0, N, 32):
+            g, wg = got[:, c0:c0 + 32], want[:, c0:c0 + 32]
+            assert _rel(g, wg) < 1e-5, (fmt, block, c0)
+
+
+@pytest.mark.parametrize("fmt,transport,scale", ANY_GEMV_DECODES)
+def test_any_gemv_rows_do_not_depend_on_batch(cuda, fmt, transport, scale):
+    """test_tc_gemv_rows_do_not_depend_on_batch at blocks 2, 8 and 12 (sb2:
+    4, 8, 12), and the W8A8 kernel likewise."""
+    for block in _any_blocks(transport, (2, 4, 8, 12)):
+        w = _any_packed(4096, 1040, fmt, transport, block, scale, 9, cuda)
+        x = _x(64, 4096, 2, cuda)
+        full = dm.dequant_gemv(x, w)
+        s8 = transport in dm._S8_DECODES and fmt.startswith("int")
+        full8 = dm.dequant_matmul_sad_s8(x, w) if s8 else None
+        for lo, hi in ((0, 1), (0, 5), (3, 8), (8, 17), (1, 33), (0, 64)):
+            assert torch.equal(dm.dequant_gemv(x[lo:hi], w), full[lo:hi])
+            if s8:
+                assert torch.equal(dm.dequant_matmul_sad_s8(x[lo:hi], w),
+                                   full8[lo:hi])
+
+
+@pytest.mark.parametrize("fmt,transport,block", [
+    ("fp6_e3m2", "emi8", 8), ("int4", "sb4", 2), ("int2", "sb2", 12),
+    ("fp16", "native", 8), ("fp8_e4m3", "native", 2),
+    ("int8", "native", 8)])
+def test_forced_cuda_core_gemvs_match_twins(cuda, monkeypatch, fmt, transport,
+                                            block):
+    """gemv_partial and s8_partial ("cc"), which no packer block reaches
+    now, forced by the routes: held to the plain versions (s8_partial at
+    the blocks of 4 packed rows a group)."""
+    w = _packed_as(480, 528, fmt, transport, block, 1.0, block, cuda)
+    decode = dm.sad_decode_params(w)[0]
+    monkeypatch.setattr(dm, "gemv_route", lambda d, b: "cc")
+    monkeypatch.setattr(dm, "s8_route", lambda d, b: "cc")
+    for M in (1, 8, 13):
+        x = _x(M, 480, M, cuda)
+        dm.reset_launch_counts()
+        got = dm.dequant_gemv(x, w)
+        torch.cuda.synchronize()
+        assert dm.launch_counts[f"dequant_gemv_{decode}_cc"] == 1
+        assert _rel(got, dm.dequant_matmul_reference(x, w)) < 1e-5
+        if decode in dm._S8_DECODES and w.codes.shape[1] % 4 == 0:
+            dm.reset_launch_counts()
+            got = dm.dequant_matmul_sad_s8(x, w)
+            torch.cuda.synchronize()
+            assert dm.launch_counts[f"dequant_gemv_s8_{decode}_cc"] == 1
+            assert _rel(got, dm.dequant_matmul_sad_s8_reference(x, w)) < 1e-5
+        elif decode in dm._S8_DECODES:
+            with pytest.raises(ValueError, match="4 packed rows"):
+                dm.dequant_matmul_sad_s8(x, w)
+
+
+def test_any_gemv_plan_is_the_kernel_s(cuda):
+    """The C entries refuse a plan whose shared memory is not their own."""
+    w = _packed_as(4096, 1024, "fp6_e3m2", "emi8", 8, 1.0, 1, cuda)
+    x = _x(8, 4096, 1, cuda).to(torch.bfloat16)
+    decode, fold, mw, ebits = dm.sad_decode_params(w)
+    plan = dm.any_plan(decode, 1024, 4096, 8, 8)
+    ws = torch.empty((plan["ksplit"], 8, 1024), device=cuda)
+    out = torch.empty((8, 1024), device=cuda)
+    for extra in (128, 0):
+        err = dm._kernel("dequant_gemv_any")(
+            x.data_ptr(), w.codes.data_ptr(), w.scale_exp.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), 8, 4096, 1024, 512, 8,
+            dm._DECODES[decode], mw, ebits, fold, plan["ksplit"], plan["split_blocks"], plan["stages"],
+            plan["ctas"], plan["smem_bytes"] + extra, 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == (1 if extra else 0)   # cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    assert _rel(out, dm.dequant_matmul_reference(x, w)) < 1e-5
+
+
+def test_any_gemvs_do_not_spill(cuda):
+    from microscopiq_tpu_torch.ops.cuda import build
+
+    build.build_all(("gemv_any",))
+    lines = build.ptxas_report(("gemv_any",))
+    kernels = [ln for ln in lines if "gemv_any" in ln.split()[1]]
+    bf16 = [ln for ln in kernels if "ELb0E" in ln]
+    assert len(kernels) == 44 and len(bf16) == 32   # NT 1, 2, 4, 8 x decodes
+    for ln in kernels:
         assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
 
 

@@ -97,14 +97,15 @@ def test_wrapper_on_cpu_is_the_twin_and_checks_formats():
 @pytest.mark.parametrize("decode", ["native", "sb4", "sb2"])
 def test_s8_route_takes_multiples_of_16(decode):
     """The int8 tensor-core GEMV takes every block that is a multiple of 16
-    (its mma step) up to 256 for one-byte codes; the CUDA-core kernel the
-    others that the W8A8 path takes (4 packed rows a group)."""
+    (its mma step) up to 256 for one-byte codes; gemv_any.cu's W8A8 kernel
+    ("any") the others that the W8A8 path takes, the CUDA-core kernel
+    ("cc") none of them."""
     for block in (16, 32, 48, 64, 128, 256):
         assert dm.s8_route(decode, block) == "tc"
     for block in (4, 8, 12, 20, 24):
-        assert dm.s8_route(decode, block) == "cc"
+        assert dm.s8_route(decode, block) == "any"
     assert dm.s8_counter(decode, 32) == f"dequant_gemv_s8_{decode}"
-    assert dm.s8_counter(decode, 8) == f"dequant_gemv_s8_{decode}_cc"
+    assert dm.s8_counter(decode, 8) == f"dequant_gemv_s8_{decode}_any"
     with pytest.raises(ValueError, match="no tensor-core W8A8"):
         dm.s8_gemv_plan(decode, 256, 256, 8, 1)
 

@@ -46,7 +46,7 @@ SHAPES = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
 PLAN_M = (1, 7, 8, 9, 16, 33, 64)
 # the blocks the packers make: the multiples of 16 take gemv_tc (up to 256
 # for the one-byte decodes, 128 for the 16-bit containers, whose ring of two
-# 256-row stages would not fit), the rest the CUDA-core kernel
+# 256-row stages would not fit), the rest gemv_any.cu's kernel
 TC_BLOCKS = (16, 32, 48, 64, 96, 128, 256)
 
 
@@ -102,16 +102,24 @@ def test_gemv_plan_fits_and_its_split_ignores_m(decode, lin):
 @pytest.mark.parametrize("decode", sorted(dm._DECODES))
 def test_gemv_route_names_a_kernel_for_every_block(decode):
     """Every block 1..256 has a kernel: gemv_tc for the multiples of 16
-    that it takes, gemv_partial ("cc", counted apart) for the others; no tc
-    block lacks a plan, and a cc block has none."""
+    that it takes, gemv_any.cu's kernel ("any", counted apart) for the
+    others of whole packed rows, gemv_partial ("cc") for what is left (pf4
+    and pf6, whose packers make multiples of 16 alone, and sb4 and sb2 at
+    blocks no packer makes); no tc block lacks a plan, and another block
+    has none."""
+    whole = dm._FIELDS.get(decode, 1)
     for B in range(1, 257):
         route = dm.gemv_route(decode, B)
         counter = dm.gemv_counter(decode, B)
-        assert route == "cc" or B % 16 == 0
+        assert route != "tc" or B % 16 == 0
         if B in tc_blocks(decode):
             assert route == "tc"
-        assert counter == f"dequant_gemv_{decode}" + (
-            "_cc" if route == "cc" else "")
+        if route != "tc":
+            want = ("any" if decode in dm._ANY_DECODES and B % whole == 0
+                    else "cc")
+            assert route == want, (B, route)
+        assert counter == f"dequant_gemv_{decode}" + {
+            "tc": "", "any": "_any", "cc": "_cc"}[route]
         assert counter in dm.launch_counts
         if route == "tc":
             dm.gemv_plan(decode, 1040, 520, B, 8)
@@ -119,7 +127,8 @@ def test_gemv_route_names_a_kernel_for_every_block(decode):
             with pytest.raises(ValueError, match="no tensor-core"):
                 dm.gemv_plan(decode, 1040, 520, B, 8)
     for B in CC_BLOCKS:
-        assert dm.gemv_route(decode, B) == "cc"
+        assert dm.gemv_route(decode, B) == (
+            "any" if decode in dm._ANY_DECODES and B % whole == 0 else "cc")
     with pytest.raises(ValueError, match="unknown GEMV decode"):
         dm.gemv_route("emi8m", 16)
 
